@@ -9,3 +9,9 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the port's CUDA kernels); "
+        "skips without one — run on the card with `pytest -m gpu`")
