@@ -33,10 +33,28 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    on the engine's own inputs (one LUT step), and the same requests with
    ``paged_backend="dense"``: under the exact policy the first-token
    logits must agree within 2% (see :func:`phase_engine` for why REXP's
-   free-running streams are only printed).
+   free-running streams are only printed);
+4. int8 kernels against their plain versions — the int8-pool entry
+   points (int8 pages, f32 per-token × KV-head scales; NaN and inf
+   scales and junk codes in the null page) at the same widths, cases and
+   policies, q in f32 and bf16: (a) exact-dequant inputs (codes in
+   [−4, 4], power-of-two scales, so every dequantized value and dot is
+   exact) within 2e-6; (b) rows quantized with ``quantize_rows`` from
+   normal rows, within one LUT step; then their times beside the plain
+   versions', SDPA on the dequantized gathered view for exact, and the
+   bound (live int8 K+V bytes plus their f32 scales);
+5. int8 engine — the same 8 requests and weights, REXP uint8,
+   ``kv_dtype="int8"``, ``paged_backend="auto"``: both int8 launch
+   counters must move; tok/s, TTFT and the pool's bytes per token per
+   layer against the bf16 pool's; one profiled drive; the same run
+   shadowed, every int8 kernel call held to its plain version on the
+   engine's own inputs (one LUT step); under the exact policy the int8
+   engine's first-token logits against int8 lockstep
+   (``serve_loop.generate``, each request alone at B = 1 over
+   contiguous fake-quantized caches) within 2%.
 
 The line before the last is the card's name and power limit, the one
-before it a JSON summary of the kernels; the last line is
+before it a JSON summary of the four kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -58,6 +76,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import ARCHS, RunConfig  # noqa: E402
 from repro_torch.core.policies import SoftmaxPolicy  # noqa: E402
 from repro_torch.core.precision import get_precision  # noqa: E402
+from repro_torch.core.quantization import quantize_rows  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.lut_attention import ops  # noqa: E402
 from repro_torch.kernels.lut_attention.paged_decode import (  # noqa: E402
@@ -70,10 +89,14 @@ from repro_torch.models.convert import cast_params  # noqa: E402
 from repro_torch.runtime.engine import (EngineConfig,  # noqa: E402
                                         ServingEngine)
 from repro_torch.runtime.paged_cache import PagedCacheConfig  # noqa: E402
+from repro_torch.runtime.serve_loop import (generate,  # noqa: E402
+                                            make_prefill_step)
 
 #: H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
 #: the operation rate for each input type (bf16 tensor cores; f32
-#: outside the tensor cores, since TF32 would change the logits).
+#: outside the tensor cores, since TF32 would change the logits).  The
+#: int8 kernels multiply bf16 queries by dequantized int8 rows, so their
+#: operations are counted at the query type's rate.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
@@ -133,6 +156,64 @@ def paged_problem(rng, *, kv_lens, c, q_start, dtype, exact_logits):
                 q_start=dev(np.asarray(q_start, np.int32), torch.int32))
 
 
+def int8_problem(rng, *, kv_lens, c, q_start, dtype, exact_logits):
+    """As :func:`paged_problem`, over an int8 pool with f32 row scales:
+    exact-dequant or normal rows through ``quantize_rows``.  The null
+    page holds junk codes and NaN / inf scales: only the masks keep it
+    out.
+
+    Exact-dequant: q small integers × 2^-2, codes in [−4, 4] and
+    power-of-two scales 2^−3 … 2^−1, so every dequantized value and
+    every dot is exact, and |k|, |v| ≤ 2 keep the problem conditioned
+    like the float pools' exact-logit one.  With K scales up to 2^1 the
+    logits span ±14, the exact policy's weights pile onto few keys of
+    the largest |v|, and the f32 σ·V sum's own roundoff — the plain
+    version's against an f64 evaluation of the same logits as much as
+    the kernel's — reaches the 2e-6 limit in either summation order."""
+    b = len(kv_lens)
+    n_pages = 1 + b * MP
+    shape = (n_pages, PS, KVH, DH)
+
+    def dev(x, dt):
+        return torch.as_tensor(np.asarray(x), device="cuda").to(dt)
+
+    if exact_logits:
+        q = rng.integers(-4, 5, size=(b, H, c, DH)) * 0.25
+        pools = [(dev(rng.integers(-4, 5, size=shape), torch.int8),
+                  dev(2.0 ** rng.integers(-3, 0, size=shape[:3]),
+                      torch.float32)) for _ in range(2)]
+    else:
+        q = rng.normal(size=(b, H, c, DH))
+        pools = [quantize_rows(dev(rng.normal(size=shape), torch.float32))
+                 for _ in range(2)]
+    (kp, ks), (vp, vs) = pools
+    kp[0], vp[0] = 127, -127
+    ks[0], vs[0] = float("nan"), float("inf")
+    phys = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((b, MP), np.int32)
+    for i, kl in enumerate(kv_lens):
+        n_owned = -(-int(kl) // PS)
+        bt[i, :n_owned] = phys[i * MP:i * MP + n_owned]
+    return dict(q=dev(q, dtype), k_pages=kp, v_pages=vp, k_scales=ks,
+                v_scales=vs, block_tables=dev(bt, torch.int32),
+                kv_lens=dev(np.asarray(kv_lens, np.int32), torch.int32),
+                q_start=dev(np.asarray(q_start, np.int32), torch.int32))
+
+
+def scales_of(p):
+    """The int8 pool's scale keyword arguments (none for a float pool)."""
+    return {k: p[k] for k in ("k_scales", "v_scales") if k in p}
+
+
+def v_absmax(p):
+    """max |v| over the pool; for an int8 pool dequantized, over the pages
+    past the null page (whose scales are NaN / inf junk)."""
+    if "v_scales" not in p:
+        return float(p["v_pages"].float().abs().max())
+    return float((p["v_pages"][1:].float()
+                  * p["v_scales"][1:, ..., None]).abs().max())
+
+
 def decode_args(p):
     return (p["q"], p["k_pages"], p["v_pages"], p["block_tables"],
             p["kv_lens"])
@@ -178,7 +259,10 @@ def bound(p, kv_lens, q_start, c, dtype):
     esize = torch.empty((), dtype=dtype).element_size()
     b = len(kv_lens)
     live_rows = sum(min(kl, MP * PS) for kl in kv_lens)
-    nbytes = (2 * live_rows * KVH * DH * esize      # K and V pages
+    row_bytes = DH * p["k_pages"].element_size()
+    if "k_scales" in p:
+        row_bytes += 4                               # the row's f32 scale
+    nbytes = (2 * live_rows * KVH * row_bytes       # K and V pages
               + b * H * c * DH * esize              # queries
               + b * H * c * DH * 4                  # f32 outputs
               + p["block_tables"].numel() * 4 + 2 * b * 4)
@@ -189,10 +273,12 @@ def bound(p, kv_lens, q_start, c, dtype):
 
 
 def sdpa_ms(p, c, q_start_t):
-    """Exact attention by one library call on the gathered view (the
-    gather and the GQA head repeat stay outside the timed call)."""
-    k = ops.gather_pages(p["k_pages"], p["block_tables"])
-    v = ops.gather_pages(p["v_pages"], p["block_tables"])
+    """Exact attention by one library call on the gathered view,
+    dequantized for an int8 pool (the gather, the dequantization and the
+    GQA head repeat stay outside the timed call)."""
+    k, v = ops.gather_kv(p["k_pages"], p["v_pages"], p["block_tables"],
+                         p["kv_lens"], **scales_of(p))
+    k, v = k.to(p["q"].dtype), v.to(p["q"].dtype)
     k = k.repeat_interleave(H // KVH, dim=1)
     v = v.repeat_interleave(H // KVH, dim=1)
     lk = k.shape[2]
@@ -216,27 +302,33 @@ def phase_build():
     print(f"[build] {len(report)} kernels in {secs:.1f}s (parallel nvcc): "
           + ", ".join(f"{n} {r['seconds']:.1f}s" for n, r in report.items()))
     for name, r in report.items():
+        print(f"[build] lib{name}.so entry points: {', '.join(r['entries'])}")
+    for name, r in report.items():
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    for name in report:
-        build.load(name)
+    for name, r in report.items():
+        for entry in r["entries"]:
+            build.load(name, entry)
 
 
-def check_kernel(name, kernel, plain, args_of, rng, cases):
-    """Hold ``kernel`` to ``plain`` on every case; returns the max error
-    of the exact-logit cases."""
+def check_kernel(name, kernel, plain, args_of, rng, cases,
+                 make=paged_problem):
+    """Hold ``kernel`` to ``plain`` on every case (problems from ``make``:
+    float or int8 pools); returns the max error of the exact-logit
+    cases."""
     worst_exact = 0.0
+    failures = []
     for pol_name, pol in POLICIES.items():
         qmax = (get_precision(pol.precision).qmax
                 if pol.impl != "exact" else None)
         for dtype in (torch.float32, torch.bfloat16):
             for exact_logits in (True, False):
                 for case in cases:
-                    p = paged_problem(rng, dtype=dtype,
-                                      exact_logits=exact_logits, **case)
-                    out = kernel(*args_of(p), pol)
-                    ref = plain(*args_of(p), pol)
+                    p = make(rng, dtype=dtype, exact_logits=exact_logits,
+                             **case)
+                    out = kernel(*args_of(p), pol, **scales_of(p))
+                    ref = plain(*args_of(p), pol, **scales_of(p))
                     torch.cuda.synchronize()
                     err = (out - ref).abs()
                     max_err = float(err.max())
@@ -248,10 +340,10 @@ def check_kernel(name, kernel, plain, args_of, rng, cases):
                         print(f"{tag}: max|err| {max_err:.3g} "
                               f"(limit {EXACT_TOL})")
                         if not max_err <= EXACT_TOL:
-                            raise AssertionError(f"{tag}: {max_err} > "
-                                                 f"{EXACT_TOL}")
+                            failures.append(f"{tag}: {max_err} > "
+                                            f"{EXACT_TOL}")
                     else:
-                        vmax = float(p["v_pages"].float().abs().max())
+                        vmax = v_absmax(p)
                         limit = (2.0 / qmax if qmax else 1e-4) * vmax
                         rows = err.amax(dim=-1)
                         share = float((rows > 1e-4).float().mean())
@@ -259,21 +351,23 @@ def check_kernel(name, kernel, plain, args_of, rng, cases):
                               f"{limit:.3g}), rows beyond 1e-4: "
                               f"{share:.4%}")
                         if not max_err <= limit:
-                            raise AssertionError(f"{tag}: {max_err} > "
-                                                 f"{limit}")
+                            failures.append(f"{tag}: {max_err} > {limit}")
+    if failures:
+        raise AssertionError("kernel off its plain version:\n"
+                             + "\n".join(failures))
     return worst_exact
 
 
-def time_kernel(name, kernel, plain, args_of, rng, case):
+def time_kernel(name, kernel, plain, args_of, rng, case, make=paged_problem):
     """Time the kernel, its plain version and (exact) SDPA at the main
     path's shapes in bf16; returns the main policy's row."""
     rows = {}
     c = case["c"]
     for pol_name, pol in POLICIES.items():
-        p = paged_problem(rng, dtype=torch.bfloat16, exact_logits=False,
-                          **case)
-        ms = device_ms(lambda: kernel(*args_of(p), pol))
-        plain_ms = device_ms(lambda: plain(*args_of(p), pol))
+        p = make(rng, dtype=torch.bfloat16, exact_logits=False, **case)
+        kw = scales_of(p)
+        ms = device_ms(lambda: kernel(*args_of(p), pol, **kw))
+        plain_ms = device_ms(lambda: plain(*args_of(p), pol, **kw))
         lib = (sdpa_ms(p, c, p["q_start"]) if pol.impl == "exact" else None)
         b_ms, b_by = bound(p, case["kv_lens"], case["q_start"], c,
                            torch.bfloat16)
@@ -287,8 +381,10 @@ def time_kernel(name, kernel, plain, args_of, rng, case):
     return rows[MAIN_POLICY]
 
 
-def phase_kernels():
-    rng = np.random.default_rng(0)
+def phase_kernels(int8=False):
+    """Phase 2, or with ``int8`` phase 4: both kernels held to their plain
+    versions and timed, on float pools or on int8 pools."""
+    rng = np.random.default_rng(2 if int8 else 0)
     dec_case = dict(kv_lens=DECODE_KV_LENS, c=1,
                     q_start=tuple(kl - 1 for kl in DECODE_KV_LENS))
 
@@ -297,25 +393,28 @@ def phase_kernels():
                     c=CHUNK, q_start=q_start)
 
     pf_main, pf_ragged = pf_case(**PREFILL_MAIN), pf_case(**PREFILL_RAGGED)
+    make, suffix = (int8_problem, "_int8") if int8 else (paged_problem, "")
     results = {}
     for name, kernel, plain, args_of, cases, main in (
             ("paged_decode", paged_decode_attention, paged_decode_plain,
              decode_args, [dec_case], dec_case),
             ("paged_prefill", paged_prefill_attention, paged_prefill_plain,
              prefill_args, [pf_main, pf_ragged], pf_main)):
-        err = check_kernel(name, kernel, plain, args_of, rng, cases)
+        name += suffix
+        err = check_kernel(name, kernel, plain, args_of, rng, cases, make)
         results[name] = dict(max_abs_err=err,
                              **time_kernel(name, kernel, plain, args_of, rng,
-                                           main))
+                                           main, make))
     return results
 
 
 def run_engine(model, params, policy, backend, requests, shadow=None,
-               around=None):
-    """Serve ``requests`` through a fresh bf16 engine; returns the
-    results, each request's first-token logits, the kernels' launches
-    during the drive and its wall seconds.  ``around`` is a context
-    manager entered around the drive only (a profiler).
+               around=None, kv_dtype="f32"):
+    """Serve ``requests`` through a fresh bf16 engine whose pool is
+    ``kv_dtype``; returns the results, each request's first-token
+    logits, the kernels' launches during the drive, its wall seconds and
+    the engine's stats.  ``around`` is a context manager entered around
+    the drive only (a profiler).
 
     ``shadow`` (a list) makes every paged-attention call of the engine
     also run the plain version (``backend="dense"``) on the same inputs,
@@ -323,7 +422,7 @@ def run_engine(model, params, policy, backend, requests, shadow=None,
     1e-4)``; the model's dispatchers are restored after.
     """
     run = RunConfig(dtype="bfloat16", softmax_policy=policy,
-                    paged_backend=backend)
+                    paged_backend=backend, kv_dtype=kv_dtype)
     eng = ServingEngine(model, params, run, EngineConfig(
         n_slots=N_SLOTS, prefill_chunk=CHUNK,
         cache=PagedCacheConfig(n_pages=128, page_size=PS,
@@ -345,8 +444,11 @@ def run_engine(model, params, policy, backend, requests, shadow=None,
             out = dispatch(*args, **kw)
             ref = dispatch(*args, **{**kw, "backend": "dense"})
             rows = (out - ref).abs().amax(dim=-1)
+            v = args[2].float()
+            if kw.get("v_scales") is not None:
+                v = v * kw["v_scales"][..., None]
             shadow.append((float(rows.max()),
-                           step * float(args[2].float().abs().max()),
+                           step * float(v.abs().max()),
                            float((rows > 1e-4).float().mean())))
             return out
         return call
@@ -360,8 +462,8 @@ def run_engine(model, params, policy, backend, requests, shadow=None,
         for prompt, n_new in requests:
             eng.add_request(prompt, n_new)
         torch.cuda.synchronize()
-        paged_decode_attention.launches = 0
-        paged_prefill_attention.launches = 0
+        for wrapper in (paged_decode_attention, paged_prefill_attention):
+            wrapper.launches = wrapper.int8_launches = 0
         with around or contextlib.nullcontext():
             t0 = time.perf_counter()
             results = eng.run()
@@ -371,7 +473,9 @@ def run_engine(model, params, policy, backend, requests, shadow=None,
         LAYERS.lut_attention_paged_decode = ops.lut_attention_paged_decode
         LAYERS.lut_attention_paged_prefill = ops.lut_attention_paged_prefill
     launches = {"paged_decode": paged_decode_attention.launches,
-                "paged_prefill": paged_prefill_attention.launches}
+                "paged_prefill": paged_prefill_attention.launches,
+                "paged_decode_int8": paged_decode_attention.int8_launches,
+                "paged_prefill_int8": paged_prefill_attention.int8_launches}
     for rid, res in results.items():
         if len(res.tokens) != 32:
             raise AssertionError(f"{backend}: request {rid} gave "
@@ -379,17 +483,17 @@ def run_engine(model, params, policy, backend, requests, shadow=None,
     ttft = np.mean([r.ttft_s for r in results.values()])
     name = (policy.impl if policy.impl == "exact"
             else f"{policy.impl}-{policy.precision}")
-    print(f"[engine] {name} paged_backend={backend}"
+    print(f"[engine] {name} kv_dtype={kv_dtype} paged_backend={backend}"
           f"{' (shadowed)' if shadow is not None else ''}: {len(results)} "
           f"requests, {eng.stats.tokens} tokens in {wall:.2f}s "
           f"({eng.stats.tokens / wall:.1f} tok/s), mean TTFT {ttft:.3f}s, "
           f"{eng.stats.steps} decode steps, {eng.stats.prefill_steps} "
           f"prefill chunks, {eng.stats.preemptions} preemptions, kernel "
           f"launches {launches}")
-    return results, first_logits, launches, wall
+    return results, first_logits, launches, wall, eng.stats
 
 
-def profile_drive(model, params, requests):
+def profile_drive(model, params, requests, kv_dtype="f32"):
     """Where the main path's device time goes: torch.profiler's kernel
     times over one drive, grouped, and the device's busy share of the
     drive's wall time (the profiler's own cost lengthens the wall time,
@@ -405,7 +509,7 @@ def profile_drive(model, params, requests):
         return
     prof = profile(activities=[ProfilerActivity.CUDA])
     wall = run_engine(model, params, POLICIES[MAIN_POLICY], "auto",
-                      requests, around=prof)[3]
+                      requests, around=prof, kv_dtype=kv_dtype)[3]
     kernels = []
     for e in prof.key_averages():
         us = (getattr(e, "self_device_time_total", None)
@@ -424,7 +528,8 @@ def profile_drive(model, params, requests):
                      if any(n in k for n in names)) / 1e6
               for g, names in groups.items()}
     shares["everything else"] = busy - sum(shares.values())
-    print(f"[profile] {MAIN_POLICY} drive, profiled: device busy "
+    print(f"[profile] {MAIN_POLICY} kv_dtype={kv_dtype} drive, profiled: "
+          f"device busy "
           f"{busy * 1e3:.1f} ms of {wall * 1e3:.1f} ms wall "
           f"({busy / wall:.1%}); "
           + "; ".join(f"{g} {t * 1e3:.1f} ms ({t / busy:.1%})"
@@ -445,20 +550,24 @@ def compare_runs(label, a, b):
     return worst
 
 
-def phase_engine():
-    """The main path (REXP uint8, ``auto``) timed and counted; the same
-    run shadowed, every kernel call held to its plain version on the
-    engine's own inputs; then the dense runs.
+def check_shadow(shadow, label):
+    """Every kernel call of a shadowed drive within one LUT step of its
+    plain version on the same inputs."""
+    worst = max(e for e, _, _ in shadow)
+    beyond = max(s for _, _, s in shadow)
+    print(f"[engine] shadowed {label}: {len(shadow)} kernel calls held to "
+          f"the plain version on the same inputs: max|err| {worst:.3g}, "
+          f"largest share of rows beyond 1e-4 in one call {beyond:.4%}")
+    for err, limit, _ in shadow:
+        if not err <= limit:
+            raise AssertionError(f"kernel call off its plain version by "
+                                 f"{err} > one LUT step {limit}")
+    return worst
 
-    The dense comparison that is asserted uses the exact policy: REXP's
-    numerators are piecewise constant, so a logit that moves by one ulp
-    across a bin edge moves a weight by a whole LUT step, and once the
-    bf16 rounding of the attention output differs anywhere, the two
-    free-running REXP streams part.  Exact softmax is continuous, so its
-    kernel and dense runs can only differ by roundoff that the bf16
-    layers carry forward: first-token logits within 2% of their largest
-    magnitude.  The REXP pair is printed beside it.
-    """
+
+def setup_model():
+    """Qwen3-32B widths, 4 of 64 layers, seeded random bf16 weights, and
+    the 8 requests every drive serves."""
     arch = ARCHS["qwen3-32b"].with_layers(4)
     model = build_model(arch)
     t0 = time.perf_counter()
@@ -473,24 +582,33 @@ def phase_engine():
     rng = np.random.default_rng(1)
     requests = [(rng.integers(0, arch.vocab_size, size=int(n)).tolist(), 32)
                 for n in rng.integers(16, 301, size=8)]
+    return model, params, requests
+
+
+def phase_engine(model, params, requests):
+    """The main path (REXP uint8, ``auto``) timed and counted; the same
+    run shadowed, every kernel call held to its plain version on the
+    engine's own inputs; then the dense runs.
+
+    The dense comparison that is asserted uses the exact policy: REXP's
+    numerators are piecewise constant, so a logit that moves by one ulp
+    across a bin edge moves a weight by a whole LUT step, and once the
+    bf16 rounding of the attention output differs anywhere, the two
+    free-running REXP streams part.  Exact softmax is continuous, so its
+    kernel and dense runs can only differ by roundoff that the bf16
+    layers carry forward: first-token logits within 2% of their largest
+    magnitude.  The REXP pair is printed beside it.
+    """
     main = POLICIES[MAIN_POLICY]
     main_run = run_engine(model, params, main, "auto", requests)
     launches = main_run[2]
-    if not all(n > 0 for n in launches.values()):
+    if not (launches["paged_decode"] > 0 and launches["paged_prefill"] > 0):
         raise AssertionError(f"main path skipped a kernel: {launches}")
 
     profile_drive(model, params, requests)
     shadow = []
     run_engine(model, params, main, "auto", requests, shadow=shadow)
-    worst = max(e for e, _, _ in shadow)
-    beyond = max(s for _, _, s in shadow)
-    print(f"[engine] shadowed main path: {len(shadow)} kernel calls held to "
-          f"the plain version on the same inputs: max|err| {worst:.3g}, "
-          f"largest share of rows beyond 1e-4 in one call {beyond:.4%}")
-    for err, limit, _ in shadow:
-        if not err <= limit:
-            raise AssertionError(f"kernel call off its plain version by "
-                                 f"{err} > one LUT step {limit}")
+    check_shadow(shadow, "main path")
 
     dense = run_engine(model, params, main, "dense", requests)
     if any(dense[2].values()):
@@ -505,6 +623,78 @@ def phase_engine():
     if not worst <= 0.02:
         raise AssertionError(f"exact-policy first-token logits differ by "
                              f"{worst:.3g} > 0.02")
+    return launches, main_run[4]
+
+
+def lockstep_first_logits(model, params, policy, requests):
+    """First-token logits of int8 lockstep: each request alone at B = 1
+    through ``serve_loop`` over contiguous caches fake-quantized with
+    the int8 pool's rounding; ``generate``'s token must be their
+    argmax."""
+    run = RunConfig(dtype="bfloat16", softmax_policy=policy, kv_dtype="int8")
+    out = {}
+    for rid, (prompt, _) in enumerate(requests):
+        tokens = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+        logits, _ = make_prefill_step(model, run, len(prompt) + 1)(params,
+                                                                   tokens)
+        tok = generate(model, params, tokens, run, max_new_tokens=1)
+        row = logits[0, 0].float().cpu().numpy()
+        if int(tok[0, 0]) != int(np.argmax(row)):
+            raise AssertionError(f"lockstep request {rid}: generate gave "
+                                 f"{int(tok[0, 0])}, argmax {np.argmax(row)}")
+        out[rid] = row
+    return out
+
+
+def phase_int8_engine(model, params, requests, bf16_stats):
+    """The int8 main path (REXP uint8, ``kv_dtype="int8"``, ``auto``)
+    timed and counted, profiled, shadowed; then the exact policy's int8
+    engine against int8 lockstep — the card's form of the JAX package's
+    int8 engine ≡ int8 lockstep check (``benchmarks/serving_throughput``).
+    Lockstep fake-quantizes into bf16 caches and prefills whole prompts
+    while the engine dequantizes in f32 inside the kernels and prefills
+    in chunks, so the two differ by bf16 roundoff: first-token logits
+    within 2% of the largest, as for the kernel-vs-dense pair."""
+    main = POLICIES[MAIN_POLICY]
+    main_run = run_engine(model, params, main, "auto", requests,
+                          kv_dtype="int8")
+    launches = main_run[2]
+    if not (launches["paged_decode_int8"] > 0
+            and launches["paged_prefill_int8"] > 0):
+        raise AssertionError(f"int8 path skipped a kernel: {launches}")
+    if launches["paged_decode"] or launches["paged_prefill"]:
+        raise AssertionError(f"int8 path launched a float-pool kernel: "
+                             f"{launches}")
+    stats = main_run[4]
+    tokens_in_pool = 128 * PS
+    per_tok = stats.pool_bytes_per_layer / tokens_in_pool
+    bf16_tok = bf16_stats.pool_bytes_per_layer / tokens_in_pool
+    kvh, dh = model.cfg.n_kv_heads, model.cfg.resolved_head_dim
+    print(f"[int8] KV pool bytes per token per layer: int8 {per_tok:g} B "
+          f"(pages {2 * kvh * dh} + scales {2 * kvh * 4}) against bf16 "
+          f"{bf16_tok:g} B: {per_tok / bf16_tok:.3f}x")
+    if per_tok != 2 * kvh * (dh + 4) or bf16_tok != 2 * kvh * dh * 2:
+        raise AssertionError("pool bytes off the int8 / bf16 layouts")
+
+    profile_drive(model, params, requests, kv_dtype="int8")
+    shadow = []
+    run_engine(model, params, main, "auto", requests, shadow=shadow,
+               kv_dtype="int8")
+    check_shadow(shadow, "int8 path")
+
+    exact = POLICIES["exact"]
+    eng = run_engine(model, params, exact, "auto", requests, kv_dtype="int8")
+    lock = lockstep_first_logits(model, params, exact, requests)
+    worst = max(float(np.abs(row - lock[rid]).max() / np.abs(lock[rid]).max())
+                for rid, row in eng[1].items())
+    agree = np.mean([eng[0][rid].tokens[0] == np.argmax(lock[rid])
+                     for rid in lock])
+    print(f"[int8] exact int8 engine vs int8 lockstep: first-token logits "
+          f"max|Δ|/max|logit| {worst:.4g}; first tokens agreeing "
+          f"{agree:.1%}")
+    if not worst <= 0.02:
+        raise AssertionError(f"int8 engine vs int8 lockstep first-token "
+                             f"logits differ by {worst:.3g} > 0.02")
     return launches
 
 
@@ -520,16 +710,24 @@ def main() -> int:
           f"{torch.version.cuda}")
     phase_build()
     kernels = phase_kernels()
-    launches = phase_engine()
+    model, params, requests = setup_model()
+    launches, bf16_stats = phase_engine(model, params, requests)
+    kernels.update(phase_kernels(int8=True))
+    launches.update({k: v for k, v in phase_int8_engine(
+        model, params, requests, bf16_stats).items() if k.endswith("int8")})
     summary = {"kernels": [
         dict(name=name, route="cuda",
-             source=f"src/repro_torch/csrc/{name}.cu",
+             source=f"src/repro_torch/csrc/{name.removesuffix('_int8')}.cu",
              replaces=replaces, launches=launches[name], **kernels[name])
         for name, replaces in (
             ("paged_decode",
              "src/repro/kernels/lut_attention/paged_decode.py:419"),
             ("paged_prefill",
-             "src/repro/kernels/lut_attention/paged_prefill.py:427"))]}
+             "src/repro/kernels/lut_attention/paged_prefill.py:427"),
+            ("paged_decode_int8",
+             "src/repro/kernels/lut_attention/paged_decode.py:120"),
+            ("paged_prefill_int8",
+             "src/repro/kernels/lut_attention/paged_prefill.py:118"))]}
     print(json.dumps(summary))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -152,9 +152,9 @@ class ArchConfig:
 class RunConfig:
     """Runtime knobs independent of architecture identity.
 
-    The serving subset of the JAX package's ``RunConfig``: the port runs
-    the paged engine only, so the lockstep, training and sharding knobs
-    have no counterpart here yet.
+    The serving subset of the JAX package's ``RunConfig`` (the paged
+    engine and the lockstep path); the training and sharding knobs have
+    no counterpart here yet.
     """
     dtype: str = "bfloat16"                        # activations and the
                                                    # KV pool on the card
@@ -162,6 +162,8 @@ class RunConfig:
     paged_backend: str = "auto"                    # paged attention (decode +
                                                    # prefill chunks):
                                                    # auto | cuda | dense
-    kv_dtype: str = "f32"                          # KV page-pool storage:
-                                                   # f32 only (pool dtype
-                                                   # follows `dtype`)
+    kv_dtype: str = "f32"                          # KV storage: f32 (pool
+                                                   # dtype follows `dtype`)
+                                                   # | int8 (per-row f32
+                                                   # scales, in-kernel
+                                                   # dequant)

@@ -25,11 +25,26 @@
 //   * a masked key gives a hard 0, never the terminal LUT entry, and a
 //     row max that is not finite becomes 0.
 // Build without --use_fast_math.
+//
+// Pools come in two kinds, one template parameter (the element type TK)
+// apart: f32 / bf16 pages of the query's own type, or int8 pages with
+// one f32 scale per (page, token, KV head) row — the JAX package's
+// _pg_*_kernel_int8 / _pf_*_kernel_int8 bodies.  An int8 row is
+// dequantized element by element, __fmul_rn(float(code), scale), before
+// the q·k dot and before σ·V, exactly as dequantize_rows and the
+// reference's _page_rows do; the scale is never folded out of the dot
+// (scale · Σ q·code rounds differently and would move bins).  The scale
+// is read through the same block-table lookup as its row, and only for
+// keys the walk visits (j < kv_len), so junk — even NaN — in the null
+// page or its scales never reaches an output.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace lutk {
 
@@ -44,9 +59,11 @@ constexpr int kUnroll = 8;
 constexpr size_t kCacheSmemBudget = 96 * 1024;
 
 struct Params {
-  const void* q;          // (B, H, C, Dh) T
-  const void* k_pages;    // (n_pages, ps, KVH, Dh) T
+  const void* q;          // (B, H, C, Dh) TQ
+  const void* k_pages;    // (n_pages, ps, KVH, Dh) TK
   const void* v_pages;
+  const float* k_scales;  // (n_pages, ps, KVH) f32 — int8 pools only
+  const float* v_scales;
   const int* block_tables;  // (B, mp)
   const int* kv_lens;       // (B,)
   const int* q_start;       // (B,) — prefill; nullptr for decode
@@ -59,14 +76,16 @@ struct Params {
 };
 
 // Shared memory of one block serving R query rows: per-warp row offsets
-// and weight tiles of 32 keys, q rows, per-warp partials, m and Σ,
-// per-warp output partials, the tables, and (when `cached`) the
-// R × (mp·ps) logits/numerators cache.
+// and weight tiles of 32 keys (plus, for an int8 pool, the tile's V
+// scales), q rows, per-warp partials, m and Σ, per-warp output
+// partials, the tables, and (when `cached`) the R × (mp·ps)
+// logits/numerators cache.
 inline size_t smem_bytes(const Params& p, int R, bool cached) {
   size_t floats = size_t(kWarps) * R * 32 + size_t(R) * p.Dh +
                   size_t(kWarps) * R + 2 * size_t(R) +
                   size_t(kWarps) * R * p.Dh;
   if (cached) floats += size_t(R) * p.mp * p.ps;
+  if (p.k_scales) floats += size_t(kWarps) * 32;
   return 8 * size_t(kWarps) * 32 +
          4 * (floats + size_t(p.n_main) + size_t(p.aux_rows) * p.aux_cols);
 }
@@ -75,10 +94,14 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) { return float(x); }
 
-// Eight consecutive elements (16-byte aligned) of a pool row or a query
-// row, held packed in registers between the load and their use, so a
-// lane can have a whole batch of 16-byte loads in flight.
+template <typename TK>
+constexpr bool kQuantized = std::is_same<TK, int8_t>::value;
+
+// Eight consecutive elements (16-byte aligned; 8-byte for int8) of a
+// pool row or a query row, held packed in registers between the load and
+// their use, so a lane can have a whole batch of loads in flight.
 template <typename T>
 struct Chunk;
 template <>
@@ -107,6 +130,20 @@ struct Chunk<__nv_bfloat16> {
       f[2 * i] = x.x;
       f[2 * i + 1] = x.y;
     }
+  }
+};
+
+template <>
+struct Chunk<int8_t> {
+  uint2 u;  // eight int8 codes: an int8 row is only 8-byte aligned for
+            // head dims that are not a multiple of 16
+  __device__ __forceinline__ void load(const int8_t* src) {
+    u = *reinterpret_cast<const uint2*>(src);
+  }
+  __device__ __forceinline__ void get(float (&f)[8]) const {
+    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = float(c[i]);
   }
 };
 
@@ -145,22 +182,26 @@ __device__ __forceinline__ float weight(float e, float S, const int* lut_aux,
   return __fmul_rn(float(lut_aux[i * p.aux_cols + j]), p.inv_q);
 }
 
-// Element offset of key row j (token j of sequence b, KV head kvh) in
-// the pool.  The block table names the page; an id outside the pool is
-// clamped, as XLA clamps a gather.
-__device__ __forceinline__ size_t row_offset(const Params& p, int b, int kvh,
-                                             int j) {
+// Row index of key j (token j of sequence b, KV head kvh) in the pool:
+// (page · ps + token) · KVH + kvh.  The row's elements start at index ·
+// Dh, and an int8 pool's scale of that row sits at the index itself.
+// The block table names the page; an id outside the pool is clamped, as
+// XLA clamps a gather.
+__device__ __forceinline__ size_t row_index(const Params& p, int b, int kvh,
+                                            int j) {
   int page = p.block_tables[b * p.mp + j / p.ps];
   page = min(max(page, 0), p.n_pages - 1);
-  return ((size_t(page) * p.ps + j % p.ps) * p.KVH + kvh) * p.Dh;
+  return (size_t(page) * p.ps + j % p.ps) * p.KVH + kvh;
 }
 
 // dot[r] = q_r · k for the R query rows in shared memory against one key
-// row read by this lane alone: up to 8 chunks of 16 bytes are loaded
-// before the first is used (Dh ≤ 32·DPL, a multiple of 8).
+// row read by this lane alone: up to 8 chunks are loaded before the
+// first is used (Dh ≤ 32·DPL, a multiple of 8).  An int8 row's codes are
+// dequantized with its scale `ksc` first, one rounded multiply each.
 template <typename T, int DPL, int R>
-__device__ __forceinline__ void dot_rows(const T* krow, const float* q_s,
-                                         int Dh, float (&dot)[R]) {
+__device__ __forceinline__ void dot_rows(const T* krow, float ksc,
+                                         const float* q_s, int Dh,
+                                         float (&dot)[R]) {
   constexpr int kChunks = DPL * 4;
   constexpr int kBatch = kChunks < 8 ? kChunks : 8;
 #pragma unroll
@@ -177,6 +218,10 @@ __device__ __forceinline__ void dot_rows(const T* krow, const float* q_s,
       if (d >= Dh) break;
       float k[8];
       ch[c].get(k);
+      if constexpr (kQuantized<T>) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) k[e] = __fmul_rn(k[e], ksc);
+      }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         Chunk<float> qc;
@@ -200,7 +245,9 @@ __device__ __forceinline__ void lane_logits(const Params& p, const T* k,
                                             float (&s)[R]) {
   float dot[R];
   if (live) {
-    dot_rows<T, DPL, R>(k + row_offset(p, b, kvh, j), q_s, p.Dh, dot);
+    const size_t row = row_index(p, b, kvh, j);
+    const float ksc = kQuantized<T> ? p.k_scales[row] : 1.f;
+    dot_rows<T, DPL, R>(k + row * p.Dh, ksc, q_s, p.Dh, dot);
   }
 #pragma unroll
   for (int r = 0; r < R; ++r)
@@ -221,7 +268,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // The three passes for R query rows of (slot b, query head h), chunk rows
-// row0 .. row0+R-1.  Row c sees key j iff j < kv_len and j <= q0 + c.
+// row0 .. row0+R-1; queries of type TQ, pool elements of type TK.  Row c sees key j iff j < kv_len and j <= q0 + c.
 // Only keys below the largest such limit are walked: pages past kv_len
 // (null pages, a partial page's tail) add an exact 0 in the reference
 // and are never read here.
@@ -232,7 +279,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 // dimension and walk the tile's keys, kUnroll value rows in flight,
 // reading the weights and row offsets the key lanes left in shared
 // memory.
-template <typename T, int DPL, int R>
+template <typename TQ, typename TK, int DPL, int R>
 __device__ void paged_rows(const Params& p, int b, int h, int row0, int q0,
                            bool cached) {
   extern __shared__ float4 smem4[];
@@ -240,12 +287,13 @@ __device__ void paged_rows(const Params& p, int b, int h, int row0, int q0,
   const int kvh = h / (p.H / p.KVH);
   const int L = p.mp * p.ps;
   const int kv_len = max(min(p.kv_lens[b], L), 0);
-  const T* kp = static_cast<const T*>(p.k_pages);
-  const T* vp = static_cast<const T*>(p.v_pages);
+  const TK* kp = static_cast<const TK*>(p.k_pages);
+  const TK* vp = static_cast<const TK*>(p.v_pages);
 
   size_t* rowp_s = reinterpret_cast<size_t*>(smem4);  // kWarps × 32
   float* w_s = reinterpret_cast<float*>(rowp_s + kWarps * 32);  // kWarps×R×32
-  float* q_s = w_s + kWarps * R * 32;      // R × Dh
+  float* vsc_s = w_s + kWarps * R * 32;    // kWarps × 32 (int8 pools)
+  float* q_s = vsc_s + (kQuantized<TK> ? kWarps * 32 : 0);  // R × Dh
   float* red_s = q_s + R * p.Dh;           // kWarps × R
   float* m_s = red_s + kWarps * R;         // R
   float* S_s = m_s + R;                    // R
@@ -254,7 +302,7 @@ __device__ void paged_rows(const Params& p, int b, int h, int row0, int q0,
   int* aux_s = main_s + p.n_main;
   float* cache_s = reinterpret_cast<float*>(aux_s + p.aux_rows * p.aux_cols);
 
-  const T* q = static_cast<const T*>(p.q);
+  const TQ* q = static_cast<const TQ*>(p.q);
   for (int i = tid; i < R * p.Dh; i += kThreads) {
     int r = i / p.Dh, c = row0 + r;
     q_s[i] = c < p.C
@@ -283,7 +331,7 @@ __device__ void paged_rows(const Params& p, int b, int h, int row0, int q0,
     const int j = t0 + lane;
     const bool live = j < jmax;
     float s[R];
-    lane_logits<T, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
+    lane_logits<TK, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (cached && live) cache_s[r * L + j] = s[r];
@@ -315,7 +363,7 @@ __device__ void paged_rows(const Params& p, int b, int h, int row0, int q0,
       for (int r = 0; r < R; ++r)
         s[r] = live ? cache_s[r * L + j] : -CUDART_INF_F;
     } else {
-      lane_logits<T, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
+      lane_logits<TK, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -346,6 +394,7 @@ __device__ void paged_rows(const Params& p, int b, int h, int row0, int q0,
     for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
   float* w_tile = w_s + warp * R * 32;
   size_t* rowp = rowp_s + warp * 32;
+  float* vsc = vsc_s + warp * 32;
   for (int t0 = warp * 32; t0 < jmax; t0 += kWarps * 32) {
     const int j = t0 + lane;
     const bool live = j < jmax;
@@ -355,25 +404,30 @@ __device__ void paged_rows(const Params& p, int b, int h, int row0, int q0,
       for (int r = 0; r < R; ++r) e[r] = live ? cache_s[r * L + j] : 0.f;
     } else {
       float s[R];
-      lane_logits<T, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
+      lane_logits<TK, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
 #pragma unroll
       for (int r = 0; r < R; ++r) e[r] = e_term(s[r], m_s[r], main_s, p);
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) w_tile[r * 32 + lane] = weight(e[r], S_s[r],
                                                                aux_s, p);
-    rowp[lane] = live ? row_offset(p, b, kvh, j) : 0;
+    const size_t row = live ? row_index(p, b, kvh, j) : 0;
+    rowp[lane] = row * p.Dh;
+    if constexpr (kQuantized<TK>) vsc[lane] = live ? p.v_scales[row] : 0.f;
     __syncwarp();
     const int n = min(32, jmax - t0);
     for (int u0 = 0; u0 < n; u0 += kUnroll) {
       float v[kUnroll][DPL];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const T* row = vp + rowp[min(u0 + u, n - 1)];
+        const int t = min(u0 + u, n - 1);
+        const TK* row = vp + rowp[t];
+        const float vs = kQuantized<TK> ? vsc[t] : 1.f;
 #pragma unroll
         for (int i = 0; i < DPL; ++i) {
           int d = i * 32 + lane;
-          v[u][i] = u0 + u < n && d < p.Dh ? to_f32(row[d]) : 0.f;
+          float x = u0 + u < n && d < p.Dh ? to_f32(row[d]) : 0.f;
+          v[u][i] = kQuantized<TK> ? __fmul_rn(x, vs) : x;
         }
       }
 #pragma unroll
@@ -418,27 +472,43 @@ inline cudaError_t reserve_smem(Kernel kernel, size_t bytes, int& reserved) {
   return err;
 }
 
-// Instantiate `launch<T, DPL>` for the head dims the port serves
-// (Dh ≤ 256, in steps of 32 lanes); dtype 0 = f32, 1 = bf16.
-template <template <typename, int> class Launch>
-inline cudaError_t dispatch(const Params& p, int dtype, cudaStream_t stream) {
+// Instantiate `Launch<TQ, TK, DPL>` for the head dims the port serves
+// (Dh ≤ 256, in steps of 32 lanes).
+template <template <typename, typename, int> class Launch, typename TQ,
+          typename TK>
+inline cudaError_t dispatch_dh(const Params& p, cudaStream_t stream) {
   int dpl = (p.Dh + 31) / 32;
-  if (dtype == 0) {
-    if (dpl <= 1) return Launch<float, 1>::run(p, stream);
-    if (dpl <= 2) return Launch<float, 2>::run(p, stream);
-    if (dpl <= 4) return Launch<float, 4>::run(p, stream);
-    if (dpl <= 8) return Launch<float, 8>::run(p, stream);
-  } else if (dtype == 1) {
-    if (dpl <= 1) return Launch<__nv_bfloat16, 1>::run(p, stream);
-    if (dpl <= 2) return Launch<__nv_bfloat16, 2>::run(p, stream);
-    if (dpl <= 4) return Launch<__nv_bfloat16, 4>::run(p, stream);
-    if (dpl <= 8) return Launch<__nv_bfloat16, 8>::run(p, stream);
-  }
+  if (dpl <= 1) return Launch<TQ, TK, 1>::run(p, stream);
+  if (dpl <= 2) return Launch<TQ, TK, 2>::run(p, stream);
+  if (dpl <= 4) return Launch<TQ, TK, 4>::run(p, stream);
+  if (dpl <= 8) return Launch<TQ, TK, 8>::run(p, stream);
+  return cudaErrorInvalidValue;
+}
+
+// Pools of the query's own type; dtype 0 = f32, 1 = bf16.
+template <template <typename, typename, int> class Launch>
+inline cudaError_t dispatch(const Params& p, int dtype, cudaStream_t stream) {
+  if (p.k_scales || p.v_scales) return cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch_dh<Launch, float, float>(p, stream);
+  if (dtype == 1)
+    return dispatch_dh<Launch, __nv_bfloat16, __nv_bfloat16>(p, stream);
+  return cudaErrorInvalidValue;
+}
+
+// int8 pools with f32 row scales; q_dtype 0 = f32, 1 = bf16 queries.
+template <template <typename, typename, int> class Launch>
+inline cudaError_t dispatch_int8(const Params& p, int q_dtype,
+                                 cudaStream_t stream) {
+  if (!p.k_scales || !p.v_scales) return cudaErrorInvalidValue;
+  if (q_dtype == 0) return dispatch_dh<Launch, float, int8_t>(p, stream);
+  if (q_dtype == 1)
+    return dispatch_dh<Launch, __nv_bfloat16, int8_t>(p, stream);
   return cudaErrorInvalidValue;
 }
 
 // The host C interface both kernels share: everything the Python
-// wrapper passes, as plain pointers, ints and floats.
+// wrapper passes, as plain pointers, ints and floats (the scale pools
+// only for an int8 pool).
 inline Params make_params(const void* q, const void* k_pages,
                           const void* v_pages, const void* block_tables,
                           const void* kv_lens, const void* q_start,
@@ -447,11 +517,15 @@ inline Params make_params(const void* q, const void* k_pages,
                           int n_pages, int ps, int mp, int C, int n_main,
                           int aux_rows, int aux_cols, int method,
                           int round_mode, float scale, float inv_step,
-                          float inv_q, float inv_ex, float inv_sum) {
+                          float inv_q, float inv_ex, float inv_sum,
+                          const void* k_scales = nullptr,
+                          const void* v_scales = nullptr) {
   Params p;
   p.q = q;
   p.k_pages = k_pages;
   p.v_pages = v_pages;
+  p.k_scales = static_cast<const float*>(k_scales);
+  p.v_scales = static_cast<const float*>(v_scales);
   p.block_tables = static_cast<const int*>(block_tables);
   p.kv_lens = static_cast<const int*>(kv_lens);
   p.q_start = static_cast<const int*>(q_start);

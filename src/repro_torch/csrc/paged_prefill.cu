@@ -3,7 +3,10 @@
 // Replaces the TPU kernel paged_prefill_attention of
 // src/repro/kernels/lut_attention/paged_prefill.py (its three
 // pallas_calls over _pf_rowmax_kernel, _pf_sum_kernel and
-// _pf_weight_kernel, masked as in _chunk_logits).  A C-token prompt
+// _pf_weight_kernel, masked as in _chunk_logits), and, through the entry
+// point paged_prefill_int8_launch, their int8-pool bodies
+// _pf_rowmax_kernel_int8, _pf_sum_kernel_int8 and _pf_weight_kernel_int8
+// (int8 pages, f32 row scales, each row dequantized before use).  A C-token prompt
 // chunk, already scattered into the pool, attends causally to its
 // sequence through the block table: key pos is visible to chunk row i
 // iff pos < kv_lens[b] and pos <= q_start[b] + i.
@@ -28,25 +31,25 @@ namespace {
 
 constexpr int kRows = 8;
 
-template <typename T, int DPL>
+template <typename TQ, typename TK, int DPL>
 __global__ void __launch_bounds__(lutk::kThreads)
     paged_prefill_kernel(lutk::Params p, bool cached) {
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
-  lutk::paged_rows<T, DPL, kRows>(p, b, h, row0, p.q_start[b], cached);
+  lutk::paged_rows<TQ, TK, DPL, kRows>(p, b, h, row0, p.q_start[b], cached);
 }
 
-template <typename T, int DPL>
+template <typename TQ, typename TK, int DPL>
 struct PrefillLaunch {
   static cudaError_t run(const lutk::Params& p, cudaStream_t stream) {
     bool cached = lutk::smem_bytes(p, kRows, true) <= lutk::kCacheSmemBudget;
     size_t smem = lutk::smem_bytes(p, kRows, cached);
     static int reserved = 0;
-    cudaError_t err =
-        lutk::reserve_smem(paged_prefill_kernel<T, DPL>, smem, reserved);
+    cudaError_t err = lutk::reserve_smem(paged_prefill_kernel<TQ, TK, DPL>,
+                                         smem, reserved);
     if (err != cudaSuccess) return err;
     dim3 grid((p.C + kRows - 1) / kRows, p.H, p.B);
-    paged_prefill_kernel<T, DPL><<<grid, lutk::kThreads, smem, stream>>>(
-        p, cached);
+    paged_prefill_kernel<TQ, TK, DPL>
+        <<<grid, lutk::kThreads, smem, stream>>>(p, cached);
     return cudaGetLastError();
   }
 };
@@ -66,4 +69,23 @@ extern "C" int paged_prefill_launch(
       method, round_mode, scale, inv_step, inv_q, inv_ex, inv_sum);
   return int(lutk::dispatch<PrefillLaunch>(p, dtype,
                                            static_cast<cudaStream_t>(stream)));
+}
+
+// The int8-pool entry: k/v pages int8, k/v scales f32 (n_pages, ps, KVH),
+// q_dtype 0 = f32, 1 = bf16 queries.
+extern "C" int paged_prefill_int8_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* block_tables,
+    const void* kv_lens, const void* q_start, const void* lut_main,
+    const void* lut_aux, void* out, int q_dtype, int B, int H, int KVH,
+    int Dh, int n_pages, int ps, int mp, int C, int n_main, int aux_rows,
+    int aux_cols, int method, int round_mode, float scale, float inv_step,
+    float inv_q, float inv_ex, float inv_sum, void* stream) {
+  lutk::Params p = lutk::make_params(
+      q, k_pages, v_pages, block_tables, kv_lens, q_start, lut_main, lut_aux,
+      out, B, H, KVH, Dh, n_pages, ps, mp, C, n_main, aux_rows, aux_cols,
+      method, round_mode, scale, inv_step, inv_q, inv_ex, inv_sum, k_scales,
+      v_scales);
+  return int(lutk::dispatch_int8<PrefillLaunch>(
+      p, q_dtype, static_cast<cudaStream_t>(stream)));
 }

@@ -28,12 +28,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-#: kernel name → (C entry point, its argument types); the stream is last.
+#: kernel name (one library each) → {C entry point: its argument types};
+#: the stream is last.  ``<name>_launch`` takes f32/bf16 pools,
+#: ``<name>_int8_launch`` int8 pools plus their two f32 scale pools.
 KERNELS = {
-    "paged_decode": ("paged_decode_launch",
-                     [_P] * 8 + [_I] * 13 + [_F] * 5 + [_P]),
-    "paged_prefill": ("paged_prefill_launch",
-                      [_P] * 9 + [_I] * 14 + [_F] * 5 + [_P]),
+    "paged_decode": {
+        "paged_decode_launch": [_P] * 8 + [_I] * 13 + [_F] * 5 + [_P],
+        "paged_decode_int8_launch": [_P] * 10 + [_I] * 13 + [_F] * 5 + [_P],
+    },
+    "paged_prefill": {
+        "paged_prefill_launch": [_P] * 9 + [_I] * 14 + [_F] * 5 + [_P],
+        "paged_prefill_int8_launch": [_P] * 11 + [_I] * 14 + [_F] * 5 + [_P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -67,7 +73,8 @@ def build(names=tuple(KERNELS), force: bool = False) -> dict[str, dict]:
     """Compile the named kernels, all ``nvcc`` processes at once.
 
     Returns ``name → {"seconds": wall seconds of its nvcc (0 if it was
-    up to date), "log": nvcc's output (ptxas register/smem report)}``.
+    up to date), "log": nvcc's output (ptxas register/smem report),
+    "entries": the library's C entry points}``.
     Raises ``RuntimeError`` with the compiler's output if any build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -82,11 +89,12 @@ def build(names=tuple(KERNELS), force: bool = False) -> dict[str, dict]:
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
-    report = {name: {"seconds": 0.0, "log": ""} for name in names}
+    report = {name: {"seconds": 0.0, "log": "",
+                     "entries": sorted(KERNELS[name])} for name in names}
     failed = []
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
-        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        report[name].update(seconds=time.perf_counter() - t0, log=log)
         if proc.returncode != 0:
             failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
             tmp.unlink(missing_ok=True)
@@ -97,18 +105,18 @@ def build(names=tuple(KERNELS), force: bool = False) -> dict[str, dict]:
     return report
 
 
-def load(name: str):
-    """The C entry point of kernel ``name``, built if needed, with its
-    ``argtypes`` set (a pointer passed as a bare int would be cut to 32
-    bits)."""
+def load(name: str, entry: str | None = None):
+    """C entry point ``entry`` (default ``<name>_launch``) of kernel
+    ``name``, built if needed, with its ``argtypes`` set (a pointer passed
+    as a bare int would be cut to 32 bits)."""
     lib = _loaded.get(name)
     if lib is None:
         if _stale(name):
             build((name,))
         lib = ctypes.CDLL(str(library_path(name)))
-        fn_name, argtypes = KERNELS[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in KERNELS[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
-    return getattr(lib, KERNELS[name][0])
+    return getattr(lib, entry or f"{name}_launch")

@@ -1,4 +1,10 @@
-"""Public paged attention-with-LUT-softmax API.
+"""Public attention-with-LUT-softmax API.
+
+The lockstep path (contiguous ``AttnCache``, ``serve_loop.generate``)
+attends through :func:`lut_attention`, whose ``naive`` backend is the
+materialized-logits oracle (``ref.lut_attention_ref``; with a traced
+``kv_len``, the tail-masked :func:`_naive_with_bias`).  Its ``pallas``
+and ``blocked`` backends are not ported yet.
 
 The continuous-batching engine attends through the two *paged*
 dispatchers — :func:`lut_attention_paged_decode` (single-token decode)
@@ -17,6 +23,12 @@ or raise — a kernel that does not build or does not launch is an
 exception, never a silent switch to the plain version or to the CPU.
 ``cuda`` is the counterpart of the JAX package's ``pallas`` knob.
 
+An int8 pool (``kv_dtype="int8"``) passes its f32 per-token × KV-head
+scale pools as ``k_scales`` / ``v_scales`` (both or neither) beside the
+int8 pages: the kernels dequantize each row before use, the plain
+version dequantizes the gathered view (:func:`_gather_dequant`); the
+integer LUT pipeline is the same.
+
 The plain version of both kernels is the dense reference below: gather
 the block-table view of the pool (:func:`gather_pages`), materialize the
 masked logits, and run the policy softmax of ``core.lut_softmax``
@@ -34,6 +46,8 @@ import torch
 from repro_torch.core import lut_builder
 from repro_torch.core import lut_softmax as _core
 from repro_torch.core.policies import SoftmaxPolicy
+from repro_torch.core.quantization import dequantize_rows
+from repro_torch.kernels.lut_attention import ref as _ref
 
 Tensor = torch.Tensor
 
@@ -129,6 +143,58 @@ def lut_attention_prefill_varlen(q: Tensor, k: Tensor, v: Tensor,
     return _grouped_pv(_policy_softmax(s, policy), v)
 
 
+def lut_attention(q: Tensor, k: Tensor, v: Tensor, policy: SoftmaxPolicy,
+                  *, causal: bool = False, scale: float | None = None,
+                  kv_len: Tensor | int | None = None,
+                  backend: str = "naive") -> Tensor:
+    """Attention with the policy's softmax over contiguous K/V;
+    (B, H, Lq, D) f32.
+
+    q (B, H, Lq, D); k, v (B, KVH, Lk, D).  ``kv_len`` (the valid key
+    count of a pre-allocated cache) masks the tail and right-aligns the
+    causal queries to it; without it REXP takes the fused α requant, as
+    in the JAX package.  Only the ``naive`` backend is ported: the
+    ``pallas`` backend waits for the port of ``lut_attention_pallas``,
+    ``blocked`` (the flash-style XLA scan) for a later slice too.
+    """
+    if backend in ("pallas", "blocked"):
+        raise NotImplementedError(
+            f"lut_attention backend {backend!r} is not ported yet: the "
+            f"dense LUT attention kernel (lut_attention_pallas) and the "
+            f"blocked path are a later slice of the port; use 'naive'")
+    if backend != "naive":
+        raise ValueError(f"unknown lut_attention backend {backend!r}")
+    if kv_len is not None:
+        ki = torch.arange(k.shape[2], device=q.device)
+        neg = torch.where(ki < torch.as_tensor(kv_len, device=q.device),
+                          0.0, float("-inf"))
+        # fold the tail mask through an additive bias on k-side logits
+        return _naive_with_bias(q, k, v, policy, causal, scale, neg, kv_len)
+    return _ref.lut_attention_ref(q, k, v, method=policy.impl,
+                                  tables=_tables_for(policy), scale=scale,
+                                  causal=causal,
+                                  index_mode=policy.index_mode,
+                                  fused_requant=True)
+
+
+def _naive_with_bias(q, k, v, policy, causal, scale, k_bias, kv_len):
+    """Naive path with an additive per-key bias (KV-cache tail masking).
+
+    Causal alignment uses the *valid* length ``kv_len``, not the
+    allocated cache length: queries sit at absolute positions
+    [kv_len − lq, kv_len).
+    """
+    lq, d = q.shape[2], q.shape[3]
+    scale = scale if scale is not None else d ** -0.5
+    s = _ref._logits(q, k, scale, causal=False) + k_bias[None, None, None, :]
+    if causal:
+        qi = (torch.arange(lq, device=q.device)[:, None]
+              + (torch.as_tensor(kv_len, device=q.device) - lq))
+        ki = torch.arange(k.shape[2], device=q.device)[None, :]
+        s = s.masked_fill(~(ki <= qi)[None, None], float("-inf"))
+    return _grouped_pv(_policy_softmax(s, policy), v)
+
+
 def gather_pages(pages: Tensor, block_tables: Tensor) -> Tensor:
     """(P, ps, KVH, Dh) pool + (B, mp) table → (B, KVH, mp·ps, Dh) view.
 
@@ -140,6 +206,59 @@ def gather_pages(pages: Tensor, block_tables: Tensor) -> Tensor:
     ps, kvh, dh = pages.shape[1], pages.shape[2], pages.shape[3]
     g = pages[block_tables.long()]              # (B, mp, ps, KVH, Dh)
     return g.permute(0, 3, 1, 2, 4).reshape(b, kvh, mp * ps, dh)
+
+
+def gather_page_scales(scales: Tensor, block_tables: Tensor) -> Tensor:
+    """(P, ps, KVH) scale pool + (B, mp) table → (B, KVH, mp·ps) view,
+    row-aligned with :func:`gather_pages`: scale [b, n, t] dequantizes
+    token row t of the gathered int8 K (or V) view."""
+    b, mp = block_tables.shape
+    ps, kvh = scales.shape[1], scales.shape[2]
+    g = scales[block_tables.long()]             # (B, mp, ps, KVH)
+    return g.permute(0, 3, 1, 2).reshape(b, kvh, mp * ps)
+
+
+def check_scales(k_scales: Tensor | None, v_scales: Tensor | None) -> bool:
+    """True for an int8 pool (both scale pools given), False for a
+    float pool (neither); one without the other raises."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("an int8 pool needs both k_scales and v_scales")
+    return k_scales is not None
+
+
+def _gather_dequant(k_pages: Tensor, v_pages: Tensor, block_tables: Tensor,
+                    k_scales: Tensor, v_scales: Tensor, kv_lens: Tensor):
+    """int8 pool → dequantized (B, KVH, mp·ps, Dh) f32 K and V views.
+
+    Rows at or past a slot's ``kv_lens`` become 0: the softmax gives
+    them weight 0 exactly, and zeroing them keeps junk in unwritten
+    pages and scales (a NaN or inf scale on the null page included) out
+    of σ·V, where 0 · NaN would otherwise poison the row — the kernels
+    never read those rows at all.
+    """
+    valid = (torch.arange(block_tables.shape[1] * k_pages.shape[1],
+                          device=k_pages.device)[None, :]
+             < kv_lens.to(k_pages.device).long()[:, None])
+    valid = valid[:, None, :, None]                    # (B, 1, L, 1)
+
+    def one(pages, scales):
+        x = dequantize_rows(gather_pages(pages, block_tables),
+                            gather_page_scales(scales, block_tables))
+        return torch.where(valid, x, torch.zeros((), device=x.device))
+
+    return one(k_pages, k_scales), one(v_pages, v_scales)
+
+
+def gather_kv(k_pages: Tensor, v_pages: Tensor, block_tables: Tensor,
+              kv_lens: Tensor, k_scales: Tensor | None = None,
+              v_scales: Tensor | None = None):
+    """The plain versions' block-table view of the pool: gathered K and V
+    (B, KVH, mp·ps, Dh), dequantized for an int8 pool."""
+    if check_scales(k_scales, v_scales):
+        return _gather_dequant(k_pages, v_pages, block_tables, k_scales,
+                               v_scales, kv_lens)
+    return (gather_pages(k_pages, block_tables),
+            gather_pages(v_pages, block_tables))
 
 
 def _resolve_paged(backend: str, device: torch.device, *, kind: str) -> str:
@@ -183,6 +302,8 @@ def lut_attention_paged_decode(
     *,
     scale: float | None = None,
     backend: str = "auto",  # 'auto' | 'cuda' | 'dense'
+    k_scales: Tensor | None = None,  # (num_pages, page_size, KVH) f32 —
+    v_scales: Tensor | None = None,  # int8 pool dequant scales (or None)
 ) -> Tensor:
     """Decode attention straight off the paged KV pool; (B, H, 1, D) f32.
 
@@ -196,7 +317,7 @@ def lut_attention_paged_decode(
           if resolve_paged_backend(backend, q.device) == "cuda"
           else paged_decode.paged_decode_plain)
     return fn(q, k_pages, v_pages, block_tables, kv_lens, policy,
-              scale=scale)
+              scale=scale, k_scales=k_scales, v_scales=v_scales)
 
 
 def lut_attention_paged_prefill(
@@ -210,6 +331,8 @@ def lut_attention_paged_prefill(
     *,
     scale: float | None = None,
     backend: str = "auto",  # 'auto' | 'cuda' | 'dense'
+    k_scales: Tensor | None = None,  # (num_pages, page_size, KVH) f32 —
+    v_scales: Tensor | None = None,  # int8 pool dequant scales (or None)
 ) -> Tensor:
     """Prefill-chunk attention reading prior keys through the block
     tables; (B, H, C, D) f32.  The chunk's K/V were already scattered
@@ -220,4 +343,4 @@ def lut_attention_paged_prefill(
           if resolve_paged_prefill_backend(backend, q.device) == "cuda"
           else paged_prefill.paged_prefill_plain)
     return fn(q, k_pages, v_pages, block_tables, q_start, kv_lens, policy,
-              scale=scale)
+              scale=scale, k_scales=k_scales, v_scales=v_scales)

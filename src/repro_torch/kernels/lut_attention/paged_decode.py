@@ -10,11 +10,14 @@ to its own sequence, whose K/V lie scattered over the shared page pool
 * :func:`paged_decode_attention` launches ``csrc/paged_decode.cu`` on
   CUDA tensors: one thread block per (slot, query head) runs the three
   passes (row max, integer Σ, per-element σ·V) over the live pages only.
-  On CPU tensors it runs the plain version — only because the tensors
-  lie on the CPU.
+  Given ``k_scales`` / ``v_scales`` (an int8 pool, the JAX package's
+  ``_pg_*_kernel_int8`` bodies) it launches the int8 entry point
+  instead, which dequantizes each row before use.  On CPU tensors it
+  runs the plain version — only because the tensors lie on the CPU.
 * :func:`paged_decode_plain` is the plain PyTorch version of the same
-  function: gather the block-table view, then the dense masked policy
-  softmax (``ops.lut_attention_decode_varlen``).
+  function: gather (and, for an int8 pool, dequantize) the block-table
+  view, then the dense masked policy softmax
+  (``ops.lut_attention_decode_varlen``).
 
 Both compute the same integer LUT pipeline (bins, ``e_int``, Σ,
 ``σ_int``); the f32 q·k dot and the σ·V contraction sum in different
@@ -62,18 +65,28 @@ def _kernel_tables(policy: SoftmaxPolicy, device: torch.device):
 
 
 def check_kernel_inputs(q: Tensor, k_pages: Tensor, v_pages: Tensor,
-                        block_tables: Tensor, *cursors: Tensor):
+                        block_tables: Tensor, *cursors: Tensor,
+                        k_scales: Tensor | None = None,
+                        v_scales: Tensor | None = None):
     """Validate what the kernels take; returns the int32 contiguous
     block tables and cursors on the query's device.  Raises on anything
-    the kernels do not take instead of launching on it."""
+    the kernels do not take instead of launching on it.
+
+    A float pool has the queries' dtype; an int8 pool comes with both
+    scale pools, f32, contiguous, ``(n_pages, page_size, KVH)``, on the
+    queries' device."""
     dev = q.device
     if q.dtype not in _DTYPES:
         raise TypeError(f"paged kernels take float32 or bfloat16, got "
                         f"{q.dtype}")
+    quantized = ops.check_scales(k_scales, v_scales)
+    pool_dtype = torch.int8 if quantized else q.dtype
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.device != dev or t.dtype != q.dtype:
+        if t.device != dev or t.dtype != pool_dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; the "
-                             f"queries are {q.dtype} on {dev}")
+                             f"kernel takes {pool_dtype} pages for "
+                             f"{q.dtype} queries on {dev}"
+                             f"{' with scales' if quantized else ''}")
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous (n_pages, "
                              f"page_size, KVH, Dh) pool, got shape "
@@ -87,9 +100,20 @@ def check_kernel_inputs(q: Tensor, k_pages: Tensor, v_pages: Tensor,
         raise ValueError(f"queries (H={h}, Dh={dh}) do not fit the pool "
                          f"(KVH={kvh}, Dh={k_pages.shape[3]}); the kernels "
                          f"take Dh ≤ 256, a multiple of 8")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("the kernels read the pools 16 bytes at a time: "
-                         "their storage must be 16-byte aligned")
+    align = 8 if quantized else 16
+    if k_pages.data_ptr() % align or v_pages.data_ptr() % align:
+        raise ValueError(f"the kernels read the pools {align} bytes at a "
+                         f"time: their storage must be {align}-byte "
+                         f"aligned")
+    if quantized:
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if (t.device != dev or t.dtype != torch.float32
+                    or t.shape != k_pages.shape[:3]
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"{name} must be a contiguous float32 "
+                    f"{tuple(k_pages.shape[:3])} scale pool on {dev}, got "
+                    f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if block_tables.dim() != 2 or block_tables.shape[0] != b:
         raise ValueError(f"block_tables must be (B={b}, mp), got "
                          f"{tuple(block_tables.shape)}")
@@ -105,12 +129,15 @@ def check_kernel_inputs(q: Tensor, k_pages: Tensor, v_pages: Tensor,
 def paged_decode_plain(q: Tensor, k_pages: Tensor, v_pages: Tensor,
                        block_tables: Tensor, kv_lens: Tensor,
                        policy: SoftmaxPolicy, *,
-                       scale: float | None = None) -> Tensor:
-    """The plain PyTorch version: gathered view + dense policy softmax."""
-    return ops.lut_attention_decode_varlen(
-        q, ops.gather_pages(k_pages, block_tables),
-        ops.gather_pages(v_pages, block_tables), policy, kv_lens,
-        scale=scale)
+                       scale: float | None = None,
+                       k_scales: Tensor | None = None,
+                       v_scales: Tensor | None = None) -> Tensor:
+    """The plain PyTorch version: gathered (dequantized) view + dense
+    policy softmax."""
+    k, v = ops.gather_kv(k_pages, v_pages, block_tables, kv_lens, k_scales,
+                         v_scales)
+    return ops.lut_attention_decode_varlen(q, k, v, policy, kv_lens,
+                                           scale=scale)
 
 
 def paged_decode_attention(
@@ -122,12 +149,14 @@ def paged_decode_attention(
     policy: SoftmaxPolicy,
     *,
     scale: float | None = None,
+    k_scales: Tensor | None = None,  # (num_pages, page_size, KVH) f32 —
+    v_scales: Tensor | None = None,  # an int8 pool's row scales
 ) -> Tensor:
     """Paged-decode attention; returns (B, H, 1, Dh) f32.
 
     CUDA tensors launch the kernel on the current stream (or raise);
     CPU tensors run :func:`paged_decode_plain`.  ``launches`` counts the
-    kernel launches.
+    launches on f32/bf16 pools, ``int8_launches`` those on int8 pools.
     """
     b, h, lq, dh = q.shape
     if lq != 1:
@@ -135,23 +164,33 @@ def paged_decode_attention(
                          f"Lq={lq}")
     if not q.is_cuda:
         return paged_decode_plain(q, k_pages, v_pages, block_tables,
-                                  kv_lens, policy, scale=scale)
-    bt, kl = check_kernel_inputs(q, k_pages, v_pages, block_tables, kv_lens)
+                                  kv_lens, policy, scale=scale,
+                                  k_scales=k_scales, v_scales=v_scales)
+    bt, kl = check_kernel_inputs(q, k_pages, v_pages, block_tables, kv_lens,
+                                 k_scales=k_scales, v_scales=v_scales)
     q = q.contiguous()
     n_pages, ps, kvh, _ = k_pages.shape
     main, aux, ints, floats = _kernel_tables(policy, q.device)
     out = torch.empty((b, h, 1, dh), dtype=torch.float32, device=q.device)
     scale = scale if scale is not None else dh ** -0.5
-    err = build.load("paged_decode")(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
-        kl.data_ptr(), main.data_ptr(), aux.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, h, kvh, dh, n_pages, ps, bt.shape[1], *ints,
-        scale, *floats, torch.cuda.current_stream(q.device).cuda_stream)
+    pools = (k_pages.data_ptr(), v_pages.data_ptr())
+    int8 = k_scales is not None
+    if int8:
+        pools += (k_scales.data_ptr(), v_scales.data_ptr())
+    err = build.load("paged_decode", f"paged_decode{'_int8' * int8}_launch")(
+        q.data_ptr(), *pools, bt.data_ptr(), kl.data_ptr(), main.data_ptr(),
+        aux.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, h, kvh, dh,
+        n_pages, ps, bt.shape[1], *ints, scale, *floats,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
-                           f"{err}")
-    paged_decode_attention.launches += 1
+        raise RuntimeError(f"paged_decode{'_int8' * int8} kernel launch "
+                           f"failed: CUDA error {err}")
+    if int8:
+        paged_decode_attention.int8_launches += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.int8_launches = 0

@@ -12,9 +12,12 @@ JAX package.
 
 * :func:`paged_prefill_attention` launches ``csrc/paged_prefill.cu`` on
   CUDA tensors: one thread block per (slot, query head, tile of chunk
-  rows) runs the three passes; on CPU tensors it runs the plain version.
+  rows) runs the three passes; given ``k_scales`` / ``v_scales`` (an
+  int8 pool, the ``_pf_*_kernel_int8`` bodies) it launches the int8
+  entry point.  On CPU tensors it runs the plain version.
 * :func:`paged_prefill_plain` is the plain PyTorch version: gathered
-  view + dense masked policy softmax (``ops.lut_attention_prefill_varlen``).
+  (dequantized) view + dense masked policy softmax
+  (``ops.lut_attention_prefill_varlen``).
 """
 
 from __future__ import annotations
@@ -33,12 +36,15 @@ Tensor = torch.Tensor
 def paged_prefill_plain(q: Tensor, k_pages: Tensor, v_pages: Tensor,
                         block_tables: Tensor, q_start: Tensor,
                         kv_lens: Tensor, policy: SoftmaxPolicy, *,
-                        scale: float | None = None) -> Tensor:
-    """The plain PyTorch version: gathered view + dense policy softmax."""
-    return ops.lut_attention_prefill_varlen(
-        q, ops.gather_pages(k_pages, block_tables),
-        ops.gather_pages(v_pages, block_tables), policy, q_start=q_start,
-        kv_lens=kv_lens, scale=scale)
+                        scale: float | None = None,
+                        k_scales: Tensor | None = None,
+                        v_scales: Tensor | None = None) -> Tensor:
+    """The plain PyTorch version: gathered (dequantized) view + dense
+    policy softmax."""
+    k, v = ops.gather_kv(k_pages, v_pages, block_tables, kv_lens, k_scales,
+                         v_scales)
+    return ops.lut_attention_prefill_varlen(q, k, v, policy, q_start=q_start,
+                                            kv_lens=kv_lens, scale=scale)
 
 
 def paged_prefill_attention(
@@ -51,35 +57,47 @@ def paged_prefill_attention(
     policy: SoftmaxPolicy,
     *,
     scale: float | None = None,
+    k_scales: Tensor | None = None,  # (num_pages, page_size, KVH) f32 —
+    v_scales: Tensor | None = None,  # an int8 pool's row scales
 ) -> Tensor:
     """Paged-prefill attention; returns (B, H, C, Dh) f32.
 
     CUDA tensors launch the kernel on the current stream (or raise);
     CPU tensors run :func:`paged_prefill_plain`.  ``launches`` counts the
-    kernel launches.
+    launches on f32/bf16 pools, ``int8_launches`` those on int8 pools.
     """
     if not q.is_cuda:
         return paged_prefill_plain(q, k_pages, v_pages, block_tables,
-                                   q_start, kv_lens, policy, scale=scale)
+                                   q_start, kv_lens, policy, scale=scale,
+                                   k_scales=k_scales, v_scales=v_scales)
     bt, kl, qs = check_kernel_inputs(q, k_pages, v_pages, block_tables,
-                                     kv_lens, q_start)
+                                     kv_lens, q_start, k_scales=k_scales,
+                                     v_scales=v_scales)
     q = q.contiguous()
     b, h, c, dh = q.shape
     n_pages, ps, kvh, _ = k_pages.shape
     main, aux, ints, floats = _kernel_tables(policy, q.device)
     out = torch.empty((b, h, c, dh), dtype=torch.float32, device=q.device)
     scale = scale if scale is not None else dh ** -0.5
-    err = build.load("paged_prefill")(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
-        kl.data_ptr(), qs.data_ptr(), main.data_ptr(), aux.data_ptr(),
-        out.data_ptr(), _DTYPES[q.dtype], b, h, kvh, dh, n_pages, ps,
-        bt.shape[1], c, *ints, scale, *floats,
+    pools = (k_pages.data_ptr(), v_pages.data_ptr())
+    int8 = k_scales is not None
+    if int8:
+        pools += (k_scales.data_ptr(), v_scales.data_ptr())
+    err = build.load("paged_prefill",
+                     f"paged_prefill{'_int8' * int8}_launch")(
+        q.data_ptr(), *pools, bt.data_ptr(), kl.data_ptr(), qs.data_ptr(),
+        main.data_ptr(), aux.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b,
+        h, kvh, dh, n_pages, ps, bt.shape[1], c, *ints, scale, *floats,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"paged_prefill kernel launch failed: CUDA error "
-                           f"{err}")
-    paged_prefill_attention.launches += 1
+        raise RuntimeError(f"paged_prefill{'_int8' * int8} kernel launch "
+                           f"failed: CUDA error {err}")
+    if int8:
+        paged_prefill_attention.int8_launches += 1
+    else:
+        paged_prefill_attention.launches += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.int8_launches = 0

@@ -1,11 +1,22 @@
-"""Serving launcher: the continuous-batching engine with the LUT softmax.
+"""Serving launcher: batched generation with the LUT softmax.
 
 Random-initializes an attention-only dense arch (seeded
 ``torch.Generator``; depth cut by ``--layers``, widths optionally cut by
-``--scale-down``) and serves ``--batch`` requests of mixed prompt
-lengths through the paged ``ServingEngine``.  Runs on the card by
-default: ``--device cuda`` needs a CUDA device and raises without one;
-``--device cpu`` runs the plain PyTorch versions on the CPU.
+``--scale-down``) and serves ``--batch`` requests, two ways:
+
+* ``--engine continuous`` (default) — the paged ``ServingEngine``,
+  requests of mixed prompt lengths sharing the decode batch;
+* ``--engine lockstep`` — ``serve_loop.generate`` over contiguous
+  caches, every request one prompt length, finishing together.
+
+Runs on the card by default: ``--device cuda`` needs a CUDA device and
+raises without one; ``--device cpu`` runs the plain PyTorch versions on
+the CPU.
+
+``--kv-dtype int8`` stores the engine's KV pool as int8 pages with one
+f32 scale per token × KV head (the int8 CUDA kernels dequantize them in
+place); the lockstep path fake-quantizes its caches with the same
+rounding instead.
 
 ``--paged-backend`` selects the paged attention of BOTH phases (decode
 steps and prefill chunks): ``auto`` launches the CUDA kernels on the card
@@ -14,7 +25,7 @@ the CPU), ``dense`` the plain versions everywhere.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \\
       --layers 4 --softmax rexp --precision uint8 --batch 4 \\
-      --prompt-len 64 --new-tokens 32 --device cuda
+      --prompt-len 64 --new-tokens 32 --kv-dtype int8 --device cuda
 """
 
 from __future__ import annotations
@@ -31,9 +42,10 @@ from repro_torch.kernels.lut_attention.ops import (
     resolve_paged_backend, resolve_paged_prefill_backend)
 from repro_torch.models import build_model
 from repro_torch.models.convert import cast_params
-from repro_torch.runtime.engine import (EngineConfig, ServingEngine,
-                                        resolve_device)
-from repro_torch.runtime.paged_cache import PagedCacheConfig
+from repro_torch.models.model_zoo import resolve_device
+from repro_torch.runtime.engine import EngineConfig, ServingEngine
+from repro_torch.runtime.paged_cache import KV_DTYPES, PagedCacheConfig
+from repro_torch.runtime.serve_loop import generate
 
 
 def main(argv=None) -> None:
@@ -52,8 +64,13 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", default="continuous",
+                    choices=["continuous", "lockstep"])
     ap.add_argument("--paged-backend", default="auto",
                     choices=["auto", "cuda", "dense"])
+    ap.add_argument("--kv-dtype", default="f32", choices=list(KV_DTYPES),
+                    help="KV storage: int8 pages with f32 per-token × "
+                         "KV-head scales, or pages in the run dtype")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--n-pages", type=int, default=256)
     ap.add_argument("--prefill-chunk", type=int, default=16)
@@ -72,20 +89,43 @@ def main(argv=None) -> None:
     policy = (SoftmaxPolicy(impl=args.softmax, precision=args.precision)
               if args.softmax != "exact" else SoftmaxPolicy())
     run = RunConfig(dtype="bfloat16" if device.type == "cuda" else "float32",
-                    softmax_policy=policy, paged_backend=args.paged_backend)
+                    softmax_policy=policy, paged_backend=args.paged_backend,
+                    kv_dtype=args.kv_dtype)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen, device)
     if device.type == "cuda":
         params = cast_params(params, torch.bfloat16)
+    rng = np.random.default_rng(args.seed)
+    if args.engine == "lockstep":
+        prompt = torch.as_tensor(
+            rng.integers(0, arch.vocab_size, size=(args.batch,
+                                                   args.prompt_len)),
+            dtype=torch.int32, device=device)
+        t0 = time.time()
+        out = generate(model, params, prompt, run,
+                       max_new_tokens=args.new_tokens)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.time() - t0
+        toks = args.batch * args.new_tokens
+        print(f"{arch.name} x{arch.n_layers} layers on {device} "
+              f"policy={policy.impl}/{policy.precision} lockstep "
+              f"kv_dtype={args.kv_dtype}: {toks} tokens in {dt:.2f}s "
+              f"({toks / dt:.1f} tok/s)")
+        print("sample token ids:", out[0, :16].tolist())
+        return
     mp = -(-(args.prompt_len + args.new_tokens) // args.page_size)
     cache = PagedCacheConfig(n_pages=args.n_pages, page_size=args.page_size,
                              max_pages_per_seq=mp)
     eng = ServingEngine(model, params, run, EngineConfig(
         n_slots=args.batch, cache=cache, prefill_chunk=args.prefill_chunk),
         device=device)
+    tokens_in_pool = args.n_pages * args.page_size
+    print(f"kv_dtype={args.kv_dtype}: {eng.stats.pool_bytes_per_layer} KV "
+          f"pool bytes per layer, "
+          f"{eng.stats.pool_bytes_per_layer / tokens_in_pool:g} per token")
 
-    rng = np.random.default_rng(args.seed)
     handles = []
     for _ in range(args.batch):
         plen = max(1, int(rng.integers(args.prompt_len // 2,

@@ -38,3 +38,17 @@ def params_from_jax(tree, device="cpu", dtype: torch.dtype | None = None):
         lambda x, _: torch.from_numpy(np.array(x, copy=True)).to(device),
         tree)
     return params if dtype is None else cast_params(params, dtype)
+
+
+def pool_from_jax(pool, device="cpu") -> dict[str, torch.Tensor]:
+    """One layer's (or a periods-stacked) JAX paged pool → the same leaves
+    as tensors on ``device``, dtypes kept: an int8 pool keeps its int8
+    pages and f32 ``k_scales`` / ``v_scales``, so the port's kernels read
+    the very bytes the JAX package's kernels read."""
+    out = {name: torch.from_numpy(np.array(x, copy=True)).to(device)
+           for name, x in pool.items()}
+    if out["k_pages"].dtype == torch.int8:
+        for name in ("k_scales", "v_scales"):
+            if name not in out or out[name].dtype != torch.float32:
+                raise ValueError(f"an int8 pool needs float32 {name}")
+    return out

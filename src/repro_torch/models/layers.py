@@ -1,9 +1,10 @@
 """Core transformer layers over plain dicts of tensors.
 
-The counterpart of the JAX package's ``models/layers.py`` for the paged
-serving path: norms, RoPE, the q/k/v projections (with qk-norm and
-optional biases), the paged attention caches with their scatter-then-
-attend steps, the MLP, the embedding and the LM head.
+The counterpart of the JAX package's ``models/layers.py`` for the
+decoder-only serving paths: norms, RoPE, the q/k/v projections (with
+qk-norm and optional biases), the contiguous lockstep cache
+(:class:`AttnCache`) and the paged caches with their scatter-then-attend
+steps, the MLP, the embedding and the LM head.
 
 Conventions (those of the JAX package, so weights convert one to one):
   * params are dicts of tensors; weights are ``(in, out)`` and a
@@ -14,9 +15,17 @@ Conventions (those of the JAX package, so weights convert one to one):
   * attention logical shapes: q (B, H, L, Dh); pools
     (n_pages, page_size, KVH, Dh).
 
-Unlike the JAX package's functional updates, the paged steps write the
-new K/V into the pool tensors **in place** (``index_put_``): the pool is
-the largest serving buffer, and a copy per step would double it.
+Unlike the JAX package's functional updates, the attention steps write
+the new K/V into the cache or pool tensors **in place** (``index_put_``,
+slice assignment) and advance a contiguous cache's ``length`` in place:
+the KV storage is the largest serving buffer, and a copy per step would
+double it.
+
+An int8 page pool (``kv_dtype="int8"``) quantizes K/V at scatter time
+with ``core.quantization.quantize_rows``, one f32 scale per token × KV
+head; the lockstep path's contiguous cache instead fake-quantizes the
+same rows with ``fake_quant_rows`` (the same rounding), so both read the
+same values.
 """
 
 from __future__ import annotations
@@ -28,8 +37,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.policies import SoftmaxPolicy
-from repro_torch.kernels.lut_attention.ops import (lut_attention_paged_decode,
+from repro_torch.core.policies import EXACT, SoftmaxPolicy
+from repro_torch.core.quantization import fake_quant_rows, quantize_rows
+from repro_torch.kernels.lut_attention.ops import (lut_attention,
+                                                   lut_attention_paged_decode,
                                                    lut_attention_paged_prefill)
 
 Tensor = torch.Tensor
@@ -115,6 +126,23 @@ def init_attention(d_model: int, n_heads: int, n_kv_heads: int,
 
 
 @dataclasses.dataclass
+class AttnCache:
+    """Pre-allocated contiguous KV cache of the lockstep path; ``length``
+    is the write cursor shared by the whole batch (advanced in place)."""
+
+    k: Tensor    # (B, KVH, max_len, Dh)
+    v: Tensor
+    length: int = 0
+
+    @staticmethod
+    def zeros(b: int, kvh: int, max_len: int, dh: int, dtype,
+              device) -> "AttnCache":
+        return AttnCache(
+            k=torch.zeros((b, kvh, max_len, dh), dtype=dtype, device=device),
+            v=torch.zeros((b, kvh, max_len, dh), dtype=dtype, device=device))
+
+
+@dataclasses.dataclass
 class PagedAttnCache:
     """Paged KV storage for continuous-batching decode.
 
@@ -123,12 +151,17 @@ class PagedAttnCache:
     id, and ``lengths`` carries each slot's own write cursor.  Physical
     page 0 is the reserved **null page**: inactive slots map every
     logical page to it, so their garbage writes never touch live pages.
+
+    With ``kv_dtype='int8'`` the pages store int8 and ``k_scales`` /
+    ``v_scales`` (n_pages, page_size, KVH) f32 hold each row's scale.
     """
 
     k_pages: Tensor       # (n_pages, page_size, KVH, Dh)
     v_pages: Tensor
     block_tables: Tensor  # (B, max_pages_per_seq) int32 physical page ids
     lengths: Tensor       # (B,) int32 — tokens already cached per slot
+    k_scales: Tensor | None = None   # int8 pools only
+    v_scales: Tensor | None = None
 
     @property
     def page_size(self) -> int:
@@ -151,6 +184,8 @@ class PagedPrefillCache:
     block_tables: Tensor  # (B, max_pages_per_seq) int32
     lengths: Tensor       # (B,) int32 — tokens cached before this chunk
     chunk_lens: Tensor    # (B,) int32 — valid tokens entering this chunk
+    k_scales: Tensor | None = None   # int8 pools only
+    v_scales: Tensor | None = None
 
     @property
     def page_size(self) -> int:
@@ -178,6 +213,23 @@ def _project_qkv(p: Params, x: Tensor, n_heads: int, n_kv_heads: int,
         q = apply_rope(q, positions[:, None, :], rope_theta)
         k = apply_rope(k, positions[:, None, :], rope_theta)
     return q, k, v
+
+
+def _scatter(cache, phys: Tensor, offs: Tensor, k: Tensor,
+             v: Tensor) -> None:
+    """Write token rows k, v (..., KVH, Dh) into the pool at (page, offset)
+    pairs ``phys``, ``offs`` (...), in place.  An int8 pool quantizes each
+    (token, KV head) row with its own scale — appending a token never
+    requants its neighbours, so chunking and placement stay invisible."""
+    if cache.k_scales is None:
+        cache.k_pages[phys, offs] = k.to(cache.k_pages.dtype)
+        cache.v_pages[phys, offs] = v.to(cache.v_pages.dtype)
+        return
+    for pages, scales, x in ((cache.k_pages, cache.k_scales, k),
+                             (cache.v_pages, cache.v_scales, v)):
+        codes, sc = quantize_rows(x)
+        pages[phys, offs] = codes
+        scales[phys, offs] = sc
 
 
 def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
@@ -209,13 +261,12 @@ def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
     # padding rows (and anything past the block table) land on the null
     # page, which is garbage by definition — the write needs no branch
     phys = torch.where(valid, phys, torch.zeros_like(phys))
-    offs = pos % ps
-    cache.k_pages[phys, offs] = k.transpose(1, 2).to(cache.k_pages.dtype)
-    cache.v_pages[phys, offs] = v.transpose(1, 2).to(cache.v_pages.dtype)
+    _scatter(cache, phys, pos % ps, k.transpose(1, 2), v.transpose(1, 2))
     return lut_attention_paged_prefill(
         q, cache.k_pages, cache.v_pages, cache.block_tables,
         q_start=cache.lengths, kv_lens=cache.lengths + cache.chunk_lens,
-        policy=policy, backend=paged_backend)
+        policy=policy, backend=paged_backend, k_scales=cache.k_scales,
+        v_scales=cache.v_scales)
 
 
 def _paged_decode(p: Params, x: Tensor, cache: PagedAttnCache, *,
@@ -236,13 +287,13 @@ def _paged_decode(p: Params, x: Tensor, cache: PagedAttnCache, *,
     lengths = cache.lengths.long()
     phys = torch.gather(cache.block_tables.long(), 1,
                         (lengths // ps)[:, None])[:, 0]  # (B,)
-    offs = lengths % ps
-    cache.k_pages[phys, offs] = k[:, :, 0].to(cache.k_pages.dtype)
-    cache.v_pages[phys, offs] = v[:, :, 0].to(cache.v_pages.dtype)
+    _scatter(cache, phys, lengths % ps, k[:, :, 0], v[:, :, 0])
     return lut_attention_paged_decode(q, cache.k_pages, cache.v_pages,
                                       cache.block_tables,
                                       kv_lens=cache.lengths + 1,
-                                      policy=policy, backend=paged_backend)
+                                      policy=policy, backend=paged_backend,
+                                      k_scales=cache.k_scales,
+                                      v_scales=cache.v_scales)
 
 
 def apply_paged_attention(p: Params, x: Tensor,
@@ -270,6 +321,59 @@ def apply_paged_attention(p: Params, x: Tensor,
         out = _paged_decode(p, x, cache, **kw)
     else:
         raise TypeError(f"unsupported cache {type(cache).__name__}")
+    return _out_projection(p, x, out, b, l)
+
+
+def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
+                    head_dim: int, causal: bool = True,
+                    qk_norm: bool = False, norm_eps: float = 1e-5,
+                    rope_theta: float | None = 10000.0,
+                    policy: SoftmaxPolicy = EXACT,
+                    cache=None, paged_backend: str = "auto",
+                    kv_dtype: str = "f32") -> Tensor:
+    """Self-attention of ``x`` (B, L, D) with the policy's softmax;
+    returns (B, L, D).
+
+    Modes (as in the JAX package):
+      * no cache          — full sequence, causal;
+      * :class:`AttnCache` — lockstep prefill (L tokens at ``length``)
+        or decode (L = 1): writes K/V at [length, length + L) in place,
+        advances ``length``, attends to the valid prefix;
+      * a paged cache     — :func:`apply_paged_attention`.
+
+    ``kv_dtype="int8"`` fake-quantizes the K/V entering a contiguous
+    cache with the int8 pool's rounding (``fake_quant_rows``), the
+    lockstep view of the engine's int8 pool; paged caches carry real
+    scales instead and ignore it.
+    """
+    if isinstance(cache, (PagedAttnCache, PagedPrefillCache)):
+        return apply_paged_attention(
+            p, x, cache, n_heads=n_heads, n_kv_heads=n_kv_heads,
+            head_dim=head_dim, qk_norm=qk_norm, norm_eps=norm_eps,
+            rope_theta=rope_theta, policy=policy,
+            paged_backend=paged_backend)
+    if cache is not None and not isinstance(cache, AttnCache):
+        raise TypeError(f"unsupported cache {type(cache).__name__}")
+    b, l, _ = x.shape
+    base = cache.length if cache is not None else 0
+    positions = (base + torch.arange(l, dtype=torch.int32, device=x.device)
+                 )[None, :].expand(b, l)
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, qk_norm,
+                           norm_eps, rope_theta, positions)
+    kv_len = None
+    if cache is not None:
+        if kv_dtype == "int8":
+            k = fake_quant_rows(k).to(k.dtype)
+            v = fake_quant_rows(v).to(v.dtype)
+        end = cache.length + l
+        if end > cache.k.shape[2]:
+            raise ValueError(f"cache of {cache.k.shape[2]} positions cannot "
+                             f"take {l} more after {cache.length}")
+        cache.k[:, :, cache.length:end] = k.to(cache.k.dtype)
+        cache.v[:, :, cache.length:end] = v.to(cache.v.dtype)
+        cache.length = end
+        k, v, kv_len = cache.k, cache.v, end
+    out = lut_attention(q, k, v, policy, causal=causal, kv_len=kv_len)
     return _out_projection(p, x, out, b, l)
 
 

@@ -1,11 +1,19 @@
 """Decoder-only LM assembled from an ArchConfig's layer periods.
 
 The counterpart of the JAX package's ``models/transformer.py`` for the
-paged serving path, restricted to attention+MLP blocks (the dense archs
-in ``configs``).  Parameters keep the JAX package's tree: the period
-blocks are stacked on a leading ``n_periods`` axis, so
-``params_from_jax`` converts a JAX tree leaf by leaf.  The JAX package
-scans over the periods; here a Python loop walks them.
+serving paths, restricted to attention+MLP blocks (the dense archs in
+``configs``):
+
+  * ``prefill`` / ``decode_step`` — the lockstep path over contiguous
+    per-layer caches (:class:`layers.AttnCache`), ``run.softmax_policy``
+    in every attention;
+  * ``prefill_chunk_paged`` / ``decode_step_paged`` — the
+    continuous-batching engine's steps against the paged pools.
+
+Parameters keep the JAX package's tree: the period blocks are stacked on
+a leading ``n_periods`` axis, so ``params_from_jax`` converts a JAX tree
+leaf by leaf.  The JAX package scans over the periods; here a Python
+loop walks them.  Caches and pools are updated in place.
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ from repro_torch.runtime.paged_cache import pool_leaf_specs
 Tensor = torch.Tensor
 Params = dict[str, Any]
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "int8": torch.int8}
 
 
 def run_dtype(run: RunConfig) -> torch.dtype:
@@ -59,15 +68,21 @@ def init_block(cfg: ArchConfig, generator: torch.Generator,
     }
 
 
+def block_cache(cfg: ArchConfig, b: int, max_len: int, dtype,
+                device) -> L.AttnCache:
+    return L.AttnCache.zeros(b, cfg.n_kv_heads, max_len,
+                             cfg.resolved_head_dim, dtype, device)
+
+
 def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig, *,
                 policy: SoftmaxPolicy, cache) -> Tensor:
     h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
-    x = x + L.apply_paged_attention(
-        p["mixer"], h, cache, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, qk_norm=cfg.qk_norm,
+    x = x + L.apply_attention(
+        p["mixer"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, causal=True, qk_norm=cfg.qk_norm,
         norm_eps=cfg.norm_eps,
         rope_theta=cfg.rope_theta if cfg.rope else None, policy=policy,
-        paged_backend=run.paged_backend)
+        cache=cache, paged_backend=run.paged_backend, kv_dtype=run.kv_dtype)
     h2 = L.apply_norm(p["norm2"], x, cfg.norm_eps)
     return x + L.apply_mlp(p["ffn"], h2)
 
@@ -105,26 +120,39 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return p
 
 
-def init_paged_pools(cfg: ArchConfig, n_pages: int, page_size: int,
-                     dtype: torch.dtype, device):
-    """Per-layer paged KV pools, periods-stacked: one dict per period
-    spec, each leaf ``(n_periods, n_pages, page_size, KVH, Dh)``.  Page 0
-    of every pool is the reserved null page."""
+def init_caches(cfg: ArchConfig, b: int, max_len: int, dtype, device):
+    """Lockstep caches: ``caches[period][spec]``, one zeroed
+    :class:`layers.AttnCache` per layer."""
     check_paged_supported(cfg)
+    return [[block_cache(cfg, b, max_len, dtype, device) for _ in cfg.period]
+            for _ in range(cfg.n_periods)]
+
+
+def init_paged_pools(cfg: ArchConfig, n_pages: int, page_size: int,
+                     dtype: torch.dtype, device, kv_dtype: str = "f32"):
+    """Per-layer paged KV pools, periods-stacked: one dict per period
+    spec, each leaf ``(n_periods,) + spec shape``.  Every leaf takes its
+    own dtype from ``pool_leaf_specs``: ``dtype`` pages for an ``f32``
+    pool; int8 pages plus zeroed f32 ``k_scales`` / ``v_scales`` for
+    ``int8``.  Page 0 of every pool is the reserved null page."""
+    check_paged_supported(cfg)
+    page_dtype = {v: k for k, v in _DTYPES.items()}[dtype]
     specs = pool_leaf_specs(n_pages, page_size, cfg.n_kv_heads,
-                            cfg.resolved_head_dim)
+                            cfg.resolved_head_dim, kv_dtype=kv_dtype,
+                            page_dtype=page_dtype)
     return tuple(
-        {name: torch.zeros((cfg.n_periods,) + shape, dtype=dtype,
+        {name: torch.zeros((cfg.n_periods,) + shape, dtype=_DTYPES[dt],
                            device=device)
-         for name, (shape, _) in specs.items()}
+         for name, (shape, dt) in specs.items()}
         for _ in cfg.period)
 
 
 def _apply_stack(params: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
                  make_cache) -> Tensor:
     """Run every layer, periods outermost as the JAX package's scan does;
-    ``make_cache(spec_index, period_index)`` builds a layer's paged cache
-    over views of its pools (written in place)."""
+    ``make_cache(spec_index, period_index)`` gives a layer's cache (a
+    lockstep cache, or a paged cache over views of its pools), written
+    in place."""
     for pi in range(cfg.n_periods):
         for si in range(len(cfg.period)):
             pp = tree_map(lambda a, _, pi=pi: a[pi],
@@ -141,6 +169,36 @@ def _head(params: Params, cfg: ArchConfig, x: Tensor) -> Tensor:
     return L.apply_lm_head(params["head"], x)
 
 
+def prefill(params: Params, tokens: Tensor, cfg: ArchConfig, run: RunConfig,
+            max_len: int, logits: str = "all"):
+    """Fill fresh lockstep caches for the (B, S) prompt; returns
+    ``(logits, caches)``.  ``logits='last'`` applies the LM head to the
+    final position only."""
+    caches = init_caches(cfg, tokens.shape[0], max_len, run_dtype(run),
+                         tokens.device)
+    x = L.apply_embedding(params["embed"], tokens, run_dtype(run))
+    x = _apply_stack(params, x, cfg, run, lambda si, pi: caches[pi][si])
+    if logits == "last":
+        x = x[:, -1:]
+    return _head(params, cfg, x), caches
+
+
+def decode_step(params: Params, token: Tensor, caches, cfg: ArchConfig,
+                run: RunConfig):
+    """One lockstep decode step: token (B, 1) against the caches (updated
+    in place); returns ``(logits (B, 1, V), caches)``."""
+    x = L.apply_embedding(params["embed"], token, run_dtype(run))
+    x = _apply_stack(params, x, cfg, run, lambda si, pi: caches[pi][si])
+    return _head(params, cfg, x), caches
+
+
+def _pool_scales(pool, pi):
+    """The int8 pool's scale views of layer ``pi`` (None for f32)."""
+    if "k_scales" not in pool:
+        return {}
+    return dict(k_scales=pool["k_scales"][pi], v_scales=pool["v_scales"][pi])
+
+
 def decode_step_paged(params: Params, token: Tensor, pools, block_tables,
                       lengths, cfg: ArchConfig, run: RunConfig) -> Tensor:
     """One continuous-batching decode step against the paged pools.
@@ -155,7 +213,8 @@ def decode_step_paged(params: Params, token: Tensor, pools, block_tables,
         pool = pools[si]
         return L.PagedAttnCache(k_pages=pool["k_pages"][pi],
                                 v_pages=pool["v_pages"][pi],
-                                block_tables=block_tables, lengths=lengths)
+                                block_tables=block_tables, lengths=lengths,
+                                **_pool_scales(pool, pi))
 
     return _head(params, cfg, _apply_stack(params, x, cfg, run, make_cache))
 
@@ -180,7 +239,8 @@ def prefill_chunk_paged(params: Params, tokens: Tensor, pools, block_tables,
         return L.PagedPrefillCache(k_pages=pool["k_pages"][pi],
                                    v_pages=pool["v_pages"][pi],
                                    block_tables=block_tables,
-                                   lengths=cache_lens, chunk_lens=chunk_lens)
+                                   lengths=cache_lens, chunk_lens=chunk_lens,
+                                   **_pool_scales(pool, pi))
 
     x = _apply_stack(params, x, cfg, run, make_cache)
     last = torch.clamp(chunk_lens.long() - 1, min=0)

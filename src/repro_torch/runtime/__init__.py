@@ -1,3 +1,4 @@
 """Serving runtime: host page bookkeeping (``paged_cache``,
 ``prefix_cache``, ``scheduler`` — copies of the JAX package's modules)
-and the synchronous continuous-batching ``engine``."""
+the synchronous continuous-batching ``engine`` and the lockstep
+``serve_loop`` it is held to."""

@@ -29,15 +29,15 @@ import time
 from typing import Callable, Sequence as SeqOf
 
 import numpy as np
-import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.models.convert import tree_map
-from repro_torch.models.model_zoo import Model
+from repro_torch.models.model_zoo import Model, resolve_device
 from repro_torch.runtime.paged_cache import (KV_DTYPES, PagedCacheConfig,
                                              decode_view, prefill_chunk_view,
                                              view_arrays)
 from repro_torch.runtime.scheduler import Request, Scheduler, Sequence
+from repro_torch.runtime.serve_loop import sample_row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +49,8 @@ class EngineConfig:
     prefill_chunk: int = 16          # prompt tokens per chunk program
     prefill_budget: int | None = None  # tokens per step (None → chunk)
     prefix_cache: bool = False       # copy-on-write prompt-prefix sharing
-    #: KV page-pool storage: None inherits ``RunConfig.kv_dtype``; the
-    #: port has f32 pools only (int8 raises NotImplementedError).
+    #: KV page-pool storage: None inherits ``RunConfig.kv_dtype``; ``f32``
+    #: pages in the run dtype, or ``int8`` pages with f32 row scales
     kv_dtype: str | None = None
     mesh: object = None              # tensor parallelism: not ported yet
 
@@ -147,22 +147,13 @@ class EngineStats:
     max_decode_gap_s: float = 0.0
     wall_s: float = 0.0
     queue_depth_peak: int = 0    # max waiting-queue depth observed
+    pool_bytes_per_layer: int = 0  # KV pool bytes of one layer (pages
+                                   # plus, for int8, the scales)
 
     @property
     def tokens(self) -> int:
         """Generated (sampled) tokens: decode steps + first tokens."""
         return self.decode_tokens + self.first_tokens
-
-
-def resolve_device(device) -> torch.device:
-    """``cuda`` unless the caller asks for the CPU; a CUDA device that is
-    not there raises (the port never carries on on the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the card; pass device='cpu' "
-            "to run its plain PyTorch versions on the CPU")
-    return device
 
 
 class ServingEngine:
@@ -176,8 +167,10 @@ class ServingEngine:
         ``prefill_chunk`` and ``prefill_budget``, ``prefix_cache``).
       device: ``cuda`` (default) or ``cpu``.
 
-    Tensor parallelism (``config.mesh``) and int8 pools raise
-    ``NotImplementedError``.
+    ``kv_dtype="int8"`` (in ``config`` or ``run``) stores the pool as
+    int8 pages with f32 per-token × KV-head scales; K/V are quantized
+    once, at scatter time, and the paged kernels dequantize in place.
+    Tensor parallelism (``config.mesh``) raises ``NotImplementedError``.
     """
 
     def __init__(self, model: Model, params, run: RunConfig,
@@ -195,9 +188,6 @@ class ServingEngine:
         if run.kv_dtype not in KV_DTYPES:
             raise ValueError(f"unknown kv_dtype {run.kv_dtype!r}: expected "
                              f"one of {KV_DTYPES}")
-        if run.kv_dtype != "f32":
-            raise NotImplementedError(
-                f"kv_dtype {run.kv_dtype!r}: the port has f32 pools only")
         cache = config.cache
         # The integer Σ is accumulated in f32 (exact below 2^24), so rows
         # may carry at most max_lk = SIGMA_ACC_LIMIT // qmax keys.
@@ -227,7 +217,8 @@ class ServingEngine:
                                    prefix_cache=config.prefix_cache)
         self.pools = model.init_paged_pools(cache.n_pages, cache.page_size,
                                             run, self.device)
-        self.stats = EngineStats()
+        self.stats = EngineStats(pool_bytes_per_layer=sum(
+            leaf[0].nbytes for leaf in self.pools[0].values()))
         self._results: dict[int, GenerationResult] = {}
         self._seqs: dict[int, Sequence] = {}
         self._t_added: dict[int, float] = {}
@@ -311,8 +302,9 @@ class ServingEngine:
     def _run_pending_copies(self) -> None:
         """Execute the scheduler's queued copy-on-write page copies: each
         duplicates one physical page in every pool leaf (axis 0 is the
-        period stack, axis 1 the page id), bitwise, before any prefill
-        chunk of this step writes into the duplicate."""
+        period stack, axis 1 the page id) — an int8 page's scales with
+        it — bitwise, before any prefill chunk of this step writes into
+        the duplicate."""
         if not self.scheduler.pending_copies:
             return
         copies, self.scheduler.pending_copies = \
@@ -401,13 +393,8 @@ class ServingEngine:
 
     def _sample(self, seq: Sequence, logits_row: np.ndarray) -> int:
         req = seq.request
-        if req.temperature <= 0.0:
-            return int(np.argmax(logits_row))
-        gen = torch.Generator().manual_seed(
-            (req.seed * 1_000_003 + len(seq.generated)) % (1 << 63))
-        probs = torch.softmax(torch.as_tensor(logits_row, dtype=torch.float64)
-                              / req.temperature, dim=-1)
-        return int(torch.multinomial(probs, 1, generator=gen))
+        return sample_row(logits_row, req.temperature, req.seed,
+                          len(seq.generated))
 
     def _record(self, seq: Sequence) -> GenerationResult:
         rid = seq.request.id

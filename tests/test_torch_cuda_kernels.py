@@ -7,7 +7,9 @@ JAX package).  On the card: ``pytest -m gpu tests/test_torch_cuda_kernels.py``.
 Inputs are exact-logit (q, k small integers × 2^-2), so every dot order
 gives the same logits and the integer LUT pipeline must agree exactly:
 outputs within 2e-6 at every precision, both bin modes, GQA 1/4, odd
-head dims, ragged lengths and partial chunks.
+head dims, ragged lengths and partial chunks.  The int8-pool kernels get
+exact-dequant inputs: codes in [−4, 4] and power-of-two scales, so every
+dequantized value and every dot is exact too.
 """
 
 import numpy as np
@@ -15,6 +17,8 @@ import pytest
 import torch
 
 from repro_torch.core.policies import SoftmaxPolicy
+from repro_torch.core.precision import get_precision
+from repro_torch.core.quantization import quantize_rows
 from repro_torch.kernels.lut_attention import ops
 from repro_torch.kernels.lut_attention.paged_decode import (
     paged_decode_attention, paged_decode_plain)
@@ -131,3 +135,220 @@ def test_dispatch_on_cuda(cuda):
     with pytest.raises(TypeError):
         paged_decode_attention(q.half(), kp.half(), vp.half(), bt, kl, pol)
     assert paged_decode_attention.launches == n + 2
+
+
+def _int8_problem(seed, *, kv_lens, g, c, q_start, dtype, kvh=2, dh=128,
+                  ps=16, mp=6, exact=True, scale_exps=(-3, -1)):
+    """An int8 pool with f32 row scales: exact-dequant or quantized normal
+    rows; junk codes and NaN / inf scales in the null page, which every
+    block table reads past its length.
+
+    Exact-dequant: codes in [−4, 4] and power-of-two scales 2^e for e in
+    ``scale_exps`` (inclusive), by default 2^−3 … 2^−1, so |k|, |v| ≤ 2
+    and the problem is conditioned like the float pools' exact-logit one
+    (wider scales pile the exact policy's weights onto few large |v| and
+    its f32 σ·V roundoff grows in any summation order: see
+    :func:`test_int8_kernels_on_wide_scale_exact_dequant`).
+    """
+    rng = np.random.default_rng(seed)
+    b = len(kv_lens)
+    n_pages = 1 + b * mp
+    q = rng.integers(-4, 5, size=(b, kvh * g, c, dh)) * 0.25
+    pools = []
+    for _ in range(2):
+        if exact:
+            codes = torch.from_numpy(rng.integers(
+                -4, 5, size=(n_pages, ps, kvh, dh)).astype(np.int8))
+            scales = torch.from_numpy(2.0 ** rng.integers(
+                scale_exps[0], scale_exps[1] + 1,
+                size=(n_pages, ps, kvh)).astype(np.float32))
+        else:
+            codes, scales = quantize_rows(torch.from_numpy(
+                rng.normal(size=(n_pages, ps, kvh, dh)).astype(np.float32)))
+        codes[0], scales[0] = 127, float("nan")
+        scales[0, 0] = float("inf")
+        pools += [codes.cuda(), scales.cuda()]
+    phys = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((b, mp), np.int32)
+    for i, kl in enumerate(kv_lens):
+        n_owned = -(-int(kl) // ps)
+        bt[i, :n_owned] = phys[i * mp:i * mp + n_owned]
+
+    def t(x, dt):
+        return torch.as_tensor(np.asarray(x), device="cuda").to(dt)
+
+    kp, ks, vp, vs = pools
+    return (t(q, dtype), kp, vp, t(bt, torch.int32),
+            t(q_start, torch.int32), t(kv_lens, torch.int32),
+            dict(k_scales=ks, v_scales=vs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,dh", [(1, 128), (4, 64), (2, 40)])
+def test_int8_decode_kernel_matches_plain(cuda, dtype, g, dh):
+    kv = (96, 33, 1, 0)
+    q, kp, vp, bt, _, kl, sc = _int8_problem(
+        20 + g, kv_lens=kv, g=g, c=1, dh=dh, q_start=[k - 1 for k in kv],
+        dtype=dtype)
+    args = (q, kp, vp, bt, kl)
+    errs = {}
+    for pol in POLICIES:
+        before = (paged_decode_attention.launches,
+                  paged_decode_attention.int8_launches)
+        out = paged_decode_attention(*args, pol, **sc)
+        assert (paged_decode_attention.launches,
+                paged_decode_attention.int8_launches) == (before[0],
+                                                          before[1] + 1)
+        ref = paged_decode_plain(*args, pol, **sc)
+        assert torch.isfinite(out).all()
+        errs[pol] = float((out - ref).abs().max())
+    assert max(errs.values()) <= TOL, errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,c,dh", [(1, 16, 128), (4, 5, 64), (2, 1, 40)])
+def test_int8_prefill_kernel_matches_plain(cuda, dtype, g, c, dh):
+    q_start = (0, 17, 80)
+    chunk = (c, max(1, c - 3), c)
+    kv = tuple(s + n for s, n in zip(q_start, chunk))
+    q, kp, vp, bt, qs, kl, sc = _int8_problem(
+        30 + g, kv_lens=kv, g=g, c=c, dh=dh, q_start=q_start, dtype=dtype)
+    args = (q, kp, vp, bt, qs, kl)
+    errs = {}
+    for pol in POLICIES:
+        before = paged_prefill_attention.int8_launches
+        out = paged_prefill_attention(*args, pol, **sc)
+        assert paged_prefill_attention.int8_launches == before + 1
+        ref = paged_prefill_plain(*args, pol, **sc)
+        assert torch.isfinite(out).all()
+        errs[pol] = float((out - ref).abs().max())
+    assert max(errs.values()) <= TOL, errs
+
+
+def _exact_f64(q, kp, vp, bt, q_start, kv_lens, k_scales, v_scales):
+    """Exact-softmax paged attention on the host, for the valid rows (row
+    r of slot b below kv_len − q_start; others 0): the f32 logits both
+    versions form (dots exact on these inputs, times the scale in f32),
+    then the softmax and σ·V in f64."""
+    q, bt = q.double().cpu(), bt.long().cpu()
+    k = (kp.double() * k_scales.double()[..., None]).cpu()
+    v = (vp.double() * v_scales.double()[..., None]).cpu()
+    b, h, _, dh = q.shape
+    ps, kvh = k.shape[1], k.shape[2]
+    out = torch.zeros(q.shape, dtype=torch.float64)
+    for i in range(b):
+        n, s = int(kv_lens[i]), int(q_start[i])
+        pages = bt[i, :-(-n // ps)]
+        ki, vi = (x[pages].reshape(-1, kvh, dh)[:n].repeat_interleave(
+            h // kvh, dim=1) for x in (k, v))
+        logits = (torch.einsum("hrd,nhd->hrn", q[i, :, :n - s], ki)
+                  .float() * dh ** -0.5).double()
+        later = (torch.arange(n)[None, :]
+                 > s + torch.arange(n - s)[:, None])
+        out[i, :, :n - s] = torch.einsum(
+            "hrn,nhd->hrd", logits.masked_fill(later, float("-inf"))
+            .softmax(-1), vi)
+    return out
+
+
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+def test_int8_kernels_on_wide_scale_exact_dequant(cuda, phase):
+    """Exact-dequant inputs with K/V scales up to 2^1 (|k|, |v| ≤ 8) at
+    Qwen3-32B width (64/8 heads, Dh 128).  The logits span about ±14 and
+    the exact policy's weights pile onto few keys of large |v|: its f32
+    σ·V sum sits near max|v| while hundreds of small terms are added,
+    each rounding by up to half an ulp of it, in any order.  The kernel
+    and the plain version are each within 16 ulp of max|v| of the same
+    f32 logits carried on in f64, and of each other: twice the 8.4 ulp
+    that 2e-6 is at the narrow range's max|v| = 2, as the plain version
+    itself comes to 8.2 ulp here on an H100.  The LUT policies pile
+    their weights alike and are held to the same limit against the plain
+    version (their bins are held at 2e-6 on the narrow range)."""
+    if phase == "decode":
+        kv, c, mp = (512, 301, 77, 1), 1, 32
+        q_start = [k - 1 for k in kv]
+    else:
+        kv, c, mp, q_start = (300,), 16, 19, (288,)
+    q, kp, vp, bt, qs, kl, sc = _int8_problem(
+        40, kv_lens=kv, g=8, kvh=8, c=c, q_start=q_start, mp=mp,
+        dtype=torch.bfloat16, scale_exps=(-3, 1))
+    args = (q, kp, vp, bt, kl) if phase == "decode" else \
+        (q, kp, vp, bt, qs, kl)
+    kernel, plain = ((paged_decode_attention, paged_decode_plain)
+                     if phase == "decode" else
+                     (paged_prefill_attention, paged_prefill_plain))
+    rows = min(k - s for k, s in zip(kv, q_start))   # valid in every slot
+    out = kernel(*args, SoftmaxPolicy(), **sc)[:, :, :rows].double().cpu()
+    ref = plain(*args, SoftmaxPolicy(), **sc)[:, :, :rows].double().cpu()
+    f64 = _exact_f64(q, kp, vp, bt, qs, kl, **sc)[:, :, :rows]
+    vmax = max(float((vp[p].double() * sc["v_scales"][p].double()[..., None]
+                      ).abs().max()) for p in bt[bt > 0].unique().tolist())
+    limit = 16 * torch.finfo(torch.float32).eps * vmax
+    dist = {"kernel-f64": float((out - f64).abs().max()),
+            "plain-f64": float((ref - f64).abs().max()),
+            "kernel-plain": float((out - ref).abs().max())}
+    print(f"{phase}: max|v| {vmax}, limit {limit:.3e}, " + ", ".join(
+        f"{k} {v:.3e}" for k, v in dist.items()))
+    assert max(dist.values()) <= limit, dist
+    errs = {pol: float((kernel(*args, pol, **sc) - plain(*args, pol, **sc))
+                       .abs().max()) for pol in POLICIES[1:]}
+    print(f"{phase}: LUT policies kernel-plain {max(errs.values()):.3e}")
+    assert max(errs.values()) <= limit, errs
+
+
+@pytest.mark.parametrize("impl", ["exact", "rexp", "lut2d"])
+def test_int8_kernels_on_quantized_random_rows(cuda, impl):
+    """Random rows through ``quantize_rows``: within one LUT step of the
+    plain version (the dot orders differ, so a logit on a bin edge may
+    land in the neighbouring bin); 1e-4 · max|v| for exact."""
+    pol = (SoftmaxPolicy(impl=impl, precision="uint8") if impl != "exact"
+           else SoftmaxPolicy())
+    kv = (200, 77, 16)
+    q, kp, vp, bt, qs, kl, sc = _int8_problem(
+        7, kv_lens=kv, g=4, c=8, q_start=[k - 8 for k in kv],
+        dtype=torch.bfloat16, mp=14, exact=False)
+    q = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(0),
+                    device="cuda").to(torch.bfloat16)
+    vmax = float((vp.float() * sc["v_scales"][..., None]).nan_to_num(
+        0, 0, 0)[1:].abs().max())
+    limit = (2.0 / get_precision("uint8").qmax if impl != "exact"
+             else 1e-4) * vmax
+    for kernel, plain, args in (
+            (paged_decode_attention, paged_decode_plain,
+             (q[:, :, :1], kp, vp, bt, kl)),
+            (paged_prefill_attention, paged_prefill_plain,
+             (q, kp, vp, bt, qs, kl))):
+        out = kernel(*args, pol, **sc)
+        ref = plain(*args, pol, **sc)
+        assert float((out - ref).abs().max()) <= limit
+
+
+def test_int8_inputs_the_kernels_do_not_take_raise(cuda):
+    """Head dims off the kernels' grid, scales of the wrong type, shape or
+    device, a lone scale pool and a float pool with scales all raise
+    before any launch."""
+    pol = SoftmaxPolicy(impl="rexp", precision="uint8")
+    for dh in (36, 264):
+        q, kp, vp, bt, _, kl, sc = _int8_problem(
+            1, kv_lens=(20, 3), g=2, c=1, dh=dh, q_start=(19, 2),
+            dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="Dh"):
+            paged_decode_attention(q, kp, vp, bt, kl, pol, **sc)
+    q, kp, vp, bt, qs, kl, sc = _int8_problem(
+        2, kv_lens=(20, 3), g=2, c=4, q_start=(16, 0), dtype=torch.float32)
+    n = (paged_decode_attention.int8_launches,
+         paged_prefill_attention.int8_launches)
+    bad = [dict(sc, k_scales=sc["k_scales"].double()),
+           dict(sc, v_scales=sc["v_scales"][:, :, :1]),
+           dict(sc, k_scales=sc["k_scales"].cpu()),
+           dict(k_scales=sc["k_scales"])]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            paged_prefill_attention(q, kp, vp, bt, qs, kl, pol, **kw)
+    with pytest.raises(ValueError):
+        paged_prefill_attention(q, kp.float(), vp.float(), bt, qs, kl, pol,
+                                **sc)
+    with pytest.raises(ValueError):
+        paged_decode_attention(q[:, :, :1], kp, vp, bt, kl, pol)
+    assert (paged_decode_attention.int8_launches,
+            paged_prefill_attention.int8_launches) == n

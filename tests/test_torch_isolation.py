@@ -35,6 +35,15 @@ def test_no_jax_or_repro_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_scan_covers_the_quantized_and_lockstep_modules():
+    """The scan above walks every module of the package, the int8 and
+    lockstep ones included."""
+    scanned = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"core/quantization.py", "kernels/lut_attention/ref.py",
+            "runtime/serve_loop.py", "kernels/lut_attention/ops.py",
+            "models/layers.py", "launch/serve.py"} <= scanned
+
+
 def test_package_imports_with_jax_and_repro_blocked():
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)

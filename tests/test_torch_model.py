@@ -89,7 +89,7 @@ def test_params_from_jax_covers_every_leaf_once(models):
     wq_j = np.asarray(jp["periods"][0]["mixer"]["wq"])
     np.testing.assert_array_equal(tp["periods"][0]["mixer"]["wq"].numpy(),
                                   wq_j)
-    own = tm.init(torch.Generator().manual_seed(0))
+    own = tm.init(torch.Generator().manual_seed(0), device="cpu")
     assert sorted(_paths(own), key=str) == sorted(jleaves, key=str)
     bf = cast_params(tp, torch.bfloat16)
     assert bf["periods"][0]["mixer"]["wq"].dtype == torch.bfloat16
@@ -229,8 +229,8 @@ def test_engine_refuses_what_is_not_ported(models):
     with pytest.raises(NotImplementedError, match="mesh"):
         TEngine(tm, tp, trun, TEngineConfig(cache=cache, mesh=object()),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        TEngine(tm, tp, trun, TEngineConfig(cache=cache, kv_dtype="int8"),
+    with pytest.raises(ValueError, match="kv_dtype"):
+        TEngine(tm, tp, trun, TEngineConfig(cache=cache, kv_dtype="int4"),
                 device="cpu")
     with pytest.raises(ValueError, match="max_lk"):
         TEngine(tm, tp, dataclasses.replace(
@@ -240,3 +240,5 @@ def test_engine_refuses_what_is_not_ported(models):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TEngine(tm, tp, trun, TEngineConfig(cache=cache))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tm.init(torch.Generator().manual_seed(0))
