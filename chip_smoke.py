@@ -7,8 +7,9 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
 
 1. device and build — needs ``torch.cuda.is_available()``; prints the
    card's name and power limit, then builds every CUDA kernel of the
-   serving path from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
-   all at once) and prints the build seconds and ptxas's report;
+   serving paths from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
+   all at once: paged decode, paged prefill, dense LUT attention) and
+   prints the build seconds and ptxas's report;
 2. kernel against plain version — each paged kernel × {exact,
    rexp-uint8, lut2d-uint8} at Qwen3-32B width (H=64, KVH=8, Dh=128,
    page_size=16, ragged kv_lens up to 512, permuted block tables, finite
@@ -51,10 +52,34 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    engine's own inputs (one LUT step); under the exact policy the int8
    engine's first-token logits against int8 lockstep
    (``serve_loop.generate``, each request alone at B = 1 over
-   contiguous fake-quantized caches) within 2%.
+   contiguous fake-quantized caches, on the plain attention:
+   ``attention_backend="naive"``) within 2%;
+6. the dense LUT-attention kernel against its plain version, in its
+   three modes (REXP's fused α form, REXP's and 2D-LUT's faithful σ),
+   q/k/v in f32 and bf16, at Whisper-small's shapes: the encoder
+   (B=2, 12 heads, Lq=Lk=1500, Dh=64), cross-attention (Lq 1 and 8
+   against 1500 keys), the cached decoder self-attention (causal, 64
+   positions allocated, kv_len 40, Lq 1 and 8), GQA at H=8, KVH=2,
+   Dh=128, and Qwen3-32B's lockstep (H=64, KVH=8, Dh=128, causal, a
+   300-token prompt and a decode step into 332 allocated positions);
+   exact-logit inputs within 2e-6, random ones within one LUT step;
+   then the encoder call at B=4 timed (L2 flushed, median of 20) beside
+   its plain version and exact SDPA, with its bound (f32 q·kᵀ at the
+   CUDA cores' 67 TFLOP/s beside bf16 σ·V at the tensor cores' 989, or
+   the bytes at 3.35 TB/s);
+7. Whisper-small at full depth and width (12 + 12 layers), seeded
+   random bf16 weights with non-zero biases, REXP uint8,
+   ``attention_backend="auto"``: 4 clips of 1500 seeded random frames,
+   one seeded 4–12-token prompt length, 32 greedy new tokens each
+   through ``serve_loop.generate``; tok/s, the encode time and the mean
+   decode step; exactly 12 + 24 · 32 = 780 dense launches (396 fused,
+   384 faithful); the same drive with every dense call held to its
+   plain version on its own inputs (one LUT step); the ``naive`` drive's
+   first-token logits within 2% of the largest under exact and REXP;
+   one profiled drive.
 
 The line before the last is the card's name and power limit, the one
-before it a JSON summary of the four kernels; the last line is
+before it a JSON summary of the five kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -74,18 +99,23 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import ARCHS, RunConfig  # noqa: E402
+from repro_torch.core import lut_softmax as LUT  # noqa: E402
 from repro_torch.core.policies import SoftmaxPolicy  # noqa: E402
 from repro_torch.core.precision import get_precision  # noqa: E402
 from repro_torch.core.quantization import quantize_rows  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.lut_attention import ops  # noqa: E402
+from repro_torch.kernels.lut_attention import ref as REF  # noqa: E402
+from repro_torch.kernels.lut_attention.lut_attention import (  # noqa: E402
+    MODES, lut_attention_cuda, lut_attention_plain)
 from repro_torch.kernels.lut_attention.paged_decode import (  # noqa: E402
     paged_decode_attention, paged_decode_plain)
 from repro_torch.kernels.lut_attention.paged_prefill import (  # noqa: E402
     paged_prefill_attention, paged_prefill_plain)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import layers as LAYERS  # noqa: E402
-from repro_torch.models.convert import cast_params  # noqa: E402
+from repro_torch.models import encdec as ENCDEC  # noqa: E402
+from repro_torch.models.convert import cast_params, tree_map  # noqa: E402
 from repro_torch.runtime.engine import (EngineConfig,  # noqa: E402
                                         ServingEngine)
 from repro_torch.runtime.paged_cache import PagedCacheConfig  # noqa: E402
@@ -493,6 +523,20 @@ def run_engine(model, params, policy, backend, requests, shadow=None,
     return results, first_logits, launches, wall, eng.stats
 
 
+def profiler_runs() -> bool:
+    """Can torch.profiler trace this card at all?  Prints "not measured"
+    when it cannot."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+    except (RuntimeError, AssertionError) as err:
+        print(f"[profile] the profiler did not run ({err}): not measured")
+        return False
+    return True
+
+
 def profile_drive(model, params, requests, kv_dtype="f32"):
     """Where the main path's device time goes: torch.profiler's kernel
     times over one drive, grouped, and the device's busy share of the
@@ -500,12 +544,7 @@ def profile_drive(model, params, requests, kv_dtype="f32"):
     so the share is a lower bound).  Prints "not measured" when the
     profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
-    try:  # can the profiler trace this card at all?
-        with profile(activities=[ProfilerActivity.CUDA]):
-            torch.ones(1, device="cuda").add_(1)
-            torch.cuda.synchronize()
-    except (RuntimeError, AssertionError) as err:
-        print(f"[profile] the profiler did not run ({err}): not measured")
+    if not profiler_runs():
         return
     prof = profile(activities=[ProfilerActivity.CUDA])
     wall = run_engine(model, params, POLICIES[MAIN_POLICY], "auto",
@@ -631,7 +670,8 @@ def lockstep_first_logits(model, params, policy, requests):
     through ``serve_loop`` over contiguous caches fake-quantized with
     the int8 pool's rounding; ``generate``'s token must be their
     argmax."""
-    run = RunConfig(dtype="bfloat16", softmax_policy=policy, kv_dtype="int8")
+    run = RunConfig(dtype="bfloat16", softmax_policy=policy, kv_dtype="int8",
+                    attention_backend="naive")
     out = {}
     for rid, (prompt, _) in enumerate(requests):
         tokens = torch.tensor([prompt], dtype=torch.int32, device="cuda")
@@ -698,6 +738,378 @@ def phase_int8_engine(model, params, requests, bf16_stats):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: the dense LUT-attention kernel and Whisper-small
+# ---------------------------------------------------------------------------
+
+#: the dense kernel's modes: mode → (policy, fused_requant)
+DENSE_MODES = {
+    "rexp_fused": (POLICIES["rexp-uint8"], True),
+    "rexp": (POLICIES["rexp-uint8"], False),
+    "lut2d": (POLICIES["lut2d-uint8"], False),
+}
+#: Whisper-small's attention: 12 heads of 64, 1500 encoder frames
+W_H, W_DH, W_LENC = 12, 64, 1500
+#: (name, B, H, KVH, Lq, Lk, Dh, causal, kv_len) — the main path's shapes
+DENSE_CASES = [
+    ("encoder", 2, W_H, W_H, W_LENC, W_LENC, W_DH, False, None),
+    ("cross decode", 4, W_H, W_H, 1, W_LENC, W_DH, False, None),
+    ("cross prefill", 4, W_H, W_H, 8, W_LENC, W_DH, False, None),
+    ("self decode", 4, W_H, W_H, 1, 64, W_DH, True, 40),
+    ("self prefill", 4, W_H, W_H, 8, 64, W_DH, True, 40),
+    ("gqa", 2, 8, 2, 256, 256, 128, True, None),
+    # Qwen3-32B's lockstep (``launch/serve.py --engine lockstep``): GQA 8,
+    # Dh 128, a prompt-length chunk and a decode step into a cache
+    # allocated for the prompt and 32 new tokens
+    ("qwen3 lockstep prefill", 2, 64, 8, 300, 332, 128, True, 300),
+    ("qwen3 lockstep decode", 4, 64, 8, 1, 332, 128, True, 301),
+]
+W_BATCH, W_NEW = 4, 32
+
+
+def dense_problem(rng, b, h, kvh, lq, lk, dh, dtype, exact_logits):
+    """Contiguous q (B, H, Lq, Dh), k / v (B, KVH, Lk, Dh): exact-logit
+    q, k (small integers × 2^-2; Dh 64's scale 1/8 is a power of two) or
+    normal rows."""
+    if exact_logits:
+        q = rng.integers(-4, 5, size=(b, h, lq, dh)) * 0.25
+        k = rng.integers(-4, 5, size=(b, kvh, lk, dh)) * 0.25
+    else:
+        q = rng.normal(size=(b, h, lq, dh))
+        k = rng.normal(size=(b, kvh, lk, dh))
+    v = rng.normal(size=(b, kvh, lk, dh))
+    return [torch.as_tensor(x, device="cuda").to(dtype) for x in (q, k, v)]
+
+
+def dense_call(fn, mode, q, k, v, causal, kv_len):
+    pol, fused = DENSE_MODES[mode]
+    return fn(q, k, v, ops._tables_for(pol), method=pol.impl, causal=causal,
+              index_mode=pol.index_mode, fused_requant=fused, kv_len=kv_len)
+
+
+def dense_f64(mode, q, k, v, causal, kv_len):
+    """The plain version's own f32 logits and integer LUT pipeline, with
+    the final σ·V (REXP fused: Σ e·v, then the f32 α factor) carried in
+    f64: the referee that tells the kernel's f32 σ·V roundoff from the
+    plain version's."""
+    pol, fused = DENSE_MODES[mode]
+    tables = ops._tables_for(pol)
+    s = REF._logits(q, k, q.shape[-1] ** -0.5, causal, kv_len)
+    vx = v.double().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    if fused:
+        inv = LUT.inv_scale(tables.precision.qmax)
+        e = LUT.rexp_exp_int(s, tables, axis=-1, index_mode=pol.index_mode)
+        ja = LUT.rexp_alpha_index(e.float().sum(-1, keepdim=True), tables,
+                                  pol.index_mode)
+        alpha = torch.as_tensor(tables.lut_alpha, dtype=torch.int32,
+                                device=q.device)[ja]
+        return (torch.matmul(e.double(), vx)
+                * (alpha.float() * inv * inv).double())
+    soft = LUT.softmax_rexp if pol.impl == "rexp" else LUT.softmax_lut2d
+    return torch.matmul(soft(s, tables, axis=-1,
+                             index_mode=pol.index_mode).double(), vx)
+
+
+def dense_bound(b, h, kvh, lq, lk, dh, dtype, pairs):
+    """Least time for the dense call: q, k, v read once and the f32 output
+    written once over 3.35 TB/s, against the operations over the visible
+    (row, key) pairs of every (sequence, head), each at the peak of the
+    unit its types allow.  q·kᵀ feeds the bins, so it needs IEEE f32 on
+    the CUDA cores (67 TFLOP/s) whatever the input type; σ·V weights are
+    integers ≤ qmax, which bf16 holds exactly, so with bf16 V it may run
+    on the tensor cores (989 TFLOP/s), with f32 V on the CUDA cores.  Work
+    on one unit adds up; the two units may overlap, so the operations'
+    time is the busier unit's."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (b * h * lq * dh * esize + 2 * b * kvh * lk * dh * esize
+              + b * h * lq * dh * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    flops = 2 * b * h * dh * pairs                   # one of q·kᵀ and σ·V
+    per_unit = {PEAK_OPS[torch.float32]: flops}
+    per_unit[PEAK_OPS[dtype]] = per_unit.get(PEAK_OPS[dtype], 0) + flops
+    t_ops = max(n / peak for peak, n in per_unit.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_dense_kernel():
+    """Phase 6: the dense kernel against its plain version at the main
+    path's shapes, every mode, f32 and bf16, exact-logit (2e-6) and
+    random (one LUT step) inputs; then the encoder call at B = 4 timed
+    beside its plain version and exact SDPA."""
+    rng = np.random.default_rng(6)
+    worst_exact = 0.0
+    failures = []
+    qmax = get_precision("uint8").qmax
+    for name, b, h, kvh, lq, lk, dh, causal, kv_len in DENSE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for exact_logits in (True, False):
+                q, k, v = dense_problem(rng, b, h, kvh, lq, lk, dh, dtype,
+                                        exact_logits)
+                for mode in MODES:
+                    out = dense_call(lut_attention_cuda, mode, q, k, v,
+                                     causal, kv_len)
+                    ref = dense_call(lut_attention_plain, mode, q, k, v,
+                                     causal, kv_len)
+                    torch.cuda.synchronize()
+                    err = (out - ref).abs()
+                    max_err = float(err.max())
+                    tag = (f"[dense] {name} {mode} {str(dtype)[6:]} B={b} "
+                           f"H={h}/{kvh} Lq={lq} Lk={lk} kv_len={kv_len} "
+                           f"{'exact-logit' if exact_logits else 'random'}")
+                    share = float((err.amax(dim=-1) > 1e-4).float().mean())
+                    if exact_logits:
+                        # same f32 logits, so the same bins: what is left
+                        # is each side's f32 σ·V roundoff, which the f64
+                        # evaluation of the plain version's σ referees
+                        worst_exact = max(worst_exact, max_err)
+                        f64 = dense_f64(mode, q, k, v, causal, kv_len)
+                        k_err = float((out.double() - f64).abs().max())
+                        p_err = float((ref.double() - f64).abs().max())
+                        print(f"{tag}: max|err| {max_err:.3g}; kernel – f64 "
+                              f"{k_err:.3g} (limit {EXACT_TOL}), plain – f64 "
+                              f"{p_err:.3g}")
+                        if not k_err <= EXACT_TOL:
+                            failures.append(f"{tag}: kernel – f64 {k_err} > "
+                                            f"{EXACT_TOL}")
+                        continue
+                    limit = 2.0 / qmax * float(v.float().abs().max())
+                    print(f"{tag}: max|err| {max_err:.3g} (limit "
+                          f"{limit:.3g}), rows beyond 1e-4: {share:.4%}")
+                    if not max_err <= limit:
+                        failures.append(f"{tag}: {max_err} > {limit}")
+    if failures:
+        raise AssertionError("dense kernel off its plain version:\n"
+                             + "\n".join(failures))
+
+    b, h, lq, lk, dh = W_BATCH, W_H, W_LENC, W_LENC, W_DH
+    q, k, v = dense_problem(rng, b, h, h, lq, lk, dh, torch.bfloat16, False)
+    b_ms, b_by = dense_bound(b, h, h, lq, lk, dh, torch.bfloat16, lq * lk)
+    rows = {}
+    for mode in MODES:
+        ms = device_ms(lambda: dense_call(lut_attention_cuda, mode, q, k, v,
+                                          False, None))
+        plain_ms = device_ms(lambda: dense_call(lut_attention_plain, mode, q,
+                                                k, v, False, None))
+        rows[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None)
+        print(f"[time] lut_attention {mode} bf16 encoder B={b} H={h} "
+              f"Lq=Lk={lq} Dh={dh}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / ms:.1%} of bound")
+    sdpa = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v))
+    print(f"[time] exact SDPA bf16 at the same shape (the library yardstick; "
+          f"REXP has no library call): {sdpa:.4f} ms")
+    return dict(max_abs_err=worst_exact, **rows["rexp_fused"])
+
+
+def setup_whisper():
+    """Whisper-small at full depth and width (12 + 12 layers, d_model 768,
+    12 heads, vocab 51865), seeded random bf16 weights with every bias —
+    attention and LayerNorm — seeded non-zero; 4 clips of 1500 seeded
+    random stub frames and one seeded prompt of 4–12 tokens each."""
+    arch = ARCHS["whisper-small"]
+    model = build_model(arch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def bias(t, name):
+        if name not in ("bq", "bk", "bv", "bo", "bias"):
+            return t
+        return torch.randn(t.shape, generator=gen, device="cuda") * 0.2
+
+    params = cast_params(tree_map(bias, model.init(gen, "cuda")),
+                         torch.bfloat16)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(4)
+    frames = torch.as_tensor(rng.standard_normal(
+        (W_BATCH, arch.encoder_seq, arch.d_model), dtype=np.float32),
+        device="cuda")
+    plen = int(rng.integers(4, 13))
+    prompt = torch.as_tensor(rng.integers(0, arch.vocab_size,
+                                          size=(W_BATCH, plen)),
+                             dtype=torch.int32, device="cuda")
+    print(f"[whisper] {arch.name}: {arch.encoder_layers} + {arch.n_layers} "
+          f"layers, d_model {arch.d_model}, heads {arch.n_heads}, d_ff "
+          f"{arch.d_ff}, vocab {arch.vocab_size}: "
+          f"{arch.param_count() / 1e6:.0f}M params bf16, non-zero biases, "
+          f"init {time.perf_counter() - t0:.1f}s; {W_BATCH} clips of "
+          f"{arch.encoder_seq} frames, prompts of {plen} tokens, {W_NEW} new "
+          f"tokens each")
+    return model, params, frames, prompt
+
+
+def whisper_run(policy, backend="auto"):
+    return RunConfig(dtype="bfloat16", softmax_policy=policy,
+                     attention_backend=backend)
+
+
+def whisper_drive(model, params, frames, prompt, run, around=None):
+    """One ``serve_loop.generate`` of the clips; returns the tokens, the
+    dense kernel's launches by mode during it and its wall seconds."""
+    torch.cuda.synchronize()
+    for mode in MODES:
+        lut_attention_cuda.launches[mode] = 0
+    with around or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        out = generate(model, params, prompt, run, max_new_tokens=W_NEW,
+                       encoder_input=frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, dict(lut_attention_cuda.launches), wall
+
+
+def whisper_step_times(model, params, frames, prompt, run):
+    """Encode alone, then prefill and the decode steps one by one, each
+    ended by a synchronize: (encode s, prefill s, mean decode step s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ENCDEC.encode(params, frames.to(torch.bfloat16), model.cfg, run,
+                  run.softmax_policy)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    max_len = prompt.shape[1] + W_NEW
+    t0 = time.perf_counter()
+    logits, state = make_prefill_step(model, run, max_len)(params, prompt,
+                                                           frames)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    steps = []
+    for _ in range(W_NEW - 1):
+        t0 = time.perf_counter()
+        logits, state = model.decode_step(params, tok, state, run)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    return t_enc, t_pre, float(np.mean(steps))
+
+
+def whisper_profile(model, params, frames, prompt, run):
+    """The device's busy share of a profiled drive and the dense kernel's
+    share of the busy time ("not measured" when the profiler records no
+    device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    if not profiler_runs():
+        return
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    _, launches, wall = whisper_drive(model, params, frames, prompt, run,
+                                      around=prof)
+    kernels = []
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            kernels.append((us, e.count, e.key))
+    if not kernels:
+        print("[profile] the profiler recorded no device time: not measured")
+        return
+    busy = sum(us for us, _, _ in kernels) / 1e6
+    dense = sum(us for us, _, k in kernels if "lut_attention_kernel" in k) / 1e6
+    mm = sum(us for us, _, k in kernels
+             if any(n in k for n in ("gemm", "gemv", "nvjet", "cutlass",
+                                     "xmma", "sm90_"))) / 1e6
+    print(f"[profile] whisper rexp-uint8 drive, profiled: device busy "
+          f"{busy * 1e3:.1f} ms of {wall * 1e3:.1f} ms wall "
+          f"({busy / wall:.1%}); dense LUT-attention kernel "
+          f"{dense * 1e3:.1f} ms ({dense / busy:.1%} of busy); matmuls "
+          f"{mm * 1e3:.1f} ms ({mm / busy:.1%}); everything else "
+          f"{(busy - dense - mm) * 1e3:.1f} ms")
+    traced = sum(n for _, n, k in kernels if "lut_attention_kernel" in k)
+    print(f"[profile] dense kernel calls in the trace {traced}, launches "
+          f"counted {sum(launches.values())} (the profiler may drop events "
+          f"at a trace's edge)")
+    for us, count, key in sorted(kernels, reverse=True)[:8]:
+        print(f"[profile]   {us / 1e3:8.2f} ms  {count:5d} calls  {key[:90]}")
+
+
+def first_token_logits(model, params, frames, prompt, run):
+    max_len = prompt.shape[1] + W_NEW
+    logits, _ = make_prefill_step(model, run, max_len)(params, prompt, frames)
+    return logits[:, 0].float().cpu().numpy()
+
+
+def phase_whisper():
+    """Phase 7: the Whisper drive on ``attention_backend="auto"``, REXP
+    uint8 — tokens, tok/s, encode and decode-step times, exactly
+    12 + 24 · 32 = 780 dense launches split by mode; the same drive with
+    every dense kernel call held to its plain version on its own inputs
+    (one LUT step); the ``naive`` drive's first-token logits within 2 %
+    under exact and REXP; one profiled drive."""
+    model, params, frames, prompt = setup_whisper()
+    cfg = model.cfg
+    main = POLICIES[MAIN_POLICY]
+    run = whisper_run(main)
+    whisper_drive(model, params, frames, prompt, run)          # warm-up
+    out, launches, wall = whisper_drive(model, params, frames, prompt, run)
+    toks = out.numel()
+    n_steps = W_NEW                           # the prefill and 31 decodes
+    expect = {"rexp_fused": cfg.encoder_layers + cfg.n_layers * n_steps,
+              "rexp": cfg.n_layers * n_steps, "lut2d": 0}
+    total = sum(launches.values())
+    print(f"[whisper] rexp-uint8 attention_backend=auto: {toks} tokens in "
+          f"{wall:.3f}s ({toks / wall:.1f} tok/s); dense kernel launches "
+          f"{total} {launches} (expected {sum(expect.values())} {expect})")
+    if launches != expect:
+        raise AssertionError(f"whisper drive launched {launches}, expected "
+                             f"{expect}")
+    if out.shape != (W_BATCH, W_NEW) or not (
+            (out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"whisper tokens out of range: {out}")
+    t_enc, t_pre, t_dec = whisper_step_times(model, params, frames, prompt,
+                                             run)
+    print(f"[whisper] encode {t_enc * 1e3:.2f} ms ({cfg.encoder_layers} "
+          f"layers, {W_BATCH} × {cfg.encoder_seq} frames); prefill incl. encode {t_pre * 1e3:.2f} ms; "
+          f"mean decode step {t_dec * 1e3:.2f} ms ({W_BATCH} tokens)")
+
+    shadow = []
+    qmax = get_precision(main.precision).qmax
+
+    def shadowed(*args, **kw):
+        out = ops.lut_attention(*args, **kw)
+        ref = ops.lut_attention(*args, **{**kw, "backend": "naive"})
+        rows = (out - ref).abs().amax(dim=-1)
+        shadow.append((float(rows.max()),
+                       2.0 / qmax * float(args[2].float().abs().max()),
+                       float((rows > 1e-4).float().mean())))
+        return out
+
+    LAYERS.lut_attention = shadowed
+    try:
+        shadow_out = whisper_drive(model, params, frames, prompt, run)
+    finally:
+        LAYERS.lut_attention = ops.lut_attention
+    if len(shadow) != total or shadow_out[1] != expect:
+        raise AssertionError(f"shadowed drive: {len(shadow)} calls, "
+                             f"launches {shadow_out[1]}")
+    check_shadow(shadow, "whisper drive")
+
+    naive_out = whisper_drive(model, params, frames, prompt,
+                              whisper_run(main, "naive"))
+    if any(naive_out[1].values()):
+        raise AssertionError(f"naive drive launched {naive_out[1]}")
+    agree = float((naive_out[0] == out).float().mean())
+    print(f"[whisper] rexp-uint8 naive drive: {naive_out[2]:.3f}s "
+          f"({toks / naive_out[2]:.1f} tok/s); tokens agreeing with the "
+          f"kernel drive {agree:.1%}")
+    for pol_name in ("exact", MAIN_POLICY):
+        pol = POLICIES[pol_name]
+        a = first_token_logits(model, params, frames, prompt,
+                               whisper_run(pol))
+        b = first_token_logits(model, params, frames, prompt,
+                               whisper_run(pol, "naive"))
+        worst = float(np.abs(a - b).max() / np.abs(b).max())
+        same = float(np.mean(a.argmax(-1) == b.argmax(-1)))
+        print(f"[whisper] {pol_name} auto vs naive: first-token logits "
+              f"max|Δ|/max|logit| {worst:.4g}; first tokens agreeing "
+              f"{same:.1%}")
+        if not worst <= 0.02:
+            raise AssertionError(f"whisper {pol_name} first-token logits "
+                                 f"differ by {worst:.3g} > 0.02")
+    whisper_profile(model, params, frames, prompt, run)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -715,6 +1127,10 @@ def main() -> int:
     kernels.update(phase_kernels(int8=True))
     launches.update({k: v for k, v in phase_int8_engine(
         model, params, requests, bf16_stats).items() if k.endswith("int8")})
+    del model, params
+    torch.cuda.empty_cache()
+    kernels["lut_attention"] = phase_dense_kernel()
+    launches["lut_attention"] = phase_whisper()
     summary = {"kernels": [
         dict(name=name, route="cuda",
              source=f"src/repro_torch/csrc/{name.removesuffix('_int8')}.cu",
@@ -727,7 +1143,9 @@ def main() -> int:
             ("paged_decode_int8",
              "src/repro/kernels/lut_attention/paged_decode.py:120"),
             ("paged_prefill_int8",
-             "src/repro/kernels/lut_attention/paged_prefill.py:118"))]}
+             "src/repro/kernels/lut_attention/paged_prefill.py:118"),
+            ("lut_attention",
+             "src/repro/kernels/lut_attention/lut_attention.py:355"))]}
     print(json.dumps(summary))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Architecture registry of the port: the attention-only dense decoders
-(every ``LayerSpec`` an attention mixer with an MLP), the archs the paged
-serving engine runs.  The JAX package's MoE, hybrid, SSM and enc-dec
-archs wait for their model code."""
+(every ``LayerSpec`` an attention mixer with an MLP), which the paged
+serving engine and the lockstep path run, and the Whisper-small
+encoder-decoder, which the lockstep path runs.  The JAX package's MoE,
+hybrid and SSM archs wait for their model code."""
 
 from repro_torch.configs.base import ArchConfig, LayerSpec, MoESpec, RunConfig
 
@@ -11,12 +12,13 @@ from repro_torch.configs import (
     internlm2_20b,
     mistral_large_123b,
     qwen3_32b,
+    whisper_small,
 )
 
 ARCHS: dict[str, ArchConfig] = {
     m.ARCH.name: m.ARCH
     for m in (mistral_large_123b, internlm2_20b, codeqwen1_5_7b, qwen3_32b,
-              chameleon_34b)
+              chameleon_34b, whisper_small)
 }
 
 

@@ -159,6 +159,10 @@ class RunConfig:
     dtype: str = "bfloat16"                        # activations and the
                                                    # KV pool on the card
     softmax_policy: SoftmaxPolicy = EXACT          # serving softmax
+    attention_backend: str = "auto"                # contiguous / full-seq
+                                                   # attention (lockstep,
+                                                   # enc-dec): auto | cuda
+                                                   # | naive
     paged_backend: str = "auto"                    # paged attention (decode +
                                                    # prefill chunks):
                                                    # auto | cuda | dense

@@ -189,9 +189,10 @@ def build_lut_sigma(
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class RexpTables:
-    """LUT bundle for the REXP method (Algorithm 1)."""
+    """LUT bundle for the REXP method (Algorithm 1).  Compared and hashed
+    by identity, so a bundle can key the kernels' device-table cache."""
 
     precision: Precision
     lut_recip_exp: np.ndarray  # 1-D, int32
@@ -215,9 +216,10 @@ class RexpTables:
                 f"nbytes={self.nbytes}, max_lk={self.max_lk})")
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class Lut2DTables:
-    """LUT bundle for the 2D-LUT method (Algorithm 2)."""
+    """LUT bundle for the 2D-LUT method (Algorithm 2).  Compared and
+    hashed by identity, as :class:`RexpTables`."""
 
     precision: Precision
     lut_exp: np.ndarray  # 1-D, int32

@@ -1,16 +1,25 @@
-// Shared LUT-softmax pipeline of the paged-attention kernels (sm_90a).
+// Shared LUT-softmax pipeline of the LUT-attention kernels (sm_90a).
 //
 // The counterpart of the JAX package's in-kernel helpers in
 // src/repro/kernels/common.py (policy_e_terms, rexp_sigma,
 // lut2d_sigma_int, kernel_lookup) plus the three-pass row engine that
-// src/repro/kernels/lut_attention/paged_decode.py and paged_prefill.py
-// spread over three pallas_calls.  On the TPU the passes are separate
-// calls because an accumulator only lives across a sequential grid
-// axis; here one thread block runs all three passes for its rows:
+// src/repro/kernels/lut_attention/paged_decode.py, paged_prefill.py and
+// lut_attention.py spread over several pallas_calls.  On the TPU the
+// passes are separate calls because an accumulator only lives across a
+// sequential grid axis; here one thread block runs all passes for its
+// rows:
 //
 //   pass 1  s = q·k · scale for every visible key      → row max m
 //   pass 2  e = numerator(s, m)                        → integer Σ
 //   pass 3  w = weight(e, Σ), out += w · v
+//
+// or, for REXP's fused α form (lut_attention.py's _fused_sum_av_kernel,
+// kFused), pass 1 and then one pass that accumulates Σ and U = Σ e·v
+// together, with U · α(Σ)/qmax² as the epilogue.
+//
+// Where a key row lives is a policy (Rows): PagedRows reads it through
+// the slot's block table from a (n_pages, ps, KVH, Dh) pool, DenseRows
+// from a contiguous (B, KVH, Lk, Dh) tensor.  Nothing else differs.
 //
 // Bit-exactness with core/lut_softmax.py (the reference semantics):
 //   * every rounding step of the bin path is an explicit _rn intrinsic
@@ -72,6 +81,8 @@ struct Params {
   float* out;               // (B, H, C, Dh) f32
   int B, H, KVH, Dh, n_pages, ps, mp, C;
   int n_main, aux_rows, aux_cols, method, round_mode;
+  int kv_len, causal, fused;  // dense kernel: valid keys of every
+                              // sequence, causal mask, REXP's fused form
   float scale, inv_step, inv_q, inv_ex, inv_sum;
 };
 
@@ -182,17 +193,37 @@ __device__ __forceinline__ float weight(float e, float S, const int* lut_aux,
   return __fmul_rn(float(lut_aux[i * p.aux_cols + j]), p.inv_q);
 }
 
-// Row index of key j (token j of sequence b, KV head kvh) in the pool:
-// (page · ps + token) · KVH + kvh.  The row's elements start at index ·
-// Dh, and an int8 pool's scale of that row sits at the index itself.
-// The block table names the page; an id outside the pool is clamped, as
-// XLA clamps a gather.
-__device__ __forceinline__ size_t row_index(const Params& p, int b, int kvh,
-                                            int j) {
-  int page = p.block_tables[b * p.mp + j / p.ps];
-  page = min(max(page, 0), p.n_pages - 1);
-  return (size_t(page) * p.ps + j % p.ps) * p.KVH + kvh;
-}
+// Where key j of sequence b, KV head kvh lives, and how many keys of b
+// are valid.  The row's elements start at index · Dh, and an int8
+// pool's scale of that row sits at the index itself.
+//
+// PagedRows: the pool row (page · ps + token) · KVH + kvh; the block
+// table names the page, and an id outside the pool is clamped, as XLA
+// clamps a gather.  The valid length is kv_lens[b].
+struct PagedRows {
+  static __device__ __forceinline__ size_t index(const Params& p, int b,
+                                                 int kvh, int j) {
+    int page = p.block_tables[b * p.mp + j / p.ps];
+    page = min(max(page, 0), p.n_pages - 1);
+    return (size_t(page) * p.ps + j % p.ps) * p.KVH + kvh;
+  }
+  static __device__ __forceinline__ int valid(const Params& p, int b) {
+    return max(min(p.kv_lens[b], p.mp * p.ps), 0);
+  }
+};
+
+// DenseRows: row (b · KVH + kvh) · Lk + j of a contiguous
+// (B, KVH, Lk, Dh) tensor, with Lk = mp · ps (mp = 1, ps = Lk); every
+// sequence has the same valid length kv_len ≤ Lk.
+struct DenseRows {
+  static __device__ __forceinline__ size_t index(const Params& p, int b,
+                                                 int kvh, int j) {
+    return (size_t(b) * p.KVH + kvh) * (size_t(p.mp) * p.ps) + j;
+  }
+  static __device__ __forceinline__ int valid(const Params& p, int) {
+    return max(min(p.kv_len, p.mp * p.ps), 0);
+  }
+};
 
 // dot[r] = q_r · k for the R query rows in shared memory against one key
 // row read by this lane alone: up to 8 chunks are loaded before the
@@ -237,7 +268,7 @@ __device__ __forceinline__ void dot_rows(const T* krow, float ksc,
 
 // Masked logits s_r = (q_r·k_j) · scale of this lane's key j; rows that
 // do not see j (and lanes past the walk) get −inf.
-template <typename T, int DPL, int R>
+template <typename Rows, typename T, int DPL, int R>
 __device__ __forceinline__ void lane_logits(const Params& p, const T* k,
                                             const float* q_s, int b, int kvh,
                                             int j, bool live,
@@ -245,7 +276,7 @@ __device__ __forceinline__ void lane_logits(const Params& p, const T* k,
                                             float (&s)[R]) {
   float dot[R];
   if (live) {
-    const size_t row = row_index(p, b, kvh, j);
+    const size_t row = Rows::index(p, b, kvh, j);
     const float ksc = kQuantized<T> ? p.k_scales[row] : 1.f;
     dot_rows<T, DPL, R>(k + row * p.Dh, ksc, q_s, p.Dh, dot);
   }
@@ -267,11 +298,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The three passes for R query rows of (slot b, query head h), chunk rows
-// row0 .. row0+R-1; queries of type TQ, pool elements of type TK.  Row c sees key j iff j < kv_len and j <= q0 + c.
-// Only keys below the largest such limit are walked: pages past kv_len
-// (null pages, a partial page's tail) add an exact 0 in the reference
-// and are never read here.
+// The passes for R query rows of (sequence b, query head h), rows
+// row0 .. row0+R-1; queries of type TQ, key/value elements of type TK,
+// rows found through Rows.  Row c sees key j iff j < kv_len and
+// j <= q0 + c.  Only keys below the largest such limit are walked:
+// pages past kv_len (null pages, a partial page's tail) or a cache's
+// unwritten tail add an exact 0 in the reference and are never read
+// here.
 //
 // The keys go in tiles of 32, one tile per warp at a time.  For q·k a
 // lane owns one key of the tile and reads its whole row itself (16-byte
@@ -279,14 +312,19 @@ __device__ __forceinline__ float warp_sum(float x) {
 // dimension and walk the tile's keys, kUnroll value rows in flight,
 // reading the weights and row offsets the key lanes left in shared
 // memory.
-template <typename TQ, typename TK, int DPL, int R>
-__device__ void paged_rows(const Params& p, int b, int h, int row0, int q0,
-                           bool cached) {
+//
+// kFused (REXP only): no Σ pass; the last pass weights each key by its
+// integer numerator e, sums Σ beside U = Σ e·v, and the epilogue scales
+// U by α(Σ)·(1/qmax)·(1/qmax), α looked up at rnd(Σ · 1/qmax).
+template <typename TQ, typename TK, int DPL, int R, typename Rows,
+          bool kFused = false>
+__device__ void lut_rows(const Params& p, int b, int h, int row0, int q0,
+                         bool cached) {
   extern __shared__ float4 smem4[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int kvh = h / (p.H / p.KVH);
   const int L = p.mp * p.ps;
-  const int kv_len = max(min(p.kv_lens[b], L), 0);
+  const int kv_len = Rows::valid(p, b);
   const TK* kp = static_cast<const TK*>(p.k_pages);
   const TK* vp = static_cast<const TK*>(p.v_pages);
 
@@ -331,7 +369,7 @@ __device__ void paged_rows(const Params& p, int b, int h, int row0, int q0,
     const int j = t0 + lane;
     const bool live = j < jmax;
     float s[R];
-    lane_logits<TK, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
+    lane_logits<Rows, TK, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (cached && live) cache_s[r * L + j] = s[r];
@@ -352,41 +390,46 @@ __device__ void paged_rows(const Params& p, int b, int h, int row0, int q0,
   __syncthreads();
 
   // Pass 2: numerators and their (integer, for the LUT policies) Σ.
+  if (!kFused) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) part[r] = 0.f;
-  for (int t0 = warp * 32; t0 < jmax; t0 += kWarps * 32) {
-    const int j = t0 + lane;
-    const bool live = j < jmax;
-    float s[R];
-    if (cached) {
+    for (int r = 0; r < R; ++r) part[r] = 0.f;
+    for (int t0 = warp * 32; t0 < jmax; t0 += kWarps * 32) {
+      const int j = t0 + lane;
+      const bool live = j < jmax;
+      float s[R];
+      if (cached) {
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        s[r] = live ? cache_s[r * L + j] : -CUDART_INF_F;
-    } else {
-      lane_logits<TK, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
+        for (int r = 0; r < R; ++r)
+          s[r] = live ? cache_s[r * L + j] : -CUDART_INF_F;
+      } else {
+        lane_logits<Rows, TK, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float e = e_term(s[r], m_s[r], main_s, p);
+        if (cached && live) cache_s[r * L + j] = e;
+        part[r] += e;
+      }
     }
+    __syncthreads();  // red_s is reused below
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      float e = e_term(s[r], m_s[r], main_s, p);
-      if (cached && live) cache_s[r * L + j] = e;
-      part[r] += e;
+      float S = warp_sum(part[r]);
+      if (lane == 0) red_s[warp * R + r] = S;
     }
+    __syncthreads();
+    if (tid < R) {
+      float S = 0.f;
+      for (int w = 0; w < kWarps; ++w) S += red_s[w * R + tid];
+      S_s[tid] = S;
+    }
+    __syncthreads();
   }
-  __syncthreads();  // red_s is reused below
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float S = warp_sum(part[r]);
-    if (lane == 0) red_s[warp * R + r] = S;
-  }
-  __syncthreads();
-  if (tid < R) {
-    float S = 0.f;
-    for (int w = 0; w < kWarps; ++w) S += red_s[w * R + tid];
-    S_s[tid] = S;
-  }
-  __syncthreads();
 
-  // Pass 3: per-element weights times V.
+  // Pass 3: per-element weights times V (kFused: numerators times V,
+  // and their Σ).
+#pragma unroll
+  for (int r = 0; r < R; ++r) part[r] = 0.f;
   float acc[R][DPL];
 #pragma unroll
   for (int r = 0; r < R; ++r)
@@ -399,19 +442,27 @@ __device__ void paged_rows(const Params& p, int b, int h, int row0, int q0,
     const int j = t0 + lane;
     const bool live = j < jmax;
     float e[R];
-    if (cached) {
+    if (cached && !kFused) {  // the cache holds numerators
 #pragma unroll
       for (int r = 0; r < R; ++r) e[r] = live ? cache_s[r * L + j] : 0.f;
-    } else {
+    } else {                  // the cache (if any) holds logits
       float s[R];
-      lane_logits<TK, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
+      if (cached) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          s[r] = live ? cache_s[r * L + j] : -CUDART_INF_F;
+      } else {
+        lane_logits<Rows, TK, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
+      }
 #pragma unroll
       for (int r = 0; r < R; ++r) e[r] = e_term(s[r], m_s[r], main_s, p);
     }
 #pragma unroll
-    for (int r = 0; r < R; ++r) w_tile[r * 32 + lane] = weight(e[r], S_s[r],
-                                                               aux_s, p);
-    const size_t row = live ? row_index(p, b, kvh, j) : 0;
+    for (int r = 0; r < R; ++r) {
+      if (kFused) part[r] += e[r];
+      w_tile[r * 32 + lane] = kFused ? e[r] : weight(e[r], S_s[r], aux_s, p);
+    }
+    const size_t row = live ? Rows::index(p, b, kvh, j) : 0;
     rowp[lane] = row * p.Dh;
     if constexpr (kQuantized<TK>) vsc[lane] = live ? p.v_scales[row] : 0.f;
     __syncwarp();
@@ -450,12 +501,28 @@ __device__ void paged_rows(const Params& p, int b, int h, int row0, int q0,
       int d = i * 32 + lane;
       if (d < p.Dh) acc_s[(warp * R + r) * p.Dh + d] = acc[r][i];
     }
+  if (kFused) {  // Σ of the numerators → the epilogue's α·(1/qmax)²
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float S = warp_sum(part[r]);
+      if (lane == 0) red_s[warp * R + r] = S;
+    }
+    __syncthreads();
+    if (tid < R) {
+      float S = 0.f;
+      for (int w = 0; w < kWarps; ++w) S += red_s[w * R + tid];
+      int ja = clamp_bin(__fmul_rn(S, p.inv_q), p.round_mode, 0,
+                         p.aux_cols - 1);
+      S_s[tid] = __fmul_rn(__fmul_rn(float(aux_s[ja]), p.inv_q), p.inv_q);
+    }
+  }
   __syncthreads();
   for (int i = tid; i < R * p.Dh; i += kThreads) {
     int r = i / p.Dh, c = row0 + r;
     if (c >= p.C) continue;
     float o = 0.f;
     for (int w = 0; w < kWarps; ++w) o += acc_s[(w * R + r) * p.Dh + i % p.Dh];
+    if (kFused) o = __fmul_rn(o, S_s[r]);
     p.out[((size_t(b) * p.H + h) * p.C + c) * p.Dh + i % p.Dh] = o;
   }
 }
@@ -506,9 +573,10 @@ inline cudaError_t dispatch_int8(const Params& p, int q_dtype,
   return cudaErrorInvalidValue;
 }
 
-// The host C interface both kernels share: everything the Python
+// The host C interface the kernels share: everything the Python
 // wrapper passes, as plain pointers, ints and floats (the scale pools
-// only for an int8 pool).
+// only for an int8 pool; a dense kernel passes no block tables, no
+// cursors, and sets kv_len itself).
 inline Params make_params(const void* q, const void* k_pages,
                           const void* v_pages, const void* block_tables,
                           const void* kv_lens, const void* q_start,
@@ -536,6 +604,7 @@ inline Params make_params(const void* q, const void* k_pages,
   p.n_pages = n_pages; p.ps = ps; p.mp = mp; p.C = C;
   p.n_main = n_main; p.aux_rows = aux_rows; p.aux_cols = aux_cols;
   p.method = method; p.round_mode = round_mode;
+  p.kv_len = 0; p.causal = 0; p.fused = 0;
   p.scale = scale; p.inv_step = inv_step; p.inv_q = inv_q;
   p.inv_ex = inv_ex; p.inv_sum = inv_sum;
   return p;

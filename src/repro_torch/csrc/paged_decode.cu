@@ -41,7 +41,7 @@ __global__ void __launch_bounds__(lutk::kThreads)
   const int b = blockIdx.y, h = blockIdx.x;
   // the query sits at position kv_len − 1: it sees every key < kv_len
   const int q0 = min(p.kv_lens[b], p.mp * p.ps) - 1;
-  lutk::paged_rows<TQ, TK, DPL, 1>(p, b, h, 0, q0, cached);
+  lutk::lut_rows<TQ, TK, DPL, 1, lutk::PagedRows>(p, b, h, 0, q0, cached);
 }
 
 template <typename TQ, typename TK, int DPL>

@@ -35,7 +35,8 @@ template <typename TQ, typename TK, int DPL>
 __global__ void __launch_bounds__(lutk::kThreads)
     paged_prefill_kernel(lutk::Params p, bool cached) {
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
-  lutk::paged_rows<TQ, TK, DPL, kRows>(p, b, h, row0, p.q_start[b], cached);
+  lutk::lut_rows<TQ, TK, DPL, kRows, lutk::PagedRows>(p, b, h, row0,
+                                                     p.q_start[b], cached);
 }
 
 template <typename TQ, typename TK, int DPL>

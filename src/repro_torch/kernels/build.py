@@ -29,8 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 #: kernel name (one library each) → {C entry point: its argument types};
-#: the stream is last.  ``<name>_launch`` takes f32/bf16 pools,
-#: ``<name>_int8_launch`` int8 pools plus their two f32 scale pools.
+#: the stream is last.  For the paged kernels ``<name>_launch`` takes
+#: f32/bf16 pools, ``<name>_int8_launch`` int8 pools plus their two f32
+#: scale pools; the dense kernel takes contiguous f32/bf16 q, k, v.
 KERNELS = {
     "paged_decode": {
         "paged_decode_launch": [_P] * 8 + [_I] * 13 + [_F] * 5 + [_P],
@@ -39,6 +40,9 @@ KERNELS = {
     "paged_prefill": {
         "paged_prefill_launch": [_P] * 9 + [_I] * 14 + [_F] * 5 + [_P],
         "paged_prefill_int8_launch": [_P] * 11 + [_I] * 14 + [_F] * 5 + [_P],
+    },
+    "lut_attention": {
+        "lut_attention_launch": [_P] * 6 + [_I] * 15 + [_F] * 5 + [_P],
     },
 }
 

@@ -17,6 +17,8 @@ read is a gather, which gives the same int32 values.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -74,6 +76,34 @@ def policy_kernel_tables(method: str, tables):
         return (np.zeros((1,), np.int32), np.zeros((1, 1), np.int32),
                 1.0, 1, 0.0, 0.0)
     raise ValueError(f"unsupported paged-kernel method {method!r}")
+
+
+#: the CUDA kernels' method and input-type codes
+KERNEL_METHODS = {"exact": 0, "rexp": 1, "lut2d": 2}
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=64)
+def kernel_tables(method: str, tables, index_mode: str,
+                  device: torch.device):
+    """The LUT operands of ``method`` on ``device`` plus the scalar kernel
+    arguments (method, round mode, the f32 reciprocals) — built once per
+    table bundle and device, read-only afterwards.  Every CUDA kernel's
+    wrapper takes its tables from here."""
+    if method not in KERNEL_METHODS:
+        raise ValueError(f"unsupported kernel policy {method!r}")
+    if index_mode not in ("round", "floor"):
+        raise ValueError(f"unknown index_mode {index_mode!r}")
+    (lut_main, lut_aux, exp_step, qmax, scale_ex,
+     scale_sum) = policy_kernel_tables(method, tables)
+    main = torch.as_tensor(np.ascontiguousarray(lut_main), device=device)
+    aux = torch.as_tensor(np.ascontiguousarray(lut_aux), device=device)
+    ints = (main.numel(), aux.shape[0], aux.shape[1], KERNEL_METHODS[method],
+            int(index_mode == "round"))
+    floats = (inv_scale(exp_step), inv_scale(qmax),
+              inv_scale(qmax * scale_ex) if scale_ex else 0.0,
+              inv_scale(qmax * scale_sum) if scale_sum else 0.0)
+    return main, aux, ints, floats
 
 
 def rexp_sigma(e_int: Tensor, s_row: Tensor, lut_alpha: Tensor, qmax: int,

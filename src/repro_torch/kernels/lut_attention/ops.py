@@ -1,10 +1,24 @@
 """Public attention-with-LUT-softmax API.
 
 The lockstep path (contiguous ``AttnCache``, ``serve_loop.generate``)
-attends through :func:`lut_attention`, whose ``naive`` backend is the
-materialized-logits oracle (``ref.lut_attention_ref``; with a traced
-``kv_len``, the tail-masked :func:`_naive_with_bias`).  Its ``pallas``
-and ``blocked`` backends are not ported yet.
+and the encoder-decoder's full-sequence attentions go through
+:func:`lut_attention`, whose dispatch matrix is keyed by the
+``attention_backend`` knob and by where the tensors lie:
+
+    knob (``attention_backend``)   CUDA tensors          CPU tensors
+    ``auto``                       the dense CUDA kernel the plain version
+    ``cuda``                       the dense CUDA kernel raises
+    ``naive``                      the plain version     the plain version
+
+The kernel is ``csrc/lut_attention.cu`` (the port of the JAX package's
+``lut_attention_pallas``); its plain version is the materialized-logits
+oracle ``ref.lut_attention_ref``.  The exact policy takes the plain
+version under every knob, as the JAX package sends it to its naive
+path: the TPU kernel has no exact body, and no launch is counted for it.
+Without a ``kv_len`` REXP takes its fused α form; with one (a cache's
+valid length) the faithful per-element σ — 2D-LUT is faithful in both.
+``blocked`` (the JAX package's flash-style XLA scan) is not ported and
+raises.
 
 The continuous-batching engine attends through the two *paged*
 dispatchers — :func:`lut_attention_paged_decode` (single-token decode)
@@ -17,11 +31,12 @@ already in the pool).  Both follow ONE dispatch matrix, keyed by the
     ``cuda``                   the CUDA kernel       raises
     ``dense``                  the plain version     the plain version
 
-There is no fallback: on CUDA tensors ``auto`` and ``cuda`` launch the
-hand-written kernel (``csrc/paged_decode.cu`` / ``csrc/paged_prefill.cu``)
-or raise — a kernel that does not build or does not launch is an
-exception, never a silent switch to the plain version or to the CPU.
-``cuda`` is the counterpart of the JAX package's ``pallas`` knob.
+There is no fallback in either matrix: on CUDA tensors ``auto`` and
+``cuda`` launch the hand-written kernel (``csrc/paged_decode.cu`` /
+``csrc/paged_prefill.cu`` / ``csrc/lut_attention.cu``) or raise — a
+kernel that does not build or does not launch is an exception, never a
+silent switch to the plain version or to the CPU.  ``cuda`` is the
+counterpart of the JAX package's ``pallas`` knob.
 
 An int8 pool (``kv_dtype="int8"``) passes its f32 per-token × KV-head
 scale pools as ``k_scales`` / ``v_scales`` (both or neither) beside the
@@ -29,12 +44,13 @@ int8 pages: the kernels dequantize each row before use, the plain
 version dequantizes the gathered view (:func:`_gather_dequant`); the
 integer LUT pipeline is the same.
 
-The plain version of both kernels is the dense reference below: gather
-the block-table view of the pool (:func:`gather_pages`), materialize the
-masked logits, and run the policy softmax of ``core.lut_softmax``
-(:func:`_policy_softmax`).  It computes the same function as the kernels
-— identical integer LUT pipeline, the final f32 σ·V contraction in
-another order — and is what the CPU tests hold to the JAX package.
+The plain version of both paged kernels is the dense reference below:
+gather the block-table view of the pool (:func:`gather_pages`),
+materialize the masked logits, and run the policy softmax of
+``core.lut_softmax`` (:func:`_policy_softmax`).  It computes the same
+function as the kernels — identical integer LUT pipeline, the final f32
+σ·V contraction in another order — and is what the CPU tests hold to
+the JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +64,7 @@ from repro_torch.core import lut_softmax as _core
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.core.quantization import dequantize_rows
 from repro_torch.kernels.lut_attention import ref as _ref
+from repro_torch.kernels.lut_attention.lut_attention import lut_attention_cuda
 
 Tensor = torch.Tensor
 
@@ -143,56 +160,51 @@ def lut_attention_prefill_varlen(q: Tensor, k: Tensor, v: Tensor,
     return _grouped_pv(_policy_softmax(s, policy), v)
 
 
+def resolve_attention_backend(backend: str = "auto",
+                              device: torch.device | str = "cuda") -> str:
+    """The dense matrix of the module docstring, in code: returns
+    ``'cuda'`` (the kernel) or ``'naive'`` (the plain version) for tensors
+    on ``device``."""
+    device = torch.device(device)
+    if backend == "auto":
+        return "cuda" if device.type == "cuda" else "naive"
+    if backend == "cuda":
+        if device.type != "cuda":
+            raise ValueError(
+                f"lut_attention backend 'cuda' needs CUDA tensors, got "
+                f"{device}; use 'auto' or 'naive' on the CPU")
+        return "cuda"
+    if backend == "naive":
+        return "naive"
+    if backend == "blocked":
+        raise NotImplementedError(
+            "lut_attention backend 'blocked' (the JAX package's flash-style "
+            "XLA scan) is not ported; use 'auto', 'cuda' or 'naive'")
+    raise ValueError(f"unknown lut_attention backend {backend!r}: expected "
+                     f"'auto', 'cuda' or 'naive' (the port's 'cuda' is the "
+                     f"JAX package's 'pallas')")
+
+
 def lut_attention(q: Tensor, k: Tensor, v: Tensor, policy: SoftmaxPolicy,
                   *, causal: bool = False, scale: float | None = None,
                   kv_len: Tensor | int | None = None,
-                  backend: str = "naive") -> Tensor:
+                  backend: str = "auto") -> Tensor:
     """Attention with the policy's softmax over contiguous K/V;
     (B, H, Lq, D) f32.
 
     q (B, H, Lq, D); k, v (B, KVH, Lk, D).  ``kv_len`` (the valid key
     count of a pre-allocated cache) masks the tail and right-aligns the
     causal queries to it; without it REXP takes the fused α requant, as
-    in the JAX package.  Only the ``naive`` backend is ported: the
-    ``pallas`` backend waits for the port of ``lut_attention_pallas``,
-    ``blocked`` (the flash-style XLA scan) for a later slice too.
+    in the JAX package.  Dispatches per the module docstring's matrix.
     """
-    if backend in ("pallas", "blocked"):
-        raise NotImplementedError(
-            f"lut_attention backend {backend!r} is not ported yet: the "
-            f"dense LUT attention kernel (lut_attention_pallas) and the "
-            f"blocked path are a later slice of the port; use 'naive'")
-    if backend != "naive":
-        raise ValueError(f"unknown lut_attention backend {backend!r}")
-    if kv_len is not None:
-        ki = torch.arange(k.shape[2], device=q.device)
-        neg = torch.where(ki < torch.as_tensor(kv_len, device=q.device),
-                          0.0, float("-inf"))
-        # fold the tail mask through an additive bias on k-side logits
-        return _naive_with_bias(q, k, v, policy, causal, scale, neg, kv_len)
-    return _ref.lut_attention_ref(q, k, v, method=policy.impl,
-                                  tables=_tables_for(policy), scale=scale,
-                                  causal=causal,
-                                  index_mode=policy.index_mode,
-                                  fused_requant=True)
-
-
-def _naive_with_bias(q, k, v, policy, causal, scale, k_bias, kv_len):
-    """Naive path with an additive per-key bias (KV-cache tail masking).
-
-    Causal alignment uses the *valid* length ``kv_len``, not the
-    allocated cache length: queries sit at absolute positions
-    [kv_len − lq, kv_len).
-    """
-    lq, d = q.shape[2], q.shape[3]
-    scale = scale if scale is not None else d ** -0.5
-    s = _ref._logits(q, k, scale, causal=False) + k_bias[None, None, None, :]
-    if causal:
-        qi = (torch.arange(lq, device=q.device)[:, None]
-              + (torch.as_tensor(kv_len, device=q.device) - lq))
-        ki = torch.arange(k.shape[2], device=q.device)[None, :]
-        s = s.masked_fill(~(ki <= qi)[None, None], float("-inf"))
-    return _grouped_pv(_policy_softmax(s, policy), v)
+    route = resolve_attention_backend(backend, q.device)
+    kw = dict(scale=scale, causal=causal, index_mode=policy.index_mode,
+              fused_requant=kv_len is None, kv_len=kv_len)
+    if route == "naive" or policy.impl == "exact":
+        return _ref.lut_attention_ref(q, k, v, method=policy.impl,
+                                      tables=_tables_for(policy), **kw)
+    return lut_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                              _tables_for(policy), method=policy.impl, **kw)
 
 
 def gather_pages(pages: Tensor, block_tables: Tensor) -> Tensor:

@@ -26,42 +26,20 @@ orders, so outputs agree to f32 roundoff on the same logits.
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
-from repro_torch.core.lut_softmax import inv_scale
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.kernels import build
-from repro_torch.kernels.common import policy_kernel_tables
+from repro_torch.kernels.common import KERNEL_DTYPES, kernel_tables
 from repro_torch.kernels.lut_attention import ops
 
 Tensor = torch.Tensor
 
-_METHODS = {"exact": 0, "rexp": 1, "lut2d": 2}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-
-@functools.lru_cache(maxsize=64)
 def _kernel_tables(policy: SoftmaxPolicy, device: torch.device):
-    """The policy's tables on ``device`` plus the scalar kernel arguments
-    (method, round mode, the f32 reciprocals) — built once per policy and
-    device, read-only afterwards."""
-    if policy.impl not in _METHODS:
-        raise ValueError(f"unsupported paged-kernel policy {policy.impl!r}")
-    if policy.index_mode not in ("round", "floor"):
-        raise ValueError(f"unknown index_mode {policy.index_mode!r}")
-    (lut_main, lut_aux, exp_step, qmax, scale_ex,
-     scale_sum) = policy_kernel_tables(policy.impl, ops._tables_for(policy))
-    main = torch.as_tensor(np.ascontiguousarray(lut_main), device=device)
-    aux = torch.as_tensor(np.ascontiguousarray(lut_aux), device=device)
-    ints = (main.numel(), aux.shape[0], aux.shape[1], _METHODS[policy.impl],
-            int(policy.index_mode == "round"))
-    floats = (inv_scale(exp_step), inv_scale(qmax),
-              inv_scale(qmax * scale_ex) if scale_ex else 0.0,
-              inv_scale(qmax * scale_sum) if scale_sum else 0.0)
-    return main, aux, ints, floats
+    """``common.kernel_tables`` of a policy (the paged kernels' form)."""
+    return kernel_tables(policy.impl, ops._tables_for(policy),
+                         policy.index_mode, device)
 
 
 def check_kernel_inputs(q: Tensor, k_pages: Tensor, v_pages: Tensor,
@@ -76,7 +54,7 @@ def check_kernel_inputs(q: Tensor, k_pages: Tensor, v_pages: Tensor,
     scale pools, f32, contiguous, ``(n_pages, page_size, KVH)``, on the
     queries' device."""
     dev = q.device
-    if q.dtype not in _DTYPES:
+    if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"paged kernels take float32 or bfloat16, got "
                         f"{q.dtype}")
     quantized = ops.check_scales(k_scales, v_scales)
@@ -179,8 +157,8 @@ def paged_decode_attention(
         pools += (k_scales.data_ptr(), v_scales.data_ptr())
     err = build.load("paged_decode", f"paged_decode{'_int8' * int8}_launch")(
         q.data_ptr(), *pools, bt.data_ptr(), kl.data_ptr(), main.data_ptr(),
-        aux.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, h, kvh, dh,
-        n_pages, ps, bt.shape[1], *ints, scale, *floats,
+        aux.data_ptr(), out.data_ptr(), KERNEL_DTYPES[q.dtype], b, h, kvh,
+        dh, n_pages, ps, bt.shape[1], *ints, scale, *floats,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode{'_int8' * int8} kernel launch "

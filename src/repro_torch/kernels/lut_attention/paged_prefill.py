@@ -26,9 +26,10 @@ import torch
 
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.kernels import build
+from repro_torch.kernels.common import KERNEL_DTYPES
 from repro_torch.kernels.lut_attention import ops
 from repro_torch.kernels.lut_attention.paged_decode import (
-    _DTYPES, _kernel_tables, check_kernel_inputs)
+    _kernel_tables, check_kernel_inputs)
 
 Tensor = torch.Tensor
 
@@ -86,8 +87,9 @@ def paged_prefill_attention(
     err = build.load("paged_prefill",
                      f"paged_prefill{'_int8' * int8}_launch")(
         q.data_ptr(), *pools, bt.data_ptr(), kl.data_ptr(), qs.data_ptr(),
-        main.data_ptr(), aux.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b,
-        h, kvh, dh, n_pages, ps, bt.shape[1], c, *ints, scale, *floats,
+        main.data_ptr(), aux.data_ptr(), out.data_ptr(),
+        KERNEL_DTYPES[q.dtype], b, h, kvh, dh, n_pages, ps, bt.shape[1], c,
+        *ints, scale, *floats,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_prefill{'_int8' * int8} kernel launch "

@@ -6,8 +6,11 @@ The counterpart of the JAX package's ``kernels/lut_attention/ref.py``:
     σ      = softmax_<method>(logits)        # core.lut_softmax semantics
     out    = σ @ v
 
-It is the ``naive`` backend of :func:`ops.lut_attention` when no
-``kv_len`` is given (a full-sequence forward with no cache).
+and the plain version of the dense CUDA kernel (``csrc/lut_attention.cu``)
+in each of its modes: REXP's fused α form, REXP's and 2D-LUT's faithful
+per-element σ, with or without a ``kv_len`` (the valid length of a
+pre-allocated cache, the JAX package's ``ops._naive_with_bias`` form).
+It is the ``naive`` backend of :func:`ops.lut_attention`.
 """
 
 from __future__ import annotations
@@ -20,16 +23,24 @@ from repro_torch.core.lut_builder import Lut2DTables, RexpTables
 Tensor = torch.Tensor
 
 
-def _logits(q: Tensor, k: Tensor, scale: float, causal: bool) -> Tensor:
-    """(B, H, Lq, D) × (B, KVH, Lk, D) → (B, H, Lq, Lk) f32, GQA head map;
-    causal queries sit at the last Lq of the Lk positions."""
+def _logits(q: Tensor, k: Tensor, scale: float, causal: bool,
+            kv_len: Tensor | int | None = None) -> Tensor:
+    """(B, H, Lq, D) × (B, KVH, Lk, D) → (B, H, Lq, Lk) f32, GQA head map.
+
+    Keys at or past ``kv_len`` (default: Lk, none) are masked to −inf;
+    causal queries sit at the last Lq of the ``kv_len`` valid positions.
+    """
     g = q.shape[1] // k.shape[1]
     kx = k.float().repeat_interleave(g, dim=1)
     s = torch.matmul(q.float(), kx.transpose(-1, -2)) * scale
+    lq, lk = q.shape[2], k.shape[2]
+    ki = torch.arange(lk, device=q.device)[None, :]
+    valid = lk
+    if kv_len is not None:
+        valid = torch.as_tensor(kv_len, device=q.device)
+        s = s.masked_fill(~(ki < valid), float("-inf"))
     if causal:
-        lq, lk = q.shape[2], k.shape[2]
-        qi = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
-        ki = torch.arange(lk, device=q.device)[None, :]
+        qi = torch.arange(lq, device=q.device)[:, None] + (valid - lq)
         s = s.masked_fill(~(ki <= qi), float("-inf"))
     return s
 
@@ -38,12 +49,14 @@ def lut_attention_ref(q: Tensor, k: Tensor, v: Tensor, *, method: str,
                       tables: RexpTables | Lut2DTables | None = None,
                       scale: float | None = None, causal: bool = False,
                       index_mode: str = "round",
-                      fused_requant: bool = False) -> Tensor:
+                      fused_requant: bool = False,
+                      kv_len: Tensor | int | None = None) -> Tensor:
     """Naive-attention oracle; (B, H, Lq, D) f32.  ``fused_requant``
     applies REXP's α to the Σe·v accumulator instead of re-quantizing
-    σ per element (the 2-pass fused variant of the dense kernel)."""
+    σ per element (the fused variant of the dense kernel); ``kv_len``
+    masks a cache's tail and right-aligns causal queries to it."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    s = _logits(q, k, scale, causal)
+    s = _logits(q, k, scale, causal, kv_len)
     vx = v.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     if method == "exact":
         return torch.matmul(_core.softmax_exact(s, axis=-1), vx)

@@ -1,13 +1,19 @@
 """Serving launcher: batched generation with the LUT softmax.
 
-Random-initializes an attention-only dense arch (seeded
-``torch.Generator``; depth cut by ``--layers``, widths optionally cut by
-``--scale-down``) and serves ``--batch`` requests, two ways:
+Random-initializes an attention-only dense arch or Whisper-small
+(seeded ``torch.Generator``; depth cut by ``--layers``, widths
+optionally cut by ``--scale-down``) and serves ``--batch`` requests,
+two ways:
 
 * ``--engine continuous`` (default) — the paged ``ServingEngine``,
   requests of mixed prompt lengths sharing the decode batch;
 * ``--engine lockstep`` — ``serve_loop.generate`` over contiguous
   caches, every request one prompt length, finishing together.
+
+The engine serves decoder-only LMs: an encoder-decoder
+(``--arch whisper-small``) falls back to lockstep, as in the JAX
+package, with seeded random stub frames ``(batch, encoder_seq,
+d_model)`` from ``--seed`` as its audio.
 
 Runs on the card by default: ``--device cuda`` needs a CUDA device and
 raises without one; ``--device cpu`` runs the plain PyTorch versions on
@@ -21,11 +27,15 @@ rounding instead.
 ``--paged-backend`` selects the paged attention of BOTH phases (decode
 steps and prefill chunks): ``auto`` launches the CUDA kernels on the card
 and the plain versions on the CPU, ``cuda`` forces the kernels (raises on
-the CPU), ``dense`` the plain versions everywhere.
+the CPU), ``dense`` the plain versions everywhere.  ``--attention-backend``
+does the same for the lockstep and encoder attentions and the dense
+LUT-attention kernel (``auto`` | ``cuda`` | ``naive``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \\
       --layers 4 --softmax rexp --precision uint8 --batch 4 \\
       --prompt-len 64 --new-tokens 32 --kv-dtype int8 --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
+      --scale-down 64,4,128 --device cpu
 """
 
 from __future__ import annotations
@@ -39,7 +49,8 @@ import torch
 from repro_torch.configs import ARCHS, RunConfig, get_arch
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.kernels.lut_attention.ops import (
-    resolve_paged_backend, resolve_paged_prefill_backend)
+    resolve_attention_backend, resolve_paged_backend,
+    resolve_paged_prefill_backend)
 from repro_torch.models import build_model
 from repro_torch.models.convert import cast_params
 from repro_torch.models.model_zoo import resolve_device
@@ -68,6 +79,10 @@ def main(argv=None) -> None:
                     choices=["continuous", "lockstep"])
     ap.add_argument("--paged-backend", default="auto",
                     choices=["auto", "cuda", "dense"])
+    ap.add_argument("--attention-backend", default="auto",
+                    choices=["auto", "cuda", "naive"],
+                    help="lockstep and encoder attention: the dense "
+                         "LUT-attention kernel or its plain version")
     ap.add_argument("--kv-dtype", default="f32", choices=list(KV_DTYPES),
                     help="KV storage: int8 pages with f32 per-token × "
                          "KV-head scales, or pages in the run dtype")
@@ -89,7 +104,9 @@ def main(argv=None) -> None:
     policy = (SoftmaxPolicy(impl=args.softmax, precision=args.precision)
               if args.softmax != "exact" else SoftmaxPolicy())
     run = RunConfig(dtype="bfloat16" if device.type == "cuda" else "float32",
-                    softmax_policy=policy, paged_backend=args.paged_backend,
+                    softmax_policy=policy,
+                    attention_backend=args.attention_backend,
+                    paged_backend=args.paged_backend,
                     kv_dtype=args.kv_dtype)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -97,21 +114,36 @@ def main(argv=None) -> None:
     if device.type == "cuda":
         params = cast_params(params, torch.bfloat16)
     rng = np.random.default_rng(args.seed)
-    if args.engine == "lockstep":
+    engine = args.engine
+    if engine == "continuous" and model.is_encdec:
+        print("the continuous engine serves decoder-only LMs; falling back "
+              "to lockstep")
+        engine = "lockstep"
+    if engine == "lockstep":
         prompt = torch.as_tensor(
             rng.integers(0, arch.vocab_size, size=(args.batch,
                                                    args.prompt_len)),
             dtype=torch.int32, device=device)
+        frames = None
+        if model.is_encdec:
+            frames = torch.as_tensor(
+                rng.standard_normal((args.batch, arch.encoder_seq,
+                                     arch.d_model), dtype=np.float32),
+                device=device)
         t0 = time.time()
         out = generate(model, params, prompt, run,
-                       max_new_tokens=args.new_tokens)
+                       max_new_tokens=args.new_tokens, encoder_input=frames)
         if device.type == "cuda":
             torch.cuda.synchronize()
         dt = time.time() - t0
         toks = args.batch * args.new_tokens
-        print(f"{arch.name} x{arch.n_layers} layers on {device} "
+        layers = (f"{arch.encoder_layers}+{arch.n_layers}" if model.is_encdec
+                  else f"{arch.n_layers}")
+        print(f"{arch.name} x{layers} layers on {device} "
               f"policy={policy.impl}/{policy.precision} lockstep "
-              f"kv_dtype={args.kv_dtype}: {toks} tokens in {dt:.2f}s "
+              f"[attention: "
+              f"{resolve_attention_backend(args.attention_backend, device)}]"
+              f" kv_dtype={args.kv_dtype}: {toks} tokens in {dt:.2f}s "
               f"({toks / dt:.1f} tok/s)")
         print("sample token ids:", out[0, :16].tolist())
         return

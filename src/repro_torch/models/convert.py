@@ -2,8 +2,9 @@
 
 The port keeps the JAX package's parameter tree (nested dicts and lists)
 and its ``(in, out)`` weight layout, so conversion is a tree map over
-numpy arrays: no transposes, the period blocks stay stacked on their
-leading axis.
+numpy arrays: no transposes, the period blocks of a decoder stay stacked
+on their leading axis, and an encoder-decoder's ``encoder`` /
+``decoder`` lists of blocks stay lists.
 """
 
 from __future__ import annotations
@@ -22,12 +23,17 @@ def tree_map(fn, tree, name: str = ""):
     return fn(tree, name)
 
 
+#: the leaves of a norm (``init_norm``): its scale and its LayerNorm
+#: bias, which the norms read in f32
+NORM_LEAVES = ("scale", "bias")
+
+
 def cast_params(params, dtype: torch.dtype):
-    """Cast weights and biases to ``dtype`` (the serving dtype on the
-    card); norm scales stay f32, as the JAX package keeps every master in
-    f32 and casts at use."""
-    return tree_map(lambda t, name: t if name == "scale" else t.to(dtype),
-                    params)
+    """Cast weights and projection biases to ``dtype`` (the serving dtype
+    on the card); norm scales and LayerNorm biases stay f32, as the JAX
+    package keeps every master in f32 and the norms compute in f32."""
+    return tree_map(
+        lambda t, name: t if name in NORM_LEAVES else t.to(dtype), params)
 
 
 def params_from_jax(tree, device="cpu", dtype: torch.dtype | None = None):

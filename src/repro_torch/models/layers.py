@@ -1,10 +1,12 @@
 """Core transformer layers over plain dicts of tensors.
 
 The counterpart of the JAX package's ``models/layers.py`` for the
-decoder-only serving paths: norms, RoPE, the q/k/v projections (with
-qk-norm and optional biases), the contiguous lockstep cache
-(:class:`AttnCache`) and the paged caches with their scatter-then-attend
-steps, the MLP, the embedding and the LM head.
+serving paths: norms (RMS, and LayerNorm with a bias), RoPE, the q/k/v
+projections (with qk-norm and optional biases), self- and
+cross-attention (:func:`apply_attention`, :func:`cross_attention_kv`),
+the contiguous lockstep cache (:class:`AttnCache`) and the paged caches
+with their scatter-then-attend steps, the MLP, the embedding and the LM
+head.
 
 Conventions (those of the JAX package, so weights convert one to one):
   * params are dicts of tensors; weights are ``(in, out)`` and a
@@ -68,11 +70,25 @@ def rms_norm(x: Tensor, scale: Tensor, eps: float) -> Tensor:
     return (y * scale.float()).to(x.dtype)
 
 
-def init_norm(d: int, device) -> Params:
-    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+def layer_norm(x: Tensor, scale: Tensor, bias: Tensor, eps: float) -> Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def init_norm(d: int, device, with_bias: bool = False) -> Params:
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if with_bias:
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
 
 
 def apply_norm(p: Params, x: Tensor, eps: float) -> Tensor:
+    """LayerNorm when the norm has a bias (Whisper), else RMSNorm."""
+    if "bias" in p:
+        return layer_norm(x, p["scale"], p["bias"], eps)
     return rms_norm(x, p["scale"], eps)
 
 
@@ -328,25 +344,35 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
                     head_dim: int, causal: bool = True,
                     qk_norm: bool = False, norm_eps: float = 1e-5,
                     rope_theta: float | None = 10000.0,
-                    policy: SoftmaxPolicy = EXACT,
+                    policy: SoftmaxPolicy = EXACT, backend: str = "auto",
                     cache=None, paged_backend: str = "auto",
-                    kv_dtype: str = "f32") -> Tensor:
-    """Self-attention of ``x`` (B, L, D) with the policy's softmax;
-    returns (B, L, D).
+                    kv_dtype: str = "f32", kv_x: Tensor | None = None,
+                    precomputed_kv: tuple[Tensor, Tensor] | None = None
+                    ) -> Tensor:
+    """Self- or cross-attention of ``x`` (B, L, D) with the policy's
+    softmax; returns (B, L, D).
 
     Modes (as in the JAX package):
-      * no cache          — full sequence, causal;
+      * no cache          — full sequence (the encoder; causal as asked);
       * :class:`AttnCache` — lockstep prefill (L tokens at ``length``)
         or decode (L = 1): writes K/V at [length, length + L) in place,
         advances ``length``, attends to the valid prefix;
+      * ``kv_x`` / ``precomputed_kv`` — cross-attention (never causal)
+        to a source sequence, whose K/V are projected here or were
+        projected once by :func:`cross_attention_kv`;
       * a paged cache     — :func:`apply_paged_attention`.
 
-    ``kv_dtype="int8"`` fake-quantizes the K/V entering a contiguous
-    cache with the int8 pool's rounding (``fake_quant_rows``), the
-    lockstep view of the engine's int8 pool; paged caches carry real
-    scales instead and ignore it.
+    ``backend`` is the ``lut_attention`` knob of the non-paged modes
+    (``auto`` | ``cuda`` | ``naive``).  ``kv_dtype="int8"``
+    fake-quantizes the K/V entering a contiguous cache with the int8
+    pool's rounding (``fake_quant_rows``), the lockstep view of the
+    engine's int8 pool; paged caches carry real scales instead and
+    ignore it.
     """
+    is_cross = kv_x is not None or precomputed_kv is not None
     if isinstance(cache, (PagedAttnCache, PagedPrefillCache)):
+        if is_cross:
+            raise ValueError("paged KV cache supports self-attention only")
         return apply_paged_attention(
             p, x, cache, n_heads=n_heads, n_kv_heads=n_kv_heads,
             head_dim=head_dim, qk_norm=qk_norm, norm_eps=norm_eps,
@@ -360,6 +386,11 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
                  )[None, :].expand(b, l)
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, qk_norm,
                            norm_eps, rope_theta, positions)
+    if precomputed_kv is not None:
+        k, v = precomputed_kv
+    elif kv_x is not None:
+        k, v = cross_attention_kv(p, kv_x, n_kv_heads=n_kv_heads,
+                                  head_dim=head_dim)
     kv_len = None
     if cache is not None:
         if kv_dtype == "int8":
@@ -373,8 +404,25 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
         cache.v[:, :, cache.length:end] = v.to(cache.v.dtype)
         cache.length = end
         k, v, kv_len = cache.k, cache.v, end
-    out = lut_attention(q, k, v, policy, causal=causal, kv_len=kv_len)
+    out = lut_attention(q, k, v, policy, causal=causal and not is_cross,
+                        kv_len=kv_len, backend=backend)
     return _out_projection(p, x, out, b, l)
+
+
+def cross_attention_kv(p: Params, src: Tensor, *, n_kv_heads: int,
+                       head_dim: int) -> tuple[Tensor, Tensor]:
+    """Project source states (B, L, D) into cross-attention K/V
+    (B, KVH, L, Dh), contiguous, once (a decoder caches them)."""
+    b, l, _ = src.shape
+
+    def proj(w, bias):
+        y = src @ p[w].to(src.dtype)
+        if bias in p:
+            y = y + p[bias].to(src.dtype)
+        return y.reshape(b, l, n_kv_heads, head_dim).transpose(1, 2) \
+            .contiguous()
+
+    return proj("wk", "bk"), proj("wv", "bv")
 
 
 def _out_projection(p: Params, x: Tensor, out: Tensor, b: int,

@@ -40,7 +40,8 @@ def run_dtype(run: RunConfig) -> torch.dtype:
 
 
 def check_paged_supported(cfg: ArchConfig) -> None:
-    """The port serves attention+MLP decoders (the dense serving archs)."""
+    """This module serves attention+MLP decoders (the dense serving
+    archs); an encoder-decoder goes through ``models/encdec.py``."""
     bad = [(s.mixer, s.ffn) for s in cfg.period
            if s.mixer != "attn" or s.ffn != "mlp"]
     if bad or cfg.encoder_layers:
@@ -82,7 +83,8 @@ def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig, *,
         head_dim=cfg.resolved_head_dim, causal=True, qk_norm=cfg.qk_norm,
         norm_eps=cfg.norm_eps,
         rope_theta=cfg.rope_theta if cfg.rope else None, policy=policy,
-        cache=cache, paged_backend=run.paged_backend, kv_dtype=run.kv_dtype)
+        backend=run.attention_backend, cache=cache,
+        paged_backend=run.paged_backend, kv_dtype=run.kv_dtype)
     h2 = L.apply_norm(p["norm2"], x, cfg.norm_eps)
     return x + L.apply_mlp(p["ffn"], h2)
 

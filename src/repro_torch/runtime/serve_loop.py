@@ -5,8 +5,10 @@ The counterpart of the JAX package's ``runtime/serve_loop.py``.
 softmax in prefill and decode; ``run.kv_dtype="int8"`` fake-quantizes
 the K/V entering the contiguous caches with the int8 pool's rounding,
 which makes :func:`generate` the reference the int8 ``ServingEngine``
-is held to.  Every request of a batch shares one prompt length and
-finishes together.  The steps run where the tensors lie.
+is held to.  An encoder-decoder (Whisper) takes its stub frame
+embeddings as ``encoder_input``: the prefill step encodes them once.
+Every request of a batch shares one prompt length and finishes
+together.  The steps run where the tensors lie.
 
 Greedy decoding gives the JAX package's tokens.  Sampling draws from
 ``torch.Generator`` streams (Philox on the card, not JAX's threefry), so
@@ -26,9 +28,11 @@ Tensor = torch.Tensor
 
 
 def make_prefill_step(model: Model, run: RunConfig, max_len: int):
-    """``(params, tokens) → (last-position logits (B, 1, V), caches)``."""
-    def prefill_step(params, tokens):
-        return model.prefill(params, tokens, run, max_len, logits="last")
+    """``(params, tokens, encoder_input=None) → (last-position logits
+    (B, 1, V), state)``."""
+    def prefill_step(params, tokens, encoder_input=None):
+        return model.prefill(params, tokens, run, max_len,
+                             encoder_input=encoder_input, logits="last")
     return prefill_step
 
 
@@ -87,15 +91,17 @@ def sample_tokens(logits: Tensor, seeds, positions, temperatures, *,
 
 def generate(model: Model, params, prompt: Tensor, run: RunConfig, *,
              max_new_tokens: int, max_len: int | None = None,
-             temperature: float = 0.0, seed: int = 0) -> Tensor:
-    """Greedy / temperature generation for the (B, S) ``prompt``; returns
+             encoder_input: Tensor | None = None, temperature: float = 0.0,
+             seed: int = 0) -> Tensor:
+    """Greedy / temperature generation for the (B, S) ``prompt`` (and, for
+    an encoder-decoder, its (B, L_enc, D) ``encoder_input``); returns
     (B, max_new_tokens) int32 tokens on the prompt's device."""
     b, s = prompt.shape
     max_len = max_len or (s + max_new_tokens)
     prefill_step = make_prefill_step(model, run, max_len)
     decode_step = make_decode_step(model, run)
     gen = torch.Generator(device=prompt.device).manual_seed(seed)
-    logits, state = prefill_step(params, prompt)
+    logits, state = prefill_step(params, prompt, encoder_input)
     out = []
     tok = sample_token(logits, gen, temperature)
     for i in range(max_new_tokens):

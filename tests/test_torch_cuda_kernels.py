@@ -1,4 +1,4 @@
-"""The port's CUDA paged kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``gpu``: without a CUDA device every test skips (a CUDA kernel
 has no CPU mode; its plain version is what the CPU suites hold to the
@@ -9,7 +9,10 @@ gives the same logits and the integer LUT pipeline must agree exactly:
 outputs within 2e-6 at every precision, both bin modes, GQA 1/4, odd
 head dims, ragged lengths and partial chunks.  The int8-pool kernels get
 exact-dequant inputs: codes in [−4, 4] and power-of-two scales, so every
-dequantized value and every dot is exact too.
+dequantized value and every dot is exact too.  The dense LUT-attention
+kernel gets exact-logit inputs in every mode (REXP fused and faithful,
+2D-LUT), with and without a cache's ``kv_len``, and the encoder's shape
+on normal rows, held to one LUT step.
 """
 
 import numpy as np
@@ -20,6 +23,8 @@ from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.core.precision import get_precision
 from repro_torch.core.quantization import quantize_rows
 from repro_torch.kernels.lut_attention import ops
+from repro_torch.kernels.lut_attention.lut_attention import (
+    lut_attention_cuda, lut_attention_plain, mode_of)
 from repro_torch.kernels.lut_attention.paged_decode import (
     paged_decode_attention, paged_decode_plain)
 from repro_torch.kernels.lut_attention.paged_prefill import (
@@ -352,3 +357,158 @@ def test_int8_inputs_the_kernels_do_not_take_raise(cuda):
         paged_decode_attention(q[:, :, :1], kp, vp, bt, kl, pol)
     assert (paged_decode_attention.int8_launches,
             paged_prefill_attention.int8_launches) == n
+
+
+# ---------------------------------------------------------------------------
+# Dense LUT attention (csrc/lut_attention.cu)
+# ---------------------------------------------------------------------------
+
+
+def _dense_problem(seed, *, b, h, kvh, lq, lk, dh, dtype, exact=True):
+    """Contiguous q (B, H, Lq, Dh), k / v (B, KVH, Lk, Dh) on the card:
+    exact-logit q, k (small integers × 2^-2) or normal rows."""
+    rng = np.random.default_rng(seed)
+    if exact:
+        q = rng.integers(-4, 5, size=(b, h, lq, dh)) * 0.25
+        k = rng.integers(-4, 5, size=(b, kvh, lk, dh)) * 0.25
+    else:
+        q = rng.normal(size=(b, h, lq, dh))
+        k = rng.normal(size=(b, kvh, lk, dh))
+    v = rng.normal(size=(b, kvh, lk, dh))
+    return [torch.as_tensor(x, device="cuda").to(dtype) for x in (q, k, v)]
+
+
+#: (B, H, KVH, Lq, Lk, Dh, causal, kv_len)
+DENSE_CASES = [
+    (2, 12, 12, 40, 40, 64, False, None),   # encoder self-attention
+    (2, 12, 12, 1, 300, 64, False, None),   # cross-attention, a decode step
+    (2, 12, 12, 8, 300, 64, False, None),   # cross-attention, a prefill
+    (2, 12, 12, 1, 64, 64, True, 40),       # cached self-attention, decode
+    (2, 12, 12, 8, 64, 64, True, 40),       # cached self-attention, prefill
+    (1, 8, 2, 13, 200, 128, True, None),    # GQA 4, Lk not a multiple of 8
+    (1, 4, 2, 5, 48, 40, True, 33),         # odd head dim, GQA 2
+    (1, 64, 8, 20, 52, 128, True, 20),      # Qwen3-32B lockstep prefill
+    (2, 64, 8, 1, 52, 128, True, 21),       # Qwen3-32B lockstep decode
+]
+
+DENSE_POLICIES = [
+    SoftmaxPolicy(impl=impl, precision=prec, index_mode=mode)
+    for impl in ("rexp", "lut2d") for prec in ("int16", "uint8", "uint4",
+                                                "uint2")
+    for mode in ("round", "floor")]
+
+
+def _dense_call(fn, q, k, v, pol, causal, kv_len, fused):
+    return fn(q, k, v, ops._tables_for(pol), method=pol.impl, causal=causal,
+              index_mode=pol.index_mode, fused_requant=fused, kv_len=kv_len)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DENSE_CASES, ids=str)
+def test_dense_kernel_matches_plain(cuda, dtype, case):
+    """Every mode (REXP fused and faithful, 2D-LUT) at every precision and
+    both bin modes, one launch counted per call in its mode."""
+    b, h, kvh, lq, lk, dh, causal, kv_len = case
+    q, k, v = _dense_problem(lq * 7 + lk, b=b, h=h, kvh=kvh, lq=lq, lk=lk,
+                             dh=dh, dtype=dtype)
+    for pol in DENSE_POLICIES:
+        for fused in ((False, True) if pol.impl == "rexp" else (False,)):
+            mode = mode_of(pol.impl, fused)
+            before = lut_attention_cuda.launches[mode]
+            out = _dense_call(lut_attention_cuda, q, k, v, pol, causal,
+                              kv_len, fused)
+            assert lut_attention_cuda.launches[mode] == before + 1
+            ref = _dense_call(lut_attention_plain, q, k, v, pol, causal,
+                              kv_len, fused)
+            err = float((out - ref).abs().max())
+            assert err <= TOL, (pol, fused, err)
+
+
+def test_dense_kernel_on_random_inputs_at_the_encoder_shape(cuda):
+    """Whisper's encoder shape (Lq = Lk = 1500, Dh 64) on normal rows:
+    within one LUT step of the plain version in every mode (the dot
+    orders differ; a logit on a bin edge may move one bin)."""
+    pol_r = SoftmaxPolicy(impl="rexp", precision="uint8")
+    pol_l = SoftmaxPolicy(impl="lut2d", precision="uint8")
+    q, k, v = _dense_problem(21, b=1, h=12, kvh=12, lq=1500, lk=1500, dh=64,
+                             dtype=torch.bfloat16, exact=False)
+    limit = 2.0 / get_precision("uint8").qmax * float(v.float().abs().max())
+    for pol, fused in ((pol_r, True), (pol_r, False), (pol_l, False)):
+        out = _dense_call(lut_attention_cuda, q, k, v, pol, False, None,
+                          fused)
+        ref = _dense_call(lut_attention_plain, q, k, v, pol, False, None,
+                          fused)
+        assert float((out - ref).abs().max()) <= limit, (pol, fused)
+
+
+def test_dense_long_rows_recompute_path(cuda):
+    """Rows past the shared-memory budget recompute q·k in every pass."""
+    q, k, v = _dense_problem(22, b=1, h=2, kvh=1, lq=9, lk=12000, dh=64,
+                             dtype=torch.bfloat16)
+    pol = SoftmaxPolicy(impl="rexp", precision="uint8")
+    for fused in (False, True):
+        out = _dense_call(lut_attention_cuda, q, k, v, pol, True, 11000,
+                          fused)
+        ref = _dense_call(lut_attention_plain, q, k, v, pol, True, 11000,
+                          fused)
+        assert float((out - ref).abs().max()) <= TOL
+
+
+def test_dense_dispatch_on_cuda(cuda):
+    """``auto``/``cuda`` launch the dense kernel (fused without a kv_len,
+    faithful with one), ``naive`` never does, nor does the exact policy
+    under any knob."""
+    q, k, v = _dense_problem(23, b=2, h=4, kvh=2, lq=3, lk=24, dh=64,
+                             dtype=torch.bfloat16)
+    rexp = SoftmaxPolicy(impl="rexp", precision="uint8")
+    n = dict(lut_attention_cuda.launches)
+    for backend in ("auto", "cuda", "naive"):
+        ops.lut_attention(q, k, v, rexp, backend=backend)
+        ops.lut_attention(q, k, v, rexp, causal=True, kv_len=17,
+                          backend=backend)
+        ops.lut_attention(q, k, v, SoftmaxPolicy(), backend=backend)
+    got = lut_attention_cuda.launches
+    assert got["rexp_fused"] == n["rexp_fused"] + 2
+    assert got["rexp"] == n["rexp"] + 2 and got["lut2d"] == n["lut2d"]
+    # a non-contiguous query (a transposed projection) is made contiguous
+    # by the dispatcher, never by the kernel wrapper
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    out = ops.lut_attention(qt, k, v, rexp, backend="cuda")
+    ref = ops.lut_attention(q, k, v, rexp, backend="naive")
+    assert float((out - ref).abs().max()) <= TOL
+
+
+def test_dense_inputs_the_kernel_does_not_take_raise(cuda):
+    """H % KVH ≠ 0, kv_len > Lk, non-contiguous or misaligned tensors,
+    mixed dtypes, head dims off the grid and float16 raise before any
+    launch."""
+    pol = SoftmaxPolicy(impl="lut2d", precision="uint8")
+    q, k, v = _dense_problem(24, b=2, h=4, kvh=2, lq=3, lk=24, dh=64,
+                             dtype=torch.bfloat16)
+    n = dict(lut_attention_cuda.launches)
+    q6, k6, v6 = _dense_problem(25, b=2, h=6, kvh=4, lq=3, lk=24, dh=64,
+                                dtype=torch.bfloat16)
+    q36, k36, v36 = _dense_problem(26, b=2, h=4, kvh=2, lq=3, lk=24, dh=36,
+                                   dtype=torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    bad = [((q6, k6, v6), {}, "multiple of KV heads"),
+           ((q, k, v), dict(kv_len=25), "kv_len"),
+           ((q.transpose(2, 3), k, v), {}, "contiguous"),
+           ((q, k.transpose(2, 3).contiguous().transpose(2, 3), v), {},
+            "contiguous"),
+           ((q, k.float(), v), {}, "kernel takes"),
+           ((q36, k36, v36), {}, "Dh"),
+           ((q, k[:, :, :20].contiguous(), v), {}, "both be"),
+           ((shifted, k, v), {}, "aligned")]
+    for args, kw, match in bad:
+        with pytest.raises(ValueError, match=match):
+            _dense_call(lut_attention_cuda, *args, pol, False,
+                        kw.get("kv_len"), False)
+    with pytest.raises(TypeError):
+        _dense_call(lut_attention_cuda, q.half(), k.half(), v.half(), pol,
+                    False, None, False)
+    with pytest.raises(ValueError, match="rexp"):
+        lut_attention_cuda(q, k, v, None, method="exact")
+    assert lut_attention_cuda.launches == n

@@ -44,6 +44,14 @@ def test_scan_covers_the_quantized_and_lockstep_modules():
             "models/layers.py", "launch/serve.py"} <= scanned
 
 
+def test_scan_covers_the_encdec_and_dense_kernel_modules():
+    """... and the Whisper encoder-decoder and dense LUT-attention
+    modules."""
+    scanned = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"models/encdec.py", "kernels/lut_attention/lut_attention.py",
+            "configs/whisper_small.py", "models/model_zoo.py"} <= scanned
+
+
 def test_package_imports_with_jax_and_repro_blocked():
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)

@@ -43,6 +43,7 @@ from repro_torch.configs import ARCHS as TARCHS
 from repro_torch.configs import RunConfig as TRun
 from repro_torch.core.policies import SoftmaxPolicy as TPol
 from repro_torch.kernels.lut_attention import ops as tops
+from repro_torch.kernels.lut_attention import ref as tref
 from repro_torch.models import build_model as torch_build
 from repro_torch.models.convert import params_from_jax, pool_from_jax
 from repro_torch.runtime import serve_loop as TSL
@@ -108,7 +109,6 @@ def test_lut_attention_naive_matches_jax(impl, kv_len, causal):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **ATTN_TOL)
     if kv_len is None and impl == "rexp":  # the oracle's faithful REXP
         from repro.kernels.lut_attention import ref as jref
-        from repro_torch.kernels.lut_attention import ref as tref
         faithful = tref.lut_attention_ref(
             torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
             method=impl, tables=tops._tables_for(TPol(**_kw(impl))),
@@ -122,13 +122,43 @@ def test_lut_attention_naive_matches_jax(impl, kv_len, causal):
         assert not np.allclose(faithful.numpy(), out.numpy())
 
 
-def test_lut_attention_unported_backends_raise():
-    x = torch.zeros((1, 2, 3, 8))
-    for backend in ("pallas", "blocked"):
-        with pytest.raises(NotImplementedError, match="lut_attention_pallas"):
-            tops.lut_attention(x, x, x, TPol(), backend=backend)
-    with pytest.raises(ValueError, match="unknown"):
-        tops.lut_attention(x, x, x, TPol(), backend="flash")
+@pytest.mark.parametrize("backend,impl,expect", [
+    ("blocked", "rexp", NotImplementedError),
+    ("pallas", "rexp", ValueError),       # the JAX knob; the port's 'cuda'
+    ("flash", "lut2d", ValueError),
+    ("cuda", "rexp", ValueError),         # CPU tensors: no kernel to take
+    ("cuda", "exact", ValueError),
+    ("auto", "rexp", None), ("auto", "lut2d", None), ("auto", "exact", None),
+    ("naive", "rexp", None), ("naive", "exact", None)])
+def test_lut_attention_unported_backends_raise(backend, impl, expect,
+                                               monkeypatch):
+    """The dense dispatch matrix on CPU tensors: ``blocked`` is not
+    ported and unknown knobs raise, ``cuda`` raises without CUDA
+    tensors, ``auto`` and ``naive`` run the plain version (the oracle,
+    REXP in its fused form without a kv_len); no call counts a kernel
+    launch.  The exact policy never reaches the kernel, even where the
+    knob resolves to it."""
+    from repro_torch.kernels.lut_attention import lut_attention as dense
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 2, 3, 8))
+                                .astype(np.float32)) for _ in range(3))
+    pol = TPol(**_kw(impl))
+    before = dict(dense.lut_attention_cuda.launches)
+    if expect is not None:
+        with pytest.raises(expect, match=backend):
+            tops.lut_attention(q, k, v, pol, backend=backend)
+    else:
+        out = tops.lut_attention(q, k, v, pol, backend=backend)
+        ref = tref.lut_attention_ref(
+            q, k, v, method=impl, tables=tops._tables_for(pol),
+            fused_requant=True)
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert dense.lut_attention_cuda.launches == before
+    if impl == "exact":  # resolve to the kernel: exact still stays plain
+        monkeypatch.setattr(tops, "resolve_attention_backend",
+                            lambda *a: "cuda")
+        monkeypatch.setattr(dense, "lut_attention_cuda", None)
+        tops.lut_attention(q, k, v, pol, backend=backend)
 
 
 # ---------------------------------------------------------------------------
