@@ -7,9 +7,10 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
 
 1. device and build — needs ``torch.cuda.is_available()``; prints the
    card's name and power limit, then builds every CUDA kernel of the
-   serving paths from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
-   all at once: paged decode, paged prefill, dense LUT attention) and
-   prints the build seconds and ptxas's report;
+   port from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at
+   once: paged decode, paged prefill, dense LUT attention, row-wise LUT
+   softmax, exact flash attention) and prints the build seconds and
+   ptxas's report;
 2. kernel against plain version — each paged kernel × {exact,
    rexp-uint8, lut2d-uint8} at Qwen3-32B width (H=64, KVH=8, Dh=128,
    page_size=16, ragged kv_lens up to 512, permuted block tables, finite
@@ -76,10 +77,32 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    384 faithful); the same drive with every dense call held to its
    plain version on its own inputs (one LUT step); the ``naive`` drive's
    first-token logits within 2% of the largest under exact and REXP;
-   one profiled drive.
+   one profiled drive;
+8. the row-wise LUT softmax through its op entry point
+   ``lut_softmax(x, SoftmaxPolicy(impl, use_kernel=True))`` at full
+   width — Whisper-small's encoder logits (4, 12, 1500, 1500) and
+   Qwen3-32B's causal prefill logits (1, 64, 2048, 2048), upper
+   triangle −inf — in f32 and bf16, REXP and 2D-LUT uint8: both launch
+   counters must move, and every output is ``torch.equal`` to the plain
+   version; then every precision (int16 at 300 columns) × bin mode ×
+   f32/bf16/f16 with fully masked rows and rows holding +inf / NaN, and
+   16 384 columns, all ``torch.equal``; the kernels' times beside the
+   plain versions', ``torch.softmax`` on the same tensor (a yardstick of
+   a memory-bound row pass, not the same function) and the bound (bytes
+   in plus f32 bytes out at 3.35 TB/s);
+9. exact flash attention through ``flash_attention(backend="auto")`` at
+   the Whisper encoder's shape (B=4, H=12, L=1500, Dh=64), Qwen3-32B's
+   causal prefill (H=64, KVH=8, L=2048, Dh=128), a 16-token chunk at its
+   tail and a 300-row chunk against 200 keys (100 rows see no key), f32
+   and bf16: the counter must move; the kernel's (out, m, l) within 2e-5
+   (out) and 1e-5 relative (m, l) of the plain version's (no TF32), the
+   rows that see no key exactly 0 / −inf / 0; then the kernel's time
+   beside the plain version's, SDPA's on the same inputs (a yardstick:
+   the port never calls it) and the bound (q·kᵀ at the input type's
+   peak beside p·V at the f32 peak, over the visible pairs).
 
 The line before the last is the card's name and power limit, the one
-before it a JSON summary of the five kernels; the last line is
+before it a JSON summary of the eight kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -104,6 +127,13 @@ from repro_torch.core.policies import SoftmaxPolicy  # noqa: E402
 from repro_torch.core.precision import get_precision  # noqa: E402
 from repro_torch.core.quantization import quantize_rows  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as FOPS  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402,E501
+    flash_attention_cuda, flash_attention_plain)
+from repro_torch.kernels.lut_softmax import ops as SOPS  # noqa: E402
+from repro_torch.kernels.lut_softmax.lut_softmax import (  # noqa: E402
+    lut2d_softmax_cuda, lut2d_softmax_plain, rexp_softmax_cuda,
+    rexp_softmax_plain)
 from repro_torch.kernels.lut_attention import ops  # noqa: E402
 from repro_torch.kernels.lut_attention import ref as REF  # noqa: E402
 from repro_torch.kernels.lut_attention.lut_attention import (  # noqa: E402
@@ -128,7 +158,8 @@ from repro_torch.runtime.serve_loop import (generate,  # noqa: E402
 #: int8 kernels multiply bf16 queries by dequantized int8 rows, so their
 #: operations are counted at the query type's rate.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+            torch.float32: 67e12}
 
 POLICIES = {
     "exact": SoftmaxPolicy(),
@@ -1110,6 +1141,254 @@ def phase_whisper():
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phases 8 and 9: the row-wise LUT softmax and exact flash attention
+# ---------------------------------------------------------------------------
+
+#: full-width logits for the row kernels: Whisper-small's encoder
+#: self-attention (4 clips, 12 heads, 1500 frames) and Qwen3-32B's causal
+#: prefill (64 heads, a 2048-token prompt, the upper triangle −inf)
+ROW_SHAPES = {"whisper encoder": ((W_BATCH, W_H, W_LENC, W_LENC), False),
+              "qwen3 prefill": ((1, H, 2048, 2048), True)}
+ROW_KERNELS = {"rexp": (rexp_softmax_cuda, rexp_softmax_plain),
+               "lut2d": (lut2d_softmax_cuda, lut2d_softmax_plain)}
+#: f32 operations per element of a row kernel (bins, lookups, Σ, σ)
+ROW_OPS_PER_ELEMENT = 10
+FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def row_logits(shape, causal, dtype, seed):
+    """Seeded normal logits (σ = 3) on the card; causal: the upper
+    triangle of every (query, key) square −inf."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device="cuda") * 3
+    if causal:
+        lq, lk = shape[-2:]
+        upper = torch.ones(lq, lk, dtype=torch.bool, device="cuda").triu(1)
+        x.masked_fill_(upper, float("-inf"))
+    return x.to(dtype)
+
+
+def row_bound(numel, dtype):
+    """Least time for a row kernel: each element read once and written
+    once as f32 at 3.35 TB/s, against its operations at the f32 peak."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    t_bytes = numel * (esize + 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = numel * ROW_OPS_PER_ELEMENT / PEAK_OPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_row_softmax():
+    """Phase 8: the op entry point ``lut_softmax(use_kernel=True)`` at full
+    width, counted; every result ``torch.equal`` to the plain version;
+    the small-width sweep, non-finite rows and 16 384 columns; times."""
+    pols = {impl: SoftmaxPolicy(impl=impl, precision="uint8",
+                                use_kernel=True) for impl in ROW_KERNELS}
+    inputs = {(name, dt): row_logits(shape, causal, dt, seed=8)
+              for name, (shape, causal) in ROW_SHAPES.items()
+              for dt in (torch.float32, torch.bfloat16)}
+    torch.cuda.synchronize()
+    for kernel, _ in ROW_KERNELS.values():
+        kernel.launches = 0
+    outs = {(key, impl): SOPS.lut_softmax(x, pols[impl])
+            for key, x in inputs.items() for impl in pols}
+    torch.cuda.synchronize()
+    launches = {impl: kernel.launches
+                for impl, (kernel, _) in ROW_KERNELS.items()}
+    print(f"[rows] lut_softmax(use_kernel=True) over "
+          f"{len(inputs)} full-width tensors: launches {launches}")
+    if launches != {impl: len(inputs) for impl in ROW_KERNELS}:
+        raise AssertionError(f"the op entry point skipped a kernel: "
+                             f"{launches}")
+    failures = []
+    for ((name, dt), impl), out in outs.items():
+        x = inputs[(name, dt)]
+        ref = ROW_KERNELS[impl][1](x, ops._tables_for(pols[impl]))
+        same = torch.equal(out, ref)
+        sums = out.sum(-1)
+        print(f"[rows] {impl} {name} {tuple(x.shape)} {str(dt)[6:]}: "
+              f"torch.equal to plain {same}; row sums in "
+              f"[{float(sums.min()):.4f}, {float(sums.max()):.4f}]")
+        if not same or out.shape != x.shape or not torch.isfinite(out).all():
+            failures.append(f"{impl} {name} {dt}")
+        del ref
+    del outs
+
+    # every precision × bin mode × input type at a small width, with
+    # −inf masks, fully masked rows (all zeros out) and non-finite rows
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    base = torch.randn(64, 300, generator=gen, device="cuda") * 3
+    base[torch.rand(base.shape, generator=gen, device="cuda") < 0.25] = \
+        float("-inf")
+    base[:4] = float("-inf")
+    base[4, 7], base[5, 9], base[6, 11] = float("inf"), float("nan"), \
+        float("-inf")
+    n_sweep = 0
+    for impl, (kernel, plain) in ROW_KERNELS.items():
+        for prec in ("int16", "uint8", "uint4", "uint2"):
+            tables = ops._tables_for(SoftmaxPolicy(impl=impl, precision=prec))
+            for mode in ("round", "floor"):
+                for dt in FLOAT_TYPES:
+                    x = base.to(dt)
+                    out = kernel(x, tables, mode)
+                    n_sweep += 1
+                    if not (torch.equal(out, plain(x, tables, mode))
+                            and not out[:4].any()):
+                        failures.append(f"sweep {impl} {prec} {mode} {dt}")
+        for dt in (torch.float32, torch.bfloat16):
+            x = row_logits((16, 16384), False, dt, seed=10)
+            x[3, 100] = float("inf")
+            tables = ops._tables_for(pols[impl])
+            if not torch.equal(kernel(x, tables), plain(x, tables)):
+                failures.append(f"16384 columns {impl} {dt}")
+    print(f"[rows] sweep: {n_sweep} cases (4 precisions × 2 bin modes × "
+          f"f32/bf16/f16, rows fully masked and holding +inf / NaN) and "
+          f"16 384 columns in f32 and bf16: "
+          f"{'all torch.equal' if not failures else failures}")
+    if failures:
+        raise AssertionError(f"row kernels off their plain versions: "
+                             f"{failures}")
+
+    rows = {}
+    for (name, dt), x in inputs.items():
+        b_ms, b_by = row_bound(x.numel(), dt)
+        lib = device_ms(lambda: torch.softmax(x, dim=-1))
+        for impl, (kernel, plain) in ROW_KERNELS.items():
+            tables = ops._tables_for(pols[impl])
+            ms = device_ms(lambda: kernel(x, tables))
+            plain_ms = device_ms(lambda: plain(x, tables), iters=5)
+            print(f"[time] lut_softmax_{impl} {name} {tuple(x.shape)} "
+                  f"{str(dt)[6:]}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, torch.softmax {lib:.4f} ms (a "
+                  f"yardstick of a row pass, not the same function), bound "
+                  f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound")
+            if name == "whisper encoder" and dt == torch.float32:
+                rows[f"lut_softmax_{impl}"] = dict(
+                    max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return rows, {f"lut_softmax_{k}": v for k, v in launches.items()}
+
+
+#: (name, B, H, KVH, Lq, Lk, Dh, causal) — Whisper-small's encoder, and
+#: Qwen3-32B's causal prefill, a 16-token chunk at its tail and a chunk
+#: longer than its keys (the first 100 rows see no key)
+FLASH_CASES = [
+    ("whisper encoder", W_BATCH, W_H, W_H, W_LENC, W_LENC, W_DH, False),
+    ("qwen3 prefill", 1, H, KVH, 2048, 2048, DH, True),
+    ("qwen3 tail chunk", 1, H, KVH, 16, 2048, DH, True),
+    ("lq > lk", 1, H, KVH, 300, 200, DH, True),
+]
+
+
+def causal_pairs(lq, lk, causal):
+    """Visible (query row, key) pairs of one (sequence, head)."""
+    if not causal:
+        return lq * lk
+    return sum(max(0, min(lk, i + lk - lq + 1)) for i in range(lq))
+
+
+def flash_bound(b, h, kvh, lq, lk, dh, dtype, pairs):
+    """Least time for the flash call: q, k, v read once and the f32 out,
+    m and l written once over 3.35 TB/s, against q·kᵀ at the input type's
+    peak (a bf16 product is exact in f32, so the tensor cores may take
+    it) beside p·V at the f32 peak (p is f32), over the visible pairs;
+    the busier unit sets the operations' time."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = ((b * h * lq + 2 * b * kvh * lk) * dh * esize
+              + b * h * lq * (dh + 2) * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    flops = 2 * b * h * dh * pairs                   # one of q·kᵀ and p·V
+    per_unit = {PEAK_OPS[torch.float32]: flops}
+    per_unit[PEAK_OPS[dtype]] = per_unit.get(PEAK_OPS[dtype], 0) + flops
+    t_ops = max(n / peak for peak, n in per_unit.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flash():
+    """Phase 9: ``flash_attention(backend="auto")`` at full width,
+    counted; the kernel's (out, m, l) against the plain version's; times
+    beside the plain version and SDPA."""
+    rng = np.random.default_rng(9)
+    problems = {}
+    for name, b, h, kvh, lq, lk, dh, causal in FLASH_CASES:
+        arrays = [rng.standard_normal(s, dtype=np.float32)
+                  for s in ((b, h, lq, dh), (b, kvh, lk, dh),
+                            (b, kvh, lk, dh))]
+        for dt in (torch.float32, torch.bfloat16):
+            problems[(name, dt)] = [torch.as_tensor(a, device="cuda").to(dt)
+                                    for a in arrays]
+    causal_of = {c[0]: c[7] for c in FLASH_CASES}
+    torch.cuda.synchronize()
+    flash_attention_cuda.launches = 0
+    outs = {key: FOPS.flash_attention(*qkv, causal=causal_of[key[0]],
+                                      backend="auto")
+            for key, qkv in problems.items()}
+    torch.cuda.synchronize()
+    launches = flash_attention_cuda.launches
+    print(f"[flash] flash_attention(backend='auto') over {len(problems)} "
+          f"full-width calls: launches {launches}")
+    if launches != len(problems):
+        raise AssertionError(f"the op entry point skipped the kernel: "
+                             f"{launches} launches")
+    worst, failures = 0.0, []
+    for (name, dt), (q, k, v) in problems.items():
+        causal = causal_of[name]
+        out, m, l = flash_attention_cuda(q, k, v, causal=causal)
+        ro, rm, rl = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((out - ro).abs().max())
+        op_err = float((outs[(name, dt)] - ro).abs().max())
+        blind = torch.isneginf(rm)
+        seen = ~blind
+        m_rel = float(((m - rm).abs() / rm.abs().clamp(min=1e-30))[seen]
+                      .max()) if seen.any() else 0.0
+        l_rel = float(((l - rl).abs() / rl)[seen].max()) if seen.any() \
+            else 0.0
+        exact_blind = (torch.equal(torch.isneginf(m), blind)
+                       and not out[blind].any() and not l[blind].any())
+        print(f"[flash] {name} {str(dt)[6:]} B={q.shape[0]} "
+              f"H={q.shape[1]}/{k.shape[1]} Lq={q.shape[2]} Lk={k.shape[2]} "
+              f"Dh={q.shape[3]} causal={causal}: out max|err| {err:.3g} "
+              f"(op {op_err:.3g}; limit 2e-5), m rel {m_rel:.3g}, l rel "
+              f"{l_rel:.3g} (limit 1e-5); {int(blind.sum())} rows see no key"
+              f"{', exactly 0 / −inf / 0' if exact_blind else ''}")
+        worst = max(worst, err, op_err)
+        if not (err <= 2e-5 and op_err <= 2e-5 and m_rel <= 1e-5
+                and l_rel <= 1e-5 and exact_blind):
+            failures.append(f"{name} {dt}")
+        del ro, rm, rl
+    if failures:
+        raise AssertionError(f"flash kernel off its plain version: "
+                             f"{failures}")
+
+    rows = {}
+    for name, b, h, kvh, lq, lk, dh, causal in FLASH_CASES[:2]:
+        pairs = causal_pairs(lq, lk, causal)
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = problems[(name, dt)]
+            # the library yardstick, with the GQA head repeat outside the
+            # timed call (Lq = Lk, so SDPA's causal mask is this one)
+            kx, vx = (t.repeat_interleave(h // kvh, dim=1) for t in (k, v))
+            sdpa = device_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kx, vx, is_causal=causal))
+            del kx, vx
+            b_ms, b_by = flash_bound(b, h, kvh, lq, lk, dh, dt, pairs)
+            ms = device_ms(lambda: flash_attention_cuda(q, k, v,
+                                                        causal=causal))
+            plain_ms = device_ms(lambda: flash_attention_plain(
+                q, k, v, causal=causal), iters=5)
+            print(f"[time] flash_attention {name} {str(dt)[6:]}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                  f"{sdpa:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"{b_ms / ms:.1%} of bound")
+            if name == "whisper encoder" and dt == torch.bfloat16:
+                rows["flash_attention"] = dict(
+                    max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=sdpa)
+    return rows, {"flash_attention": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1131,21 +1410,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels["lut_attention"] = phase_dense_kernel()
     launches["lut_attention"] = phase_whisper()
+    for phase in (phase_row_softmax, phase_flash):
+        rows, counts = phase()
+        kernels.update(rows)
+        launches.update(counts)
     summary = {"kernels": [
-        dict(name=name, route="cuda",
-             source=f"src/repro_torch/csrc/{name.removesuffix('_int8')}.cu",
-             replaces=replaces, launches=launches[name], **kernels[name])
-        for name, replaces in (
-            ("paged_decode",
-             "src/repro/kernels/lut_attention/paged_decode.py:419"),
-            ("paged_prefill",
-             "src/repro/kernels/lut_attention/paged_prefill.py:427"),
-            ("paged_decode_int8",
-             "src/repro/kernels/lut_attention/paged_decode.py:120"),
-            ("paged_prefill_int8",
-             "src/repro/kernels/lut_attention/paged_prefill.py:118"),
-            ("lut_attention",
-             "src/repro/kernels/lut_attention/lut_attention.py:355"))]}
+        dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}.cu",
+             replaces=f"src/repro/kernels/{replaces}",
+             launches=launches[name], **kernels[name])
+        for name, src, replaces in (
+            ("paged_decode", "paged_decode",
+             "lut_attention/paged_decode.py:419"),
+            ("paged_prefill", "paged_prefill",
+             "lut_attention/paged_prefill.py:427"),
+            ("paged_decode_int8", "paged_decode",
+             "lut_attention/paged_decode.py:120"),
+            ("paged_prefill_int8", "paged_prefill",
+             "lut_attention/paged_prefill.py:118"),
+            ("lut_attention", "lut_attention",
+             "lut_attention/lut_attention.py:355"),
+            ("lut_softmax_rexp", "lut_softmax",
+             "lut_softmax/lut_softmax.py:128"),
+            ("lut_softmax_lut2d", "lut_softmax",
+             "lut_softmax/lut_softmax.py:128"),
+            ("flash_attention", "flash_attention",
+             "flash_attention/flash_attention.py:103"))]}
     print(json.dumps(summary))
     print(card)
     print(json.dumps({"ok": True, "device": {

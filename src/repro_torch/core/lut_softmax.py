@@ -34,15 +34,30 @@ equals XLA's saturating float→int conversion followed by the clip, where
 a plain ``.to(torch.int32)`` of a huge value would wrap.
 
 Masking: ``−inf`` logits contribute a hard 0 (never the terminal LUT
-entry), and fully-masked rows give all-zero rows rather than NaN.
+entry), and fully-masked rows give all-zero rows rather than NaN.  The
+row max is taken over every entry, as in the JAX package: a ``+inf`` or
+``NaN`` in a row makes it non-finite, and it becomes 0.  (The row-wise
+kernels take it over the finite entries only — ``kernels/lut_softmax``;
+the two agree on every row of finite and ``−inf`` entries.)
+
+Beside the paper's two methods sit the prior-art baselines of its
+Appendix A.1 (:func:`softmax_rexp_unnorm`, :func:`softmax_log_prior`,
+:func:`logsoftmax_scoring`) and :func:`make_softmax_fn`, which binds a
+:class:`SoftmaxPolicy` to one of them.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from repro_torch.core.lut_builder import Lut2DTables, RexpTables
+from repro_torch.core.lut_builder import (Lut2DTables, RexpTables,
+                                          build_lut2d_tables,
+                                          build_rexp_tables)
+from repro_torch.core.policies import SoftmaxPolicy
+from repro_torch.core.precision import get_precision
 
 Tensor = torch.Tensor
 
@@ -155,3 +170,82 @@ def softmax_lut2d(x: Tensor, tables: Lut2DTables, axis: int = -1,
                        1, n_cols) - 1
     lin = i_idx * n_cols + j_idx.expand_as(i_idx)
     return lut_sigma.reshape(-1)[lin].float() * inv_scale(qmax)
+
+
+# ---------------------------------------------------------------------------
+# Prior-art baselines (paper Appendix A.1)
+# ---------------------------------------------------------------------------
+
+
+def softmax_rexp_unnorm(x: Tensor, tables: RexpTables, axis: int = -1,
+                        index_mode: str = "round") -> Tensor:
+    """[29] (aggressive): σ* = 1/e^{max−x} with NO PDF normalization.
+
+    ``e / qmax`` is an IEEE division, as in the JAX package (not a
+    multiply by :func:`inv_scale`), so the result is bitwise the same.
+    """
+    e_int = rexp_exp_int(x, tables, axis, index_mode)
+    return e_int.float() / tables.precision.qmax
+
+
+def softmax_log_prior(x: Tensor, w: int, axis: int = -1,
+                      max_norm: bool = False) -> Tensor:
+    """[32] Eq. (2) — paper Eq. (11) (and Eq. (12) with ``max_norm``).
+
+    exp(x − ln Σe^x) with the outer exp rounded to ``2^w − 1`` levels.
+    """
+    x = x.float()
+    prec = float((1 << w) - 1)
+    if max_norm:
+        x = x - _masked_max(x, axis)
+    finite = torch.isfinite(x)
+    e = torch.where(finite, torch.exp(x), torch.zeros_like(x))
+    lse = torch.log(torch.clamp(torch.sum(e, dim=axis, keepdim=True),
+                                min=torch.finfo(torch.float32).tiny))
+    sigma = torch.exp(torch.where(finite, x, torch.full_like(x, -np.inf))
+                      - lse)
+    return torch.round(sigma * prec) / prec
+
+
+def logsoftmax_scoring(x: Tensor, axis: int = -1) -> Tensor:
+    """[35]/[13] extreme: log-domain scores, exp skipped entirely (only
+    argmax-preserving)."""
+    x = x.float()
+    m = _masked_max(x, axis)
+    e = torch.where(torch.isfinite(x), torch.exp(x - m), torch.zeros_like(x))
+    s = torch.sum(e, dim=axis, keepdim=True)
+    return (x - m) - torch.log(torch.clamp(
+        s, min=torch.finfo(torch.float32).tiny))
+
+
+# ---------------------------------------------------------------------------
+# Policy dispatch
+# ---------------------------------------------------------------------------
+
+
+def make_softmax_fn(policy: SoftmaxPolicy,
+                    rexp_tables: RexpTables | None = None,
+                    lut2d_tables: Lut2DTables | None = None):
+    """Bind a policy to a plain ``f(x, axis=-1) -> softmax-like`` callable.
+
+    Tables default to the paper's Table-8 configuration for the policy's
+    precision; pass calibrated tables to override.  ``lookup_impl`` has
+    no counterpart here: every table read is a gather, which gives the
+    same int32 values as the JAX package's one-hot read.
+    """
+    if policy.impl == "exact":
+        return softmax_exact
+    if policy.impl in ("rexp", "rexp_unnorm"):
+        t = rexp_tables or build_rexp_tables(policy.precision,
+                                             policy.alpha_len)
+        fn = softmax_rexp if policy.impl == "rexp" else softmax_rexp_unnorm
+        return functools.partial(fn, tables=t, index_mode=policy.index_mode)
+    if policy.impl == "lut2d":
+        t = lut2d_tables or build_lut2d_tables(policy.precision)
+        return functools.partial(softmax_lut2d, tables=t,
+                                 index_mode=policy.index_mode)
+    if policy.impl == "log2_prior":
+        return functools.partial(softmax_log_prior,
+                                 w=get_precision(policy.precision).w,
+                                 max_norm=policy.max_norm)
+    raise ValueError(f"unknown softmax impl {policy.impl!r}")

@@ -1,4 +1,6 @@
-// Shared LUT-softmax pipeline of the LUT-attention kernels (sm_90a).
+// Shared LUT-softmax pipeline of the LUT-attention kernels (sm_90a);
+// the row-wise LUT softmax (csrc/lut_softmax.cu) reuses its per-element
+// helpers and reductions.
 //
 // The counterpart of the JAX package's in-kernel helpers in
 // src/repro/kernels/common.py (policy_e_terms, rexp_sigma,
@@ -49,6 +51,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -67,7 +70,17 @@ constexpr int kUnroll = 8;
 // pass recomputes q·k from the pages instead, as the TPU kernel does.
 constexpr size_t kCacheSmemBudget = 96 * 1024;
 
-struct Params {
+// The fields the per-element LUT pipeline reads (clamp_bin, e_term,
+// weight): the table sizes, the method, the bin mode and the f32
+// reciprocal constants from the host.  The row-wise softmax kernel
+// (csrc/lut_softmax.cu) passes just these; the attention kernels' Params
+// extends them.
+struct LutParams {
+  int n_main, aux_rows, aux_cols, method, round_mode;
+  float inv_step, inv_q, inv_ex, inv_sum;
+};
+
+struct Params : LutParams {
   const void* q;          // (B, H, C, Dh) TQ
   const void* k_pages;    // (n_pages, ps, KVH, Dh) TK
   const void* v_pages;
@@ -80,10 +93,9 @@ struct Params {
   const int* lut_aux;       // (aux_rows, aux_cols)
   float* out;               // (B, H, C, Dh) f32
   int B, H, KVH, Dh, n_pages, ps, mp, C;
-  int n_main, aux_rows, aux_cols, method, round_mode;
   int kv_len, causal, fused;  // dense kernel: valid keys of every
                               // sequence, causal mask, REXP's fused form
-  float scale, inv_step, inv_q, inv_ex, inv_sum;
+  float scale;
 };
 
 // Shared memory of one block serving R query rows: per-warp row offsets
@@ -105,6 +117,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) { return float(x); }
 
 template <typename TK>
@@ -169,7 +182,7 @@ __device__ __forceinline__ int clamp_bin(float v, int round_mode, int lo,
 
 // Numerator of one element given the row max m (policy_e_terms).
 __device__ __forceinline__ float e_term(float s, float m, const int* lut_main,
-                                        const Params& p) {
+                                        const LutParams& p) {
   if (!isfinite(s)) return 0.f;  // masked key: hard zero
   if (p.method == kExact) return expf(__fsub_rn(s, m));
   float d = __fsub_rn(m, s);
@@ -180,7 +193,7 @@ __device__ __forceinline__ float e_term(float s, float m, const int* lut_main,
 // Weight of one element given its numerator e and the row's global Σ
 // (exact: e/Σ; REXP: rexp_sigma; 2D-LUT: lut2d_sigma_int), dequantized.
 __device__ __forceinline__ float weight(float e, float S, const int* lut_aux,
-                                        const Params& p) {
+                                        const LutParams& p) {
   if (p.method == kExact) return __fdiv_rn(e, fmaxf(S, 1.17549435e-38f));
   if (p.method == kRexp) {
     int ja = clamp_bin(__fmul_rn(S, p.inv_q), p.round_mode, 0,

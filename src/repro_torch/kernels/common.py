@@ -78,9 +78,11 @@ def policy_kernel_tables(method: str, tables):
     raise ValueError(f"unsupported paged-kernel method {method!r}")
 
 
-#: the CUDA kernels' method and input-type codes
+#: the CUDA kernels' method and input-type codes: the LUT-attention kernels
+#: take f32/bf16, the row-wise softmax and flash attention f16 as well
 KERNEL_METHODS = {"exact": 0, "rexp": 1, "lut2d": 2}
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+FLOAT_DTYPES = {**KERNEL_DTYPES, torch.float16: 2}
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,0 +1,93 @@
+"""Exact flash attention: the CUDA kernel's wrapper and its plain version.
+
+The counterpart of the JAX package's ``kernels/flash_attention/
+flash_attention.py`` (``flash_attention_pallas``, body
+``_flash_kernel``): exact softmax attention with GQA and right-aligned
+causal masking; q (B, H, Lq, D), k / v (B, KVH, Lk, D) of one float
+type; returns ``(out, m, l)`` — out (B, H, Lq, D), the row max m and
+the sum l = Σ exp(s − m) (B, H, Lq), all f32.
+
+* :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu`` on
+  CUDA tensors (one block per (sequence, head, 64 query rows), the keys
+  in tiles with the online recurrence; the kernel picks its own tiling,
+  so there is no ``block_q`` / ``block_k``) or raises; on CPU tensors it
+  runs the plain version — only because the tensors lie on the CPU.
+* :func:`flash_attention_plain` is the plain PyTorch version
+  (``ref.flash_attention_stats``): materialized logits, one softmax.
+
+The JAX package defines no backward for this kernel, and neither does
+the port.  ``flash_attention_cuda.launches`` counts the launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.common import FLOAT_DTYPES
+from repro_torch.kernels.flash_attention import ref as _ref
+
+Tensor = torch.Tensor
+
+
+def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
+                          causal: bool = False,
+                          scale: float | None = None):
+    """The plain PyTorch version: ``(out, m, l)``, all f32."""
+    return _ref.flash_attention_stats(q, k, v, causal=causal, scale=scale)
+
+
+def check_kernel_inputs(q: Tensor, k: Tensor, v: Tensor) -> None:
+    """Raise on anything the kernel does not take instead of launching."""
+    if q.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"the flash-attention kernel takes float32, bfloat16 "
+                        f"or float16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; the "
+                             f"kernel takes {q.dtype} on {q.device}")
+    b, h, lq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
+                         f"both be (B={b}, KVH, Lk, D={d})")
+    kvh, lk = k.shape[1], k.shape[2]
+    if kvh < 1 or h % kvh:
+        raise ValueError(f"query heads H={h} must be a multiple of KV heads "
+                         f"KVH={kvh}")
+    if not (1 <= d <= 256 and lq >= 1 and lk >= 1 and b >= 1):
+        raise ValueError(f"the kernel takes 1 ≤ D ≤ 256 and B, Lq, Lk ≥ 1; "
+                         f"got D={d}, B={b}, Lq={lq}, Lk={lk}")
+
+
+def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
+                         causal: bool = False, scale: float | None = None):
+    """Exact flash attention; returns ``(out, m, l)``, all f32.
+
+    CUDA tensors launch the kernel on the current stream (or raise); CPU
+    tensors run :func:`flash_attention_plain`.
+    """
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    check_kernel_inputs(q, k, v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    b, h, lq, d = q.shape
+    kvh, lk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.empty((b, h, lq, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    err = build.load("flash_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        m.data_ptr(), l.data_ptr(), FLOAT_DTYPES[q.dtype], b, h, kvh, lq, lk,
+        d, int(causal), scale,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention_cuda.launches += 1
+    return out, m, l
+
+
+flash_attention_cuda.launches = 0

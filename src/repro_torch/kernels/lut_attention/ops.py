@@ -9,6 +9,7 @@ and the encoder-decoder's full-sequence attentions go through
     ``auto``                       the dense CUDA kernel the plain version
     ``cuda``                       the dense CUDA kernel raises
     ``naive``                      the plain version     the plain version
+    ``blocked``                    the blocked path      the blocked path
 
 The kernel is ``csrc/lut_attention.cu`` (the port of the JAX package's
 ``lut_attention_pallas``); its plain version is the materialized-logits
@@ -17,8 +18,11 @@ version under every knob, as the JAX package sends it to its naive
 path: the TPU kernel has no exact body, and no launch is counted for it.
 Without a ``kv_len`` REXP takes its fused α form; with one (a cache's
 valid length) the faithful per-element σ — 2D-LUT is faithful in both.
-``blocked`` (the JAX package's flash-style XLA scan) is not ported and
-raises.
+``blocked`` is :func:`lut_attention_blocked`, the port of the JAX
+package's flash-style XLA scan: plain PyTorch over (q-chunk × k-chunk)
+tiles, never more than one tile of logits per (batch, head), with the
+fused-requant semantics for the LUT policies whatever the ``kv_len``
+(as in the JAX package); it runs no kernel on either device.
 
 The continuous-batching engine attends through the two *paged*
 dispatchers — :func:`lut_attention_paged_decode` (single-token decode)
@@ -160,11 +164,169 @@ def lut_attention_prefill_varlen(q: Tensor, k: Tensor, v: Tensor,
     return _grouped_pv(_policy_softmax(s, policy), v)
 
 
+# ---------------------------------------------------------------------------
+# Blocked path (flash-style chunk loops; per-row kv_len and q_start)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_mask(q0: int, k0: int, bq: int, bk: int, causal: bool, lq: int,
+                lk_eff: Tensor | int, q_start: Tensor | int | None,
+                device: torch.device) -> Tensor:
+    """Visibility mask for a (q-chunk, k-chunk) tile.
+
+    ``lk_eff`` (valid key count) and ``q_start`` (absolute position of
+    query row 0) may be scalars or per-row ``(B,)`` tensors.  Returns a
+    mask broadcastable against the ``(B, KVH, G, bq, bk)`` logits tile:
+    ``(bq, bk)`` gains a leading batch axis only when a per-row argument
+    is given.  Without ``q_start`` the causal queries are the *last*
+    ``lq`` positions of the valid keys (``q_start = lk_eff − lq``).
+    """
+    def _b(x):  # scalar → as is; (B,) → (B, 1, 1, 1, 1)
+        x = torch.as_tensor(x, device=device)
+        return x.reshape(-1, 1, 1, 1, 1) if x.dim() == 1 else x
+    ki = (k0 + torch.arange(bk, device=device))[None, :]       # (1, bk)
+    mask = ki < _b(lk_eff)
+    if causal:
+        if q_start is None:
+            q_start = torch.as_tensor(lk_eff, device=device) - lq
+        qi = (q0 + torch.arange(bq, device=device))[:, None] + _b(q_start)
+        mask = mask & (ki <= qi)
+    return mask
+
+
+def _grouped_logits(qc: Tensor, kc: Tensor, scale: float) -> Tensor:
+    """q (B, KVH, G, bq, D) × k (B, KVH, bk, D) → (B, KVH, G, bq, bk) f32."""
+    return torch.matmul(qc.float(),
+                        kc.float().unsqueeze(2).transpose(-1, -2)) * scale
+
+
+def lut_attention_blocked(q: Tensor, k: Tensor, v: Tensor,
+                          policy: SoftmaxPolicy, *, causal: bool = False,
+                          scale: float | None = None,
+                          kv_len: Tensor | int | None = None,
+                          q_start: Tensor | int | None = None,
+                          q_chunk: int = 512, k_chunk: int = 1024) -> Tensor:
+    """Flash-style LUT attention in plain PyTorch (fused-requant
+    semantics); (B, H, Lq, D) f32.
+
+    The port of the JAX package's ``lut_attention_blocked``: a loop over
+    query chunks, and inside it over key chunks.  Exact softmax runs the
+    online recurrence (running max, sum and rescaled accumulator); REXP
+    and 2D-LUT take one pass for the row max and one for the integer Σ
+    and U = Σ e·v, then REXP scales U by α(Σ)/qmax² and 2D-LUT by
+    1/(qmax · j(Σ) · scale_Σ), the binned denominator.  q (B, H, Lq, D);
+    k, v (B, KVH, Lk, D).  ``kv_len`` (scalar or per-row (B,)) masks the
+    tail of a pre-allocated cache; ``q_start`` (scalar or (B,)) pins the
+    absolute position of query row 0 for the causal mask (default
+    ``kv_len − Lq``).  Never materializes more than a (q_chunk ×
+    k_chunk) logits tile per (batch, head); the padding to chunk
+    multiples never counts as valid keys.  The JAX function's ``unroll``
+    only serves XLA's cost analysis and has no counterpart here.
+    """
+    b, h, lq, d = q.shape
+    kvh, lk = k.shape[1], k.shape[2]
+    g = h // kvh
+    dev = q.device
+    scale = scale if scale is not None else d ** -0.5
+    bq, bk = min(q_chunk, lq), min(k_chunk, lk)
+    lq_p, lk_p = -(-lq // bq) * bq, -(-lk // bk) * bk
+    q = torch.nn.functional.pad(q, (0, 0, 0, lq_p - lq))
+    k = torch.nn.functional.pad(k, (0, 0, 0, lk_p - lk))
+    v = torch.nn.functional.pad(v, (0, 0, 0, lk_p - lk))
+    lk_eff = lk if kv_len is None else kv_len     # never the padding
+    qg = q.reshape(b, kvh, g, lq_p, d)
+
+    def tiles(qi):
+        """(key chunk, value chunk, masked logits) of query chunk qi."""
+        qc = qg[:, :, :, qi * bq:(qi + 1) * bq]
+        for ki in range(lk_p // bk):
+            kc, vc = (t[:, :, ki * bk:(ki + 1) * bk] for t in (k, v))
+            mask = _chunk_mask(qi * bq, ki * bk, bq, bk, causal, lq, lk_eff,
+                               q_start, dev)
+            s = _grouped_logits(qc, kc, scale).masked_fill(~mask,
+                                                            float("-inf"))
+            yield vc, s
+
+    if policy.impl == "exact":
+        def one_q_chunk(qi):
+            m = torch.full((b, kvh, g, bq), float("-inf"), device=dev)
+            l = torch.zeros((b, kvh, g, bq), device=dev)
+            acc = torch.zeros((b, kvh, g, bq, d), device=dev)
+            for vc, s in tiles(qi):
+                m_new = torch.maximum(m, torch.amax(s, dim=-1))
+                m_safe = torch.where(torch.isfinite(m_new), m_new,
+                                     torch.zeros_like(m_new))
+                p = torch.where(torch.isfinite(s),
+                                torch.exp(s - m_safe[..., None]),
+                                torch.zeros_like(s))
+                corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                                   torch.zeros_like(m))
+                l = l * corr + torch.sum(p, dim=-1)
+                acc = (acc * corr[..., None]
+                       + torch.matmul(p, vc.float().unsqueeze(2)))
+                m = m_new
+            return acc / torch.clamp(l, min=1e-30)[..., None]
+    else:
+        tables = _tables_for(policy)
+        qmax = tables.precision.qmax
+        inv = _core.inv_scale(qmax)
+        if policy.impl == "rexp":
+            lut_main, e_step = tables.lut_recip_exp, 1.0
+        else:
+            lut_main, e_step = tables.lut_exp, tables.exp_step
+        lut_main = torch.as_tensor(lut_main, dtype=torch.int32, device=dev)
+        n_lut = lut_main.shape[0]
+
+        def e_of(s, m_safe):
+            """f32 integer numerators of a tile given the row max."""
+            finite = torch.isfinite(s)
+            dd = torch.where(finite,
+                             (m_safe[..., None] - s) * _core.inv_scale(e_step),
+                             torch.full_like(s, n_lut - 1))
+            idx = _core._bin_index(dd, policy.index_mode, 0, n_lut - 1)
+            return torch.where(finite, lut_main[idx],
+                               torch.zeros((), dtype=torch.int32,
+                                           device=dev)).float()
+
+        def one_q_chunk(qi):
+            m = torch.full((b, kvh, g, bq), float("-inf"), device=dev)
+            for _, s in tiles(qi):
+                m = torch.maximum(m, torch.amax(s, dim=-1))
+            m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+            ssum = torch.zeros((b, kvh, g, bq), device=dev)
+            u = torch.zeros((b, kvh, g, bq, d), device=dev)
+            for vc, s in tiles(qi):
+                e = e_of(s, m_safe)
+                ssum = ssum + torch.sum(e, dim=-1)
+                u = u + torch.matmul(e, vc.float().unsqueeze(2))
+            if policy.impl == "rexp":
+                lut_a = torch.as_tensor(tables.lut_alpha, dtype=torch.int32,
+                                        device=dev)
+                ja = _core._bin_index(ssum * inv, policy.index_mode, 0,
+                                      lut_a.shape[0] - 1)
+                return u * (lut_a[ja].float() * inv * inv)[..., None]
+            # 2D-LUT's fused form divides U by the binned denominator: the
+            # faithful per-element σ is only on the naive and kernel paths
+            n_cols = tables.lut_sigma.shape[1]
+            jj = _core._bin_index(
+                ssum * _core.inv_scale(qmax * tables.scale_sum),
+                policy.index_mode, 1, n_cols).float()
+            return u * (inv / (jj * tables.scale_sum))[..., None]
+
+    out = torch.cat([one_q_chunk(i) for i in range(lq_p // bq)], dim=3)
+    return out.reshape(b, h, lq_p, d)[:, :, :lq]
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+
 def resolve_attention_backend(backend: str = "auto",
                               device: torch.device | str = "cuda") -> str:
     """The dense matrix of the module docstring, in code: returns
-    ``'cuda'`` (the kernel) or ``'naive'`` (the plain version) for tensors
-    on ``device``."""
+    ``'cuda'`` (the kernel), ``'naive'`` (the plain version) or
+    ``'blocked'`` for tensors on ``device``."""
     device = torch.device(device)
     if backend == "auto":
         return "cuda" if device.type == "cuda" else "naive"
@@ -174,30 +336,32 @@ def resolve_attention_backend(backend: str = "auto",
                 f"lut_attention backend 'cuda' needs CUDA tensors, got "
                 f"{device}; use 'auto' or 'naive' on the CPU")
         return "cuda"
-    if backend == "naive":
-        return "naive"
-    if backend == "blocked":
-        raise NotImplementedError(
-            "lut_attention backend 'blocked' (the JAX package's flash-style "
-            "XLA scan) is not ported; use 'auto', 'cuda' or 'naive'")
+    if backend in ("naive", "blocked"):
+        return backend
     raise ValueError(f"unknown lut_attention backend {backend!r}: expected "
-                     f"'auto', 'cuda' or 'naive' (the port's 'cuda' is the "
-                     f"JAX package's 'pallas')")
+                     f"'auto', 'cuda', 'naive' or 'blocked' (the port's "
+                     f"'cuda' is the JAX package's 'pallas')")
 
 
 def lut_attention(q: Tensor, k: Tensor, v: Tensor, policy: SoftmaxPolicy,
                   *, causal: bool = False, scale: float | None = None,
                   kv_len: Tensor | int | None = None,
-                  backend: str = "auto") -> Tensor:
+                  backend: str = "auto", q_chunk: int = 512,
+                  k_chunk: int = 1024) -> Tensor:
     """Attention with the policy's softmax over contiguous K/V;
     (B, H, Lq, D) f32.
 
     q (B, H, Lq, D); k, v (B, KVH, Lk, D).  ``kv_len`` (the valid key
     count of a pre-allocated cache) masks the tail and right-aligns the
     causal queries to it; without it REXP takes the fused α requant, as
-    in the JAX package.  Dispatches per the module docstring's matrix.
+    in the JAX package.  Dispatches per the module docstring's matrix;
+    ``q_chunk`` / ``k_chunk`` size the ``blocked`` path's tiles.
     """
     route = resolve_attention_backend(backend, q.device)
+    if route == "blocked":
+        return lut_attention_blocked(q, k, v, policy, causal=causal,
+                                     scale=scale, kv_len=kv_len,
+                                     q_chunk=q_chunk, k_chunk=k_chunk)
     kw = dict(scale=scale, causal=causal, index_mode=policy.index_mode,
               fused_requant=kv_len is None, kv_len=kv_len)
     if route == "naive" or policy.impl == "exact":

@@ -13,6 +13,15 @@ dequantized value and every dot is exact too.  The dense LUT-attention
 kernel gets exact-logit inputs in every mode (REXP fused and faithful,
 2D-LUT), with and without a cache's ``kv_len``, and the encoder's shape
 on normal rows, held to one LUT step.
+
+The row-wise LUT-softmax kernels take logits as their input, so no dot
+order enters: they must be ``torch.equal`` to their plain versions at
+every precision (int16 up to 512 columns, where its Σ stays below 2^24),
+both bin modes and f32 / bf16 / f16 inputs, with masked, fully masked
+and ``+inf`` / ``NaN`` rows, on short rows, rows kept in shared memory
+and rows past its budget.  The exact flash-attention kernel holds its
+plain version's ``(out, m, l)`` within 2e-5 (out) and 1e-5 relative
+(m, l), and rows that see no key exactly (out 0, m = −inf, l = 0).
 """
 
 import numpy as np
@@ -22,7 +31,14 @@ import torch
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.core.precision import get_precision
 from repro_torch.core.quantization import quantize_rows
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.lut_attention import ops
+from repro_torch.kernels.lut_softmax import ops as sops
+from repro_torch.kernels.lut_softmax.lut_softmax import (
+    lut2d_softmax_cuda, lut2d_softmax_plain, rexp_softmax_cuda,
+    rexp_softmax_plain)
 from repro_torch.kernels.lut_attention.lut_attention import (
     lut_attention_cuda, lut_attention_plain, mode_of)
 from repro_torch.kernels.lut_attention.paged_decode import (
@@ -512,3 +528,133 @@ def test_dense_inputs_the_kernel_does_not_take_raise(cuda):
     with pytest.raises(ValueError, match="rexp"):
         lut_attention_cuda(q, k, v, None, method="exact")
     assert lut_attention_cuda.launches == n
+
+
+# ---------------------------------------------------------------------------
+# Row-wise LUT softmax and exact flash attention
+# ---------------------------------------------------------------------------
+
+ROW_KERNELS = {"rexp": (rexp_softmax_cuda, rexp_softmax_plain),
+               "lut2d": (lut2d_softmax_cuda, lut2d_softmax_plain)}
+ROW_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _row_logits(seed, rows, cols, dtype):
+    """Normal logits (σ = 3) with a quarter of the entries −inf, row 0
+    fully masked, row 1 with a +inf and row 2 with a NaN."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 3, (rows, cols)).astype(np.float32)
+    x[rng.random(x.shape) < 0.25] = -np.inf
+    x[0] = -np.inf
+    x[1, cols // 2] = np.inf
+    x[2, cols // 3] = np.nan
+    return torch.as_tensor(x, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES, ids=str)
+@pytest.mark.parametrize("impl", ["rexp", "lut2d"])
+def test_row_softmax_kernel_equals_plain(cuda, impl, dtype):
+    """Every precision × bin mode, short rows (one warp), rows in shared
+    memory, and 512 columns for int16; bitwise."""
+    kernel, plain = ROW_KERNELS[impl]
+    for prec in ("int16", "uint8", "uint4", "uint2"):
+        tables = ops._tables_for(SoftmaxPolicy(impl=impl, precision=prec))
+        for mode in ("round", "floor"):
+            for rows, cols in ((5, 8), (33, 200), (16, 512), (7, 1500)):
+                if prec == "int16" and cols > 512:
+                    continue
+                x = _row_logits(rows + cols, rows, cols, dtype)
+                n = kernel.launches
+                out = kernel(x, tables, mode)
+                assert kernel.launches == n + 1
+                ref = plain(x, tables, mode)
+                assert out.dtype == torch.float32
+                assert torch.equal(out, ref), (prec, mode, rows, cols)
+                assert not out[0].any()
+
+
+@pytest.mark.parametrize("cols", [16384, 20000])
+def test_row_softmax_long_rows(cuda, cols):
+    """16 384 columns fit the shared-memory row; 20 000 are re-read from
+    global memory in passes 2 and 3."""
+    for impl, (kernel, plain) in ROW_KERNELS.items():
+        tables = ops._tables_for(SoftmaxPolicy(impl=impl, precision="uint8"))
+        x = _row_logits(cols, 6, cols, torch.bfloat16)
+        assert torch.equal(kernel(x, tables), plain(x, tables))
+
+
+def test_row_softmax_op_on_cuda(cuda):
+    """``lut_softmax(use_kernel=True)`` launches the kernel along any
+    axis and leading shape; ``use_kernel=False`` and the impls without a
+    kernel never do; a dtype the kernel does not take raises."""
+    x = _row_logits(3, 24, 40, torch.float32).reshape(2, 3, 4, 40)
+    n = (rexp_softmax_cuda.launches, lut2d_softmax_cuda.launches)
+    for impl in ("rexp", "lut2d"):
+        pol = SoftmaxPolicy(impl=impl, use_kernel=True)
+        kernel, plain = ROW_KERNELS[impl]
+        tables = ops._tables_for(pol)
+        assert torch.equal(sops.lut_softmax(x, pol), plain(x, tables))
+        out = sops.lut_softmax(x, pol, axis=1)
+        assert torch.equal(out, plain(x.movedim(1, -1), tables).movedim(
+            -1, 1))
+        for other in (SoftmaxPolicy(impl=impl),
+                      SoftmaxPolicy(impl="rexp_unnorm", use_kernel=True),
+                      SoftmaxPolicy(impl="exact", use_kernel=True)):
+            sops.lut_softmax(x, other)
+    assert (rexp_softmax_cuda.launches,
+            lut2d_softmax_cuda.launches) == (n[0] + 2, n[1] + 2)
+    with pytest.raises(TypeError):
+        sops.lut_softmax(x.double(), SoftmaxPolicy(impl="rexp",
+                                                   use_kernel=True))
+
+
+FLASH_CASES = [  # (B, H, KVH, Lq, Lk, D, causal)
+    (2, 4, 4, 100, 100, 64, False),
+    (2, 8, 2, 70, 300, 128, True),       # GQA 4, Lk not a multiple of 32
+    (1, 4, 1, 16, 333, 40, True),        # a tail chunk, odd head dim
+    (1, 4, 2, 96, 40, 256, True),        # Lq > Lk: 56 rows see no key
+    (1, 2, 2, 5, 7, 8, False),
+]
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES, ids=str)
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    b, h, kvh, lq, lk, d, causal = case
+    rng = np.random.default_rng(lq + lk)
+    q, k, v = (torch.as_tensor(rng.normal(size=s), device="cuda").to(dtype)
+               for s in ((b, h, lq, d), (b, kvh, lk, d), (b, kvh, lk, d)))
+    n = flash_attention_cuda.launches
+    out, m, l = flash_attention_cuda(q, k, v, causal=causal)
+    assert flash_attention_cuda.launches == n + 1
+    ro, rm, rl = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(out, ro, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=0)
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+    blind = torch.isneginf(rm)
+    assert int(blind.sum()) == (b * h * (lq - lk) if causal and lq > lk
+                                else 0)
+    assert torch.equal(torch.isneginf(m), blind)
+    assert not out[blind].any() and not l[blind].any()
+
+
+def test_flash_dispatch_on_cuda(cuda):
+    """``auto`` and ``cuda`` launch the kernel; ``naive`` and ``blocked``
+    never do and agree with it; ``kv_len`` with a kernel route raises."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.as_tensor(rng.normal(size=s), device="cuda",
+                               dtype=torch.float32)
+               for s in ((2, 4, 50, 64), (2, 2, 90, 64), (2, 2, 90, 64)))
+    n = flash_attention_cuda.launches
+    outs = {be: fops.flash_attention(q, k, v, causal=True, backend=be,
+                                     q_chunk=16, k_chunk=32)
+            for be in ("auto", "cuda", "naive", "blocked")}
+    assert flash_attention_cuda.launches == n + 2
+    for be, out in outs.items():
+        torch.testing.assert_close(out, outs["naive"], rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="kv_len"):
+        fops.flash_attention(q, k, v, backend="cuda", kv_len=10)
+    with pytest.raises(ValueError, match="multiple of KV heads"):
+        k3 = k[:, :1].expand(2, 3, 90, 64)
+        flash_attention_cuda(q, k3, k3)
+    assert flash_attention_cuda.launches == n + 2

@@ -67,3 +67,15 @@ def test_package_imports_with_jax_and_repro_blocked():
                                "PYTHONPATH": str(ROOT / "src")},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_scan_covers_the_row_softmax_and_flash_modules():
+    """... and the row-wise LUT softmax and exact flash-attention
+    modules."""
+    scanned = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"kernels/lut_softmax/lut_softmax.py",
+            "kernels/lut_softmax/ops.py", "kernels/lut_softmax/ref.py",
+            "kernels/flash_attention/flash_attention.py",
+            "kernels/flash_attention/ops.py",
+            "kernels/flash_attention/ref.py", "core/lut_softmax.py",
+            "core/__init__.py"} <= scanned

@@ -155,3 +155,113 @@ def test_inv_scale_is_the_f32_reciprocal():
     for denom in (255, 0.1, 25.5, 65535 * 0.1, 3.0):
         assert TS.inv_scale(denom) == float(JS.inv_scale(denom))
         assert TS.inv_scale(denom) == float(np.float32(1.0 / denom))
+
+
+# ---------------------------------------------------------------------------
+# The prior-art baselines and make_softmax_fn
+# ---------------------------------------------------------------------------
+
+IMPLS = ["exact", "rexp", "lut2d", "rexp_unnorm", "log2_prior"]
+
+
+@pytest.mark.parametrize("index_mode", MODES)
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_softmax_rexp_unnorm_bitwise_equal(precision, index_mode):
+    """``e / qmax`` stays an IEEE division on both sides."""
+    rng = np.random.default_rng(41 + PRECISIONS.index(precision))
+    x = _rows(rng, "rexp", precision)
+    ref = JS.softmax_rexp_unnorm(jnp.asarray(x),
+                                 JB.build_rexp_tables(precision),
+                                 index_mode=index_mode)
+    out = TS.softmax_rexp_unnorm(torch.from_numpy(x),
+                                 TB.build_rexp_tables(precision),
+                                 index_mode=index_mode)
+    np.testing.assert_array_equal(_bits(out.numpy()), _bits(ref))
+
+
+@pytest.mark.parametrize("max_norm", [False, True])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_softmax_log_prior_within_one_level(precision, max_norm):
+    """XLA's and torch's ``exp`` / ``log`` may differ by an ulp, which can
+    move a rounded level: at most one level ``1/(2^w − 1)``, on at most
+    0.1 % of the elements."""
+    rng = np.random.default_rng(51)
+    x = np.concatenate([_rows(rng, "rexp", precision, n=256)] * 4)
+    w = TB.get_precision(precision).w
+    ref = np.asarray(JS.softmax_log_prior(jnp.asarray(x), w,
+                                          max_norm=max_norm))
+    out = TS.softmax_log_prior(torch.from_numpy(x), w,
+                               max_norm=max_norm).numpy()
+    diff = np.abs(out - ref)
+    level = 1.0 / ((1 << w) - 1)
+    assert diff.max() <= level * (1 + 1e-6)
+    assert np.mean(diff > 0) <= 1e-3
+    assert not np.any(np.isnan(out))
+
+
+@pytest.mark.parametrize("axis", [-1, 0])
+def test_logsoftmax_scoring_close(axis):
+    rng = np.random.default_rng(61)
+    x = _rows(rng, "rexp", "uint8")
+    x = x[:12] if axis == -1 else np.ascontiguousarray(x[:12].T)
+    ref = np.asarray(JS.logsoftmax_scoring(jnp.asarray(x), axis=axis))
+    out = TS.logsoftmax_scoring(torch.from_numpy(x), axis=axis).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("impl", IMPLS)
+def test_make_softmax_fn_matches_jax(impl, precision):
+    """Every impl × precision, both bin modes, along both axes: the LUT
+    impls bitwise, exact within 1e-6, log2_prior within one level on at
+    most 0.1 % of the elements."""
+    from repro.core.policies import SoftmaxPolicy as JPol
+    from repro_torch.core.policies import SoftmaxPolicy as TPol
+    rng = np.random.default_rng(71 + IMPLS.index(impl))
+    x = _rows(rng, "lut2d" if impl == "lut2d" else "rexp", precision)
+    w = TB.get_precision(precision).w
+    for index_mode in MODES:
+        kw = dict(impl=impl, precision=precision, index_mode=index_mode)
+        jfn, tfn = JS.make_softmax_fn(JPol(**kw)), TS.make_softmax_fn(
+            TPol(**kw))
+        for axis, xa in ((-1, x), (0, np.ascontiguousarray(x.T))):
+            ref = np.asarray(jfn(jnp.asarray(xa), axis=axis))
+            out = tfn(torch.from_numpy(xa), axis=axis).numpy()
+            if impl == "exact":
+                np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+            elif impl == "log2_prior":
+                diff = np.abs(out - ref)
+                assert diff.max() <= (1 + 1e-6) / ((1 << w) - 1)
+                assert np.mean(diff > 0) <= 1e-3
+            else:
+                np.testing.assert_array_equal(_bits(out), _bits(ref))
+
+
+def test_make_softmax_fn_takes_calibrated_tables():
+    """Tables passed in override the Table-8 defaults, as in the JAX
+    package."""
+    from repro.core.policies import SoftmaxPolicy as JPol
+    from repro_torch.core.policies import SoftmaxPolicy as TPol
+    rng = np.random.default_rng(81)
+    x = _rows(rng, "lut2d", "uint8")
+    for impl, jt, tt in (
+            ("rexp", JB.build_rexp_tables("uint4", 12),
+             TB.build_rexp_tables("uint4", 12)),
+            ("rexp_unnorm", JB.build_rexp_tables("uint4"),
+             TB.build_rexp_tables("uint4")),
+            ("lut2d", JB.build_lut2d_tables("uint8", exp_step=0.2),
+             TB.build_lut2d_tables("uint8", exp_step=0.2))):
+        kw = {"lut2d_tables" if impl == "lut2d" else "rexp_tables": None}
+        ref = JS.make_softmax_fn(JPol(impl=impl), **{k: jt for k in kw})(
+            jnp.asarray(x))
+        out = TS.make_softmax_fn(TPol(impl=impl), **{k: tt for k in kw})(
+            torch.from_numpy(x))
+        np.testing.assert_array_equal(_bits(out.numpy()), _bits(ref))
+        default = TS.make_softmax_fn(TPol(impl=impl))(torch.from_numpy(x))
+        assert not torch.equal(out, default)
+
+
+def test_make_softmax_fn_rejects_unknown_impl():
+    from repro_torch.core.policies import SoftmaxPolicy as TPol
+    with pytest.raises(ValueError, match="unknown softmax impl"):
+        TS.make_softmax_fn(TPol(impl="sparsemax"))

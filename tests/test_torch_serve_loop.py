@@ -123,7 +123,7 @@ def test_lut_attention_naive_matches_jax(impl, kv_len, causal):
 
 
 @pytest.mark.parametrize("backend,impl,expect", [
-    ("blocked", "rexp", NotImplementedError),
+    ("blocked", "rexp", None), ("blocked", "exact", None),
     ("pallas", "rexp", ValueError),       # the JAX knob; the port's 'cuda'
     ("flash", "lut2d", ValueError),
     ("cuda", "rexp", ValueError),         # CPU tensors: no kernel to take
@@ -132,12 +132,12 @@ def test_lut_attention_naive_matches_jax(impl, kv_len, causal):
     ("naive", "rexp", None), ("naive", "exact", None)])
 def test_lut_attention_unported_backends_raise(backend, impl, expect,
                                                monkeypatch):
-    """The dense dispatch matrix on CPU tensors: ``blocked`` is not
-    ported and unknown knobs raise, ``cuda`` raises without CUDA
-    tensors, ``auto`` and ``naive`` run the plain version (the oracle,
-    REXP in its fused form without a kv_len); no call counts a kernel
-    launch.  The exact policy never reaches the kernel, even where the
-    knob resolves to it."""
+    """The dense dispatch matrix on CPU tensors: unknown knobs raise,
+    ``cuda`` raises without CUDA tensors, ``auto`` and ``naive`` run the
+    plain version (the oracle, REXP in its fused form without a kv_len),
+    ``blocked`` the chunked path (the oracle's function, its sums in
+    another order); no call counts a kernel launch.  The exact policy
+    never reaches the kernel, even where the knob resolves to it."""
     from repro_torch.kernels.lut_attention import lut_attention as dense
     rng = np.random.default_rng(9)
     q, k, v = (torch.from_numpy(rng.normal(size=(1, 2, 3, 8))
@@ -152,7 +152,13 @@ def test_lut_attention_unported_backends_raise(backend, impl, expect,
         ref = tref.lut_attention_ref(
             q, k, v, method=impl, tables=tops._tables_for(pol),
             fused_requant=True)
-        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+        if backend == "blocked":
+            torch.testing.assert_close(
+                out, tops.lut_attention_blocked(q, k, v, pol), rtol=0,
+                atol=0)
+            torch.testing.assert_close(out, ref, **ATTN_TOL)
+        else:
+            torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert dense.lut_attention_cuda.launches == before
     if impl == "exact":  # resolve to the kernel: exact still stays plain
         monkeypatch.setattr(tops, "resolve_attention_backend",
