@@ -63,18 +63,26 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    positions allocated, kv_len 40, Lq 1 and 8), GQA at H=8, KVH=2,
    Dh=128, and Qwen3-32B's lockstep (H=64, KVH=8, Dh=128, causal, a
    300-token prompt and a decode step into 332 allocated positions);
-   exact-logit inputs within 2e-6, random ones within one LUT step;
-   then the encoder call at B=4 timed (L2 flushed, median of 20) beside
-   its plain version and exact SDPA, with its bound (f32 q·kᵀ at the
-   CUDA cores' 67 TFLOP/s beside bf16 σ·V at the tensor cores' 989, or
-   the bytes at 3.35 TB/s);
+   each call through the route the dispatcher picks (``dense_route``:
+   the tensor-core tile engine for bf16 calls of at least
+   ``MIN_TILE_ROWS`` rows, the row engine otherwise) and, where that is
+   the tile engine, through the row engine too: exact-logit inputs
+   within 2e-6 of an f64 referee, random ones within one LUT step, with
+   the share of rows beyond 1e-4; both routes timed at 1–128 query rows
+   against 1500 keys (the route threshold); then the encoder call at B=4
+   timed on both routes (L2 flushed, median of 20) beside its plain
+   version and exact SDPA, with its bound (the busiest of the tensor
+   cores for both bf16 products at 989 TFLOP/s, the CUDA cores for the
+   per-element LUT work at 67 TFLOP/s, and the bytes at 3.35 TB/s) and
+   the bound as first stated (f32 q·kᵀ on the CUDA cores);
 7. Whisper-small at full depth and width (12 + 12 layers), seeded
    random bf16 weights with non-zero biases, REXP uint8,
    ``attention_backend="auto"``: 4 clips of 1500 seeded random frames,
    one seeded 4–12-token prompt length, 32 greedy new tokens each
    through ``serve_loop.generate``; tok/s, the encode time and the mean
    decode step; exactly 12 + 24 · 32 = 780 dense launches (396 fused,
-   384 faithful); the same drive with every dense call held to its
+   384 faithful; the 12 encoder calls on the tile route, the rest on
+   the row route); the same drive with every dense call held to its
    plain version on its own inputs (one LUT step); the ``naive`` drive's
    first-token logits within 2% of the largest under exact and REXP;
    one profiled drive;
@@ -94,15 +102,19 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    the Whisper encoder's shape (B=4, H=12, L=1500, Dh=64), Qwen3-32B's
    causal prefill (H=64, KVH=8, L=2048, Dh=128), a 16-token chunk at its
    tail and a 300-row chunk against 200 keys (100 rows see no key), f32
-   and bf16: the counter must move; the kernel's (out, m, l) within 2e-5
-   (out) and 1e-5 relative (m, l) of the plain version's (no TF32), the
-   rows that see no key exactly 0 / −inf / 0; then the kernel's time
-   beside the plain version's, SDPA's on the same inputs (a yardstick:
-   the port never calls it) and the bound (q·kᵀ at the input type's
-   peak beside p·V at the f32 peak, over the visible pairs).
+   and bf16: the counter must move on both routes (bf16 on the tensor-
+   core tile engine, f32 on the CUDA cores); the kernel's (out, m, l)
+   within 2e-5 (out) and 1e-5 relative (m, l) of the plain version's (no
+   TF32), on the picked route and, for bf16, on the CUDA-core route too,
+   the rows that see no key exactly 0 / −inf / 0; then both routes'
+   times beside the plain version's, SDPA's on the same inputs (a
+   yardstick: the port never calls it) and the bound (bf16: q·kᵀ and
+   three 16-bit pieces of p·V at the tensor-core peak; f32: both at the
+   f32 peak; over the visible pairs) beside the bound as first stated.
 
 The line before the last is the card's name and power limit, the one
-before it a JSON summary of the eight kernels; the last line is
+before it a JSON summary of the eight kernels (the two with two routes
+add both routes' times and launches); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -129,7 +141,7 @@ from repro_torch.core.quantization import quantize_rows  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FOPS  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402,E501
-    flash_attention_cuda, flash_attention_plain)
+    flash_attention_cuda, flash_attention_plain, flash_route)
 from repro_torch.kernels.lut_softmax import ops as SOPS  # noqa: E402
 from repro_torch.kernels.lut_softmax.lut_softmax import (  # noqa: E402
     lut2d_softmax_cuda, lut2d_softmax_plain, rexp_softmax_cuda,
@@ -137,7 +149,8 @@ from repro_torch.kernels.lut_softmax.lut_softmax import (  # noqa: E402
 from repro_torch.kernels.lut_attention import ops  # noqa: E402
 from repro_torch.kernels.lut_attention import ref as REF  # noqa: E402
 from repro_torch.kernels.lut_attention.lut_attention import (  # noqa: E402
-    MODES, lut_attention_cuda, lut_attention_plain)
+    MIN_TILE_ROWS, MODES, ROUTES, dense_route, lut_attention_cuda,
+    lut_attention_plain)
 from repro_torch.kernels.lut_attention.paged_decode import (  # noqa: E402
     paged_decode_attention, paged_decode_plain)
 from repro_torch.kernels.lut_attention.paged_prefill import (  # noqa: E402
@@ -160,6 +173,8 @@ from repro_torch.runtime.serve_loop import (generate,  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}
+#: f32 operations per element of the LUT pipeline (bins, lookups, Σ, σ)
+ROW_OPS_PER_ELEMENT = 10
 
 POLICIES = {
     "exact": SoftmaxPolicy(),
@@ -812,10 +827,20 @@ def dense_problem(rng, b, h, kvh, lq, lk, dh, dtype, exact_logits):
     return [torch.as_tensor(x, device="cuda").to(dtype) for x in (q, k, v)]
 
 
-def dense_call(fn, mode, q, k, v, causal, kv_len):
+def dense_call(fn, mode, q, k, v, causal, kv_len, **kw):
     pol, fused = DENSE_MODES[mode]
     return fn(q, k, v, ops._tables_for(pol), method=pol.impl, causal=causal,
-              index_mode=pol.index_mode, fused_requant=fused, kv_len=kv_len)
+              index_mode=pol.index_mode, fused_requant=fused, kv_len=kv_len,
+              **kw)
+
+
+def routes_of(mode, q):
+    """The route the dispatcher picks for this call and, when it picks
+    the tile engine, the row engine forced on the same inputs."""
+    pol, _ = DENSE_MODES[mode]
+    picked = dense_route(q.dtype, q.shape[-1], q.shape[2],
+                         get_precision(pol.precision).qmax, mode)
+    return [picked] + (["rows"] if picked == "tiles" else [])
 
 
 def dense_f64(mode, q, k, v, causal, kv_len):
@@ -842,31 +867,52 @@ def dense_f64(mode, q, k, v, causal, kv_len):
 
 
 def dense_bound(b, h, kvh, lq, lk, dh, dtype, pairs):
-    """Least time for the dense call: q, k, v read once and the f32 output
-    written once over 3.35 TB/s, against the operations over the visible
-    (row, key) pairs of every (sequence, head), each at the peak of the
-    unit its types allow.  q·kᵀ feeds the bins, so it needs IEEE f32 on
-    the CUDA cores (67 TFLOP/s) whatever the input type; σ·V weights are
-    integers ≤ qmax, which bf16 holds exactly, so with bf16 V it may run
-    on the tensor cores (989 TFLOP/s), with f32 V on the CUDA cores.  Work
-    on one unit adds up; the two units may overlap, so the operations'
-    time is the busier unit's."""
+    """Least time for the dense call: the busiest of three units.  Memory:
+    q, k, v read once and the f32 output written once over 3.35 TB/s.
+    Tensor cores or CUDA cores for the two products over the visible
+    (row, key) pairs of every (sequence, head): with bf16 inputs each
+    product of q·kᵀ is exact in f32, so q·kᵀ may run on the tensor cores
+    like σ·V (whose weights are integers ≤ qmax, exact in bf16) at
+    989 TFLOP/s; with f32 inputs q·kᵀ feeds the bins and needs IEEE f32,
+    and both run on the CUDA cores at 67 TFLOP/s.  The CUDA cores also
+    do the per-element LUT work (bins, lookups, Σ, σ:
+    ROW_OPS_PER_ELEMENT operations a visible pair).  Work on one unit
+    adds up; the units may overlap, so the busiest sets the time."""
     esize = torch.empty((), dtype=dtype).element_size()
     nbytes = (b * h * lq * dh * esize + 2 * b * kvh * lk * dh * esize
               + b * h * lq * dh * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     flops = 2 * b * h * dh * pairs                   # one of q·kᵀ and σ·V
-    per_unit = {PEAK_OPS[torch.float32]: flops}
-    per_unit[PEAK_OPS[dtype]] = per_unit.get(PEAK_OPS[dtype], 0) + flops
+    lut_ops = ROW_OPS_PER_ELEMENT * b * h * pairs
+    per_unit = {PEAK_OPS[torch.float32]: lut_ops}
+    per_unit[PEAK_OPS[dtype]] = per_unit.get(PEAK_OPS[dtype], 0) + 2 * flops
     t_ops = max(n / peak for peak, n in per_unit.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dense_bound_f32_logits(b, h, kvh, lq, lk, dh, dtype, pairs):
+    """The dense bound as first stated, kept beside the restated one:
+    q·kᵀ in IEEE f32 on the CUDA cores whatever the input type, σ·V at
+    the input type's peak, no LUT work counted.  A tensor-core kernel may
+    beat it."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (b * h * lq * dh * esize + 2 * b * kvh * lk * dh * esize
+              + b * h * lq * dh * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    flops = 2 * b * h * dh * pairs
+    per_unit = {PEAK_OPS[torch.float32]: flops}
+    per_unit[PEAK_OPS[dtype]] = per_unit.get(PEAK_OPS[dtype], 0) + flops
+    return max(t_bytes, max(n / peak for peak, n in per_unit.items()) * 1e3)
 
 
 def phase_dense_kernel():
     """Phase 6: the dense kernel against its plain version at the main
     path's shapes, every mode, f32 and bf16, exact-logit (2e-6) and
-    random (one LUT step) inputs; then the encoder call at B = 4 timed
-    beside its plain version and exact SDPA."""
+    random (one LUT step) inputs, through the route the dispatcher picks
+    and, where it picks the tile engine, through the row engine too; the
+    route threshold (both routes timed at few query rows); then the
+    encoder call at B = 4 timed on both routes beside its plain version
+    and exact SDPA."""
     rng = np.random.default_rng(6)
     worst_exact = 0.0
     failures = []
@@ -877,58 +923,96 @@ def phase_dense_kernel():
                 q, k, v = dense_problem(rng, b, h, kvh, lq, lk, dh, dtype,
                                         exact_logits)
                 for mode in MODES:
-                    out = dense_call(lut_attention_cuda, mode, q, k, v,
-                                     causal, kv_len)
                     ref = dense_call(lut_attention_plain, mode, q, k, v,
                                      causal, kv_len)
-                    torch.cuda.synchronize()
-                    err = (out - ref).abs()
-                    max_err = float(err.max())
-                    tag = (f"[dense] {name} {mode} {str(dtype)[6:]} B={b} "
-                           f"H={h}/{kvh} Lq={lq} Lk={lk} kv_len={kv_len} "
-                           f"{'exact-logit' if exact_logits else 'random'}")
-                    share = float((err.amax(dim=-1) > 1e-4).float().mean())
-                    if exact_logits:
-                        # same f32 logits, so the same bins: what is left
-                        # is each side's f32 σ·V roundoff, which the f64
-                        # evaluation of the plain version's σ referees
-                        worst_exact = max(worst_exact, max_err)
-                        f64 = dense_f64(mode, q, k, v, causal, kv_len)
-                        k_err = float((out.double() - f64).abs().max())
-                        p_err = float((ref.double() - f64).abs().max())
-                        print(f"{tag}: max|err| {max_err:.3g}; kernel – f64 "
-                              f"{k_err:.3g} (limit {EXACT_TOL}), plain – f64 "
-                              f"{p_err:.3g}")
-                        if not k_err <= EXACT_TOL:
-                            failures.append(f"{tag}: kernel – f64 {k_err} > "
-                                            f"{EXACT_TOL}")
-                        continue
-                    limit = 2.0 / qmax * float(v.float().abs().max())
-                    print(f"{tag}: max|err| {max_err:.3g} (limit "
-                          f"{limit:.3g}), rows beyond 1e-4: {share:.4%}")
-                    if not max_err <= limit:
-                        failures.append(f"{tag}: {max_err} > {limit}")
+                    f64 = (dense_f64(mode, q, k, v, causal, kv_len)
+                           if exact_logits else None)
+                    for route in routes_of(mode, q):
+                        out = dense_call(lut_attention_cuda, mode, q, k, v,
+                                         causal, kv_len, route=route)
+                        torch.cuda.synchronize()
+                        err = (out - ref).abs()
+                        max_err = float(err.max())
+                        kind = "exact-logit" if exact_logits else "random"
+                        tag = (f"[dense] {name} {mode} {str(dtype)[6:]} "
+                               f"{route} B={b} H={h}/{kvh} Lq={lq} Lk={lk} "
+                               f"kv_len={kv_len} {kind}")
+                        share = float((err.amax(dim=-1) > 1e-4).float()
+                                      .mean())
+                        if exact_logits:
+                            # same f32 logits, so the same bins: what is
+                            # left is each side's f32 σ·V roundoff, which
+                            # the f64 evaluation of the plain version's σ
+                            # referees
+                            worst_exact = max(worst_exact, max_err)
+                            k_err = float((out.double() - f64).abs().max())
+                            p_err = float((ref.double() - f64).abs().max())
+                            print(f"{tag}: max|err| {max_err:.3g}; kernel – "
+                                  f"f64 {k_err:.3g} (limit {EXACT_TOL}), "
+                                  f"plain – f64 {p_err:.3g}")
+                            if not k_err <= EXACT_TOL:
+                                failures.append(f"{tag}: kernel – f64 "
+                                                f"{k_err} > {EXACT_TOL}")
+                            continue
+                        limit = 2.0 / qmax * float(v.float().abs().max())
+                        print(f"{tag}: max|err| {max_err:.3g} (limit "
+                              f"{limit:.3g}), rows beyond 1e-4: {share:.4%}")
+                        if not max_err <= limit:
+                            failures.append(f"{tag}: {max_err} > {limit}")
+                    del ref, f64
     if failures:
         raise AssertionError("dense kernel off its plain version:\n"
                              + "\n".join(failures))
 
+    # The route threshold: both routes at Whisper's cross-attention shape
+    # (1500 keys, fused) for few query rows (MIN_TILE_ROWS and up take
+    # the tile route).
+    for lq in (1, 4, 8, 16, 32, 64, 128):
+        q, k, v = dense_problem(rng, W_BATCH, W_H, W_H, lq, W_LENC, W_DH,
+                                torch.bfloat16, False)
+        t = {route: device_ms(lambda: dense_call(
+            lut_attention_cuda, "rexp_fused", q, k, v, False, None,
+            route=route)) for route in ROUTES}
+        print(f"[route] lut_attention rexp_fused bf16 B={W_BATCH} H={W_H} "
+              f"Lq={lq} Lk={W_LENC}: rows {t['rows']:.4f} ms, tiles "
+              f"{t['tiles']:.4f} ms; dispatcher picks "
+              f"{dense_route(q.dtype, W_DH, lq, qmax, 'rexp_fused')} "
+              f"(MIN_TILE_ROWS {MIN_TILE_ROWS})")
+
     b, h, lq, lk, dh = W_BATCH, W_H, W_LENC, W_LENC, W_DH
     q, k, v = dense_problem(rng, b, h, h, lq, lk, dh, torch.bfloat16, False)
     b_ms, b_by = dense_bound(b, h, h, lq, lk, dh, torch.bfloat16, lq * lk)
-    rows = {}
-    for mode in MODES:
-        ms = device_ms(lambda: dense_call(lut_attention_cuda, mode, q, k, v,
-                                          False, None))
-        plain_ms = device_ms(lambda: dense_call(lut_attention_plain, mode, q,
-                                                k, v, False, None))
-        rows[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None)
-        print(f"[time] lut_attention {mode} bf16 encoder B={b} H={h} "
-              f"Lq=Lk={lq} Dh={dh}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"{b_ms / ms:.1%} of bound")
+    old_ms = dense_bound_f32_logits(b, h, h, lq, lk, dh, torch.bfloat16,
+                                    lq * lk)
     sdpa = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v))
+    rows = {}
+    for mode in MODES:
+        ref = dense_call(lut_attention_plain, mode, q, k, v, False, None)
+        plain_ms = device_ms(lambda: dense_call(lut_attention_plain, mode, q,
+                                                k, v, False, None))
+        by_route = {}
+        for route in ROUTES:
+            share = float(((dense_call(lut_attention_cuda, mode, q, k, v,
+                                       False, None, route=route) - ref)
+                           .abs().amax(dim=-1) > 1e-4).float().mean())
+            ms = device_ms(lambda: dense_call(lut_attention_cuda, mode, q, k,
+                                              v, False, None, route=route))
+            by_route[route] = ms
+            print(f"[time] lut_attention {mode} bf16 encoder {route} B={b} "
+                  f"H={h} Lq=Lk={lq} Dh={dh}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, SDPA {sdpa:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}; first stated {old_ms:.4f} ms), "
+                  f"{b_ms / ms:.1%} of bound; rows beyond 1e-4 of the plain "
+                  f"version {share:.4%}")
+        del ref
+        picked = dense_route(q.dtype, dh, lq, qmax, mode)
+        rows[mode] = dict(ms=by_route[picked], plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                          route_ms=by_route)
+        if not by_route["tiles"] < by_route["rows"]:
+            print(f"[time] lut_attention {mode}: the tile route is not "
+                  f"faster than the row route at the encoder shape")
     print(f"[time] exact SDPA bf16 at the same shape (the library yardstick; "
           f"REXP has no library call): {sdpa:.4f} ms")
     return dict(max_abs_err=worst_exact, **rows["rexp_fused"])
@@ -977,17 +1061,21 @@ def whisper_run(policy, backend="auto"):
 
 def whisper_drive(model, params, frames, prompt, run, around=None):
     """One ``serve_loop.generate`` of the clips; returns the tokens, the
-    dense kernel's launches by mode during it and its wall seconds."""
+    dense kernel's launches by mode during it, its wall seconds and its
+    launches by route."""
     torch.cuda.synchronize()
-    for mode in MODES:
-        lut_attention_cuda.launches[mode] = 0
+    for counts in (lut_attention_cuda.launches,
+                   lut_attention_cuda.route_launches):
+        for key in counts:
+            counts[key] = 0
     with around or contextlib.nullcontext():
         t0 = time.perf_counter()
         out = generate(model, params, prompt, run, max_new_tokens=W_NEW,
                        encoder_input=frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return out, dict(lut_attention_cuda.launches), wall
+    return (out, dict(lut_attention_cuda.launches), wall,
+            dict(lut_attention_cuda.route_launches))
 
 
 def whisper_step_times(model, params, frames, prompt, run):
@@ -1016,6 +1104,11 @@ def whisper_step_times(model, params, frames, prompt, run):
     return t_enc, t_pre, float(np.mean(steps))
 
 
+#: the dense kernel's two bodies as the profiler names them (the tile
+#: route's and the row route's)
+DENSE_KERNEL_NAMES = ("lut_attention_tiles_kernel", "lut_attention_kernel")
+
+
 def whisper_profile(model, params, frames, prompt, run):
     """The device's busy share of a profiled drive and the dense kernel's
     share of the busy time ("not measured" when the profiler records no
@@ -1024,8 +1117,8 @@ def whisper_profile(model, params, frames, prompt, run):
     if not profiler_runs():
         return
     prof = profile(activities=[ProfilerActivity.CUDA])
-    _, launches, wall = whisper_drive(model, params, frames, prompt, run,
-                                      around=prof)
+    _, launches, wall, _ = whisper_drive(model, params, frames, prompt, run,
+                                         around=prof)
     kernels = []
     for e in prof.key_averages():
         us = (getattr(e, "self_device_time_total", None)
@@ -1036,7 +1129,8 @@ def whisper_profile(model, params, frames, prompt, run):
         print("[profile] the profiler recorded no device time: not measured")
         return
     busy = sum(us for us, _, _ in kernels) / 1e6
-    dense = sum(us for us, _, k in kernels if "lut_attention_kernel" in k) / 1e6
+    dense = sum(us for us, _, k in kernels
+                if any(name in k for name in DENSE_KERNEL_NAMES)) / 1e6
     mm = sum(us for us, _, k in kernels
              if any(n in k for n in ("gemm", "gemv", "nvjet", "cutlass",
                                      "xmma", "sm90_"))) / 1e6
@@ -1046,7 +1140,12 @@ def whisper_profile(model, params, frames, prompt, run):
           f"{dense * 1e3:.1f} ms ({dense / busy:.1%} of busy); matmuls "
           f"{mm * 1e3:.1f} ms ({mm / busy:.1%}); everything else "
           f"{(busy - dense - mm) * 1e3:.1f} ms")
-    traced = sum(n for _, n, k in kernels if "lut_attention_kernel" in k)
+    traced = sum(n for _, n, k in kernels
+                 if any(name in k for name in DENSE_KERNEL_NAMES))
+    for name in DENSE_KERNEL_NAMES:
+        us = sum(us for us, _, k in kernels if name in k)
+        n = sum(n for _, n, k in kernels if name in k)
+        print(f"[profile] {name}: {us / 1e3:.2f} ms in {n} calls")
     print(f"[profile] dense kernel calls in the trace {traced}, launches "
           f"counted {sum(launches.values())} (the profiler may drop events "
           f"at a trace's edge)")
@@ -1072,18 +1171,31 @@ def phase_whisper():
     main = POLICIES[MAIN_POLICY]
     run = whisper_run(main)
     whisper_drive(model, params, frames, prompt, run)          # warm-up
-    out, launches, wall = whisper_drive(model, params, frames, prompt, run)
+    out, launches, wall, by_route = whisper_drive(model, params, frames,
+                                                  prompt, run)
     toks = out.numel()
     n_steps = W_NEW                           # the prefill and 31 decodes
     expect = {"rexp_fused": cfg.encoder_layers + cfg.n_layers * n_steps,
               "rexp": cfg.n_layers * n_steps, "lut2d": 0}
+    # the encoder's 1500-row calls take the tile engine; the prompt's and
+    # the decode steps' few rows the row engine
+    qmax = get_precision(main.precision).qmax
+    dh = cfg.resolved_head_dim
+    n_tiles = sum(n for n, rows in ((cfg.encoder_layers, cfg.encoder_seq),
+                                    (2 * cfg.n_layers, prompt.shape[1]))
+                  if dense_route(torch.bfloat16, dh, rows, qmax,
+                                 "rexp") == "tiles")
+    expect_routes = {"rows": sum(expect.values()) - n_tiles,
+                     "tiles": n_tiles}
     total = sum(launches.values())
     print(f"[whisper] rexp-uint8 attention_backend=auto: {toks} tokens in "
           f"{wall:.3f}s ({toks / wall:.1f} tok/s); dense kernel launches "
-          f"{total} {launches} (expected {sum(expect.values())} {expect})")
-    if launches != expect:
-        raise AssertionError(f"whisper drive launched {launches}, expected "
-                             f"{expect}")
+          f"{total} {launches} by route {by_route} (expected "
+          f"{sum(expect.values())} {expect} by route {expect_routes})")
+    if launches != expect or by_route != expect_routes:
+        raise AssertionError(f"whisper drive launched {launches} by route "
+                             f"{by_route}, expected {expect} by route "
+                             f"{expect_routes}")
     if out.shape != (W_BATCH, W_NEW) or not (
             (out >= 0) & (out < cfg.vocab_size)).all():
         raise AssertionError(f"whisper tokens out of range: {out}")
@@ -1094,7 +1206,6 @@ def phase_whisper():
           f"mean decode step {t_dec * 1e3:.2f} ms ({W_BATCH} tokens)")
 
     shadow = []
-    qmax = get_precision(main.precision).qmax
 
     def shadowed(*args, **kw):
         out = ops.lut_attention(*args, **kw)
@@ -1110,9 +1221,10 @@ def phase_whisper():
         shadow_out = whisper_drive(model, params, frames, prompt, run)
     finally:
         LAYERS.lut_attention = ops.lut_attention
-    if len(shadow) != total or shadow_out[1] != expect:
+    if len(shadow) != total or shadow_out[1] != expect \
+            or shadow_out[3] != expect_routes:
         raise AssertionError(f"shadowed drive: {len(shadow)} calls, "
-                             f"launches {shadow_out[1]}")
+                             f"launches {shadow_out[1]} {shadow_out[3]}")
     check_shadow(shadow, "whisper drive")
 
     naive_out = whisper_drive(model, params, frames, prompt,
@@ -1138,7 +1250,7 @@ def phase_whisper():
             raise AssertionError(f"whisper {pol_name} first-token logits "
                                  f"differ by {worst:.3g} > 0.02")
     whisper_profile(model, params, frames, prompt, run)
-    return total
+    return total, by_route
 
 
 # ---------------------------------------------------------------------------
@@ -1152,8 +1264,6 @@ ROW_SHAPES = {"whisper encoder": ((W_BATCH, W_H, W_LENC, W_LENC), False),
               "qwen3 prefill": ((1, H, 2048, 2048), True)}
 ROW_KERNELS = {"rexp": (rexp_softmax_cuda, rexp_softmax_plain),
                "lut2d": (lut2d_softmax_cuda, lut2d_softmax_plain)}
-#: f32 operations per element of a row kernel (bins, lookups, Σ, σ)
-ROW_OPS_PER_ELEMENT = 10
 FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
@@ -1287,26 +1397,48 @@ def causal_pairs(lq, lk, causal):
     return sum(max(0, min(lk, i + lk - lq + 1)) for i in range(lq))
 
 
+#: the 16-bit pieces the flash tile route splits p into for p·V
+FLASH_PIECES = 3
+
+
 def flash_bound(b, h, kvh, lq, lk, dh, dtype, pairs):
     """Least time for the flash call: q, k, v read once and the f32 out,
-    m and l written once over 3.35 TB/s, against q·kᵀ at the input type's
-    peak (a bf16 product is exact in f32, so the tensor cores may take
-    it) beside p·V at the f32 peak (p is f32), over the visible pairs;
-    the busier unit sets the operations' time."""
+    m and l written once over 3.35 TB/s, against the products over the
+    visible pairs.  With 16-bit inputs both may run on the tensor cores:
+    q·kᵀ (each product exact in f32) and p·V as FLASH_PIECES 16-bit
+    products, since p is f32 and one 16-bit piece of it misses the 2e-5
+    limit — so (1 + FLASH_PIECES) products at 989 TFLOP/s.  With f32
+    inputs both run in IEEE f32 on the CUDA cores (67 TFLOP/s)."""
     esize = torch.empty((), dtype=dtype).element_size()
     nbytes = ((b * h * lq + 2 * b * kvh * lk) * dh * esize
               + b * h * lq * (dh + 2) * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     flops = 2 * b * h * dh * pairs                   # one of q·kᵀ and p·V
+    n = 1 + FLASH_PIECES if dtype != torch.float32 else 2
+    t_ops = n * flops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bound_f32_pv(b, h, kvh, lq, lk, dh, dtype, pairs):
+    """The flash bound as first stated, kept beside the restated one: q·kᵀ
+    at the input type's peak beside p·V at the f32 peak (p is f32); the
+    busier unit sets the operations' time.  A kernel that takes p·V to
+    the tensor cores may beat it."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = ((b * h * lq + 2 * b * kvh * lk) * dh * esize
+              + b * h * lq * (dh + 2) * 4)
+    flops = 2 * b * h * dh * pairs
     per_unit = {PEAK_OPS[torch.float32]: flops}
     per_unit[PEAK_OPS[dtype]] = per_unit.get(PEAK_OPS[dtype], 0) + flops
-    t_ops = max(n / peak for peak, n in per_unit.items()) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return max(nbytes / HBM_BYTES_PER_S * 1e3,
+               max(n / peak for peak, n in per_unit.items()) * 1e3)
 
 
 def phase_flash():
     """Phase 9: ``flash_attention(backend="auto")`` at full width,
-    counted; the kernel's (out, m, l) against the plain version's; times
+    counted by route (bf16 on the tile engine, f32 on the CUDA cores);
+    the kernel's (out, m, l) against the plain version's on the route the
+    dispatcher picks and, for bf16, on the CUDA-core route too; times
     beside the plain version and SDPA."""
     rng = np.random.default_rng(9)
     problems = {}
@@ -1319,43 +1451,55 @@ def phase_flash():
                                     for a in arrays]
     causal_of = {c[0]: c[7] for c in FLASH_CASES}
     torch.cuda.synchronize()
-    flash_attention_cuda.launches = 0
+    for route in flash_attention_cuda.launches:
+        flash_attention_cuda.launches[route] = 0
     outs = {key: FOPS.flash_attention(*qkv, causal=causal_of[key[0]],
                                       backend="auto")
             for key, qkv in problems.items()}
     torch.cuda.synchronize()
-    launches = flash_attention_cuda.launches
+    launches = dict(flash_attention_cuda.launches)
+    expect = {"simt": 0, "tiles": 0}
+    for (_, dt), (q, _, _) in problems.items():
+        expect[flash_route(dt, q.shape[-1])] += 1
     print(f"[flash] flash_attention(backend='auto') over {len(problems)} "
-          f"full-width calls: launches {launches}")
-    if launches != len(problems):
-        raise AssertionError(f"the op entry point skipped the kernel: "
-                             f"{launches} launches")
+          f"full-width calls: launches by route {launches} (expected "
+          f"{expect})")
+    if launches != expect or expect["tiles"] != len(FLASH_CASES):
+        raise AssertionError(f"the op entry point skipped a route: "
+                             f"{launches}")
     worst, failures = 0.0, []
     for (name, dt), (q, k, v) in problems.items():
         causal = causal_of[name]
-        out, m, l = flash_attention_cuda(q, k, v, causal=causal)
         ro, rm, rl = flash_attention_plain(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        err = float((out - ro).abs().max())
-        op_err = float((outs[(name, dt)] - ro).abs().max())
         blind = torch.isneginf(rm)
         seen = ~blind
-        m_rel = float(((m - rm).abs() / rm.abs().clamp(min=1e-30))[seen]
-                      .max()) if seen.any() else 0.0
-        l_rel = float(((l - rl).abs() / rl)[seen].max()) if seen.any() \
-            else 0.0
-        exact_blind = (torch.equal(torch.isneginf(m), blind)
-                       and not out[blind].any() and not l[blind].any())
-        print(f"[flash] {name} {str(dt)[6:]} B={q.shape[0]} "
-              f"H={q.shape[1]}/{k.shape[1]} Lq={q.shape[2]} Lk={k.shape[2]} "
-              f"Dh={q.shape[3]} causal={causal}: out max|err| {err:.3g} "
-              f"(op {op_err:.3g}; limit 2e-5), m rel {m_rel:.3g}, l rel "
-              f"{l_rel:.3g} (limit 1e-5); {int(blind.sum())} rows see no key"
-              f"{', exactly 0 / −inf / 0' if exact_blind else ''}")
-        worst = max(worst, err, op_err)
-        if not (err <= 2e-5 and op_err <= 2e-5 and m_rel <= 1e-5
-                and l_rel <= 1e-5 and exact_blind):
-            failures.append(f"{name} {dt}")
+        routes = [flash_route(dt, q.shape[-1])]
+        routes += ["simt"] if routes[0] == "tiles" else []
+        for route in routes:
+            out, m, l = flash_attention_cuda(q, k, v, causal=causal,
+                                             route=route)
+            torch.cuda.synchronize()
+            err = float((out - ro).abs().max())
+            op_err = (float((outs[(name, dt)] - ro).abs().max())
+                      if route == routes[0] else 0.0)
+            m_rel = float(((m - rm).abs() / rm.abs().clamp(min=1e-30))[seen]
+                          .max()) if seen.any() else 0.0
+            l_rel = float(((l - rl).abs() / rl)[seen].max()) if seen.any() \
+                else 0.0
+            exact_blind = (torch.equal(torch.isneginf(m), blind)
+                           and not out[blind].any() and not l[blind].any())
+            print(f"[flash] {name} {str(dt)[6:]} {route} B={q.shape[0]} "
+                  f"H={q.shape[1]}/{k.shape[1]} Lq={q.shape[2]} "
+                  f"Lk={k.shape[2]} Dh={q.shape[3]} causal={causal}: out "
+                  f"max|err| {err:.3g} (op {op_err:.3g}; limit 2e-5), m rel "
+                  f"{m_rel:.3g}, l rel {l_rel:.3g} (limit 1e-5); "
+                  f"{int(blind.sum())} rows see no key"
+                  f"{', exactly 0 / −inf / 0' if exact_blind else ''}")
+            worst = max(worst, err, op_err)
+            if not (err <= 2e-5 and op_err <= 2e-5 and m_rel <= 1e-5
+                    and l_rel <= 1e-5 and exact_blind):
+                failures.append(f"{name} {dt} {route}")
+            del out, m, l
         del ro, rm, rl
     if failures:
         raise AssertionError(f"flash kernel off its plain version: "
@@ -1374,19 +1518,26 @@ def phase_flash():
                     q, kx, vx, is_causal=causal))
             del kx, vx
             b_ms, b_by = flash_bound(b, h, kvh, lq, lk, dh, dt, pairs)
-            ms = device_ms(lambda: flash_attention_cuda(q, k, v,
-                                                        causal=causal))
+            old_ms = flash_bound_f32_pv(b, h, kvh, lq, lk, dh, dt, pairs)
             plain_ms = device_ms(lambda: flash_attention_plain(
                 q, k, v, causal=causal), iters=5)
-            print(f"[time] flash_attention {name} {str(dt)[6:]}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-                  f"{sdpa:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                  f"{b_ms / ms:.1%} of bound")
+            picked = flash_route(dt, dh)
+            by_route = {}
+            for route in [picked] + (["simt"] if picked == "tiles" else []):
+                ms = device_ms(lambda: flash_attention_cuda(
+                    q, k, v, causal=causal, route=route))
+                by_route[route] = ms
+                print(f"[time] flash_attention {name} {str(dt)[6:]} {route}: "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                      f"{sdpa:.4f} ms, bound {b_ms:.4f} ms ({b_by}; first "
+                      f"stated {old_ms:.4f} ms), {b_ms / ms:.1%} of bound")
             if name == "whisper encoder" and dt == torch.bfloat16:
                 rows["flash_attention"] = dict(
-                    max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=sdpa)
-    return rows, {"flash_attention": launches}
+                    max_abs_err=worst, ms=by_route[picked],
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=sdpa, route_ms=by_route,
+                    route_launches=launches)
+    return rows, {"flash_attention": sum(launches.values())}
 
 
 def main() -> int:
@@ -1409,7 +1560,8 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
     kernels["lut_attention"] = phase_dense_kernel()
-    launches["lut_attention"] = phase_whisper()
+    launches["lut_attention"], dense_routes = phase_whisper()
+    kernels["lut_attention"]["route_launches"] = dense_routes
     for phase in (phase_row_softmax, phase_flash):
         rows, counts = phase()
         kernels.update(rows)

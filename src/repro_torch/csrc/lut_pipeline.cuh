@@ -180,30 +180,74 @@ __device__ __forceinline__ int clamp_bin(float v, int round_mode, int lo,
   return int(r);
 }
 
-// Numerator of one element given the row max m (policy_e_terms).
+// Integer numerator of one element given the row max m, for the LUT
+// policies (policy_e_terms): LUT_1/e[bin(m − s)] (REXP) or
+// LUT_exp[bin((m − s)/step)] (2D-LUT).  No branch, so that a kernel can
+// keep many elements' table reads in flight: a masked key (s = −inf; or
+// +inf, NaN) still clamps to a bin inside the table, and its numerator is
+// then set to a hard 0, never the terminal LUT entry.
+__device__ __forceinline__ float lut_e_term(float s, float m,
+                                            const int* lut_main,
+                                            const LutParams& p) {
+  float d = __fsub_rn(m, s);
+  d = p.method == kLut2d ? __fmul_rn(d, p.inv_step) : d;
+  const float e = float(lut_main[clamp_bin(d, p.round_mode, 0, p.n_main - 1)]);
+  return isfinite(s) ? e : 0.f;
+}
+
+// Numerator of one element given the row max m (policy_e_terms): exact's
+// f32 exp(s − m), or the LUT policies' integer.
 __device__ __forceinline__ float e_term(float s, float m, const int* lut_main,
                                         const LutParams& p) {
-  if (!isfinite(s)) return 0.f;  // masked key: hard zero
-  if (p.method == kExact) return expf(__fsub_rn(s, m));
-  float d = __fsub_rn(m, s);
-  if (p.method == kLut2d) d = __fmul_rn(d, p.inv_step);
-  return float(lut_main[clamp_bin(d, p.round_mode, 0, p.n_main - 1)]);
+  if (p.method == kExact) return isfinite(s) ? expf(__fsub_rn(s, m)) : 0.f;
+  return lut_e_term(s, m, lut_main, p);
+}
+
+// The column of the weight table that a row's global Σ selects: REXP's
+// α index rnd(Σ/qmax), 2D-LUT's j(Σ); one per row, so a kernel may look
+// it up once and pass it to sigma_int for every element of the row.
+__device__ __forceinline__ int sigma_col(float S, const LutParams& p) {
+  if (p.method == kRexp)
+    return clamp_bin(__fmul_rn(S, p.inv_q), p.round_mode, 0, p.aux_cols - 1);
+  return clamp_bin(__fmul_rn(S, p.inv_sum), p.round_mode, 1, p.aux_cols) - 1;
+}
+
+// Integer weight σ_int of one element given its numerator e and its row's
+// sigma_col (REXP: rexp_sigma's round(e·α/qmax); 2D-LUT:
+// lut2d_sigma_int's LUT_σ[i(e), j(Σ)]); an integer in [0, qmax], held
+// exactly in f32 (and in bf16 for qmax ≤ 256).  One table read and no
+// branch for either policy, as in lut_e_term.
+__device__ __forceinline__ float sigma_int(float e, int col,
+                                           const int* lut_aux,
+                                           const LutParams& p) {
+  const bool rexp = p.method == kRexp;
+  const int i =
+      clamp_bin(__fmul_rn(e, p.inv_ex), p.round_mode, 0, p.aux_rows - 1);
+  const int a = lut_aux[rexp ? col : i * p.aux_cols + col];
+  const float prod = float(int(e) * a);  // REXP: ≤ qmax² < 2^30
+  return rexp ? rintf(__fmul_rn(prod, p.inv_q)) : float(a);
+}
+
+__device__ __forceinline__ float weight_int(float e, float S,
+                                            const int* lut_aux,
+                                            const LutParams& p) {
+  return sigma_int(e, sigma_col(S, p), lut_aux, p);
 }
 
 // Weight of one element given its numerator e and the row's global Σ
-// (exact: e/Σ; REXP: rexp_sigma; 2D-LUT: lut2d_sigma_int), dequantized.
+// (exact: e/Σ; the LUT policies: weight_int dequantized by 1/qmax).
 __device__ __forceinline__ float weight(float e, float S, const int* lut_aux,
                                         const LutParams& p) {
   if (p.method == kExact) return __fdiv_rn(e, fmaxf(S, 1.17549435e-38f));
-  if (p.method == kRexp) {
-    int ja = clamp_bin(__fmul_rn(S, p.inv_q), p.round_mode, 0,
-                       p.aux_cols - 1);
-    float prod = float(int(e) * lut_aux[ja]);  // ≤ qmax² < 2^30
-    return __fmul_rn(rintf(__fmul_rn(prod, p.inv_q)), p.inv_q);
-  }
-  int i = clamp_bin(__fmul_rn(e, p.inv_ex), p.round_mode, 0, p.aux_rows - 1);
-  int j = clamp_bin(__fmul_rn(S, p.inv_sum), p.round_mode, 1, p.aux_cols) - 1;
-  return __fmul_rn(float(lut_aux[i * p.aux_cols + j]), p.inv_q);
+  return __fmul_rn(weight_int(e, S, lut_aux, p), p.inv_q);
+}
+
+// REXP's fused epilogue factor α(Σ)·(1/qmax)·(1/qmax), α looked up at
+// rnd(Σ/qmax): U = Σ e·v times it is the fused form's output.
+__device__ __forceinline__ float alpha_factor(float S, const int* lut_aux,
+                                              const LutParams& p) {
+  const float alpha = float(lut_aux[sigma_col(S, p)]);
+  return __fmul_rn(__fmul_rn(alpha, p.inv_q), p.inv_q);
 }
 
 // Where key j of sequence b, KV head kvh lives, and how many keys of b
@@ -524,9 +568,7 @@ __device__ void lut_rows(const Params& p, int b, int h, int row0, int q0,
     if (tid < R) {
       float S = 0.f;
       for (int w = 0; w < kWarps; ++w) S += red_s[w * R + tid];
-      int ja = clamp_bin(__fmul_rn(S, p.inv_q), p.round_mode, 0,
-                         p.aux_cols - 1);
-      S_s[tid] = __fmul_rn(__fmul_rn(float(aux_s[ja]), p.inv_q), p.inv_q);
+      S_s[tid] = alpha_factor(S, aux_s, p);
     }
   }
   __syncthreads();

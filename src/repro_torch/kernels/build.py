@@ -33,7 +33,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: f32/bf16 pools, ``<name>_int8_launch`` int8 pools plus their two f32
 #: scale pools; the dense kernel takes contiguous f32/bf16 q, k, v; the
 #: row-wise softmax has one entry point per method and the exact flash
-#: attention one, both over contiguous f32/bf16/f16 inputs.
+#: attention one, both over contiguous f32/bf16/f16 inputs.  The dense
+#: and flash entry points take their route (an int) after their flags.
 KERNELS = {
     "paged_decode": {
         "paged_decode_launch": [_P] * 8 + [_I] * 13 + [_F] * 5 + [_P],
@@ -44,14 +45,14 @@ KERNELS = {
         "paged_prefill_int8_launch": [_P] * 11 + [_I] * 14 + [_F] * 5 + [_P],
     },
     "lut_attention": {
-        "lut_attention_launch": [_P] * 6 + [_I] * 15 + [_F] * 5 + [_P],
+        "lut_attention_launch": [_P] * 6 + [_I] * 16 + [_F] * 5 + [_P],
     },
     "lut_softmax": {
         "lut_softmax_rexp_launch": [_P] * 4 + [_I] * 7 + [_F] * 4 + [_P],
         "lut_softmax_lut2d_launch": [_P] * 4 + [_I] * 7 + [_F] * 4 + [_P],
     },
     "flash_attention": {
-        "flash_attention_launch": [_P] * 6 + [_I] * 8 + [_F] + [_P],
+        "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F] + [_P],
     },
 }
 

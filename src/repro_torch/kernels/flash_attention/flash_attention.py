@@ -12,11 +12,16 @@ the sum l = Σ exp(s − m) (B, H, Lq), all f32.
   in tiles with the online recurrence; the kernel picks its own tiling,
   so there is no ``block_q`` / ``block_k``) or raises; on CPU tensors it
   runs the plain version — only because the tensors lie on the CPU.
+  :func:`flash_route` names its route before the launch: ``"tiles"``
+  (tensor cores, p·V as three 16-bit pieces of p) for bf16 and f16 with
+  D ≤ 128, a multiple of 8; ``"simt"`` (IEEE f32 on the CUDA cores) for
+  f32 and the other head dims.
 * :func:`flash_attention_plain` is the plain PyTorch version
   (``ref.flash_attention_stats``): materialized logits, one softmax.
 
 The JAX package defines no backward for this kernel, and neither does
-the port.  ``flash_attention_cuda.launches`` counts the launches.
+the port.  ``flash_attention_cuda.launches`` counts the launches by
+route.
 """
 
 from __future__ import annotations
@@ -28,6 +33,19 @@ from repro_torch.kernels.common import FLOAT_DTYPES
 from repro_torch.kernels.flash_attention import ref as _ref
 
 Tensor = torch.Tensor
+
+#: the kernel's routes, in the order of its C entry point's ``route``
+ROUTES = ("simt", "tiles")
+TILE_DTYPES = (torch.bfloat16, torch.float16)
+TILE_MAX_D = 128
+
+
+def flash_route(dtype: torch.dtype, d: int) -> str:
+    """The route a call takes: ``"tiles"`` for 16-bit inputs with
+    D ≤ 128 (a multiple of 8), ``"simt"`` for f32 and every other D."""
+    if dtype in TILE_DTYPES and d <= TILE_MAX_D and d % 8 == 0:
+        return "tiles"
+    return "simt"
 
 
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
@@ -62,16 +80,33 @@ def check_kernel_inputs(q: Tensor, k: Tensor, v: Tensor) -> None:
 
 
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
-                         causal: bool = False, scale: float | None = None):
+                         causal: bool = False, scale: float | None = None,
+                         route: str | None = None):
     """Exact flash attention; returns ``(out, m, l)``, all f32.
 
-    CUDA tensors launch the kernel on the current stream (or raise); CPU
-    tensors run :func:`flash_attention_plain`.
+    CUDA tensors launch the kernel on the current stream through
+    ``route`` (default: :func:`flash_route`'s choice), or raise; CPU
+    tensors run :func:`flash_attention_plain`.  A forced ``route`` (tests
+    and ``chip_smoke.py`` time both on the same inputs; no model path
+    passes one) that the inputs do not suit raises.
     """
+    d = q.shape[-1]
+    if route is None:
+        route = flash_route(q.dtype, d)
+    elif route not in ROUTES:
+        raise ValueError(f"unknown flash route {route!r}: expected one of "
+                         f"{ROUTES}")
+    elif route == "tiles" and flash_route(q.dtype, d) != "tiles":
+        raise ValueError(f"the tile route takes bfloat16 or float16 with "
+                         f"D ≤ {TILE_MAX_D}, a multiple of 8; got "
+                         f"{q.dtype}, D={d}")
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     check_kernel_inputs(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    # the tile route copies 16 bytes at a time: a view whose storage
+    # starts off a 16-byte boundary is copied to one that does not
+    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5
@@ -81,13 +116,13 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
     err = build.load("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         m.data_ptr(), l.data_ptr(), FLOAT_DTYPES[q.dtype], b, h, kvh, lq, lk,
-        d, int(causal), scale,
+        d, int(causal), ROUTES.index(route), scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    flash_attention_cuda.launches += 1
+        raise RuntimeError(f"flash_attention kernel launch failed ({route} "
+                           f"route): CUDA error {err}")
+    flash_attention_cuda.launches[route] += 1
     return out, m, l
 
 
-flash_attention_cuda.launches = 0
+flash_attention_cuda.launches = dict.fromkeys(ROUTES, 0)

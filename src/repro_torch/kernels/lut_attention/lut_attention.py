@@ -7,18 +7,23 @@ fused ``_fused_sum_av_kernel``).  q (B, H, Lq, D) attends to contiguous
 k, v (B, KVH, Lk, D) with the REXP or 2D-LUT softmax; the output is f32.
 
 * :func:`lut_attention_cuda` launches ``csrc/lut_attention.cu`` on CUDA
-  tensors: one thread block per (sequence, query head, tile of query
-  rows) runs every pass.  A runtime ``kv_len`` (the valid length of a
-  pre-allocated cache; the JAX kernel's static ``lk_valid``) masks the
-  tail, and causal queries are right-aligned to it.  On CPU tensors it
-  runs the plain version — only because the tensors lie on the CPU.
+  tensors through one of two routes that :func:`dense_route` names
+  before the launch: ``"tiles"`` (the tensor-core tile engine, 64 query
+  rows a block) for bf16 inputs with Dh ≤ 128, qmax ≤ 255 and at least
+  :data:`MIN_TILE_ROWS` query rows, ``"rows"`` (the row engine, a block
+  per few query rows) for everything else.  A runtime ``kv_len`` (the
+  valid length of a pre-allocated cache; the JAX kernel's static
+  ``lk_valid``) masks the tail, and causal queries are right-aligned to
+  it.  On CPU tensors it runs the plain version — only because the
+  tensors lie on the CPU.
 * :func:`lut_attention_plain` is the plain PyTorch version of the same
   function (``ref.lut_attention_ref``): the same integer LUT pipeline,
   the f32 q·k and σ·V sums in another order.
 
 ``lut_attention_cuda.launches`` counts the launches per mode:
 ``"rexp_fused"`` (REXP's α form), ``"rexp"`` (faithful per-element σ)
-and ``"lut2d"``.
+and ``"lut2d"``; ``lut_attention_cuda.route_launches`` counts them per
+route.
 """
 
 from __future__ import annotations
@@ -33,6 +38,25 @@ from repro_torch.kernels.lut_attention import ref as _ref
 Tensor = torch.Tensor
 
 MODES = ("rexp_fused", "rexp", "lut2d")
+#: the kernel's routes, in the order of its C entry point's ``route``
+ROUTES = ("rows", "tiles")
+#: the fewest query rows a call needs to take the tile route.  A tile
+#: block owns 64 rows and takes the same time to walk 1500 keys however
+#: few of them are real; the row engine's time grows with the rows.  On
+#: an H100 at Whisper's cross-attention shape (B=4, H=12, 1500 keys,
+#: fused; the "[route]" lines of chip_smoke.py phase 6) the tile engine
+#: was the faster at every row count timed, one row included.  Calls of
+#: fewer than 8 rows — single-token decode steps, a short prompt's
+#: prefill — stay on the row engine all the same: a tile block spends 64
+#: rows' work on each, and their own design (keys split across blocks
+#: after a global row max) is the next step for them.
+MIN_TILE_ROWS = 8
+#: what the tile engine takes: bf16 (f32 q·k feeds the bins, so f32 stays
+#: on the CUDA cores), head dims up to 128, and numerators that bf16 holds
+#: exactly (qmax ≤ 255: uint8, uint4, uint2; not int16)
+TILE_DTYPES = (torch.bfloat16,)
+TILE_MAX_DH = 128
+TILE_MAX_QMAX = 255
 
 
 def mode_of(method: str, fused_requant: bool) -> str:
@@ -42,6 +66,27 @@ def mode_of(method: str, fused_requant: bool) -> str:
         raise ValueError(f"the dense LUT kernel takes 'rexp' or 'lut2d', got "
                          f"{method!r}")
     return "rexp_fused" if method == "rexp" and fused_requant else method
+
+
+def tiles_take(dtype: torch.dtype, dh: int, qmax: int) -> bool:
+    """Whether the tile engine takes inputs of this type, head dim and
+    precision (any number of rows)."""
+    return (dtype in TILE_DTYPES and dh <= TILE_MAX_DH and dh % 8 == 0
+            and qmax <= TILE_MAX_QMAX)
+
+
+def dense_route(dtype: torch.dtype, dh: int, lq: int, qmax: int,
+                mode: str) -> str:
+    """The route a dense call takes: ``"tiles"`` when the tile engine
+    takes its type, head dim and precision and it has at least
+    :data:`MIN_TILE_ROWS` query rows, else ``"rows"``.  Every mode takes
+    either route."""
+    if mode not in MODES:
+        raise ValueError(f"unknown dense mode {mode!r}: expected one of "
+                         f"{MODES}")
+    if tiles_take(dtype, dh, qmax) and lq >= MIN_TILE_ROWS:
+        return "tiles"
+    return "rows"
 
 
 def lut_attention_plain(q: Tensor, k: Tensor, v: Tensor,
@@ -100,14 +145,30 @@ def lut_attention_cuda(q: Tensor, k: Tensor, v: Tensor,
                        scale: float | None = None,
                        index_mode: str = "round",
                        fused_requant: bool = False,
-                       kv_len: Tensor | int | None = None) -> Tensor:
+                       kv_len: Tensor | int | None = None,
+                       route: str | None = None) -> Tensor:
     """Dense LUT attention; returns (B, H, Lq, D) f32.
 
-    CUDA tensors launch the kernel on the current stream (or raise);
-    CPU tensors run :func:`lut_attention_plain`.  ``fused_requant``
-    selects REXP's α form (ignored for 2D-LUT, as in the JAX package).
+    CUDA tensors launch the kernel on the current stream through
+    ``route`` (default: :func:`dense_route`'s choice), or raise; CPU
+    tensors run :func:`lut_attention_plain`.  ``fused_requant`` selects
+    REXP's α form (ignored for 2D-LUT, as in the JAX package).  A forced
+    ``route`` (tests and ``chip_smoke.py`` time both on the same inputs;
+    no model path passes one) that the inputs do not suit raises.
     """
     mode = mode_of(method, fused_requant)
+    qmax = tables.precision.qmax
+    b, h, lq, dh = q.shape
+    if route is None:
+        route = dense_route(q.dtype, dh, lq, qmax, mode)
+    elif route not in ROUTES:
+        raise ValueError(f"unknown dense route {route!r}: expected one of "
+                         f"{ROUTES}")
+    elif route == "tiles" and not tiles_take(q.dtype, dh, qmax):
+        raise ValueError(f"the tile route takes bfloat16 with Dh ≤ "
+                         f"{TILE_MAX_DH} (a multiple of 8) and qmax ≤ "
+                         f"{TILE_MAX_QMAX}; got {q.dtype}, Dh={dh}, "
+                         f"qmax={qmax}")
     if not q.is_cuda:
         return _ref.lut_attention_ref(q, k, v, method=method, tables=tables,
                                       scale=scale, causal=causal,
@@ -115,7 +176,6 @@ def lut_attention_cuda(q: Tensor, k: Tensor, v: Tensor,
                                       fused_requant=fused_requant,
                                       kv_len=kv_len)
     kv = check_kernel_inputs(q, k, v, kv_len)
-    b, h, lq, dh = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     main, aux, ints, floats = kernel_tables(method, tables, index_mode,
                                             q.device)
@@ -124,13 +184,16 @@ def lut_attention_cuda(q: Tensor, k: Tensor, v: Tensor,
     err = build.load("lut_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), main.data_ptr(),
         aux.data_ptr(), out.data_ptr(), KERNEL_DTYPES[q.dtype], b, h, kvh,
-        lq, lk, dh, kv, int(causal), int(mode == "rexp_fused"), *ints,
-        scale, *floats, torch.cuda.current_stream(q.device).cuda_stream)
+        lq, lk, dh, kv, int(causal), int(mode == "rexp_fused"),
+        ROUTES.index(route), *ints, scale, *floats,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"lut_attention kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"lut_attention kernel launch failed ({route} "
+                           f"route): CUDA error {err}")
     lut_attention_cuda.launches[mode] += 1
+    lut_attention_cuda.route_launches[route] += 1
     return out
 
 
 lut_attention_cuda.launches = dict.fromkeys(MODES, 0)
+lut_attention_cuda.route_launches = dict.fromkeys(ROUTES, 0)

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.device import resolve_device
+
 
 def tree_map(fn, tree, name: str = ""):
     """``fn(leaf, name)`` over a tree of dicts, lists and tuples; ``name``
@@ -36,21 +38,25 @@ def cast_params(params, dtype: torch.dtype):
         lambda t, name: t if name in NORM_LEAVES else t.to(dtype), params)
 
 
-def params_from_jax(tree, device="cpu", dtype: torch.dtype | None = None):
+def params_from_jax(tree, device="cuda",
+                    dtype: torch.dtype | None = None):
     """JAX parameter tree (leaves numpy-convertible arrays) → the same
-    tree of tensors on ``device``, cast like :func:`cast_params` when
-    ``dtype`` is given."""
+    tree of tensors on ``device`` (the card unless ``device="cpu"``),
+    cast like :func:`cast_params` when ``dtype`` is given."""
+    device = resolve_device(device)
     params = tree_map(
         lambda x, _: torch.from_numpy(np.array(x, copy=True)).to(device),
         tree)
     return params if dtype is None else cast_params(params, dtype)
 
 
-def pool_from_jax(pool, device="cpu") -> dict[str, torch.Tensor]:
+def pool_from_jax(pool, device="cuda") -> dict[str, torch.Tensor]:
     """One layer's (or a periods-stacked) JAX paged pool → the same leaves
-    as tensors on ``device``, dtypes kept: an int8 pool keeps its int8
-    pages and f32 ``k_scales`` / ``v_scales``, so the port's kernels read
-    the very bytes the JAX package's kernels read."""
+    as tensors on ``device`` (the card unless ``device="cpu"``), dtypes
+    kept: an int8 pool keeps its int8 pages and f32 ``k_scales`` /
+    ``v_scales``, so the port's kernels read the very bytes the JAX
+    package's kernels read."""
+    device = resolve_device(device)
     out = {name: torch.from_numpy(np.array(x, copy=True)).to(device)
            for name, x in pool.items()}
     if out["k_pages"].dtype == torch.int8:

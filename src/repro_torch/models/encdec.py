@@ -27,6 +27,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.models import layers as L
+from repro_torch.models.device import resolve_device
 from repro_torch.models.transformer import run_dtype
 
 Tensor = torch.Tensor
@@ -34,8 +35,10 @@ Params = dict[str, Any]
 
 
 def sinusoidal_positions(length: int, d_model: int, offset: int = 0,
-                         device="cpu") -> Tensor:
-    """(length, d_model) f32: sin of every angle, then cos."""
+                         device="cuda") -> Tensor:
+    """(length, d_model) f32: sin of every angle, then cos; on the card
+    unless ``device="cpu"``."""
+    device = resolve_device(device)
     pos = offset + torch.arange(length, dtype=torch.float32,
                                 device=device)[:, None]
     dim = torch.arange(d_model // 2, dtype=torch.float32,
@@ -65,10 +68,12 @@ def _init_attn_block(cfg: ArchConfig, generator: torch.Generator, device,
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device="cpu") -> Params:
+                device="cuda") -> Params:
     """Random f32 parameters in the JAX package's tree layout (lists of
     encoder and decoder blocks), drawn from ``generator``; biases zero,
-    as the JAX package initializes them."""
+    as the JAX package initializes them; on the card unless
+    ``device="cpu"``."""
+    device = resolve_device(device)
     return {
         "embed": L.init_embedding(cfg.vocab_size, cfg.d_model, generator,
                                   device),

@@ -10,17 +10,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
-
-
-def resolve_device(device) -> torch.device:
-    """``cuda`` unless the caller asks for the CPU; a CUDA device that is
-    not there raises (the port never carries on on the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the card; pass device='cpu' "
-            "to run its plain PyTorch versions on the CPU")
-    return device
+from repro_torch.models.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,6 +26,7 @@ from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.models import layers as L
 from repro_torch.models.convert import tree_map
+from repro_torch.models.device import resolve_device
 from repro_torch.runtime.paged_cache import pool_leaf_specs
 
 Tensor = torch.Tensor
@@ -102,10 +103,12 @@ def _tree_stack(trees):
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device="cpu") -> Params:
+                device="cuda") -> Params:
     """Random f32 parameters in the JAX package's tree layout, drawn from
-    ``generator`` (torch's own stream: not the JAX package's numbers)."""
+    ``generator`` (torch's own stream: not the JAX package's numbers), on
+    the card unless ``device="cpu"``."""
     check_paged_supported(cfg)
+    device = resolve_device(device)
     periods = [
         _tree_stack([init_block(cfg, generator, device)
                      for _ in range(cfg.n_periods)])

@@ -11,8 +11,14 @@ head dims, ragged lengths and partial chunks.  The int8-pool kernels get
 exact-dequant inputs: codes in [−4, 4] and power-of-two scales, so every
 dequantized value and every dot is exact too.  The dense LUT-attention
 kernel gets exact-logit inputs in every mode (REXP fused and faithful,
-2D-LUT), with and without a cache's ``kv_len``, and the encoder's shape
-on normal rows, held to one LUT step.
+2D-LUT), with and without a cache's ``kv_len``, on both routes (the row
+engine, and the tensor-core tile engine for bf16 with qmax ≤ 255), and
+the encoder's shape on normal rows, held to one LUT step.  The tile
+route is also held, over a grid of Lq ∈ {1, 5, 17, 300}, Lk ∈ {1, 63,
+64, 1500}, causal masks with and without ``kv_len`` (0 too), GQA 1 and
+8, Dh 64 and 128, uint8 and uint4, to an f64 evaluation of the plain
+version's own bins within 2e-6 (at 1500 keys the plain version's f32
+σ·V roundoff alone comes near that).
 
 The row-wise LUT-softmax kernels take logits as their input, so no dot
 order enters: they must be ``torch.equal`` to their plain versions at
@@ -21,7 +27,9 @@ both bin modes and f32 / bf16 / f16 inputs, with masked, fully masked
 and ``+inf`` / ``NaN`` rows, on short rows, rows kept in shared memory
 and rows past its budget.  The exact flash-attention kernel holds its
 plain version's ``(out, m, l)`` within 2e-5 (out) and 1e-5 relative
-(m, l), and rows that see no key exactly (out 0, m = −inf, l = 0).
+(m, l), and rows that see no key exactly (out 0, m = −inf, l = 0), on
+both routes for bf16 and f16 (tiles: the tensor cores, p in three
+16-bit pieces) and on the CUDA-core route for f32.
 """
 
 import numpy as np
@@ -33,14 +41,16 @@ from repro_torch.core.precision import get_precision
 from repro_torch.core.quantization import quantize_rows
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention.flash_attention import (
-    flash_attention_cuda, flash_attention_plain)
+    flash_attention_cuda, flash_attention_plain, flash_route)
 from repro_torch.kernels.lut_attention import ops
 from repro_torch.kernels.lut_softmax import ops as sops
 from repro_torch.kernels.lut_softmax.lut_softmax import (
     lut2d_softmax_cuda, lut2d_softmax_plain, rexp_softmax_cuda,
     rexp_softmax_plain)
+from repro_torch.kernels.lut_attention import ref as dref
 from repro_torch.kernels.lut_attention.lut_attention import (
-    lut_attention_cuda, lut_attention_plain, mode_of)
+    ROUTES, lut_attention_cuda, lut_attention_plain, mode_of)
+from repro_torch.core import lut_softmax as lsm
 from repro_torch.kernels.lut_attention.paged_decode import (
     paged_decode_attention, paged_decode_plain)
 from repro_torch.kernels.lut_attention.paged_prefill import (
@@ -414,47 +424,114 @@ DENSE_POLICIES = [
     for mode in ("round", "floor")]
 
 
-def _dense_call(fn, q, k, v, pol, causal, kv_len, fused):
+def _dense_call(fn, q, k, v, pol, causal, kv_len, fused, **kw):
     return fn(q, k, v, ops._tables_for(pol), method=pol.impl, causal=causal,
-              index_mode=pol.index_mode, fused_requant=fused, kv_len=kv_len)
+              index_mode=pol.index_mode, fused_requant=fused, kv_len=kv_len,
+              **kw)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "rows"),
+                                         (torch.bfloat16, "rows"),
+                                         (torch.bfloat16, "tiles")])
 @pytest.mark.parametrize("case", DENSE_CASES, ids=str)
-def test_dense_kernel_matches_plain(cuda, dtype, case):
-    """Every mode (REXP fused and faithful, 2D-LUT) at every precision and
-    both bin modes, one launch counted per call in its mode."""
+def test_dense_kernel_matches_plain(cuda, dtype, route, case):
+    """Every mode (REXP fused and faithful, 2D-LUT) at every precision the
+    route takes (the tile route: qmax ≤ 255) and both bin modes, one
+    launch counted per call in its mode and its route."""
     b, h, kvh, lq, lk, dh, causal, kv_len = case
     q, k, v = _dense_problem(lq * 7 + lk, b=b, h=h, kvh=kvh, lq=lq, lk=lk,
                              dh=dh, dtype=dtype)
     for pol in DENSE_POLICIES:
+        if route == "tiles" and pol.precision == "int16":
+            continue
         for fused in ((False, True) if pol.impl == "rexp" else (False,)):
             mode = mode_of(pol.impl, fused)
-            before = lut_attention_cuda.launches[mode]
+            before = (lut_attention_cuda.launches[mode],
+                      lut_attention_cuda.route_launches[route])
             out = _dense_call(lut_attention_cuda, q, k, v, pol, causal,
-                              kv_len, fused)
-            assert lut_attention_cuda.launches[mode] == before + 1
+                              kv_len, fused, route=route)
+            assert (lut_attention_cuda.launches[mode],
+                    lut_attention_cuda.route_launches[route]) == (
+                        before[0] + 1, before[1] + 1)
             ref = _dense_call(lut_attention_plain, q, k, v, pol, causal,
                               kv_len, fused)
             err = float((out - ref).abs().max())
             assert err <= TOL, (pol, fused, err)
 
 
+def _dense_f64(q, k, v, pol, causal, kv_len, fused):
+    """The plain version's own f32 logits and integer LUT pipeline, with
+    the final σ·V (REXP fused: Σ e·v, then the f32 α factor) carried in
+    f64: the referee that tells a kernel's f32 σ·V roundoff from the
+    plain version's."""
+    tables = ops._tables_for(pol)
+    s = dref._logits(q, k, q.shape[-1] ** -0.5, causal, kv_len)
+    vx = v.double().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    if fused:
+        inv = lsm.inv_scale(tables.precision.qmax)
+        e = lsm.rexp_exp_int(s, tables, axis=-1, index_mode=pol.index_mode)
+        ja = lsm.rexp_alpha_index(e.float().sum(-1, keepdim=True), tables,
+                                  pol.index_mode)
+        alpha = torch.as_tensor(tables.lut_alpha, dtype=torch.int32,
+                                device=q.device)[ja]
+        return (torch.matmul(e.double(), vx)
+                * (alpha.float() * inv * inv).double())
+    soft = lsm.softmax_rexp if pol.impl == "rexp" else lsm.softmax_lut2d
+    return torch.matmul(soft(s, tables, axis=-1,
+                             index_mode=pol.index_mode).double(), vx)
+
+
+#: (causal, kv_len as a function of Lk): no mask, a cache's valid length,
+#: causal over every key, causal over a valid length, and an empty cache
+TILE_MASKS = [(False, None), (False, lambda lk: lk // 2 + 1),
+              (True, None), (True, lambda lk: max(lk - 7, 1)),
+              (True, lambda lk: 0)]
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("lk", [1, 63, 64, 1500])
+@pytest.mark.parametrize("lq", [1, 5, 17, 300])
+def test_dense_tile_route_matches_f64(cuda, lq, lk, dh):
+    """The tile route on exact-logit inputs — ragged Lq and Lk around the
+    64-row and 64-key tiles, every mask, GQA 1 and 8, uint8 and uint4,
+    every mode — within 2e-6 of the plain version's bins carried on in
+    f64; masked rows (an empty cache) exactly 0."""
+    for g in (1, 8):
+        q, k, v = _dense_problem(lq + 3 * lk + g + dh, b=2, h=2 * g, kvh=2,
+                                 lq=lq, lk=lk, dh=dh, dtype=torch.bfloat16)
+        for causal, kv_of in TILE_MASKS:
+            kv_len = kv_of(lk) if kv_of else None
+            for prec in ("uint8", "uint4"):
+                for impl, fused in (("rexp", True), ("rexp", False),
+                                    ("lut2d", False)):
+                    pol = SoftmaxPolicy(impl=impl, precision=prec)
+                    out = _dense_call(lut_attention_cuda, q, k, v, pol,
+                                      causal, kv_len, fused, route="tiles")
+                    ref = _dense_f64(q, k, v, pol, causal, kv_len, fused)
+                    err = float((out.double() - ref).abs().max())
+                    assert err <= TOL, (g, causal, kv_len, prec, impl,
+                                        fused, err)
+                    if kv_len == 0:
+                        assert not out.any()
+
+
 def test_dense_kernel_on_random_inputs_at_the_encoder_shape(cuda):
     """Whisper's encoder shape (Lq = Lk = 1500, Dh 64) on normal rows:
-    within one LUT step of the plain version in every mode (the dot
-    orders differ; a logit on a bin edge may move one bin)."""
+    within one LUT step of the plain version in every mode on both routes
+    (the dot orders differ; a logit on a bin edge may move one bin)."""
     pol_r = SoftmaxPolicy(impl="rexp", precision="uint8")
     pol_l = SoftmaxPolicy(impl="lut2d", precision="uint8")
     q, k, v = _dense_problem(21, b=1, h=12, kvh=12, lq=1500, lk=1500, dh=64,
                              dtype=torch.bfloat16, exact=False)
     limit = 2.0 / get_precision("uint8").qmax * float(v.float().abs().max())
     for pol, fused in ((pol_r, True), (pol_r, False), (pol_l, False)):
-        out = _dense_call(lut_attention_cuda, q, k, v, pol, False, None,
-                          fused)
         ref = _dense_call(lut_attention_plain, q, k, v, pol, False, None,
                           fused)
-        assert float((out - ref).abs().max()) <= limit, (pol, fused)
+        for route in ROUTES:
+            out = _dense_call(lut_attention_cuda, q, k, v, pol, False, None,
+                              fused, route=route)
+            assert float((out - ref).abs().max()) <= limit, (pol, fused,
+                                                              route)
 
 
 def test_dense_long_rows_recompute_path(cuda):
@@ -478,6 +555,7 @@ def test_dense_dispatch_on_cuda(cuda):
                              dtype=torch.bfloat16)
     rexp = SoftmaxPolicy(impl="rexp", precision="uint8")
     n = dict(lut_attention_cuda.launches)
+    n_routes = dict(lut_attention_cuda.route_launches)
     for backend in ("auto", "cuda", "naive"):
         ops.lut_attention(q, k, v, rexp, backend=backend)
         ops.lut_attention(q, k, v, rexp, causal=True, kv_len=17,
@@ -486,6 +564,9 @@ def test_dense_dispatch_on_cuda(cuda):
     got = lut_attention_cuda.launches
     assert got["rexp_fused"] == n["rexp_fused"] + 2
     assert got["rexp"] == n["rexp"] + 2 and got["lut2d"] == n["lut2d"]
+    # three query rows: the row engine
+    assert lut_attention_cuda.route_launches == dict(
+        n_routes, rows=n_routes["rows"] + 4)
     # a non-contiguous query (a transposed projection) is made contiguous
     # by the dispatcher, never by the kernel wrapper
     qt = q.transpose(1, 2).contiguous().transpose(1, 2)
@@ -613,29 +694,39 @@ FLASH_CASES = [  # (B, H, KVH, Lq, Lk, D, causal)
     (2, 8, 2, 70, 300, 128, True),       # GQA 4, Lk not a multiple of 32
     (1, 4, 1, 16, 333, 40, True),        # a tail chunk, odd head dim
     (1, 4, 2, 96, 40, 256, True),        # Lq > Lk: 56 rows see no key
+    (1, 4, 2, 96, 40, 64, True),         # the same on the tile route
     (1, 2, 2, 5, 7, 8, False),
+    (1, 8, 1, 130, 1500, 128, True),     # GQA 8, a long causal chunk
 ]
 
 
 @pytest.mark.parametrize("dtype", ROW_DTYPES, ids=str)
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
 def test_flash_kernel_matches_plain(cuda, case, dtype):
+    """The route :func:`flash_route` picks and, for inputs the tile engine
+    takes, the CUDA-core route too, each counted on its own."""
     b, h, kvh, lq, lk, d, causal = case
     rng = np.random.default_rng(lq + lk)
     q, k, v = (torch.as_tensor(rng.normal(size=s), device="cuda").to(dtype)
                for s in ((b, h, lq, d), (b, kvh, lk, d), (b, kvh, lk, d)))
-    n = flash_attention_cuda.launches
-    out, m, l = flash_attention_cuda(q, k, v, causal=causal)
-    assert flash_attention_cuda.launches == n + 1
     ro, rm, rl = flash_attention_plain(q, k, v, causal=causal)
-    torch.testing.assert_close(out, ro, rtol=2e-5, atol=2e-5)
-    torch.testing.assert_close(m, rm, rtol=1e-5, atol=0)
-    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
     blind = torch.isneginf(rm)
     assert int(blind.sum()) == (b * h * (lq - lk) if causal and lq > lk
                                 else 0)
-    assert torch.equal(torch.isneginf(m), blind)
-    assert not out[blind].any() and not l[blind].any()
+    routes = ["simt"] + (["tiles"] if flash_route(dtype, d) == "tiles"
+                         else [])
+    for route in routes:
+        n = dict(flash_attention_cuda.launches)
+        out, m, l = flash_attention_cuda(
+            q, k, v, causal=causal,
+            route=None if route == flash_route(dtype, d) else route)
+        assert flash_attention_cuda.launches == dict(n, **{route:
+                                                           n[route] + 1})
+        torch.testing.assert_close(out, ro, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(m, rm, rtol=1e-5, atol=0)
+        torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+        assert torch.equal(torch.isneginf(m), blind)
+        assert not out[blind].any() and not l[blind].any()
 
 
 def test_flash_dispatch_on_cuda(cuda):
@@ -645,11 +736,11 @@ def test_flash_dispatch_on_cuda(cuda):
     q, k, v = (torch.as_tensor(rng.normal(size=s), device="cuda",
                                dtype=torch.float32)
                for s in ((2, 4, 50, 64), (2, 2, 90, 64), (2, 2, 90, 64)))
-    n = flash_attention_cuda.launches
+    n = dict(flash_attention_cuda.launches)
     outs = {be: fops.flash_attention(q, k, v, causal=True, backend=be,
                                      q_chunk=16, k_chunk=32)
             for be in ("auto", "cuda", "naive", "blocked")}
-    assert flash_attention_cuda.launches == n + 2
+    assert flash_attention_cuda.launches == dict(n, simt=n["simt"] + 2)
     for be, out in outs.items():
         torch.testing.assert_close(out, outs["naive"], rtol=2e-5, atol=2e-5)
     with pytest.raises(ValueError, match="kv_len"):
@@ -657,4 +748,24 @@ def test_flash_dispatch_on_cuda(cuda):
     with pytest.raises(ValueError, match="multiple of KV heads"):
         k3 = k[:, :1].expand(2, 3, 90, 64)
         flash_attention_cuda(q, k3, k3)
-    assert flash_attention_cuda.launches == n + 2
+    with pytest.raises(ValueError, match="tile route"):
+        flash_attention_cuda(q, k, v, route="tiles")      # f32
+    assert flash_attention_cuda.launches == dict(n, simt=n["simt"] + 2)
+
+
+def test_flash_tile_route_on_a_misaligned_view(cuda):
+    """A bf16 view whose storage starts off a 16-byte boundary is copied
+    for the tile route's 16-byte loads, not refused."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.as_tensor(rng.normal(size=(1, 2, 40, 64)),
+                               device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16
+    n = dict(flash_attention_cuda.launches)
+    out = flash_attention_cuda(shifted, k, v, causal=True)
+    assert flash_attention_cuda.launches == dict(n, tiles=n["tiles"] + 1)
+    torch.testing.assert_close(out[0], flash_attention_plain(
+        q, k, v, causal=True)[0], rtol=2e-5, atol=2e-5)

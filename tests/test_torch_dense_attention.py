@@ -34,7 +34,8 @@ from repro_torch.core.policies import SoftmaxPolicy as TPol
 from repro_torch.core.precision import get_precision
 from repro_torch.kernels.lut_attention import ops as tops
 from repro_torch.kernels.lut_attention.lut_attention import (
-    MODES, lut_attention_cuda, lut_attention_plain, mode_of)
+    MIN_TILE_ROWS, MODES, ROUTES, dense_route, lut_attention_cuda,
+    lut_attention_plain, mode_of)
 
 torch.set_num_threads(1)
 
@@ -157,7 +158,8 @@ def test_kv_len_at_full_length_is_the_cacheless_form():
 def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
     q, k, v = (torch.from_numpy(x) for x in _inputs(6, CASES[2], True))
     tables = tops._tables_for(TPol(impl="rexp", precision="uint8"))
-    before = dict(lut_attention_cuda.launches)
+    before = (dict(lut_attention_cuda.launches),
+              dict(lut_attention_cuda.route_launches))
     for fused in (False, True):
         out = lut_attention_cuda(q, k, v, tables, method="rexp",
                                  causal=True, fused_requant=fused, kv_len=150)
@@ -165,7 +167,8 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
                                   causal=True, fused_requant=fused,
                                   kv_len=150)
         torch.testing.assert_close(out, ref, rtol=0, atol=0)
-    assert lut_attention_cuda.launches == before
+    assert (lut_attention_cuda.launches,
+            lut_attention_cuda.route_launches) == before
 
 
 def test_modes():
@@ -177,3 +180,73 @@ def test_modes():
     with pytest.raises(ValueError, match="rexp"):
         mode_of("exact", False)
     assert set(lut_attention_cuda.launches) == set(MODES)
+
+
+#: (name, dtype, Dh, Lq, precision, route) — the main path's calls and
+#: the inputs the tile engine does not take
+ROUTE_CASES = [
+    ("whisper encoder", torch.bfloat16, 64, 1500, "uint8", "tiles"),
+    ("gqa prefill", torch.bfloat16, 128, 256, "uint8", "tiles"),
+    ("qwen3 lockstep prefill", torch.bfloat16, 128, 300, "uint4", "tiles"),
+    ("uint2", torch.bfloat16, 64, 1500, "uint2", "tiles"),
+    ("f32", torch.float32, 64, 1500, "uint8", "rows"),
+    ("int16", torch.bfloat16, 64, 1500, "int16", "rows"),
+    ("Dh 256", torch.bfloat16, 256, 1500, "uint8", "rows"),
+    ("Dh 36", torch.bfloat16, 36, 1500, "uint8", "rows"),
+    ("decode step", torch.bfloat16, 64, 1, "uint8", "rows"),
+    ("cross prefill", torch.bfloat16, 64, 5, "uint8", "rows"),
+]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=lambda c: c[0])
+def test_dense_route(case, mode):
+    """bf16 calls with Dh ≤ 128, qmax ≤ 255 and at least MIN_TILE_ROWS
+    rows take the tile engine in every mode; f32, int16, Dh 256, head
+    dims off the 16-byte grid and few-row calls take the row engine."""
+    _, dtype, dh, lq, prec, want = case
+    qmax = get_precision(prec).qmax
+    assert dense_route(dtype, dh, lq, qmax, mode) == want
+    assert dense_route(dtype, dh, MIN_TILE_ROWS - 1, qmax, mode) == "rows"
+
+
+@pytest.mark.parametrize("case", [c for c in ROUTE_CASES
+                                  if c[0] in ("f32", "int16", "Dh 256",
+                                              "Dh 36")],
+                         ids=lambda c: c[0])
+def test_forced_tile_route_the_engine_does_not_take_raises(case):
+    """A forced ``route="tiles"`` on inputs the tile engine does not take
+    (f32, int16, a head dim it has no tile for) raises before any launch
+    or plain run, on any device; so does a route the kernel does not
+    have."""
+    _, dtype, dh, _, prec, _ = case
+    rng = np.random.default_rng(16)
+    q, k = (torch.from_numpy(rng.normal(size=(1, 2, n, dh))).to(dtype)
+            for n in (3, 5))
+    tables = tops._tables_for(TPol(impl="rexp", precision=prec))
+    before = (dict(lut_attention_cuda.launches),
+              dict(lut_attention_cuda.route_launches))
+    with pytest.raises(ValueError, match="tile route"):
+        lut_attention_cuda(q, k, k, tables, route="tiles")
+    with pytest.raises(ValueError, match="unknown dense route"):
+        lut_attention_cuda(q, k, k, tables, route="simt")
+    assert (lut_attention_cuda.launches,
+            lut_attention_cuda.route_launches) == before
+    assert set(lut_attention_cuda.route_launches) == set(ROUTES)
+
+
+def test_forced_routes_on_cpu_run_the_plain_version():
+    """On CPU tensors either forced route runs the plain version, so a test
+    may name the route without a card; nothing is counted.  The tile
+    engine does not look at the row count: a forced route takes a
+    five-row call."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _inputs(17, CASES[1], True))
+    tables = tops._tables_for(TPol(impl="lut2d", precision="uint8"))
+    before = dict(lut_attention_cuda.route_launches)
+    ref = lut_attention_plain(q, k, v, tables, method="lut2d", causal=True)
+    for route in ROUTES:
+        out = lut_attention_cuda(q, k, v, tables, method="lut2d",
+                                 causal=True, route=route)
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert lut_attention_cuda.route_launches == before

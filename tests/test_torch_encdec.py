@@ -71,7 +71,7 @@ def models():
     jm, tm = jax_build(_arch(JARCHS)), torch_build(_arch(TARCHS))
     jp = _with_biases(jm.init(jax.random.PRNGKey(0)),
                       np.random.default_rng(11))
-    tp = params_from_jax(jp)
+    tp = params_from_jax(jp, device="cpu")
     frames = np.random.default_rng(12).normal(
         size=(3, tm.cfg.encoder_seq, tm.cfg.d_model)).astype(np.float32)
     return jm, jax.tree_util.tree_map(jnp.asarray, jp), tm, tp, frames
@@ -149,7 +149,7 @@ def test_encode_matches_jax(models, impl, jax_backend):
 def test_sinusoidal_positions_match_jax():
     for offset in (0, 7):
         np.testing.assert_allclose(
-            TED.sinusoidal_positions(20, 64, offset).numpy(),
+            TED.sinusoidal_positions(20, 64, offset, device="cpu").numpy(),
             np.asarray(JED.sinusoidal_positions(20, 64, offset)),
             rtol=1e-6, atol=1e-6)
 

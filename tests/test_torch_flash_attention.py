@@ -89,7 +89,7 @@ def test_flash_wrapper_on_cpu_and_ref():
     launch; the port's oracle holds the JAX one."""
     rng = np.random.default_rng(3)
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(rng, 1, 4, 2, 33, 47, 16))
-    before = tflash.flash_attention_cuda.launches
+    before = dict(tflash.flash_attention_cuda.launches)
     for causal in (False, True):
         out = tflash.flash_attention_cuda(tq, tk, tv, causal=causal,
                                           scale=0.3)
@@ -209,7 +209,7 @@ def test_flash_attention_backends_match_jax(backend, causal):
 ])
 def test_flash_attention_knobs_that_raise(backend, kw, match):
     q = torch.zeros((1, 2, 4, 8))
-    before = tflash.flash_attention_cuda.launches
+    before = dict(tflash.flash_attention_cuda.launches)
     with pytest.raises(ValueError, match=match):
         tfops.flash_attention(q, q, q, backend=backend, **kw)
     assert tflash.flash_attention_cuda.launches == before
@@ -233,3 +233,38 @@ def test_lut_attention_routes_blocked():
                                  kv_len=jnp.int32(50), backend="blocked",
                                  q_chunk=8, k_chunk=16)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), **INT_TOL)
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "tiles"),    # the Whisper encoder
+    (torch.bfloat16, 128, "tiles"),   # Qwen3-32B
+    (torch.float16, 128, "tiles"),
+    (torch.bfloat16, 8, "tiles"),     # zero-padded to the 64-wide tile
+    (torch.bfloat16, 40, "tiles"),
+    (torch.float32, 64, "simt"),      # p·V in IEEE f32 on the CUDA cores
+    (torch.bfloat16, 256, "simt"),    # wider than the 128-wide tile
+    (torch.float16, 36, "simt"),      # not a whole 16-byte chunk
+])
+def test_flash_route(dtype, d, route):
+    """16-bit inputs with D ≤ 128, a multiple of 8, take the tile engine;
+    f32 and every other D the CUDA-core kernel.  A forced ``"tiles"``
+    that the inputs do not suit raises before any launch or plain run;
+    one they suit runs (on CPU tensors, the plain version)."""
+    assert tflash.flash_route(dtype, d) == route
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _qkv(rng, 1, 2, 1, 5, 9, d))
+    before = dict(tflash.flash_attention_cuda.launches)
+    if route == "simt":
+        with pytest.raises(ValueError, match="tile route"):
+            tflash.flash_attention_cuda(q, k, v, route="tiles")
+    else:
+        out = tflash.flash_attention_cuda(q, k, v, causal=True,
+                                          route="tiles")
+        for a, p in zip(out, tflash.flash_attention_plain(q, k, v,
+                                                          causal=True)):
+            torch.testing.assert_close(a, p, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unknown flash route"):
+        tflash.flash_attention_cuda(q, k, v, route="rows")
+    assert tflash.flash_attention_cuda.launches == before
+    assert set(before) == set(tflash.ROUTES)

@@ -205,7 +205,7 @@ def test_int8_decode_plain_matches_jax_kernel(impl, g):
         jnp.asarray(q), pool["k_pages"], pool["v_pages"], jnp.asarray(bt),
         jnp.asarray(kl), jpol, backend="pallas", k_scales=pool["k_scales"],
         v_scales=pool["v_scales"])
-    tp = pool_from_jax(pool)
+    tp = pool_from_jax(pool, device="cpu")
     before = paged_decode_attention.int8_launches
     out = tops.lut_attention_paged_decode(
         torch.from_numpy(q), tp["k_pages"], tp["v_pages"],
@@ -229,7 +229,7 @@ def test_int8_prefill_plain_matches_jax_kernel(impl, kv_lens):
         jnp.asarray(qs), jnp.asarray(kl), JAX_POLICIES[impl],
         backend="pallas", k_scales=pool["k_scales"],
         v_scales=pool["v_scales"])
-    tp = pool_from_jax(pool)
+    tp = pool_from_jax(pool, device="cpu")
     out = paged_prefill_attention(
         torch.from_numpy(q), tp["k_pages"], tp["v_pages"],
         torch.from_numpy(bt), torch.from_numpy(qs), torch.from_numpy(kl),
@@ -248,7 +248,7 @@ def test_int8_plain_ignores_nan_junk_and_page_placement():
     rng = np.random.default_rng(5)
     pol = TORCH_POLICIES["lut2d"]
     q, bt, kl, pool = _quantized_problem(rng, kv_lens=(9, 13, 5), lq=3)
-    tp = pool_from_jax(pool)
+    tp = pool_from_jax(pool, device="cpu")
     qs = torch.from_numpy(np.maximum(kl - 3, 0).astype(np.int32))
     args = (torch.from_numpy(q), torch.from_numpy(bt))
 
@@ -283,7 +283,7 @@ def test_int8_plain_ignores_nan_junk_and_page_placement():
 def test_scales_are_required_together_and_checked():
     rng = np.random.default_rng(0)
     q, bt, kl, pool = _quantized_problem(rng)
-    tp = pool_from_jax(pool)
+    tp = pool_from_jax(pool, device="cpu")
     args = (torch.from_numpy(q), tp["k_pages"], tp["v_pages"],
             torch.from_numpy(bt), torch.from_numpy(kl),
             TORCH_POLICIES["exact"])
@@ -337,7 +337,7 @@ def test_cuda_backend_on_cpu_int8_pool_raises():
     launch counter moves."""
     rng = np.random.default_rng(8)
     q, bt, kl, pool = _quantized_problem(rng, lq=2)
-    tp = pool_from_jax(pool)
+    tp = pool_from_jax(pool, device="cpu")
     qs = torch.from_numpy(np.maximum(kl - 2, 0).astype(np.int32))
     sc = dict(k_scales=tp["k_scales"], v_scales=tp["v_scales"])
     before = (paged_decode_attention.int8_launches,

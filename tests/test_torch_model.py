@@ -33,7 +33,12 @@ from repro_torch.configs import ARCHS as TARCHS
 from repro_torch.configs import RunConfig as TRun
 from repro_torch.core.policies import SoftmaxPolicy as TPol
 from repro_torch.models import build_model as torch_build
-from repro_torch.models.convert import cast_params, params_from_jax
+from repro_torch.models import encdec as ED
+from repro_torch.models import model_zoo
+from repro_torch.models import transformer as TF
+from repro_torch.models.convert import (cast_params, params_from_jax,
+                                        pool_from_jax)
+from repro_torch.models.device import resolve_device
 from repro_torch.runtime.engine import EngineConfig as TEngineConfig
 from repro_torch.runtime.engine import ServingEngine as TEngine
 from repro_torch.runtime.paged_cache import PagedCacheConfig as TCache
@@ -55,7 +60,8 @@ def _arch(archs):
 def models():
     jm, tm = jax_build(_arch(JARCHS)), torch_build(_arch(TARCHS))
     jp = jm.init(jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                         device="cpu")
     return jm, jp, tm, tp
 
 
@@ -242,3 +248,28 @@ def test_engine_refuses_what_is_not_ported(models):
             TEngine(tm, tp, trun, TEngineConfig(cache=cache))
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tm.init(torch.Generator().manual_seed(0))
+
+
+DEVICE_DEFAULTS = {
+    "transformer.init_params": lambda: TF.init_params(
+        _arch(TARCHS), torch.Generator().manual_seed(0)),
+    "encdec.init_params": lambda: ED.init_params(
+        TARCHS["whisper-small"].scaled_down(d_model=64, n_heads=4, vocab=128),
+        torch.Generator().manual_seed(0)),
+    "encdec.sinusoidal_positions": lambda: ED.sinusoidal_positions(8, 64),
+    "convert.params_from_jax": lambda: params_from_jax(
+        {"w": np.zeros((2, 2), np.float32)}),
+    "convert.pool_from_jax": lambda: pool_from_jax(
+        {"k_pages": np.zeros((2, 4, 1, 8), np.float32)}),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(DEVICE_DEFAULTS))
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """Every entry point that allocates puts its tensors on the card unless
+    the caller passes ``device="cpu"``: with no CUDA device each raises,
+    through the one ``resolve_device`` that ``model_zoo`` also exports."""
+    assert model_zoo.resolve_device is resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DEVICE_DEFAULTS[entry]()

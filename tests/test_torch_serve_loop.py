@@ -69,7 +69,8 @@ def _arch(archs):
 def models():
     jm, tm = jax_build(_arch(JARCHS)), torch_build(_arch(TARCHS))
     jp = jm.init(jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                         device="cpu")
     return jm, jp, tm, tp
 
 
@@ -406,7 +407,7 @@ def test_int8_rexp_parting_is_projection_roundoff(models):
     def capture(params, token, pools, block_tables, lengths):
         view.update(token=np.asarray(token), lengths=np.asarray(lengths),
                     block_tables=np.asarray(block_tables),
-                    pools=[pool_from_jax(p) for p in pools])
+                    pools=[pool_from_jax(p, device="cpu") for p in pools])
         return decode_fn(params, token, pools, block_tables, lengths)
 
     jeng._decode_fn = capture
