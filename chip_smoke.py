@@ -14,17 +14,27 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
 2. kernel against plain version — each paged kernel × {exact,
    rexp-uint8, lut2d-uint8} at Qwen3-32B width (H=64, KVH=8, Dh=128,
    page_size=16, ragged kv_lens up to 512, permuted block tables, finite
-   junk in null and unused pages):
+   junk in null and unused pages), and at GQA 6 and 12 (H=48 and 96 over
+   8 KV heads) with block tables 512 pages wide and kv_lens up to 8192
+   that cross the kernels' split ranges and page boundaries (a slot of
+   0 keys, prefill rows past the logits cache):
    (a) exact-logit inputs (q, k small integers × 2^-2, so every dot order
        gives the same logits): outputs within 2e-6 — a LUT bin that moved
-       would shift a weight by ≥ 1/qmax, far above that;
+       would shift a weight by ≥ 1/qmax, far above that; on the long rows
+       against the plain version's own weights carried through σ·V in
+       f64 (within 2e-6, or twice the plain version's own distance from
+       it where that is larger: over thousands of keys the f32 σ·V sum's
+       roundoff reaches 2e-6 in any order);
    (b) random inputs in bf16 and f32: the max error and the share of rows
        beyond 1e-4, held to one LUT step (2/qmax · max|v|; 1e-4 · max|v|
        for exact), since the kernel and cuBLAS sum the dots in different
        orders and a logit on a bin edge may land in the neighbouring bin;
    then the kernel's time, the plain version's, SDPA on the gathered
    view for exact (a yardstick only: the port never calls it) and the
-   least time the card could take;
+   least time the card could take; then one empty launch timed the same
+   way (the harness's floor), the host's µs a wrapper call, and the
+   sweep (:func:`sweep`: decode at B 1–64 × kv_len 1–8192, a 16-token
+   prefill chunk at q_start 0–8176) on a bf16 pool;
 3. engine — Qwen3-32B widths (d_model 5120, 64/8 heads, d_ff 25600,
    vocab 151936, qk-norm), depth cut to 4 of 64 layers, seeded random
    bf16 weights, REXP uint8, ``paged_backend="auto"``: 8 requests with
@@ -44,7 +54,8 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    exact) within 2e-6; (b) rows quantized with ``quantize_rows`` from
    normal rows, within one LUT step; then their times beside the plain
    versions', SDPA on the dequantized gathered view for exact, and the
-   bound (live int8 K+V bytes plus their f32 scales);
+   bound (live int8 K+V bytes plus their f32 scales); the host's µs a
+   call and the sweep on an int8 pool;
 5. int8 engine — the same 8 requests and weights, REXP uint8,
    ``kv_dtype="int8"``, ``paged_backend="auto"``: both int8 launch
    counters must move; tok/s, TTFT and the pool's bytes per token per
@@ -102,8 +113,10 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    the Whisper encoder's shape (B=4, H=12, L=1500, Dh=64), Qwen3-32B's
    causal prefill (H=64, KVH=8, L=2048, Dh=128), a 16-token chunk at its
    tail and a 300-row chunk against 200 keys (100 rows see no key), f32
-   and bf16: the counter must move on both routes (bf16 on the tensor-
-   core tile engine, f32 on the CUDA cores); the kernel's (out, m, l)
+   and bf16, and two causal calls into a pre-allocated cache with a
+   ``kv_len`` (one per sequence; one for all): the counter must move on
+   both routes (bf16 on the tensor-core tile engine, f32 on the CUDA
+   cores); the kernel's (out, m, l)
    within 2e-5 (out) and 1e-5 relative (m, l) of the plain version's (no
    TF32), on the picked route and, for bf16, on the CUDA-core route too,
    the rows that see no key exactly 0 / −inf / 0; then both routes'
@@ -189,6 +202,15 @@ N_SLOTS, CHUNK = 4, 16
 DECODE_KV_LENS = (512, 301, 77, 1)
 PREFILL_MAIN = dict(q_start=(288,), chunk_lens=(12,))     # the engine's B=1
 PREFILL_RAGGED = dict(q_start=(0, 100, 480), chunk_lens=(16, 7, 16))
+#: GQA 6 and 12 (H 48 and 96 over 8 KV heads, Dh 128) at long contexts:
+#: block tables 512 pages wide, kv_lens that cross the kernels' split
+#: ranges and page boundaries up to 8192 keys, a slot of 0 keys, and
+#: prefill rows past the logits cache (those CTAs recompute q·k)
+LONG_MP = 512
+LONG_DECODE = [dict(h=48, kv_lens=(8192, 4111, 1000, 33, 1)),
+               dict(h=96, kv_lens=(5003, 2049, 17, 0))]
+LONG_PREFILL = [dict(h=48, q_start=(8176, 1000, 0), chunk_lens=(16, 9, 16)),
+                dict(h=96, q_start=(2032, 40), chunk_lens=(16, 3))]
 EXACT_TOL = 2e-6
 
 
@@ -204,24 +226,44 @@ def gpu_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def paged_problem(rng, *, kv_lens, c, q_start, dtype, exact_logits):
+def pool_pages(kv_lens, mp):
+    """Pages of a problem's pool: the null page, each slot's pages, and
+    at the smoke's widths a slot's unowned share as well (junk pages the
+    masks must keep out); long block tables get only the owned pages."""
+    if mp > MP:
+        return 1 + sum(-(-int(kl) // PS) for kl in kv_lens) + 4
+    return 1 + len(kv_lens) * mp
+
+
+def block_tables(rng, kv_lens, n_pages, mp):
+    """Permuted block tables: slot i owns the next ceil(kv_lens[i]/PS)
+    pages of a random order of the pool's non-null pages; the rest of
+    its row points at the null page 0."""
+    phys = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((len(kv_lens), mp), np.int32)
+    start = 0
+    for i, kl in enumerate(kv_lens):
+        n_owned = -(-int(kl) // PS)
+        bt[i, :n_owned] = phys[start:start + n_owned]
+        start += n_owned if mp > MP else mp
+    return bt
+
+
+def paged_problem(rng, *, kv_lens, c, q_start, dtype, exact_logits, h=H,
+                  mp=MP):
     """Pool + permuted block tables; slot i owns ceil(kv_lens[i]/PS)
     pages; every page (the null page and unowned pages too) holds finite
     junk, so only the masks keep it out."""
     b = len(kv_lens)
-    n_pages = 1 + b * MP
+    n_pages = pool_pages(kv_lens, mp)
     if exact_logits:
-        q = rng.integers(-4, 5, size=(b, H, c, DH)) * 0.25
+        q = rng.integers(-4, 5, size=(b, h, c, DH)) * 0.25
         k = rng.integers(-4, 5, size=(n_pages, PS, KVH, DH)) * 0.25
     else:
-        q = rng.normal(size=(b, H, c, DH))
+        q = rng.normal(size=(b, h, c, DH))
         k = rng.normal(size=(n_pages, PS, KVH, DH))
     v = rng.normal(size=(n_pages, PS, KVH, DH))
-    phys = rng.permutation(np.arange(1, n_pages))
-    bt = np.zeros((b, MP), np.int32)
-    for i, kl in enumerate(kv_lens):
-        n_owned = -(-int(kl) // PS)
-        bt[i, :n_owned] = phys[i * MP:i * MP + n_owned]
+    bt = block_tables(rng, kv_lens, n_pages, mp)
 
     def dev(x, dt=dtype):
         return torch.as_tensor(np.asarray(x), device="cuda").to(dt)
@@ -232,7 +274,8 @@ def paged_problem(rng, *, kv_lens, c, q_start, dtype, exact_logits):
                 q_start=dev(np.asarray(q_start, np.int32), torch.int32))
 
 
-def int8_problem(rng, *, kv_lens, c, q_start, dtype, exact_logits):
+def int8_problem(rng, *, kv_lens, c, q_start, dtype, exact_logits, h=H,
+                 mp=MP):
     """As :func:`paged_problem`, over an int8 pool with f32 row scales:
     exact-dequant or normal rows through ``quantize_rows``.  The null
     page holds junk codes and NaN / inf scales: only the masks keep it
@@ -247,29 +290,25 @@ def int8_problem(rng, *, kv_lens, c, q_start, dtype, exact_logits):
     version's against an f64 evaluation of the same logits as much as
     the kernel's — reaches the 2e-6 limit in either summation order."""
     b = len(kv_lens)
-    n_pages = 1 + b * MP
+    n_pages = pool_pages(kv_lens, mp)
     shape = (n_pages, PS, KVH, DH)
 
     def dev(x, dt):
         return torch.as_tensor(np.asarray(x), device="cuda").to(dt)
 
     if exact_logits:
-        q = rng.integers(-4, 5, size=(b, H, c, DH)) * 0.25
+        q = rng.integers(-4, 5, size=(b, h, c, DH)) * 0.25
         pools = [(dev(rng.integers(-4, 5, size=shape), torch.int8),
                   dev(2.0 ** rng.integers(-3, 0, size=shape[:3]),
                       torch.float32)) for _ in range(2)]
     else:
-        q = rng.normal(size=(b, H, c, DH))
+        q = rng.normal(size=(b, h, c, DH))
         pools = [quantize_rows(dev(rng.normal(size=shape), torch.float32))
                  for _ in range(2)]
     (kp, ks), (vp, vs) = pools
     kp[0], vp[0] = 127, -127
     ks[0], vs[0] = float("nan"), float("inf")
-    phys = rng.permutation(np.arange(1, n_pages))
-    bt = np.zeros((b, MP), np.int32)
-    for i, kl in enumerate(kv_lens):
-        n_owned = -(-int(kl) // PS)
-        bt[i, :n_owned] = phys[i * MP:i * MP + n_owned]
+    bt = block_tables(rng, kv_lens, n_pages, mp)
     return dict(q=dev(q, dtype), k_pages=kp, v_pages=vp, k_scales=ks,
                 v_scales=vs, block_tables=dev(bt, torch.int32),
                 kv_lens=dev(np.asarray(kv_lens, np.int32), torch.int32),
@@ -300,28 +339,6 @@ def prefill_args(p):
             p["q_start"], p["kv_lens"])
 
 
-def device_ms(fn, iters=20) -> float:
-    """Median device time of one call, L2 cold: before each call a
-    256 MiB write evicts the 50 MB L2 and a spin keeps the device busy
-    while the host enqueues the call, so the events bracket device work
-    only."""
-    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(2_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
 def visible_pairs(kv_lens, q_start, c) -> int:
     """(query row, key) pairs the masks let through, summed over slots."""
     return sum(max(min(kl, qs + i + 1), 0) for kl, qs in zip(kv_lens, q_start)
@@ -333,19 +350,68 @@ def bound(p, kv_lens, q_start, c, dtype):
     each output read or written once, against q·k and σ·v over the
     visible (row, key) pairs at the input type's peak."""
     esize = torch.empty((), dtype=dtype).element_size()
-    b = len(kv_lens)
-    live_rows = sum(min(kl, MP * PS) for kl in kv_lens)
+    b, h = len(kv_lens), p["q"].shape[1]
+    live_rows = sum(min(kl, p["block_tables"].shape[1] * PS)
+                    for kl in kv_lens)
     row_bytes = DH * p["k_pages"].element_size()
     if "k_scales" in p:
         row_bytes += 4                               # the row's f32 scale
     nbytes = (2 * live_rows * KVH * row_bytes       # K and V pages
-              + b * H * c * DH * esize              # queries
-              + b * H * c * DH * 4                  # f32 outputs
+              + b * h * c * DH * esize              # queries
+              + b * h * c * DH * 4                  # f32 outputs
               + p["block_tables"].numel() * 4 + 2 * b * 4)
-    ops_count = 4 * H * DH * visible_pairs(kv_lens, q_start, c)
+    ops_count = 4 * h * DH * visible_pairs(kv_lens, q_start, c)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops_count / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(fn, iters=20, cold=True) -> float:
+    """Median device time of one call, L2 cold: before each call a
+    256 MiB write evicts the 50 MB L2 (with ``cold`` false it does not)
+    and a spin keeps the device busy while the host enqueues the call,
+    so the events bracket device work only."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        if cold:
+            flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def empty_launch_ms() -> float:
+    """The harness's floor: one one-element add under :func:`device_ms`."""
+    x = torch.zeros(1, device="cuda")
+    return device_ms(lambda: x.add_(1))
+
+
+def host_us(fn, rounds=30, per_round=100) -> tuple[float, float, float]:
+    """Host microseconds per call: (median, lowest, highest) over
+    ``rounds`` rounds of ``per_round`` calls each, each round queued
+    behind a device spin long enough that the device never drains the
+    queue, so the host never waits on it."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda._sleep(20_000_000)
+        t0 = time.perf_counter()
+        for _ in range(per_round):
+            fn()
+        per_call.append((time.perf_counter() - t0) / per_round * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(per_call)), min(per_call), max(per_call)
 
 
 def sdpa_ms(p, c, q_start_t):
@@ -364,6 +430,128 @@ def sdpa_ms(p, c, q_start_t):
     mask = (ki <= qi) & (ki < p["kv_lens"][:, None, None, None])
     return device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         p["q"], k, v, attn_mask=mask))
+
+
+# ---------------------------------------------------------------------------
+# The paged sweep
+# ---------------------------------------------------------------------------
+
+SWEEP_MP = 512                       # pages of a block table: 8192 keys
+SWEEP_B = (1, 4, 16, 64)
+SWEEP_KV = (1, 64, 256, 257, 512, 2048, 8192)
+SWEEP_PREFILL_Q = (0, 288, 2032, 8176)
+SWEEP_PREFILL_B = (1, 4)
+
+
+class SweepPool:
+    """One K and one V pool on the card at Qwen3-32B's widths, bf16 or
+    int8 with f32 row scales (seeded random rows; the null page 0 holds
+    junk and, for int8, NaN / inf scales), carved into ``slots`` shares
+    of ``mp`` pages; slot i's block table lists its share in a seeded
+    random order.  Its calls pass the host's bound on the live lengths
+    (``max_kv_len``), as the engine does."""
+
+    def __init__(self, kind, slots, mp, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        shape = (1 + slots * mp, PS, KVH, DH)
+        self.scales = {}
+        if kind == "int8":
+            self.k, self.v = (torch.randint(-127, 128, shape, generator=gen,
+                                            device="cuda", dtype=torch.int8)
+                              for _ in range(2))
+            for name in ("k_scales", "v_scales"):
+                s = torch.rand(shape[:3], generator=gen, device="cuda") / 64
+                s[0] = float("nan")
+                s[0, 0] = float("inf")
+                self.scales[name] = s
+        else:
+            self.k, self.v = (torch.randn(shape, generator=gen, device="cuda")
+                              .to(torch.bfloat16) for _ in range(2))
+        self.bt = torch.stack([
+            1 + i * mp + torch.randperm(mp, generator=gen, device="cuda")
+            for i in range(slots)]).to(torch.int32)
+        self.gen = gen
+
+    def queries(self, b, c):
+        return torch.randn((b, H, c, DH), generator=self.gen,
+                           device="cuda").to(torch.bfloat16)
+
+    def bound_ms(self, q, q_start, kv_lens):
+        p = dict(q=q, k_pages=self.k, block_tables=self.bt[:len(kv_lens)],
+                 **self.scales)
+        return bound(p, kv_lens, q_start, q.shape[2], torch.bfloat16)[0]
+
+    def decode(self, kernel, q, kv_lens, policy):
+        kl = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+        bt = self.bt[:len(kv_lens)].contiguous()
+        return lambda: kernel(q, self.k, self.v, bt, kl, policy,
+                              max_kv_len=max(kv_lens), **self.scales)
+
+    def prefill(self, kernel, q, q_start, kv_lens, policy):
+        kl = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+        qs = torch.tensor(q_start, dtype=torch.int32, device="cuda")
+        bt = self.bt[:len(kv_lens)].contiguous()
+        return lambda: kernel(q, self.k, self.v, bt, qs, kl, policy,
+                              max_kv_len=max(kv_lens), **self.scales)
+
+
+def smoke_cases(pool, decode, prefill, policy):
+    """``{name: call}`` of both kernels at the smoke's main shapes (decode
+    B=4 over DECODE_KV_LENS, prefill PREFILL_MAIN's chunk) on ``pool``."""
+    qs, n = PREFILL_MAIN["q_start"], PREFILL_MAIN["chunk_lens"]
+    return {
+        "paged_decode": pool.decode(decode, pool.queries(4, 1),
+                                    DECODE_KV_LENS, policy),
+        "paged_prefill": pool.prefill(
+            prefill, pool.queries(1, CHUNK), qs,
+            tuple(a + b for a, b in zip(qs, n)), policy)}
+
+
+def sweep(decode, prefill, policy, kind, log=print):
+    """Decode at B ∈ SWEEP_B × kv_len ∈ SWEEP_KV (every slot at that
+    length) and a 16-token prefill chunk at q_start ∈ SWEEP_PREFILL_Q, B ∈
+    SWEEP_PREFILL_B, on a ``kind`` pool whose block tables are 512 pages
+    wide: separates the per-call cost from the per-key cost.  Returns a
+    list of dicts (phase, B, kv_len or q_start, ms, bound_ms)."""
+    pool = SweepPool(kind, max(SWEEP_B), SWEEP_MP, seed=11)
+    rows = []
+    for b in SWEEP_B:
+        q = pool.queries(b, 1)
+        for kv in SWEEP_KV:
+            ms = device_ms(pool.decode(decode, q, (kv,) * b, policy))
+            bms = pool.bound_ms(q, (kv - 1,) * b, (kv,) * b)
+            rows.append(dict(phase="decode", pool=kind, B=b, kv_len=kv,
+                             ms=ms, bound_ms=bms))
+            log(f"[sweep] decode {kind} B={b} kv_len={kv}: {ms:.4f} ms, "
+                f"bound {bms:.4f} ms ({bms / ms:.1%} of bound)")
+    for b in SWEEP_PREFILL_B:
+        q = pool.queries(b, CHUNK)
+        for q0 in SWEEP_PREFILL_Q:
+            kv = (q0 + CHUNK,) * b
+            ms = device_ms(pool.prefill(prefill, q, (q0,) * b, kv, policy))
+            bms = pool.bound_ms(q, (q0,) * b, kv)
+            rows.append(dict(phase="prefill", pool=kind, B=b, q_start=q0,
+                             ms=ms, bound_ms=bms))
+            log(f"[sweep] prefill {kind} B={b} C={CHUNK} q_start={q0}: "
+                f"{ms:.4f} ms, bound {bms:.4f} ms ({bms / ms:.1%} of "
+                f"bound)")
+    del pool
+    torch.cuda.empty_cache()
+    return rows
+
+
+def host_times(decode, prefill, policy, kind, log=print):
+    """Host µs per wrapper call at the smoke's main shapes (:func:`host_us`:
+    30 rounds of 100 calls, no synchronize inside a round):
+    ``{name: (median, lowest, highest)}``."""
+    pool = SweepPool(kind, len(DECODE_KV_LENS), MP, seed=13)
+    suffix = "_int8" if kind == "int8" else ""
+    out = {}
+    for name, fn in smoke_cases(pool, decode, prefill, policy).items():
+        med, lo, hi = out[name + suffix] = host_us(fn)
+        log(f"[host] {name}{suffix}: {med:.2f} us of host time a call "
+            f"(median of 30 rounds of 100 calls, rounds {lo:.2f}–{hi:.2f})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -388,30 +576,75 @@ def phase_build():
             build.load(name, entry)
 
 
+def plain_f64(p, policy):
+    """The plain version's own weights carried through σ·V in f64: its f32
+    logits, masks and policy softmax (``ops._policy_softmax``, what
+    ``lut_attention_*_varlen`` run), then the product with the gathered
+    V in f64.  The referee of the long rows: over thousands of keys the
+    f32 σ·V sum's own roundoff, in any order, reaches the 2e-6 limit."""
+    k, v = ops.gather_kv(p["k_pages"], p["v_pages"], p["block_tables"],
+                         p["kv_lens"], **scales_of(p))
+    q = p["q"]
+    b, h, c, dh = q.shape
+    s = ops._logits(q, k, dh ** -0.5)
+    ki = torch.arange(k.shape[2], device="cuda")[None, None, None, :]
+    qi = (p["q_start"][:, None] + torch.arange(c, device="cuda")[None, :]
+          )[:, None, :, None]
+    s = s.masked_fill(~((ki <= qi) & (ki < p["kv_lens"][:, None, None, None])),
+                      float("-inf"))
+    sigma = ops._policy_softmax(s, policy).double()
+    kvh = v.shape[1]
+    return torch.matmul(sigma.reshape(b, kvh, h // kvh, c, -1),
+                        v.double().unsqueeze(2)).reshape(b, h, c, dh)
+
+
 def check_kernel(name, kernel, plain, args_of, rng, cases,
                  make=paged_problem):
     """Hold ``kernel`` to ``plain`` on every case (problems from ``make``:
-    float or int8 pools); returns the max error of the exact-logit
-    cases."""
+    float or int8 pools), each problem under every policy, the kernel
+    given the longest kv_len as its ``max_kv_len`` (the engine's way);
+    returns the
+    max error of the exact-logit cases.  Rows longer than the smoke's
+    512 keys hold both to :func:`plain_f64` on exact-logit inputs: the
+    kernel within 2e-6 of it, or within twice the plain version's own
+    distance from it where that is larger (the f32 σ·V roundoff)."""
     worst_exact = 0.0
     failures = []
-    for pol_name, pol in POLICIES.items():
-        qmax = (get_precision(pol.precision).qmax
-                if pol.impl != "exact" else None)
-        for dtype in (torch.float32, torch.bfloat16):
-            for exact_logits in (True, False):
-                for case in cases:
-                    p = make(rng, dtype=dtype, exact_logits=exact_logits,
-                             **case)
-                    out = kernel(*args_of(p), pol, **scales_of(p))
+    for dtype in (torch.float32, torch.bfloat16):
+        for exact_logits in (True, False):
+            for case in cases:
+                p = make(rng, dtype=dtype, exact_logits=exact_logits,
+                         **case)
+                for pol_name, pol in POLICIES.items():
+                    qmax = (get_precision(pol.precision).qmax
+                            if pol.impl != "exact" else None)
+                    out = kernel(*args_of(p), pol, **scales_of(p),
+                                 max_kv_len=max(case["kv_lens"]))
                     ref = plain(*args_of(p), pol, **scales_of(p))
                     torch.cuda.synchronize()
                     err = (out - ref).abs()
                     max_err = float(err.max())
+                    finite = bool(torch.isfinite(out).all())
+                    if not finite:
+                        failures.append(f"{name} {pol_name}: non-finite "
+                                        f"output")
                     tag = (f"[kernel] {name} {pol_name} {str(dtype)[6:]} "
                            f"B={len(case['kv_lens'])} "
+                           f"H={case.get('h', H)}/{KVH} "
+                           f"max kv_len={max(case['kv_lens'])} "
                            f"{'exact-logit' if exact_logits else 'random'}")
-                    if exact_logits:
+                    if exact_logits and max(case["kv_lens"]) > MP * PS:
+                        f64 = plain_f64(p, pol)
+                        k_err = float((out.double() - f64).abs().max())
+                        p_err = float((ref.double() - f64).abs().max())
+                        limit = max(EXACT_TOL, 2 * p_err)
+                        worst_exact = max(worst_exact, k_err)
+                        print(f"{tag}: kernel–f64 {k_err:.3g}, plain–f64 "
+                              f"{p_err:.3g} (limit {limit:.3g}), "
+                              f"kernel–plain {max_err:.3g}")
+                        if not k_err <= limit:
+                            failures.append(f"{tag}: {k_err} > {limit}")
+                    elif exact_logits:
                         worst_exact = max(worst_exact, max_err)
                         print(f"{tag}: max|err| {max_err:.3g} "
                               f"(limit {EXACT_TOL})")
@@ -442,7 +675,8 @@ def time_kernel(name, kernel, plain, args_of, rng, case, make=paged_problem):
     for pol_name, pol in POLICIES.items():
         p = make(rng, dtype=torch.bfloat16, exact_logits=False, **case)
         kw = scales_of(p)
-        ms = device_ms(lambda: kernel(*args_of(p), pol, **kw))
+        ms = device_ms(lambda: kernel(*args_of(p), pol, **kw,
+                                      max_kv_len=max(case["kv_lens"])))
         plain_ms = device_ms(lambda: plain(*args_of(p), pol, **kw))
         lib = (sdpa_ms(p, c, p["q_start"]) if pol.impl == "exact" else None)
         b_ms, b_by = bound(p, case["kv_lens"], case["q_start"], c,
@@ -459,28 +693,43 @@ def time_kernel(name, kernel, plain, args_of, rng, case, make=paged_problem):
 
 def phase_kernels(int8=False):
     """Phase 2, or with ``int8`` phase 4: both kernels held to their plain
-    versions and timed, on float pools or on int8 pools."""
+    versions and timed, on float pools or on int8 pools; then the sweep
+    over batch and context length (:func:`sweep`) and the
+    host's time per wrapper call on that pool type, and in phase 2 the
+    harness's floor (one empty launch)."""
     rng = np.random.default_rng(2 if int8 else 0)
-    dec_case = dict(kv_lens=DECODE_KV_LENS, c=1,
-                    q_start=tuple(kl - 1 for kl in DECODE_KV_LENS))
 
-    def pf_case(q_start, chunk_lens):
+    def dec_case(kv_lens, **kw):
+        return dict(kv_lens=kv_lens, c=1,
+                    q_start=tuple(kl - 1 for kl in kv_lens), **kw)
+
+    def pf_case(q_start, chunk_lens, **kw):
         return dict(kv_lens=tuple(q + n for q, n in zip(q_start, chunk_lens)),
-                    c=CHUNK, q_start=q_start)
+                    c=CHUNK, q_start=q_start, **kw)
 
+    dec_main = dec_case(DECODE_KV_LENS)
     pf_main, pf_ragged = pf_case(**PREFILL_MAIN), pf_case(**PREFILL_RAGGED)
+    dec_long = [dec_case(mp=LONG_MP, **c) for c in LONG_DECODE]
+    pf_long = [pf_case(mp=LONG_MP, **c) for c in LONG_PREFILL]
     make, suffix = (int8_problem, "_int8") if int8 else (paged_problem, "")
     results = {}
     for name, kernel, plain, args_of, cases, main in (
             ("paged_decode", paged_decode_attention, paged_decode_plain,
-             decode_args, [dec_case], dec_case),
+             decode_args, [dec_main, *dec_long], dec_main),
             ("paged_prefill", paged_prefill_attention, paged_prefill_plain,
-             prefill_args, [pf_main, pf_ragged], pf_main)):
+             prefill_args, [pf_main, pf_ragged, *pf_long], pf_main)):
         name += suffix
         err = check_kernel(name, kernel, plain, args_of, rng, cases, make)
         results[name] = dict(max_abs_err=err,
                              **time_kernel(name, kernel, plain, args_of, rng,
                                            main, make))
+    kind = "int8" if int8 else "bf16"
+    pol = POLICIES[MAIN_POLICY]
+    if not int8:
+        print(f"[floor] one empty launch (a one-element add, as the kernels "
+              f"are timed): {empty_launch_ms():.4f} ms")
+    host_times(paged_decode_attention, paged_prefill_attention, pol, kind)
+    sweep(paged_decode_attention, paged_prefill_attention, pol, kind)
     return results
 
 
@@ -494,8 +743,8 @@ def run_engine(model, params, policy, backend, requests, shadow=None,
 
     ``shadow`` (a list) makes every paged-attention call of the engine
     also run the plain version (``backend="dense"``) on the same inputs,
-    appending ``(max error, one-LUT-step bound, share of rows beyond
-    1e-4)``; the model's dispatchers are restored after.
+    appending ``(dispatcher, max error, one-LUT-step bound, share of rows
+    beyond 1e-4)``; the model's dispatchers are restored after.
     """
     run = RunConfig(dtype="bfloat16", softmax_policy=policy,
                     paged_backend=backend, kv_dtype=kv_dtype)
@@ -523,7 +772,7 @@ def run_engine(model, params, policy, backend, requests, shadow=None,
             v = args[2].float()
             if kw.get("v_scales") is not None:
                 v = v * kw["v_scales"][..., None]
-            shadow.append((float(rows.max()),
+            shadow.append((dispatch.__name__, float(rows.max()),
                            step * float(v.abs().max()),
                            float((rows > 1e-4).float().mean())))
             return out
@@ -605,8 +854,7 @@ def profile_drive(model, params, requests, kv_dtype="f32"):
         print("[profile] the profiler recorded no device time: not measured")
         return
     busy = sum(us for us, _, _ in kernels) / 1e6
-    groups = {"paged attention kernels": ("paged_decode_kernel",
-                                          "paged_prefill_kernel"),
+    groups = {"paged attention kernels": ("paged_attention_kernel",),
               "matmuls": ("gemm", "gemv", "nvjet", "cutlass", "xmma",
                           "sm90_")}
     shares = {g: sum(us for us, _, k in kernels
@@ -638,15 +886,16 @@ def compare_runs(label, a, b):
 def check_shadow(shadow, label):
     """Every kernel call of a shadowed drive within one LUT step of its
     plain version on the same inputs."""
-    worst = max(e for e, _, _ in shadow)
-    beyond = max(s for _, _, s in shadow)
+    worst = max(e for _, e, _, _ in shadow)
+    beyond = max(s for _, _, _, s in shadow)
     print(f"[engine] shadowed {label}: {len(shadow)} kernel calls held to "
           f"the plain version on the same inputs: max|err| {worst:.3g}, "
           f"largest share of rows beyond 1e-4 in one call {beyond:.4%}")
-    for err, limit, _ in shadow:
+    for i, (name, err, limit, share) in enumerate(shadow):
         if not err <= limit:
-            raise AssertionError(f"kernel call off its plain version by "
-                                 f"{err} > one LUT step {limit}")
+            raise AssertionError(f"kernel call {i} ({name}) off its plain "
+                                 f"version by {err} > one LUT step {limit}"
+                                 f" ({share:.4%} of rows beyond 1e-4)")
     return worst
 
 
@@ -1211,7 +1460,7 @@ def phase_whisper():
         out = ops.lut_attention(*args, **kw)
         ref = ops.lut_attention(*args, **{**kw, "backend": "naive"})
         rows = (out - ref).abs().amax(dim=-1)
-        shadow.append((float(rows.max()),
+        shadow.append(("lut_attention", float(rows.max()),
                        2.0 / qmax * float(args[2].float().abs().max()),
                        float((rows > 1e-4).float().mean())))
         return out
@@ -1388,6 +1637,15 @@ FLASH_CASES = [
     ("qwen3 tail chunk", 1, H, KVH, 16, 2048, DH, True),
     ("lq > lk", 1, H, KVH, 300, 200, DH, True),
 ]
+#: (name, B, H, KVH, Lq, Lk, Dh, kv_len) — causal calls into a
+#: pre-allocated cache, the queries right-aligned to kv_len: Qwen3-32B's
+#: 16-token chunks into 2048 positions with a valid length per sequence
+#: (the second one's first 9 rows see no key), and Whisper's decoder
+#: self-attention (8 rows into 64 positions, 40 valid, one for all)
+FLASH_KV_CASES = [
+    ("qwen3 cache chunk", 2, H, KVH, 16, 2048, DH, (1500, 7)),
+    ("whisper self cache", 4, W_H, W_H, 8, 64, W_DH, 40),
+]
 
 
 def causal_pairs(lq, lk, causal):
@@ -1441,20 +1699,23 @@ def phase_flash():
     dispatcher picks and, for bf16, on the CUDA-core route too; times
     beside the plain version and SDPA."""
     rng = np.random.default_rng(9)
-    problems = {}
-    for name, b, h, kvh, lq, lk, dh, causal in FLASH_CASES:
+    problems, kw_of = {}, {}
+    for name, b, h, kvh, lq, lk, dh, causal, kv_len in (
+            [(*c, None) for c in FLASH_CASES]
+            + [(*c[:7], True, c[7]) for c in FLASH_KV_CASES]):
         arrays = [rng.standard_normal(s, dtype=np.float32)
                   for s in ((b, h, lq, dh), (b, kvh, lk, dh),
                             (b, kvh, lk, dh))]
         for dt in (torch.float32, torch.bfloat16):
             problems[(name, dt)] = [torch.as_tensor(a, device="cuda").to(dt)
                                     for a in arrays]
-    causal_of = {c[0]: c[7] for c in FLASH_CASES}
+        kw_of[name] = dict(causal=causal, kv_len=(
+            torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+            if isinstance(kv_len, tuple) else kv_len))
     torch.cuda.synchronize()
     for route in flash_attention_cuda.launches:
         flash_attention_cuda.launches[route] = 0
-    outs = {key: FOPS.flash_attention(*qkv, causal=causal_of[key[0]],
-                                      backend="auto")
+    outs = {key: FOPS.flash_attention(*qkv, backend="auto", **kw_of[key[0]])
             for key, qkv in problems.items()}
     torch.cuda.synchronize()
     launches = dict(flash_attention_cuda.launches)
@@ -1464,20 +1725,19 @@ def phase_flash():
     print(f"[flash] flash_attention(backend='auto') over {len(problems)} "
           f"full-width calls: launches by route {launches} (expected "
           f"{expect})")
-    if launches != expect or expect["tiles"] != len(FLASH_CASES):
+    if launches != expect or expect["tiles"] != len(kw_of):
         raise AssertionError(f"the op entry point skipped a route: "
                              f"{launches}")
     worst, failures = 0.0, []
     for (name, dt), (q, k, v) in problems.items():
-        causal = causal_of[name]
-        ro, rm, rl = flash_attention_plain(q, k, v, causal=causal)
+        kw = kw_of[name]
+        ro, rm, rl = flash_attention_plain(q, k, v, **kw)
         blind = torch.isneginf(rm)
         seen = ~blind
         routes = [flash_route(dt, q.shape[-1])]
         routes += ["simt"] if routes[0] == "tiles" else []
         for route in routes:
-            out, m, l = flash_attention_cuda(q, k, v, causal=causal,
-                                             route=route)
+            out, m, l = flash_attention_cuda(q, k, v, route=route, **kw)
             torch.cuda.synchronize()
             err = float((out - ro).abs().max())
             op_err = (float((outs[(name, dt)] - ro).abs().max())
@@ -1488,9 +1748,13 @@ def phase_flash():
                 else 0.0
             exact_blind = (torch.equal(torch.isneginf(m), blind)
                            and not out[blind].any() and not l[blind].any())
+            kv_len = kw["kv_len"]
+            if torch.is_tensor(kv_len):
+                kv_len = kv_len.tolist()
             print(f"[flash] {name} {str(dt)[6:]} {route} B={q.shape[0]} "
                   f"H={q.shape[1]}/{k.shape[1]} Lq={q.shape[2]} "
-                  f"Lk={k.shape[2]} Dh={q.shape[3]} causal={causal}: out "
+                  f"Lk={k.shape[2]} Dh={q.shape[3]} causal={kw['causal']} "
+                  f"kv_len={kv_len}: out "
                   f"max|err| {err:.3g} (op {op_err:.3g}; limit 2e-5), m rel "
                   f"{m_rel:.3g}, l rel {l_rel:.3g} (limit 1e-5); "
                   f"{int(blind.sum())} rows see no key"

@@ -7,11 +7,15 @@
 // an f32 accumulator rescaled by exp(m_prev − m_new) whenever the max
 // moves.  q (B, H, Lq, D), k / v (B, KVH, Lk, D) of one type (f32, bf16
 // or f16; query head h reads KV head h / (H / KVH)); out (B, H, Lq, D),
-// m and l (B, H, Lq), all f32.  Causal masking is right-aligned: key j
-// is visible to query row i iff j ≤ i + (Lk − Lq).  A row with no
-// visible key (also every row when Lq > Lk pushes it before key 0)
-// returns out 0, m = −inf, l = 0, as the TPU kernel does: m_safe = 0
-// and corr = 0 while m is −inf.
+// m and l (B, H, Lq), all f32.  A runtime kv_len (one for every
+// sequence, or one per sequence) marks the valid keys of a pre-allocated
+// cache, as the JAX package's naive backend does: key j is valid iff
+// j < kv_len (default Lk), and causal masking is right-aligned to it —
+// key j is visible to query row i iff j ≤ i + (kv_len − Lq).  Keys at or
+// past kv_len are never read.  A row with no visible key (also every
+// row when Lq > kv_len pushes it before key 0) returns out 0, m = −inf,
+// l = 0, as the TPU kernel does: m_safe = 0 and corr = 0 while m is
+// −inf.
 //
 // What bounds it on the H100: operations.  Per (sequence, head) it does
 // Lq · Lk · D multiply-adds for q·kᵀ and as many for p·V against
@@ -63,6 +67,17 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;
 
+// The valid keys of one sequence: n = clamp(kv_len, 0, Lk) of them, and
+// the causal offset off = kv_len − Lq that right-aligns the queries to
+// the valid length (key j is visible to row i iff j < n and j ≤ i + off).
+struct Valid {
+  int n, off;
+};
+__device__ __forceinline__ Valid valid_keys(int kv_len, int Lk, int Lq) {
+  kv_len = max(kv_len, 0);
+  return {min(kv_len, Lk), kv_len - Lq};
+}
+
 template <int DMAX>
 struct Tiles {
   static constexpr int BK = DMAX <= 64 ? 64 : 32;
@@ -79,7 +94,8 @@ __global__ void __launch_bounds__(kThreads)
                            const T* __restrict__ v, float* __restrict__ out,
                            float* __restrict__ m_out,
                            float* __restrict__ l_out, int H, int KVH, int Lq,
-                           int Lk, int D, int causal, float scale) {
+                           int Lk, int D, int causal, float scale,
+                           int kv_len, const int* __restrict__ kv_lens) {
   using Tl = Tiles<DMAX>;
   constexpr int BK = Tl::BK, QS = Tl::QS, SS = Tl::SS;
   constexpr int RPT = kBQ / 16;   // query rows of a thread
@@ -98,7 +114,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kBQ;
   const int kvh = h / (H / KVH);
-  const int off = Lk - Lq;  // right-aligned causal offset
+  const Valid val = valid_keys(kv_lens ? kv_lens[b] : kv_len, Lk, Lq);
+  const int off = val.off;
   const size_t qrow0 = (size_t(b) * H + h) * Lq;
   const size_t krow0 = (size_t(b) * KVH + kvh) * Lk;
 
@@ -120,13 +137,13 @@ __global__ void __launch_bounds__(kThreads)
 
   // Keys past the tile's last row's causal limit are never read.
   const int last = min(row0 + kBQ, Lq) - 1;
-  const int jend = causal ? min(Lk, max(0, last + off + 1)) : Lk;
+  const int jend = causal ? min(val.n, max(0, last + off + 1)) : val.n;
 
   for (int k0 = 0; k0 < jend; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
     for (int i = tid; i < BK * DMAX; i += kThreads) {
       const int r = i / DMAX, d = i % DMAX, j = k0 + r;
-      const bool in = j < Lk && d < D;
+      const bool in = j < jend && d < D;
       k_s[r * QS + d] = in ? lutk::to_f32(k[(krow0 + j) * D + d]) : 0.f;
       v_s[r * DMAX + d] = in ? lutk::to_f32(v[(krow0 + j) * D + d]) : 0.f;
     }
@@ -154,7 +171,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int r = ty + 16 * i, j = k0 + tx + 16 * c;
-        const bool vis = j < Lk && (!causal || j <= row0 + r + off);
+        const bool vis = j < val.n && (!causal || j <= row0 + r + off);
         p_s[r * SS + tx + 16 * c] = vis ? s[i][c] * scale : -CUDART_INF_F;
       }
     __syncthreads();
@@ -231,7 +248,8 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* m, void* l, int B, int H, int KVH, int Lq, int Lk,
-                   int D, int causal, float scale, cudaStream_t stream) {
+                   int D, int causal, float scale, int kv_len,
+                   const int* kv_lens, cudaStream_t stream) {
   const size_t smem = 4 * Tiles<DMAX>::floats;
   static int reserved = 0;
   auto kernel = flash_attention_kernel<T, DMAX>;
@@ -242,7 +260,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<float*>(out),
       static_cast<float*>(m), static_cast<float*>(l), H, KVH, Lq, Lk, D,
-      causal, scale);
+      causal, scale, kv_len, kv_lens);
   return cudaGetLastError();
 }
 
@@ -297,7 +315,8 @@ __global__ void __launch_bounds__(tiles::kThreads, DH <= 64 ? 3 : 1)
                                  float* __restrict__ m_out,
                                  float* __restrict__ l_out, int H, int KVH,
                                  int Lq, int Lk, int D, int causal,
-                                 float scale) {
+                                 float scale, int kv_len,
+                                 const int* __restrict__ kv_lens) {
   using tiles::kBM;
   constexpr int kS = tiles::stride<DH>();
   // f16 pieces stay normal for p ≥ 2^-24 once p is scaled by 2^14
@@ -310,12 +329,13 @@ __global__ void __launch_bounds__(tiles::kThreads, DH <= 64 ? 3 : 1)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kBM;
   const int kvh = h / (H / KVH);
-  const int off = Lk - Lq;  // right-aligned causal offset
+  const Valid val = valid_keys(kv_lens ? kv_lens[b] : kv_len, Lk, Lq);
+  const int off = val.off;
   const size_t qrow0 = (size_t(b) * H + h) * Lq;
   const size_t krow0 = (size_t(b) * KVH + kvh) * Lk;
   // keys past the block's last row's causal limit are never read
   const int last = min(row0 + kBM, Lq) - 1;
-  const int jend = causal ? min(Lk, max(0, last + off + 1)) : Lk;
+  const int jend = causal ? min(val.n, max(0, last + off + 1)) : val.n;
 
   tiles::load_tile<T, DH>(q_s, q + qrow0 * D, row0, Lq, D);
   tiles::cp_async_commit();
@@ -328,7 +348,7 @@ __global__ void __launch_bounds__(tiles::kThreads, DH <= 64 ? 3 : 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int c = row0 + warp * 16 + tiles::row_of(lane, 2 * r);
-    lim[r] = c < Lq ? (causal ? min(Lk, max(0, c + off + 1)) : Lk) : 0;
+    lim[r] = c < Lq ? (causal ? min(val.n, max(0, c + off + 1)) : val.n) : 0;
   }
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
   float acc[DH / 8][4] = {};
@@ -436,7 +456,7 @@ template <typename T, int DH>
 cudaError_t launch_tiles(const void* q, const void* k, const void* v,
                          void* out, void* m, void* l, int B, int H, int KVH,
                          int Lq, int Lk, int D, int causal, float scale,
-                         cudaStream_t stream) {
+                         int kv_len, const int* kv_lens, cudaStream_t stream) {
   const size_t smem = tiles::smem_bytes<DH>();
   static int reserved = 0;
   auto kernel = flash_attention_tiles_kernel<T, DH>;
@@ -447,7 +467,7 @@ cudaError_t launch_tiles(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<float*>(out),
       static_cast<float*>(m), static_cast<float*>(l), H, KVH, Lq, Lk, D,
-      causal, scale);
+      causal, scale, kv_len, kv_lens);
   return cudaGetLastError();
 }
 
@@ -455,27 +475,28 @@ template <typename T>
 cudaError_t dispatch_tiles(const void* q, const void* k, const void* v,
                            void* out, void* m, void* l, int B, int H,
                            int KVH, int Lq, int Lk, int D, int causal,
-                           float scale, cudaStream_t s) {
+                           float scale, int kv_len, const int* kv_lens,
+                           cudaStream_t s) {
   if (D <= 64)
     return launch_tiles<T, 64>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D,
-                               causal, scale, s);
+                               causal, scale, kv_len, kv_lens, s);
   return launch_tiles<T, 128>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D,
-                              causal, scale, s);
+                              causal, scale, kv_len, kv_lens, s);
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v,
                        void* out, void* m, void* l, int B, int H, int KVH,
                        int Lq, int Lk, int D, int causal, float scale,
-                       cudaStream_t s) {
+                       int kv_len, const int* kv_lens, cudaStream_t s) {
   if (D <= 64)
     return launch<T, 64>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D, causal,
-                         scale, s);
+                         scale, kv_len, kv_lens, s);
   if (D <= 128)
     return launch<T, 128>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D, causal,
-                          scale, s);
+                          scale, kv_len, kv_lens, s);
   return launch<T, 256>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D, causal,
-                        scale, s);
+                        scale, kv_len, kv_lens, s);
 }
 
 }  // namespace
@@ -483,13 +504,17 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
 // q (B, H, Lq, D), k / v (B, KVH, Lk, D), contiguous, of dtype 0 = f32,
 // 1 = bf16, 2 = f16; out (B, H, Lq, D), m and l (B, H, Lq) f32.  route
 // 0 = simt, 1 = tiles (bf16 / f16 with D ≤ 128, a multiple of 8, and
-// 16-byte aligned tensors only).
+// 16-byte aligned tensors only).  The valid keys: kv_lens (B,) int32 on
+// the device when it is not null, else kv_len for every sequence (Lk
+// when the caller has no cache length).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* m,
                                       void* l, int dtype, int B, int H,
                                       int KVH, int Lq, int Lk, int D,
                                       int causal, int route, float scale,
+                                      int kv_len, const void* kv_lens_ptr,
                                       void* stream) {
+  const int* kv_lens = static_cast<const int*>(kv_lens_ptr);
   const bool ok = B >= 1 && KVH >= 1 && H % KVH == 0 && Lq >= 1 &&
                   Lk >= 1 && D >= 1 && D <= 256;
   const bool tiles_ok = (dtype == 1 || dtype == 2) && D <= 128 && D % 8 == 0;
@@ -500,19 +525,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return dtype == 1
                ? int(dispatch_tiles<__nv_bfloat16>(q, k, v, out, m, l, B, H,
                                                    KVH, Lq, Lk, D, causal,
-                                                   scale, s))
+                                                   scale, kv_len, kv_lens, s))
                : int(dispatch_tiles<__half>(q, k, v, out, m, l, B, H, KVH,
-                                            Lq, Lk, D, causal, scale, s));
+                                            Lq, Lk, D, causal, scale, kv_len,
+                                            kv_lens, s));
   switch (dtype) {
     case 0:
       return int(dispatch_d<float>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D,
-                                   causal, scale, s));
+                                   causal, scale, kv_len, kv_lens, s));
     case 1:
       return int(dispatch_d<__nv_bfloat16>(q, k, v, out, m, l, B, H, KVH, Lq,
-                                           Lk, D, causal, scale, s));
+                                           Lk, D, causal, scale, kv_len,
+                                           kv_lens, s));
     case 2:
       return int(dispatch_d<__half>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D,
-                                    causal, scale, s));
+                                    causal, scale, kv_len, kv_lens, s));
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -1,15 +1,15 @@
 // Shared LUT-softmax pipeline of the LUT-attention kernels (sm_90a);
-// the row-wise LUT softmax (csrc/lut_softmax.cu) reuses its per-element
-// helpers and reductions.
+// the row-wise LUT softmax (csrc/lut_softmax.cu) and the paged kernels
+// (csrc/paged_attn.cuh) reuse its per-element helpers, loads and
+// reductions.
 //
 // The counterpart of the JAX package's in-kernel helpers in
 // src/repro/kernels/common.py (policy_e_terms, rexp_sigma,
-// lut2d_sigma_int, kernel_lookup) plus the three-pass row engine that
-// src/repro/kernels/lut_attention/paged_decode.py, paged_prefill.py and
-// lut_attention.py spread over several pallas_calls.  On the TPU the
-// passes are separate calls because an accumulator only lives across a
-// sequential grid axis; here one thread block runs all passes for its
-// rows:
+// lut2d_sigma_int, kernel_lookup) plus the three-pass row engine of the
+// dense kernel's row route, which lut_attention.py spreads over several
+// pallas_calls.  On the TPU the passes are separate calls because an
+// accumulator only lives across a sequential grid axis; here one thread
+// block runs all passes for its rows:
 //
 //   pass 1  s = q·k · scale for every visible key      → row max m
 //   pass 2  e = numerator(s, m)                        → integer Σ
@@ -19,9 +19,8 @@
 // kFused), pass 1 and then one pass that accumulates Σ and U = Σ e·v
 // together, with U · α(Σ)/qmax² as the epilogue.
 //
-// Where a key row lives is a policy (Rows): PagedRows reads it through
-// the slot's block table from a (n_pages, ps, KVH, Dh) pool, DenseRows
-// from a contiguous (B, KVH, Lk, Dh) tensor.  Nothing else differs.
+// Where a key row lives is a policy (Rows): DenseRows reads it from a
+// contiguous (B, KVH, Lk, Dh) tensor.
 //
 // Bit-exactness with core/lut_softmax.py (the reference semantics):
 //   * every rounding step of the bin path is an explicit _rn intrinsic
@@ -37,17 +36,13 @@
 //     row max that is not finite becomes 0.
 // Build without --use_fast_math.
 //
-// Pools come in two kinds, one template parameter (the element type TK)
-// apart: f32 / bf16 pages of the query's own type, or int8 pages with
-// one f32 scale per (page, token, KV head) row — the JAX package's
-// _pg_*_kernel_int8 / _pf_*_kernel_int8 bodies.  An int8 row is
-// dequantized element by element, __fmul_rn(float(code), scale), before
-// the q·k dot and before σ·V, exactly as dequantize_rows and the
+// The loads take int8 rows too (Chunk<int8_t>, kQuantized): the paged
+// kernels' int8 pools, one f32 scale per (page, token, KV head) row — the
+// JAX package's _pg_*_kernel_int8 / _pf_*_kernel_int8 bodies.  An int8
+// row is dequantized element by element, __fmul_rn(float(code), scale),
+// before the q·k dot and before σ·V, exactly as dequantize_rows and the
 // reference's _page_rows do; the scale is never folded out of the dot
-// (scale · Σ q·code rounds differently and would move bins).  The scale
-// is read through the same block-table lookup as its row, and only for
-// keys the walk visits (j < kv_len), so junk — even NaN — in the null
-// page or its scales never reaches an output.
+// (scale · Σ q·code rounds differently and would move bins).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,17 +93,15 @@ struct Params : LutParams {
   float scale;
 };
 
-// Shared memory of one block serving R query rows: per-warp row offsets
-// and weight tiles of 32 keys (plus, for an int8 pool, the tile's V
-// scales), q rows, per-warp partials, m and Σ, per-warp output
-// partials, the tables, and (when `cached`) the R × (mp·ps)
-// logits/numerators cache.
+// Shared memory of one block serving R query rows of lut_rows: per-warp
+// row offsets and weight tiles of 32 keys, q rows, per-warp partials, m
+// and Σ, per-warp output partials, the tables, and (when `cached`) the
+// R × (mp·ps) logits/numerators cache.
 inline size_t smem_bytes(const Params& p, int R, bool cached) {
   size_t floats = size_t(kWarps) * R * 32 + size_t(R) * p.Dh +
                   size_t(kWarps) * R + 2 * size_t(R) +
                   size_t(kWarps) * R * p.Dh;
   if (cached) floats += size_t(R) * p.mp * p.ps;
-  if (p.k_scales) floats += size_t(kWarps) * 32;
   return 8 * size_t(kWarps) * 32 +
          4 * (floats + size_t(p.n_main) + size_t(p.aux_rows) * p.aux_cols);
 }
@@ -250,25 +243,9 @@ __device__ __forceinline__ float alpha_factor(float S, const int* lut_aux,
   return __fmul_rn(__fmul_rn(alpha, p.inv_q), p.inv_q);
 }
 
-// Where key j of sequence b, KV head kvh lives, and how many keys of b
-// are valid.  The row's elements start at index · Dh, and an int8
-// pool's scale of that row sits at the index itself.
+// Where key j of sequence b, KV head kvh lives (the row's elements start
+// at index · Dh), and how many keys of b are valid.
 //
-// PagedRows: the pool row (page · ps + token) · KVH + kvh; the block
-// table names the page, and an id outside the pool is clamped, as XLA
-// clamps a gather.  The valid length is kv_lens[b].
-struct PagedRows {
-  static __device__ __forceinline__ size_t index(const Params& p, int b,
-                                                 int kvh, int j) {
-    int page = p.block_tables[b * p.mp + j / p.ps];
-    page = min(max(page, 0), p.n_pages - 1);
-    return (size_t(page) * p.ps + j % p.ps) * p.KVH + kvh;
-  }
-  static __device__ __forceinline__ int valid(const Params& p, int b) {
-    return max(min(p.kv_lens[b], p.mp * p.ps), 0);
-  }
-};
-
 // DenseRows: row (b · KVH + kvh) · Lk + j of a contiguous
 // (B, KVH, Lk, Dh) tensor, with Lk = mp · ps (mp = 1, ps = Lk); every
 // sequence has the same valid length kv_len ≤ Lk.
@@ -284,12 +261,10 @@ struct DenseRows {
 
 // dot[r] = q_r · k for the R query rows in shared memory against one key
 // row read by this lane alone: up to 8 chunks are loaded before the
-// first is used (Dh ≤ 32·DPL, a multiple of 8).  An int8 row's codes are
-// dequantized with its scale `ksc` first, one rounded multiply each.
+// first is used (Dh ≤ 32·DPL, a multiple of 8).
 template <typename T, int DPL, int R>
-__device__ __forceinline__ void dot_rows(const T* krow, float ksc,
-                                         const float* q_s, int Dh,
-                                         float (&dot)[R]) {
+__device__ __forceinline__ void dot_rows(const T* krow, const float* q_s,
+                                         int Dh, float (&dot)[R]) {
   constexpr int kChunks = DPL * 4;
   constexpr int kBatch = kChunks < 8 ? kChunks : 8;
 #pragma unroll
@@ -306,10 +281,6 @@ __device__ __forceinline__ void dot_rows(const T* krow, float ksc,
       if (d >= Dh) break;
       float k[8];
       ch[c].get(k);
-      if constexpr (kQuantized<T>) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) k[e] = __fmul_rn(k[e], ksc);
-      }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         Chunk<float> qc;
@@ -332,11 +303,8 @@ __device__ __forceinline__ void lane_logits(const Params& p, const T* k,
                                             const int (&lim)[R],
                                             float (&s)[R]) {
   float dot[R];
-  if (live) {
-    const size_t row = Rows::index(p, b, kvh, j);
-    const float ksc = kQuantized<T> ? p.k_scales[row] : 1.f;
-    dot_rows<T, DPL, R>(k + row * p.Dh, ksc, q_s, p.Dh, dot);
-  }
+  if (live) dot_rows<T, DPL, R>(k + Rows::index(p, b, kvh, j) * p.Dh, q_s,
+                                p.Dh, dot);
 #pragma unroll
   for (int r = 0; r < R; ++r)
     s[r] = live && j < lim[r] ? __fmul_rn(dot[r], p.scale) : -CUDART_INF_F;
@@ -387,8 +355,7 @@ __device__ void lut_rows(const Params& p, int b, int h, int row0, int q0,
 
   size_t* rowp_s = reinterpret_cast<size_t*>(smem4);  // kWarps × 32
   float* w_s = reinterpret_cast<float*>(rowp_s + kWarps * 32);  // kWarps×R×32
-  float* vsc_s = w_s + kWarps * R * 32;    // kWarps × 32 (int8 pools)
-  float* q_s = vsc_s + (kQuantized<TK> ? kWarps * 32 : 0);  // R × Dh
+  float* q_s = w_s + kWarps * R * 32;      // R × Dh
   float* red_s = q_s + R * p.Dh;           // kWarps × R
   float* m_s = red_s + kWarps * R;         // R
   float* S_s = m_s + R;                    // R
@@ -494,7 +461,6 @@ __device__ void lut_rows(const Params& p, int b, int h, int row0, int q0,
     for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
   float* w_tile = w_s + warp * R * 32;
   size_t* rowp = rowp_s + warp * 32;
-  float* vsc = vsc_s + warp * 32;
   for (int t0 = warp * 32; t0 < jmax; t0 += kWarps * 32) {
     const int j = t0 + lane;
     const bool live = j < jmax;
@@ -519,9 +485,7 @@ __device__ void lut_rows(const Params& p, int b, int h, int row0, int q0,
       if (kFused) part[r] += e[r];
       w_tile[r * 32 + lane] = kFused ? e[r] : weight(e[r], S_s[r], aux_s, p);
     }
-    const size_t row = live ? Rows::index(p, b, kvh, j) : 0;
-    rowp[lane] = row * p.Dh;
-    if constexpr (kQuantized<TK>) vsc[lane] = live ? p.v_scales[row] : 0.f;
+    rowp[lane] = (live ? Rows::index(p, b, kvh, j) : 0) * p.Dh;
     __syncwarp();
     const int n = min(32, jmax - t0);
     for (int u0 = 0; u0 < n; u0 += kUnroll) {
@@ -530,12 +494,10 @@ __device__ void lut_rows(const Params& p, int b, int h, int row0, int q0,
       for (int u = 0; u < kUnroll; ++u) {
         const int t = min(u0 + u, n - 1);
         const TK* row = vp + rowp[t];
-        const float vs = kQuantized<TK> ? vsc[t] : 1.f;
 #pragma unroll
         for (int i = 0; i < DPL; ++i) {
           int d = i * 32 + lane;
-          float x = u0 + u < n && d < p.Dh ? to_f32(row[d]) : 0.f;
-          v[u][i] = kQuantized<TK> ? __fmul_rn(x, vs) : x;
+          v[u][i] = u0 + u < n && d < p.Dh ? to_f32(row[d]) : 0.f;
         }
       }
 #pragma unroll
@@ -607,24 +569,12 @@ inline cudaError_t dispatch_dh(const Params& p, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-// Pools of the query's own type; dtype 0 = f32, 1 = bf16.
+// Inputs of one float type; dtype 0 = f32, 1 = bf16.
 template <template <typename, typename, int> class Launch>
 inline cudaError_t dispatch(const Params& p, int dtype, cudaStream_t stream) {
-  if (p.k_scales || p.v_scales) return cudaErrorInvalidValue;
   if (dtype == 0) return dispatch_dh<Launch, float, float>(p, stream);
   if (dtype == 1)
     return dispatch_dh<Launch, __nv_bfloat16, __nv_bfloat16>(p, stream);
-  return cudaErrorInvalidValue;
-}
-
-// int8 pools with f32 row scales; q_dtype 0 = f32, 1 = bf16 queries.
-template <template <typename, typename, int> class Launch>
-inline cudaError_t dispatch_int8(const Params& p, int q_dtype,
-                                 cudaStream_t stream) {
-  if (!p.k_scales || !p.v_scales) return cudaErrorInvalidValue;
-  if (q_dtype == 0) return dispatch_dh<Launch, float, int8_t>(p, stream);
-  if (q_dtype == 1)
-    return dispatch_dh<Launch, __nv_bfloat16, int8_t>(p, stream);
   return cudaErrorInvalidValue;
 }
 

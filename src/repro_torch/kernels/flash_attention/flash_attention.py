@@ -5,7 +5,11 @@ flash_attention.py`` (``flash_attention_pallas``, body
 ``_flash_kernel``): exact softmax attention with GQA and right-aligned
 causal masking; q (B, H, Lq, D), k / v (B, KVH, Lk, D) of one float
 type; returns ``(out, m, l)`` — out (B, H, Lq, D), the row max m and
-the sum l = Σ exp(s − m) (B, H, Lq), all f32.
+the sum l = Σ exp(s − m) (B, H, Lq), all f32.  An optional ``kv_len``
+(an int, or a tensor of one or of B lengths) marks the valid keys of a
+pre-allocated cache and right-aligns the causal queries to it, as the
+JAX package's ``naive`` backend does (its ``pallas`` backend takes
+none).
 
 * :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu`` on
   CUDA tensors (one block per (sequence, head, 64 query rows), the keys
@@ -50,9 +54,11 @@ def flash_route(dtype: torch.dtype, d: int) -> str:
 
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
                           causal: bool = False,
-                          scale: float | None = None):
+                          scale: float | None = None,
+                          kv_len: Tensor | int | None = None):
     """The plain PyTorch version: ``(out, m, l)``, all f32."""
-    return _ref.flash_attention_stats(q, k, v, causal=causal, scale=scale)
+    return _ref.flash_attention_stats(q, k, v, causal=causal, scale=scale,
+                                      kv_len=kv_len)
 
 
 def check_kernel_inputs(q: Tensor, k: Tensor, v: Tensor) -> None:
@@ -79,16 +85,35 @@ def check_kernel_inputs(q: Tensor, k: Tensor, v: Tensor) -> None:
                          f"got D={d}, B={b}, Lq={lq}, Lk={lk}")
 
 
+def _kv_len_args(kv_len: Tensor | int | None, b: int, lk: int,
+                 device: torch.device):
+    """The kernel's ``(kv_len, kv_lens pointer)`` pair and the tensor
+    that owns the pointer: an int goes by value (no device work), a
+    tensor as B int32 lengths on the device (one length is expanded)."""
+    if kv_len is None:
+        return lk, 0, None
+    if not isinstance(kv_len, Tensor):
+        return int(kv_len), 0, None
+    if kv_len.numel() not in (1, b):
+        raise ValueError(f"kv_len must hold one length or B={b}, got shape "
+                         f"{tuple(kv_len.shape)}")
+    lens = kv_len.to(device=device, dtype=torch.int32).reshape(-1)
+    lens = lens.expand(b).contiguous()
+    return 0, lens.data_ptr(), lens
+
+
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                          causal: bool = False, scale: float | None = None,
-                         route: str | None = None):
+                         route: str | None = None,
+                         kv_len: Tensor | int | None = None):
     """Exact flash attention; returns ``(out, m, l)``, all f32.
 
     CUDA tensors launch the kernel on the current stream through
     ``route`` (default: :func:`flash_route`'s choice), or raise; CPU
     tensors run :func:`flash_attention_plain`.  A forced ``route`` (tests
     and ``chip_smoke.py`` time both on the same inputs; no model path
-    passes one) that the inputs do not suit raises.
+    passes one) that the inputs do not suit raises.  ``kv_len`` masks
+    keys at or past it (see the module docstring).
     """
     d = q.shape[-1]
     if route is None:
@@ -101,7 +126,8 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                          f"D ≤ {TILE_MAX_D}, a multiple of 8; got "
                          f"{q.dtype}, D={d}")
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     kv_len=kv_len)
     check_kernel_inputs(q, k, v)
     q, k, v = (t.contiguous() for t in (q, k, v))
     # the tile route copies 16 bytes at a time: a view whose storage
@@ -113,10 +139,11 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
     out = torch.empty((b, h, lq, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     l = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    n_valid, lens_ptr, _lens = _kv_len_args(kv_len, b, lk, q.device)
     err = build.load("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         m.data_ptr(), l.data_ptr(), FLOAT_DTYPES[q.dtype], b, h, kvh, lq, lk,
-        d, int(causal), ROUTES.index(route), scale,
+        d, int(causal), ROUTES.index(route), scale, n_valid, lens_ptr,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({route} "

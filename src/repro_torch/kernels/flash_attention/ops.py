@@ -10,10 +10,13 @@ plain paths it shares with the LUT attention ops (policy = exact):
     ``naive``     ``lut_attention(EXACT, backend="naive")`` on either
     ``blocked``   ``lut_attention(EXACT, backend="blocked")`` on either
 
-``cuda`` is the JAX package's ``pallas``.  The kernel takes no
-``kv_len``: passing one with a route to it raises, as JAX asserts.
-Nothing falls back: on CUDA tensors ``auto`` and ``cuda`` launch the
-kernel or raise.
+``cuda`` is the JAX package's ``pallas``.  A ``kv_len`` (the valid
+length of a pre-allocated cache) goes to the kernel as a runtime
+argument on ``auto`` and ``cuda``, and on CPU tensors ``auto`` takes it
+to the plain version: both compute what the JAX package's default
+``naive`` backend does with it (JAX's ``pallas`` takes none).  Nothing
+falls back: on CUDA tensors ``auto`` and ``cuda`` launch the kernel or
+raise.
 """
 
 from __future__ import annotations
@@ -44,10 +47,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
                          f"tensors, got {q.device}; use 'auto', 'naive' or "
                          f"'blocked' on the CPU")
     if backend in ("auto", "cuda"):
-        if kv_len is not None:
-            raise ValueError("the flash kernel takes no kv_len; use the "
-                             "'naive' or 'blocked' backend for a cache")
-        return flash_attention_cuda(q, k, v, causal=causal, scale=scale)[0]
+        return flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                    kv_len=kv_len)[0]
     return lut_attention(q, k, v, EXACT, causal=causal, scale=scale,
                          kv_len=kv_len, backend=backend, q_chunk=q_chunk,
                          k_chunk=k_chunk)

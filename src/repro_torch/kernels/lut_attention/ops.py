@@ -480,20 +480,23 @@ def lut_attention_paged_decode(
     backend: str = "auto",  # 'auto' | 'cuda' | 'dense'
     k_scales: Tensor | None = None,  # (num_pages, page_size, KVH) f32 —
     v_scales: Tensor | None = None,  # int8 pool dequant scales (or None)
+    max_kv_len: int | None = None,   # host-known bound on kv_lens
 ) -> Tensor:
     """Decode attention straight off the paged KV pool; (B, H, 1, D) f32.
 
     Dispatches per the module docstring's matrix: the CUDA kernel walks
-    the block tables page by page (no gathered view, no logits tensor);
-    the plain version gathers the block-table view and reuses
+    the block tables page by page (no gathered view, no logits tensor),
+    its split of the keys steered by ``max_kv_len``; the plain version
+    gathers the block-table view and reuses
     :func:`lut_attention_decode_varlen`.
     """
     from repro_torch.kernels.lut_attention import paged_decode
-    fn = (paged_decode.paged_decode_attention
-          if resolve_paged_backend(backend, q.device) == "cuda"
-          else paged_decode.paged_decode_plain)
-    return fn(q, k_pages, v_pages, block_tables, kv_lens, policy,
-              scale=scale, k_scales=k_scales, v_scales=v_scales)
+    args = (q, k_pages, v_pages, block_tables, kv_lens, policy)
+    kw = dict(scale=scale, k_scales=k_scales, v_scales=v_scales)
+    if resolve_paged_backend(backend, q.device) == "cuda":
+        return paged_decode.paged_decode_attention(*args, **kw,
+                                                   max_kv_len=max_kv_len)
+    return paged_decode.paged_decode_plain(*args, **kw)
 
 
 def lut_attention_paged_prefill(
@@ -509,14 +512,16 @@ def lut_attention_paged_prefill(
     backend: str = "auto",  # 'auto' | 'cuda' | 'dense'
     k_scales: Tensor | None = None,  # (num_pages, page_size, KVH) f32 —
     v_scales: Tensor | None = None,  # int8 pool dequant scales (or None)
+    max_kv_len: int | None = None,   # host-known bound on kv_lens
 ) -> Tensor:
     """Prefill-chunk attention reading prior keys through the block
     tables; (B, H, C, D) f32.  The chunk's K/V were already scattered
     into the pool, so the pool is the only KV storage.  Dispatches per
-    the module docstring's matrix."""
+    the module docstring's matrix (``max_kv_len`` as for decode)."""
     from repro_torch.kernels.lut_attention import paged_prefill
-    fn = (paged_prefill.paged_prefill_attention
-          if resolve_paged_prefill_backend(backend, q.device) == "cuda"
-          else paged_prefill.paged_prefill_plain)
-    return fn(q, k_pages, v_pages, block_tables, q_start, kv_lens, policy,
-              scale=scale, k_scales=k_scales, v_scales=v_scales)
+    args = (q, k_pages, v_pages, block_tables, q_start, kv_lens, policy)
+    kw = dict(scale=scale, k_scales=k_scales, v_scales=v_scales)
+    if resolve_paged_prefill_backend(backend, q.device) == "cuda":
+        return paged_prefill.paged_prefill_attention(*args, **kw,
+                                                     max_kv_len=max_kv_len)
+    return paged_prefill.paged_prefill_plain(*args, **kw)

@@ -8,9 +8,12 @@ to its own sequence, whose K/V lie scattered over the shared page pool
 ``(num_pages, page_size, KVH, Dh)``; the block table names the pages.
 
 * :func:`paged_decode_attention` launches ``csrc/paged_decode.cu`` on
-  CUDA tensors: one thread block per (slot, query head) runs the three
-  passes (row max, integer Σ, per-element σ·V) over the live pages only.
-  Given ``k_scales`` / ``v_scales`` (an int8 pool, the JAX package's
+  CUDA tensors: one thread-block cluster per (slot, KV head) holds the
+  KV head's query heads as its rows and runs the three passes (row max,
+  integer Σ, per-element σ·V) over the live pages only, split across
+  its CTAs (the launcher picks the split from the shapes and
+  ``max_kv_len``, the caller's bound on ``kv_lens``).  Given
+  ``k_scales`` / ``v_scales`` (an int8 pool, the JAX package's
   ``_pg_*_kernel_int8`` bodies) it launches the int8 entry point
   instead, which dequantizes each row before use.  On CPU tensors it
   runs the plain version — only because the tensors lie on the CPU.
@@ -48,7 +51,8 @@ def check_kernel_inputs(q: Tensor, k_pages: Tensor, v_pages: Tensor,
                         v_scales: Tensor | None = None):
     """Validate what the kernels take; returns the int32 contiguous
     block tables and cursors on the query's device.  Raises on anything
-    the kernels do not take instead of launching on it.
+    the kernels do not take instead of launching on it (the queries go
+    through :func:`aligned`).
 
     A float pool has the queries' dtype; an int8 pool comes with both
     scale pools, f32, contiguous, ``(n_pages, page_size, KVH)``, on the
@@ -104,6 +108,26 @@ def check_kernel_inputs(q: Tensor, k_pages: Tensor, v_pages: Tensor,
     return out
 
 
+def aligned(q: Tensor) -> Tensor:
+    """``q`` contiguous and 16-byte aligned: the kernels read query rows
+    16 bytes at a time (a view that starts off a 16-byte boundary is
+    copied, not refused)."""
+    q = q.contiguous()
+    return q.clone() if q.data_ptr() % 16 else q
+
+
+def max_len_arg(max_kv_len: int | None) -> int:
+    """The launchers' ``max_kv_len``: the caller's bound on the slots'
+    live lengths, known on the host (0: none — the kernel then splits for
+    the block table's whole width).  A slot past it is still computed in
+    full; the bound only steers how the keys are split."""
+    if max_kv_len is None:
+        return 0
+    if max_kv_len < 0:
+        raise ValueError(f"max_kv_len must be ≥ 0, got {max_kv_len}")
+    return int(max_kv_len)
+
+
 def paged_decode_plain(q: Tensor, k_pages: Tensor, v_pages: Tensor,
                        block_tables: Tensor, kv_lens: Tensor,
                        policy: SoftmaxPolicy, *,
@@ -129,12 +153,15 @@ def paged_decode_attention(
     scale: float | None = None,
     k_scales: Tensor | None = None,  # (num_pages, page_size, KVH) f32 —
     v_scales: Tensor | None = None,  # an int8 pool's row scales
+    max_kv_len: int | None = None,   # host-known bound on kv_lens
 ) -> Tensor:
     """Paged-decode attention; returns (B, H, 1, Dh) f32.
 
     CUDA tensors launch the kernel on the current stream (or raise);
-    CPU tensors run :func:`paged_decode_plain`.  ``launches`` counts the
-    launches on f32/bf16 pools, ``int8_launches`` those on int8 pools.
+    CPU tensors run :func:`paged_decode_plain`.  ``max_kv_len`` only
+    steers the kernel's split of the keys (:func:`max_len_arg`).
+    ``launches`` counts the launches on f32/bf16 pools, ``int8_launches``
+    those on int8 pools.
     """
     b, h, lq, dh = q.shape
     if lq != 1:
@@ -146,7 +173,7 @@ def paged_decode_attention(
                                   k_scales=k_scales, v_scales=v_scales)
     bt, kl = check_kernel_inputs(q, k_pages, v_pages, block_tables, kv_lens,
                                  k_scales=k_scales, v_scales=v_scales)
-    q = q.contiguous()
+    q = aligned(q)
     n_pages, ps, kvh, _ = k_pages.shape
     main, aux, ints, floats = _kernel_tables(policy, q.device)
     out = torch.empty((b, h, 1, dh), dtype=torch.float32, device=q.device)
@@ -159,6 +186,7 @@ def paged_decode_attention(
         q.data_ptr(), *pools, bt.data_ptr(), kl.data_ptr(), main.data_ptr(),
         aux.data_ptr(), out.data_ptr(), KERNEL_DTYPES[q.dtype], b, h, kvh,
         dh, n_pages, ps, bt.shape[1], *ints, scale, *floats,
+        max_len_arg(max_kv_len),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode{'_int8' * int8} kernel launch "

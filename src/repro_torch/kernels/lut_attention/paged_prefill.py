@@ -11,10 +11,12 @@ valid length compute defined values that the engine discards, as in the
 JAX package.
 
 * :func:`paged_prefill_attention` launches ``csrc/paged_prefill.cu`` on
-  CUDA tensors: one thread block per (slot, query head, tile of chunk
-  rows) runs the three passes; given ``k_scales`` / ``v_scales`` (an
-  int8 pool, the ``_pf_*_kernel_int8`` bodies) it launches the int8
-  entry point.  On CPU tensors it runs the plain version.
+  CUDA tensors: one thread-block cluster per (slot, KV head, block of
+  up to 16 of its query heads × chunk rows) runs the three passes over
+  the live pages, split across its CTAs; given ``k_scales`` /
+  ``v_scales`` (an int8 pool, the ``_pf_*_kernel_int8`` bodies) it
+  launches the int8 entry point.  On CPU tensors it runs the plain
+  version.
 * :func:`paged_prefill_plain` is the plain PyTorch version: gathered
   (dequantized) view + dense masked policy softmax
   (``ops.lut_attention_prefill_varlen``).
@@ -29,7 +31,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import KERNEL_DTYPES
 from repro_torch.kernels.lut_attention import ops
 from repro_torch.kernels.lut_attention.paged_decode import (
-    _kernel_tables, check_kernel_inputs)
+    _kernel_tables, aligned, check_kernel_inputs, max_len_arg)
 
 Tensor = torch.Tensor
 
@@ -60,12 +62,15 @@ def paged_prefill_attention(
     scale: float | None = None,
     k_scales: Tensor | None = None,  # (num_pages, page_size, KVH) f32 —
     v_scales: Tensor | None = None,  # an int8 pool's row scales
+    max_kv_len: int | None = None,   # host-known bound on kv_lens
 ) -> Tensor:
     """Paged-prefill attention; returns (B, H, C, Dh) f32.
 
     CUDA tensors launch the kernel on the current stream (or raise);
-    CPU tensors run :func:`paged_prefill_plain`.  ``launches`` counts the
-    launches on f32/bf16 pools, ``int8_launches`` those on int8 pools.
+    CPU tensors run :func:`paged_prefill_plain`.  ``max_kv_len`` only
+    steers the kernel's split of the keys
+    (``paged_decode.max_len_arg``).  ``launches`` counts the launches on
+    f32/bf16 pools, ``int8_launches`` those on int8 pools.
     """
     if not q.is_cuda:
         return paged_prefill_plain(q, k_pages, v_pages, block_tables,
@@ -74,7 +79,7 @@ def paged_prefill_attention(
     bt, kl, qs = check_kernel_inputs(q, k_pages, v_pages, block_tables,
                                      kv_lens, q_start, k_scales=k_scales,
                                      v_scales=v_scales)
-    q = q.contiguous()
+    q = aligned(q)
     b, h, c, dh = q.shape
     n_pages, ps, kvh, _ = k_pages.shape
     main, aux, ints, floats = _kernel_tables(policy, q.device)
@@ -89,7 +94,7 @@ def paged_prefill_attention(
         q.data_ptr(), *pools, bt.data_ptr(), kl.data_ptr(), qs.data_ptr(),
         main.data_ptr(), aux.data_ptr(), out.data_ptr(),
         KERNEL_DTYPES[q.dtype], b, h, kvh, dh, n_pages, ps, bt.shape[1], c,
-        *ints, scale, *floats,
+        *ints, scale, *floats, max_len_arg(max_kv_len),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_prefill{'_int8' * int8} kernel launch "

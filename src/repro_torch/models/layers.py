@@ -170,6 +170,9 @@ class PagedAttnCache:
 
     With ``kv_dtype='int8'`` the pages store int8 and ``k_scales`` /
     ``v_scales`` (n_pages, page_size, KVH) f32 hold each row's scale.
+    ``max_kv_len``, where the host knows it, bounds the keys any slot
+    attends to in this step (``lengths + 1``); the kernel splits its keys
+    by it.
     """
 
     k_pages: Tensor       # (n_pages, page_size, KVH, Dh)
@@ -178,6 +181,7 @@ class PagedAttnCache:
     lengths: Tensor       # (B,) int32 — tokens already cached per slot
     k_scales: Tensor | None = None   # int8 pools only
     v_scales: Tensor | None = None
+    max_kv_len: int | None = None    # host-known bound on lengths + 1
 
     @property
     def page_size(self) -> int:
@@ -193,6 +197,8 @@ class PagedPrefillCache:
     count of tokens already cached (the chunk's first absolute position)
     and ``chunk_lens`` how many chunk rows are real prompt tokens — the
     padding past it writes to the null page and its rows are discarded.
+    ``max_kv_len`` as for :class:`PagedAttnCache` (a bound on
+    ``lengths + chunk_lens``).
     """
 
     k_pages: Tensor       # (n_pages, page_size, KVH, Dh)
@@ -202,6 +208,7 @@ class PagedPrefillCache:
     chunk_lens: Tensor    # (B,) int32 — valid tokens entering this chunk
     k_scales: Tensor | None = None   # int8 pools only
     v_scales: Tensor | None = None
+    max_kv_len: int | None = None    # host-known bound on the kv_lens
 
     @property
     def page_size(self) -> int:
@@ -282,7 +289,7 @@ def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
         q, cache.k_pages, cache.v_pages, cache.block_tables,
         q_start=cache.lengths, kv_lens=cache.lengths + cache.chunk_lens,
         policy=policy, backend=paged_backend, k_scales=cache.k_scales,
-        v_scales=cache.v_scales)
+        v_scales=cache.v_scales, max_kv_len=cache.max_kv_len)
 
 
 def _paged_decode(p: Params, x: Tensor, cache: PagedAttnCache, *,
@@ -309,7 +316,8 @@ def _paged_decode(p: Params, x: Tensor, cache: PagedAttnCache, *,
                                       kv_lens=cache.lengths + 1,
                                       policy=policy, backend=paged_backend,
                                       k_scales=cache.k_scales,
-                                      v_scales=cache.v_scales)
+                                      v_scales=cache.v_scales,
+                                      max_kv_len=cache.max_kv_len)
 
 
 def apply_paged_attention(p: Params, x: Tensor,

@@ -69,18 +69,22 @@ class Model:
                                    kv_dtype=run.kv_dtype)
 
     def decode_step_paged(self, params, token, pools, block_tables, lengths,
-                          run: RunConfig):
-        """One decode step against paged pools (per-slot lengths)."""
+                          run: RunConfig, max_kv_len: int | None = None):
+        """One decode step against paged pools (per-slot lengths;
+        ``max_kv_len`` the host's bound on ``lengths + 1``)."""
         self._check_paged("paged decode")
         return TF.decode_step_paged(params, token, pools, block_tables,
-                                    lengths, self.cfg, run)
+                                    lengths, self.cfg, run, max_kv_len)
 
     def prefill_chunk_paged(self, params, tokens, pools, block_tables,
-                            cache_lens, chunk_lens, run: RunConfig):
-        """One fixed-shape prompt chunk straight into the paged pools."""
+                            cache_lens, chunk_lens, run: RunConfig,
+                            max_kv_len: int | None = None):
+        """One fixed-shape prompt chunk straight into the paged pools
+        (``max_kv_len`` the host's bound on ``cache_lens + chunk_lens``)."""
         self._check_paged("paged prefill")
         return TF.prefill_chunk_paged(params, tokens, pools, block_tables,
-                                      cache_lens, chunk_lens, self.cfg, run)
+                                      cache_lens, chunk_lens, self.cfg, run,
+                                      max_kv_len)
 
 
 def build_model(cfg: ArchConfig) -> Model:

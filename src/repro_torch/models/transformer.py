@@ -205,12 +205,14 @@ def _pool_scales(pool, pi):
 
 
 def decode_step_paged(params: Params, token: Tensor, pools, block_tables,
-                      lengths, cfg: ArchConfig, run: RunConfig) -> Tensor:
+                      lengths, cfg: ArchConfig, run: RunConfig,
+                      max_kv_len: int | None = None) -> Tensor:
     """One continuous-batching decode step against the paged pools.
 
     token (B, 1) int; block_tables (B, mp) int32; lengths (B,) int32 —
     tokens already cached per slot (shared by every layer; the pools are
-    per layer and updated in place).  Returns logits (B, 1, V) f32.
+    per layer and updated in place); ``max_kv_len`` the host's bound on
+    ``lengths + 1``, if it knows one.  Returns logits (B, 1, V) f32.
     """
     x = L.apply_embedding(params["embed"], token, run_dtype(run))
 
@@ -219,6 +221,7 @@ def decode_step_paged(params: Params, token: Tensor, pools, block_tables,
         return L.PagedAttnCache(k_pages=pool["k_pages"][pi],
                                 v_pages=pool["v_pages"][pi],
                                 block_tables=block_tables, lengths=lengths,
+                                max_kv_len=max_kv_len,
                                 **_pool_scales(pool, pi))
 
     return _head(params, cfg, _apply_stack(params, x, cfg, run, make_cache))
@@ -226,12 +229,15 @@ def decode_step_paged(params: Params, token: Tensor, pools, block_tables,
 
 def prefill_chunk_paged(params: Params, tokens: Tensor, pools, block_tables,
                         cache_lens, chunk_lens, cfg: ArchConfig,
-                        run: RunConfig) -> Tensor:
+                        run: RunConfig,
+                        max_kv_len: int | None = None) -> Tensor:
     """One fixed-shape prefill chunk straight into the paged pools.
 
     tokens (B, C) int, zero-padded past ``chunk_lens``; block_tables
     (B, mp) int32; cache_lens (B,) int32 — tokens already in the pool;
-    chunk_lens (B,) int32 — valid tokens entering this chunk.  Every
+    chunk_lens (B,) int32 — valid tokens entering this chunk;
+    ``max_kv_len`` the host's bound on ``cache_lens + chunk_lens``, if
+    it knows one.  Every
     layer scatters the chunk's K/V into its pool pages and attends
     through the block tables.  Returns logits (B, 1, V) f32 of each
     row's last valid chunk position (only meaningful for the final chunk
@@ -245,6 +251,7 @@ def prefill_chunk_paged(params: Params, tokens: Tensor, pools, block_tables,
                                    v_pages=pool["v_pages"][pi],
                                    block_tables=block_tables,
                                    lengths=cache_lens, chunk_lens=chunk_lens,
+                                   max_kv_len=max_kv_len,
                                    **_pool_scales(pool, pi))
 
     x = _apply_stack(params, x, cfg, run, make_cache)

@@ -318,12 +318,13 @@ class ServingEngine:
     def _prefill_chunk_step(self, seq: Sequence, n: int) -> bool:
         """Push one prompt chunk into the pool; True if the request
         finished outright (single-token budgets / instant EOS)."""
-        view = view_arrays(
-            prefill_chunk_view(seq, n, self.prefill_chunk, self.cache),
-            self.device)
+        host = prefill_chunk_view(seq, n, self.prefill_chunk, self.cache)
+        view = view_arrays(host, self.device)
+        # the chunk's keys end at cache_lens + n, known here on the host
         logits = self.model.prefill_chunk_paged(
             self.params, view.tokens, self.pools, view.block_tables,
-            view.cache_lens, view.chunk_lens, self.run_cfg)
+            view.cache_lens, view.chunk_lens, self.run_cfg,
+            max_kv_len=int(host.cache_lens[0]) + n)
         self.stats.prefill_steps += 1
         self.stats.prompt_tokens += n
         if not self.scheduler.on_prefill_chunk(seq, n):
@@ -341,11 +342,13 @@ class ServingEngine:
 
     def _decode_step(self, running: dict[int, Sequence]) -> list[Sequence]:
         """One batched decode step over the running slots."""
-        view = view_arrays(decode_view(running, self.n_slots, self.cache),
-                           self.device)
+        host = decode_view(running, self.n_slots, self.cache)
+        view = view_arrays(host, self.device)
+        # every slot attends to its cached tokens and the one entering
         logits = self.model.decode_step_paged(
             self.params, view.tokens, self.pools, view.block_tables,
-            view.lengths, self.run_cfg)
+            view.lengths, self.run_cfg,
+            max_kv_len=int(host.lengths.max()) + 1)
         logits = logits.cpu().numpy()  # (n_slots, 1, V); waits for the step
         now = time.time()
         if self._last_decode_end is not None:

@@ -20,6 +20,15 @@ route is also held, over a grid of Lq ∈ {1, 5, 17, 300}, Lk ∈ {1, 63,
 version's own bins within 2e-6 (at 1500 keys the plain version's f32
 σ·V roundoff alone comes near that).
 
+The paged kernels group each KV head's query heads (G = 1 … 12, not
+only powers of two) and split the live pages across a thread-block
+cluster: they are also held at G 6 and 12, at kv_lens up to 8192 that
+cross the split ranges and page boundaries with rows past the logits
+cache (recomputed), slots of 0 and 1 keys, and with NaN / inf junk in
+the null page and past the live rows of a partial last page, which must
+never reach an output (the plain version is given a copy without the
+junk: masked keys weigh an exact 0 there, but 0 · NaN is NaN).
+
 The row-wise LUT-softmax kernels take logits as their input, so no dot
 order enters: they must be ``torch.equal`` to their plain versions at
 every precision (int16 up to 512 columns, where its Σ stays below 2^24),
@@ -29,13 +38,15 @@ and rows past its budget.  The exact flash-attention kernel holds its
 plain version's ``(out, m, l)`` within 2e-5 (out) and 1e-5 relative
 (m, l), and rows that see no key exactly (out 0, m = −inf, l = 0), on
 both routes for bf16 and f16 (tiles: the tensor cores, p in three
-16-bit pieces) and on the CUDA-core route for f32.
+16-bit pieces) and on the CUDA-core route for f32, also with a cache's
+``kv_len`` (one for all sequences, or one each).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCHS
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.core.precision import get_precision
 from repro_torch.core.quantization import quantize_rows
@@ -100,7 +111,8 @@ POLICIES = [SoftmaxPolicy()] + [
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,dh", [(1, 128), (4, 64), (2, 40)])
+@pytest.mark.parametrize("g,dh", [(1, 128), (4, 64), (2, 40), (6, 128),
+                                  (12, 128)])
 def test_decode_kernel_matches_plain(cuda, dtype, g, dh):
     kv = (96, 33, 1, 0)
     q, kp, vp, bt, _, kl = _problem(g, kv_lens=kv, g=g, c=1, dh=dh,
@@ -115,7 +127,7 @@ def test_decode_kernel_matches_plain(cuda, dtype, g, dh):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,c", [(1, 16), (4, 5), (2, 1)])
+@pytest.mark.parametrize("g,c", [(1, 16), (4, 5), (2, 1), (6, 16), (12, 16)])
 def test_prefill_kernel_matches_plain(cuda, dtype, g, c):
     q_start = (0, 17, 80)
     chunk = (c, max(1, c - 3), c)
@@ -146,6 +158,159 @@ def test_long_rows_recompute_path(cuda):
     out = paged_prefill_attention(q5, kp, vp, bt, qs, kl, pol)
     ref = paged_prefill_plain(q5, kp, vp, bt, qs, kl, pol)
     assert float((out - ref).abs().max()) <= TOL
+
+
+LONG_KV = (8192, 4111, 1000, 33, 1, 0)
+
+
+def _plain_f64(q, kp, vp, bt, q_start, kv_lens, pol, **scales):
+    """The plain version's own weights (its f32 logits, masks and policy
+    softmax) carried through σ·V in f64: over thousands of keys the f32
+    σ·V sum's roundoff alone, in any order, comes near 2e-6."""
+    k, v = ops.gather_kv(kp, vp, bt, kv_lens, scales.get("k_scales"),
+                         scales.get("v_scales"))
+    b, h, c, dh = q.shape
+    s = ops._logits(q, k, dh ** -0.5)
+    ki = torch.arange(k.shape[2], device="cuda")[None, None, None, :]
+    qi = (q_start[:, None] + torch.arange(c, device="cuda")[None, :]
+          )[:, None, :, None]
+    s = s.masked_fill(~((ki <= qi) & (ki < kv_lens[:, None, None, None])),
+                      float("-inf"))
+    sigma = ops._policy_softmax(s, pol).double()
+    kvh = v.shape[1]
+    return torch.matmul(sigma.reshape(b, kvh, h // kvh, c, -1),
+                        v.double().unsqueeze(2)).reshape(b, h, c, dh)
+
+
+@pytest.mark.parametrize("pool", ["float", "int8"])
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+@pytest.mark.parametrize("g", [6, 12])
+def test_split_ranges_and_junk(cuda, g, phase, pool):
+    """Block tables 512 pages wide and kv_lens up to 8192 whose live pages
+    split across the cluster into ranges that cross page boundaries (and
+    prefill rows past the logits cache, which recompute), slots of 0 and
+    1 keys, every policy; NaN / inf junk in the null page and in the rows
+    past each slot's live length must leave every output finite.  Held to
+    the plain version's weights carried in f64: within 2e-6, or twice the
+    plain version's own distance from them where that is larger."""
+    mp, c = 512, (1 if phase == "decode" else 16)
+    kv = LONG_KV if phase == "decode" else (8192, 2040, 16, 3)
+    q_start = [max(k - c, 0) for k in kv] if phase == "prefill" else \
+        [k - 1 for k in kv]
+    if pool == "int8":
+        q, kp, vp, bt, qs, kl, sc = _int8_problem(
+            50 + g, kv_lens=kv, g=g, c=c, q_start=q_start, mp=mp,
+            dtype=torch.bfloat16)
+    else:
+        q, kp, vp, bt, qs, kl = _problem(50 + g, kv_lens=kv, g=g, c=c,
+                                         q_start=q_start, mp=mp,
+                                         dtype=torch.bfloat16)
+        sc = {}
+    ckp, cvp, clean = kp, vp, {}
+    if pool == "int8":
+        # NaN / inf scales in the null page, and past each live length
+        for i, n in enumerate(kv):
+            if n % 16:
+                page = int(bt[i, n // 16])
+                sc["k_scales"][page, n % 16:] = float("nan")
+                sc["v_scales"][page, n % 16:] = float("inf")
+        clean = {n: t.nan_to_num(0, 0, 0) for n, t in sc.items()}
+    else:
+        # junk in the null page and past each live length in its page
+        ckp, cvp = kp.clone(), vp.clone()
+        for t in (kp, vp):
+            t[0] = float("nan")
+            t[0, 0] = float("inf")
+        for i, n in enumerate(kv):
+            if n % 16:
+                page = int(bt[i, n // 16])
+                kp[page, n % 16:] = float("nan")
+                vp[page, n % 16:] = float("inf")
+                ckp[page, n % 16:] = vp.new_zeros(())
+                cvp[page, n % 16:] = vp.new_zeros(())
+        for t in (ckp, cvp):
+            t[0] = 0
+    if phase == "decode":
+        kernel, plain = paged_decode_attention, paged_decode_plain
+        args, cargs = (q, kp, vp, bt, kl), (q, ckp, cvp, bt, kl)
+    else:
+        kernel, plain = paged_prefill_attention, paged_prefill_plain
+        args, cargs = (q, kp, vp, bt, qs, kl), (q, ckp, cvp, bt, qs, kl)
+    # uint8 keeps Σ ≤ 8192 · 255 below 2^24, where it is exact in f32
+    for pol in [SoftmaxPolicy()] + [
+            SoftmaxPolicy(impl=impl, precision="uint8", index_mode=mode)
+            for impl, mode in (("rexp", "round"), ("rexp", "floor"),
+                               ("lut2d", "round"))]:
+        out = kernel(*args, pol, **sc)
+        assert torch.isfinite(out).all(), pol
+        ref = plain(*cargs, pol, **clean)
+        qs_all = qs if phase == "prefill" else kl - 1
+        f64 = _plain_f64(q, ckp, cvp, bt, qs_all, kl, pol, **clean)
+        k_err = float((out.double() - f64).abs().max())
+        p_err = float((ref.double() - f64).abs().max())
+        assert k_err <= max(TOL, 2 * p_err), (pol, k_err, p_err)
+
+
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+@pytest.mark.parametrize("bound", [None, "tight", 1, 100_000])
+def test_max_kv_len_steers_only_the_split(cuda, bound, phase):
+    """The caller's bound on the live lengths picks the split (``None``:
+    the table's whole width; "tight": the longest kv_len; 1: below most
+    slots, which are then walked unsplit; past the table): every choice
+    gives the plain version's result."""
+    mp, c = 512, (1 if phase == "decode" else 16)
+    kv = (4111, 1000, 33, 1, 0)
+    q_start = [k - 1 for k in kv] if phase == "decode" else \
+        [max(k - c, 0) for k in kv]
+    q, kp, vp, bt, qs, kl = _problem(70, kv_lens=kv, g=6, c=c, mp=mp,
+                                     q_start=q_start, dtype=torch.bfloat16)
+    max_kv_len = max(kv) if bound == "tight" else bound
+    pol = SoftmaxPolicy(impl="rexp", precision="uint8")
+    if phase == "decode":
+        out = paged_decode_attention(q, kp, vp, bt, kl, pol,
+                                     max_kv_len=max_kv_len)
+        ref = paged_decode_plain(q, kp, vp, bt, kl, pol)
+    else:
+        out = paged_prefill_attention(q, kp, vp, bt, qs, kl, pol,
+                                      max_kv_len=max_kv_len)
+        ref = paged_prefill_plain(q, kp, vp, bt, qs, kl, pol)
+    assert float((out - ref).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_config_fits_a_cta(cuda, arch, phase):
+    """Every config's attention widths, on f32, bf16 and int8 pools with
+    block tables 2048 pages wide (the launcher sizes the logits cache for
+    that width): the launch stays within Hopper's 227 KB a CTA (it
+    refuses a plan that does not) and matches the plain version."""
+    cfg = ARCHS[arch]
+    g, kvh, dh = cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    c = 1 if phase == "decode" else 16
+    kv = (40,)
+    q_start = [39] if phase == "decode" else [24]
+    pol = SoftmaxPolicy(impl="lut2d", precision="uint8")
+    for pool, dtype in (("float", torch.float32), ("float", torch.bfloat16),
+                        ("int8", torch.float32), ("int8", torch.bfloat16)):
+        if pool == "int8":
+            q, kp, vp, bt, qs, kl, sc = _int8_problem(
+                80, kv_lens=kv, g=g, c=c, q_start=q_start, kvh=kvh, dh=dh,
+                mp=3, dtype=dtype)
+        else:
+            q, kp, vp, bt, qs, kl = _problem(80, kv_lens=kv, g=g, c=c,
+                                             q_start=q_start, kvh=kvh,
+                                             dh=dh, mp=3, dtype=dtype)
+            sc = {}
+        wide = torch.zeros((1, 2048), dtype=torch.int32, device="cuda")
+        wide[:, :3] = bt
+        if phase == "decode":
+            out = paged_decode_attention(q, kp, vp, wide, kl, pol, **sc)
+            ref = paged_decode_plain(q, kp, vp, bt, kl, pol, **sc)
+        else:
+            out = paged_prefill_attention(q, kp, vp, wide, qs, kl, pol, **sc)
+            ref = paged_prefill_plain(q, kp, vp, bt, qs, kl, pol, **sc)
+        assert float((out - ref).abs().max()) <= TOL, (pool, dtype)
 
 
 def test_dispatch_on_cuda(cuda):
@@ -215,7 +380,8 @@ def _int8_problem(seed, *, kv_lens, g, c, q_start, dtype, kvh=2, dh=128,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,dh", [(1, 128), (4, 64), (2, 40)])
+@pytest.mark.parametrize("g,dh", [(1, 128), (4, 64), (2, 40), (6, 128),
+                                  (12, 128)])
 def test_int8_decode_kernel_matches_plain(cuda, dtype, g, dh):
     kv = (96, 33, 1, 0)
     q, kp, vp, bt, _, kl, sc = _int8_problem(
@@ -237,7 +403,8 @@ def test_int8_decode_kernel_matches_plain(cuda, dtype, g, dh):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,c,dh", [(1, 16, 128), (4, 5, 64), (2, 1, 40)])
+@pytest.mark.parametrize("g,c,dh", [(1, 16, 128), (4, 5, 64), (2, 1, 40),
+                                    (6, 16, 128), (12, 16, 128)])
 def test_int8_prefill_kernel_matches_plain(cuda, dtype, g, c, dh):
     q_start = (0, 17, 80)
     chunk = (c, max(1, c - 3), c)
@@ -731,7 +898,7 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
 
 def test_flash_dispatch_on_cuda(cuda):
     """``auto`` and ``cuda`` launch the kernel; ``naive`` and ``blocked``
-    never do and agree with it; ``kv_len`` with a kernel route raises."""
+    never do and agree with it, also given a ``kv_len``."""
     rng = np.random.default_rng(5)
     q, k, v = (torch.as_tensor(rng.normal(size=s), device="cuda",
                                dtype=torch.float32)
@@ -743,14 +910,54 @@ def test_flash_dispatch_on_cuda(cuda):
     assert flash_attention_cuda.launches == dict(n, simt=n["simt"] + 2)
     for be, out in outs.items():
         torch.testing.assert_close(out, outs["naive"], rtol=2e-5, atol=2e-5)
-    with pytest.raises(ValueError, match="kv_len"):
-        fops.flash_attention(q, k, v, backend="cuda", kv_len=10)
+    outs = {be: fops.flash_attention(q, k, v, causal=True, backend=be,
+                                     kv_len=60, q_chunk=16, k_chunk=32)
+            for be in ("auto", "cuda", "naive", "blocked")}
+    assert flash_attention_cuda.launches == dict(n, simt=n["simt"] + 4)
+    for be, out in outs.items():
+        torch.testing.assert_close(out, outs["naive"], rtol=2e-5, atol=2e-5)
     with pytest.raises(ValueError, match="multiple of KV heads"):
         k3 = k[:, :1].expand(2, 3, 90, 64)
         flash_attention_cuda(q, k3, k3)
     with pytest.raises(ValueError, match="tile route"):
         flash_attention_cuda(q, k, v, route="tiles")      # f32
-    assert flash_attention_cuda.launches == dict(n, simt=n["simt"] + 2)
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_attention_cuda(q, k, v, kv_len=torch.tensor([1, 2, 3]))
+    assert flash_attention_cuda.launches == dict(n, simt=n["simt"] + 4)
+
+
+FLASH_KV_CASES = [  # (B, H, KVH, Lq, Lk, D, kv_len)
+    (2, 8, 2, 16, 300, 128, 200),        # one length for all
+    (2, 8, 2, 16, 300, 128, (250, 9)),   # one each: 7 rows see no key
+    (1, 4, 4, 40, 64, 64, 0),            # no valid key at all
+    (3, 4, 1, 5, 333, 40, (333, 100, 1)),
+]
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES, ids=str)
+@pytest.mark.parametrize("case", FLASH_KV_CASES, ids=str)
+def test_flash_kernel_with_kv_len(cuda, case, dtype):
+    """A cache's ``kv_len`` on every route the inputs take: keys at or
+    past it masked (never read), causal rows right-aligned to it; rows
+    that see no key exactly 0 / −inf / 0."""
+    b, h, kvh, lq, lk, d, kv_len = case
+    rng = np.random.default_rng(lq + lk + 1)
+    q, k, v = (torch.as_tensor(rng.normal(size=s), device="cuda").to(dtype)
+               for s in ((b, h, lq, d), (b, kvh, lk, d), (b, kvh, lk, d)))
+    if isinstance(kv_len, tuple):
+        kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    ro, rm, rl = flash_attention_plain(q, k, v, causal=True, kv_len=kv_len)
+    blind = torch.isneginf(rm)
+    routes = ["simt"] + (["tiles"] if flash_route(dtype, d) == "tiles"
+                         else [])
+    for route in routes:
+        out, m, l = flash_attention_cuda(q, k, v, causal=True, route=route,
+                                         kv_len=kv_len)
+        torch.testing.assert_close(out, ro, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(m, rm, rtol=1e-5, atol=0)
+        torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+        assert torch.equal(torch.isneginf(m), blind)
+        assert not out[blind].any() and not l[blind].any()
 
 
 def test_flash_tile_route_on_a_misaligned_view(cuda):

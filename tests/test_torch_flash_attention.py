@@ -14,7 +14,9 @@ the JAX package's.
   ``tests/test_kernels.py`` allows), causal and not, with scalar and
   per-row ``kv_len``, ``q_start``, and a 1500-key non-divisible case.
 * ``flash_attention`` holds JAX's on every backend (the port's ``auto``
-  against JAX's ``pallas``), and the knobs the port does not take raise.
+  against JAX's ``pallas``; with a cache's ``kv_len``, against JAX's
+  default ``naive``, which is what the kernel computes with one), and
+  the knobs the port does not take raise.
 """
 
 import jax.numpy as jnp
@@ -193,19 +195,39 @@ def test_flash_attention_backends_match_jax(backend, causal):
     ref = jfops.flash_attention(jq, jk, jv, backend=jb, **kw)
     out = tfops.flash_attention(tq, tk, tv, backend=backend, **kw)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **EXACT_TOL)
-    if backend != "auto":
-        ref = jfops.flash_attention(jq, jk, jv, backend=jb,
-                                    kv_len=jnp.int32(100), **kw)
-        out = tfops.flash_attention(tq, tk, tv, backend=backend,
-                                    kv_len=100, **kw)
-        np.testing.assert_allclose(out.numpy(), np.asarray(ref),
-                                   **EXACT_TOL)
+    # JAX's pallas takes no kv_len: the port's auto computes its naive
+    ref = jfops.flash_attention(jq, jk, jv,
+                                backend="naive" if backend == "auto" else jb,
+                                kv_len=jnp.int32(100), **kw)
+    out = tfops.flash_attention(tq, tk, tv, backend=backend, kv_len=100,
+                                **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **EXACT_TOL)
+
+
+@pytest.mark.parametrize("kv_len", [3, 0, torch.tensor(3)], ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_auto_with_kv_len_matches_jax_naive(causal, kv_len):
+    """``flash_attention(..., backend="auto", kv_len=…)`` on CPU tensors
+    (the kernel's plain version) returns JAX's default ``naive`` result:
+    keys at or past kv_len masked, causal queries right-aligned to it; a
+    kv_len of 0 leaves every row without a key (out 0)."""
+    rng = np.random.default_rng(16)
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(rng, 1, 2, 2, 4, 6, 8))
+    n = int(kv_len)
+    ref = jfops.flash_attention(jq, jk, jv, causal=causal, kv_len=n)
+    before = dict(tflash.flash_attention_cuda.launches)
+    out = tfops.flash_attention(tq, tk, tv, causal=causal, kv_len=kv_len)
+    assert tflash.flash_attention_cuda.launches == before
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **EXACT_TOL)
+    if n == 0:
+        _, m, l = tflash.flash_attention_plain(tq, tk, tv, causal=causal,
+                                               kv_len=kv_len)
+        assert not out.any() and not l.any() and torch.isneginf(m).all()
 
 
 @pytest.mark.parametrize("backend,kw,match", [
     ("cuda", {}, "CUDA tensors"),         # no kernel for CPU tensors
     ("pallas", {}, "pallas"),             # the JAX knob; the port's 'cuda'
-    ("auto", {"kv_len": 3}, "kv_len"),    # the kernel takes no kv_len
 ])
 def test_flash_attention_knobs_that_raise(backend, kw, match):
     q = torch.zeros((1, 2, 4, 8))

@@ -83,10 +83,15 @@ VARIANTS = {
 }
 
 
-def build_variants(out_dir: Path, names) -> dict[str, ctypes.CDLL]:
+def build_variants(out_dir: Path, variants) -> dict[str, dict]:
+    """Build each variant ``{name: (kernels, [(file, committed text,
+    variant text), ...])}`` — ``kernels`` one name of ``build.KERNELS`` or
+    a tuple of them — from its own copy of ``csrc/``, one ``nvcc`` per
+    kernel and variant, all at once; returns ``{name: {kernel: library}}``
+    with every entry point's argument types set.  A substitution whose
+    committed text is not in the file fails the run."""
     procs = {}
-    for i, name in enumerate(names):
-        kernel, subs = VARIANTS[name]
+    for i, (name, (kernels, subs)) in enumerate(variants.items()):
         d = out_dir / f"v{i}"
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(build.CSRC, d)
@@ -95,22 +100,22 @@ def build_variants(out_dir: Path, names) -> dict[str, ctypes.CDLL]:
             if old not in src:
                 raise SystemExit(f"{name}: {old!r} not in {file}")
             (d / file).write_text(src.replace(old, new))
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-               str(d / f"{kernel}.cu")]
-        procs[name] = (d, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+        for kernel in (kernels,) if isinstance(kernels, str) else kernels:
+            cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o",
+                   str(d / f"lib{kernel}.so"), str(d / f"{kernel}.cu")]
+            procs[(name, kernel)] = (d, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
     libs = {}
-    for name, (d, proc) in procs.items():
+    for (name, kernel), (d, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{log}")
-        kernel = VARIANTS[name][0]
-        lib = ctypes.CDLL(str(d / "lib.so"))
+        lib = ctypes.CDLL(str(d / f"lib{kernel}.so"))
         for fn, argtypes in build.KERNELS[kernel].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
+        libs.setdefault(name, {})[kernel] = lib
     return libs
 
 
@@ -124,12 +129,12 @@ def main(word: str = "") -> int:
     committed = {k: build.load(k) and build._loaded[k]
                  for k in ("flash_attention", "lut_attention")}
     names = [n for n in VARIANTS if word in n]
-    libs = build_variants(cs.ROOT / "build" / "variants", names)
+    libs = build_variants(cs.ROOT / "build" / "variants",
+                          {n: VARIANTS[n] for n in names})
 
     def use(name):
         build._loaded.update(committed)
-        if name in libs:
-            build._loaded[VARIANTS[name][0]] = libs[name]
+        build._loaded.update(libs.get(name, {}))
 
     rng = np.random.default_rng(0)
     flash = {}
