@@ -75,14 +75,19 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    Dh=128, and Qwen3-32B's lockstep (H=64, KVH=8, Dh=128, causal, a
    300-token prompt and a decode step into 332 allocated positions);
    each call through the route the dispatcher picks (``dense_route``:
-   the tensor-core tile engine for bf16 calls of at least
-   ``MIN_TILE_ROWS`` rows, the row engine otherwise) and, where that is
-   the tile engine, through the row engine too: exact-logit inputs
-   within 2e-6 of an f64 referee, random ones within one LUT step, with
-   the share of rows beyond 1e-4; both routes timed at 1–128 query rows
-   against 1500 keys (the route threshold); then the encoder call at B=4
-   timed on both routes (L2 flushed, median of 20) beside its plain
-   version and exact SDPA, with its bound (the busiest of the tensor
+   the split route — the paged kernels' cluster design over contiguous
+   keys — below ``MIN_TILE_ROWS`` rows, the tensor-core tile engine for
+   longer bf16 calls, the row engine for the longer calls the tile
+   engine does not take) and, where that is the tile or split route,
+   through the row engine too: exact-logit inputs within 2e-6 of an f64
+   referee, random ones within one LUT step, with the share of rows
+   beyond 1e-4; every route timed at 1–128 query rows against 1500 keys
+   (the route threshold); the few-row calls (Whisper's decode steps,
+   Qwen3-32B's lockstep decode) timed on the split and row routes beside
+   their plain version, exact SDPA on the same inputs and their bound;
+   then the encoder call at B=4 timed on the tile and row routes (L2
+   flushed, median of 20) beside its plain version and exact SDPA, with
+   its bound (the busiest of the tensor
    cores for both bf16 products at 989 TFLOP/s, the CUDA cores for the
    per-element LUT work at 67 TFLOP/s, and the bytes at 3.35 TB/s) and
    the bound as first stated (f32 q·kᵀ on the CUDA cores);
@@ -92,11 +97,12 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    one seeded 4–12-token prompt length, 32 greedy new tokens each
    through ``serve_loop.generate``; tok/s, the encode time and the mean
    decode step; exactly 12 + 24 · 32 = 780 dense launches (396 fused,
-   384 faithful; the 12 encoder calls on the tile route, the rest on
-   the row route); the same drive with every dense call held to its
+   384 faithful; by route as ``dense_route`` names them: the 12 encoder
+   calls on the tile route, the prompt's and the decode steps' few-row
+   calls on the split route); the same drive with every dense call held to its
    plain version on its own inputs (one LUT step); the ``naive`` drive's
    first-token logits within 2% of the largest under exact and REXP;
-   one profiled drive;
+   one profiled drive (the dense kernel's ms by kernel name);
 8. the row-wise LUT softmax through its op entry point
    ``lut_softmax(x, SoftmaxPolicy(impl, use_kernel=True))`` at full
    width — Whisper-small's encoder logits (4, 12, 1500, 1500) and
@@ -126,8 +132,9 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    f32 peak; over the visible pairs) beside the bound as first stated.
 
 The line before the last is the card's name and power limit, the one
-before it a JSON summary of the eight kernels (the two with two routes
-add both routes' times and launches); the last line is
+before it a JSON summary of the eight kernels (the two with several
+routes add the routes' times and launches; the dense one also its
+few-row calls' times on the split and row routes); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1085,11 +1092,38 @@ def dense_call(fn, mode, q, k, v, causal, kv_len, **kw):
 
 def routes_of(mode, q):
     """The route the dispatcher picks for this call and, when it picks
-    the tile engine, the row engine forced on the same inputs."""
+    the tile engine or the split route, the row engine forced on the same
+    inputs."""
     pol, _ = DENSE_MODES[mode]
     picked = dense_route(q.dtype, q.shape[-1], q.shape[2],
                          get_precision(pol.precision).qmax, mode)
-    return [picked] + (["rows"] if picked == "tiles" else [])
+    return [picked] + (["rows"] if picked != "rows" else [])
+
+
+def dense_pairs(lq, lk, causal, kv_len):
+    """Visible (row, key) pairs of one (sequence, head): keys below
+    kv_len (default Lk), causal rows right-aligned to it."""
+    kv = lk if kv_len is None else kv_len
+    if not causal:
+        return lq * kv
+    return sum(max(min(kv, kv - lq + c + 1), 0) for c in range(lq))
+
+
+def dense_sdpa_ms(q, k, v, causal, kv_len):
+    """Exact attention by one library call on the same inputs (the GQA
+    head repeat and the mask built outside the timed call): the
+    yardstick of a dense call, not the same function."""
+    g = q.shape[1] // k.shape[1]
+    k, v = (x.repeat_interleave(g, dim=1) for x in (k, v))
+    lq, lk = q.shape[2], k.shape[2]
+    kv = lk if kv_len is None else kv_len
+    ki = torch.arange(lk, device="cuda")[None, :]
+    mask = ki < kv
+    if causal:
+        mask = mask & (ki <= torch.arange(lq, device="cuda")[:, None]
+                       + (kv - lq))
+    return device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask))
 
 
 def dense_f64(mode, q, k, v, causal, kv_len):
@@ -1158,10 +1192,12 @@ def phase_dense_kernel():
     """Phase 6: the dense kernel against its plain version at the main
     path's shapes, every mode, f32 and bf16, exact-logit (2e-6) and
     random (one LUT step) inputs, through the route the dispatcher picks
-    and, where it picks the tile engine, through the row engine too; the
-    route threshold (both routes timed at few query rows); then the
-    encoder call at B = 4 timed on both routes beside its plain version
-    and exact SDPA."""
+    and, where it picks the tile engine or the split route, through the
+    row engine too; the route threshold (every route timed at 1–128
+    query rows); the few-row calls timed on the split and row routes
+    beside their plain version, exact SDPA and their bound; then the
+    encoder call at B = 4 timed on the tile and row routes beside its
+    plain version and exact SDPA."""
     rng = np.random.default_rng(6)
     worst_exact = 0.0
     failures = []
@@ -1213,21 +1249,56 @@ def phase_dense_kernel():
         raise AssertionError("dense kernel off its plain version:\n"
                              + "\n".join(failures))
 
-    # The route threshold: both routes at Whisper's cross-attention shape
-    # (1500 keys, fused) for few query rows (MIN_TILE_ROWS and up take
-    # the tile route).
-    for lq in (1, 4, 8, 16, 32, 64, 128):
+    # The route threshold: every route at Whisper's cross-attention shape
+    # (1500 keys, fused) for few query rows (fewer than MIN_TILE_ROWS take
+    # the split route, more the tile route).
+    for lq in (1, 2, 4, 8, 9, 12, 16, 32, 64, 128):
         q, k, v = dense_problem(rng, W_BATCH, W_H, W_H, lq, W_LENC, W_DH,
                                 torch.bfloat16, False)
         t = {route: device_ms(lambda: dense_call(
             lut_attention_cuda, "rexp_fused", q, k, v, False, None,
             route=route)) for route in ROUTES}
         print(f"[route] lut_attention rexp_fused bf16 B={W_BATCH} H={W_H} "
-              f"Lq={lq} Lk={W_LENC}: rows {t['rows']:.4f} ms, tiles "
-              f"{t['tiles']:.4f} ms; dispatcher picks "
+              f"Lq={lq} Lk={W_LENC}: " + ", ".join(
+                  f"{r} {t[r]:.4f} ms" for r in ROUTES)
+              + f"; dispatcher picks "
               f"{dense_route(q.dtype, W_DH, lq, qmax, 'rexp_fused')} "
               f"(MIN_TILE_ROWS {MIN_TILE_ROWS})")
 
+    # The few-row calls of the main path, bf16, in the mode the model
+    # path gives them (fused without a cache's kv_len, faithful with one):
+    # the row route (the parent's route for them, its code unchanged) and
+    # the split route, beside the plain version, exact SDPA on the same
+    # inputs (a yardstick, not the same function) and the bound over the
+    # visible pairs and the valid keys.
+    few_rows = {}
+    for name, b, h, kvh, lq, lk, dh, causal, kv_len in DENSE_CASES:
+        if lq >= MIN_TILE_ROWS:
+            continue
+        mode = "rexp_fused" if kv_len is None else "rexp"
+        q, k, v = dense_problem(rng, b, h, kvh, lq, lk, dh, torch.bfloat16,
+                                False)
+        pairs = dense_pairs(lq, lk, causal, kv_len)
+        live = lk if kv_len is None else kv_len
+        b_ms, b_by = dense_bound(b, h, kvh, lq, live, dh, torch.bfloat16,
+                                 pairs)
+        row = {route: device_ms(lambda: dense_call(
+            lut_attention_cuda, mode, q, k, v, causal, kv_len, route=route))
+            for route in ("rows", "split")}
+        row.update(plain_ms=device_ms(lambda: dense_call(
+            lut_attention_plain, mode, q, k, v, causal, kv_len)),
+            sdpa_ms=dense_sdpa_ms(q, k, v, causal, kv_len), bound_ms=b_ms,
+            bound_by=b_by)
+        few_rows[name] = row
+        print(f"[time] lut_attention {mode} bf16 {name} B={b} H={h}/{kvh} "
+              f"Lq={lq} Lk={lk} kv_len={kv_len} Dh={dh}: split "
+              f"{row['split']:.4f} ms, rows {row['rows']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, exact SDPA {row['sdpa_ms']:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / row['split']:.1%} of bound on split")
+
+    # The encoder call on the tile and row routes (the split route serves
+    # few-row calls only).
     b, h, lq, lk, dh = W_BATCH, W_H, W_LENC, W_LENC, W_DH
     q, k, v = dense_problem(rng, b, h, h, lq, lk, dh, torch.bfloat16, False)
     b_ms, b_by = dense_bound(b, h, h, lq, lk, dh, torch.bfloat16, lq * lk)
@@ -1241,7 +1312,7 @@ def phase_dense_kernel():
         plain_ms = device_ms(lambda: dense_call(lut_attention_plain, mode, q,
                                                 k, v, False, None))
         by_route = {}
-        for route in ROUTES:
+        for route in ("rows", "tiles"):
             share = float(((dense_call(lut_attention_cuda, mode, q, k, v,
                                        False, None, route=route) - ref)
                            .abs().amax(dim=-1) > 1e-4).float().mean())
@@ -1264,7 +1335,8 @@ def phase_dense_kernel():
                   f"faster than the row route at the encoder shape")
     print(f"[time] exact SDPA bf16 at the same shape (the library yardstick; "
           f"REXP has no library call): {sdpa:.4f} ms")
-    return dict(max_abs_err=worst_exact, **rows["rexp_fused"])
+    return dict(max_abs_err=worst_exact, **rows["rexp_fused"],
+                few_rows=few_rows)
 
 
 def setup_whisper():
@@ -1353,9 +1425,10 @@ def whisper_step_times(model, params, frames, prompt, run):
     return t_enc, t_pre, float(np.mean(steps))
 
 
-#: the dense kernel's two bodies as the profiler names them (the tile
-#: route's and the row route's)
-DENSE_KERNEL_NAMES = ("lut_attention_tiles_kernel", "lut_attention_kernel")
+#: the dense kernel's bodies as the profiler names them (the tile
+#: route's, the row route's and the split route's)
+DENSE_KERNEL_NAMES = ("lut_attention_tiles_kernel", "lut_attention_kernel",
+                      "lut_attention_split_kernel")
 
 
 def whisper_profile(model, params, frames, prompt, run):
@@ -1426,16 +1499,17 @@ def phase_whisper():
     n_steps = W_NEW                           # the prefill and 31 decodes
     expect = {"rexp_fused": cfg.encoder_layers + cfg.n_layers * n_steps,
               "rexp": cfg.n_layers * n_steps, "lut2d": 0}
-    # the encoder's 1500-row calls take the tile engine; the prompt's and
-    # the decode steps' few rows the row engine
+    # by route, as the dispatcher names them: the encoder's 1500-row
+    # calls, the prompt's (self- and cross-attention in every decoder
+    # layer) and the decode steps' single rows
     qmax = get_precision(main.precision).qmax
     dh = cfg.resolved_head_dim
-    n_tiles = sum(n for n, rows in ((cfg.encoder_layers, cfg.encoder_seq),
-                                    (2 * cfg.n_layers, prompt.shape[1]))
-                  if dense_route(torch.bfloat16, dh, rows, qmax,
-                                 "rexp") == "tiles")
-    expect_routes = {"rows": sum(expect.values()) - n_tiles,
-                     "tiles": n_tiles}
+    expect_routes = dict.fromkeys(ROUTES, 0)
+    for n, rows in ((cfg.encoder_layers, cfg.encoder_seq),
+                    (2 * cfg.n_layers, prompt.shape[1]),
+                    (2 * cfg.n_layers * (n_steps - 1), 1)):
+        expect_routes[dense_route(torch.bfloat16, dh, rows, qmax,
+                                  "rexp")] += n
     total = sum(launches.values())
     print(f"[whisper] rexp-uint8 attention_backend=auto: {toks} tokens in "
           f"{wall:.3f}s ({toks / wall:.1f} tok/s); dense kernel launches "

@@ -23,11 +23,27 @@
 // bins), so the CUDA cores' 67 TFLOP/s bound it; for bf16 inputs each
 // product is exact in f32 and the tensor cores may take both products.
 // A single-token query (cross-attention in a decode step) is bound by
-// the bytes of K and V instead.
+// the bytes of K and V instead: at Whisper's decode step (B = 4, 12
+// heads of 64, 1500 keys, bf16) 18.4 MB, 0.0055 ms at 3.35 TB/s.
 //
-// Two routes, chosen by the wrapper (kernels/lut_attention/
+// Three routes, chosen by the wrapper (kernels/lut_attention/
 // lut_attention.py: dense_route) before the launch:
 //
+//   * "split" — fewer than MIN_TILE_ROWS query rows (decode steps, short
+//     prefill chunks), any type, head dim and precision: the Hopper
+//     design of the paged kernels (csrc/paged_attn.cuh) over contiguous
+//     keys, as lut_attention_split_kernel.  A cluster of up to 8 CTAs
+//     serves one (sequence, KV head, block of the KV head's G·Lq query
+//     rows): K and V are read once per KV head, whatever the GQA group;
+//     the keys are split across the CTAs in 32-key tiles and, when the
+//     block has fewer rows than warps (Whisper's MHA decode step has
+//     one), across the warps too; K and V stream through a cp.async ring,
+//     and the CTAs exchange the row max, Σ and the σ·V partials through
+//     distributed shared memory.  The fused α form skips the Σ pass: its
+//     last pass sums Σ beside U = Σ e·v and the cluster exchanges both in
+//     one round.  The launcher (paged::plan_dense) picks the split, the
+//     warps' key slices, the ring and the logits cache from the shapes
+//     and kv_len, and refuses a plan past 227 KB a CTA;
 //   * "tiles" — bf16 inputs, Dh ≤ 128, qmax ≤ 255 and at least
 //     MIN_TILE_ROWS query rows: the tensor-core tile engine of
 //     csrc/attn_tiles.cuh.  A block of 4 warps owns 64 query rows.
@@ -45,22 +61,25 @@
 //     (lut_e_term, sigma_int), so the 32 table reads of a thread's tile
 //     are in flight together: that path, not the tensor cores, set
 //     this route's time.
-//   * "rows" — everything else (f32, int16 tables whose numerators bf16
-//     does not hold, Dh > 128, decode steps and few-row chunks): the row
-//     engine of csrc/lut_pipeline.cuh with DenseRows addressing.  One
+//   * "rows" — the many-row calls the tile engine does not take (f32,
+//     int16 tables whose numerators bf16 does not hold, Dh > 128): the
+//     row engine of csrc/lut_pipeline.cuh with DenseRows addressing.  One
 //     block per (sequence, query head, tile of kRows query rows; one row
 //     for Lq = 1) runs every pass for its rows; a lane takes a key's dot
 //     with all the tile's rows (queries broadcast from shared memory), so
 //     each K row is read once per tile per pass, and the tile's logits
 //     stay in shared memory when they fit, so q·k is computed once.
 //
-// Both routes share the bin path (lut_pipeline.cuh's lut_e_term,
+// The routes share the bin path (lut_pipeline.cuh's lut_e_term,
 // clamp_bin, sigma_int, alpha_factor), so for the same logits they pick
 // the same bins; their q·k sums are ordered differently (and a tensor
 // core's f32 sum truncates), so a logit on a bin edge may land in the
-// neighbouring bin, as against the plain version's cuBLAS order.
+// neighbouring bin, as against the plain version's cuBLAS order.  The
+// rows and split routes compute a logit by the same chain (fmaf from 0
+// in head-dim order).
 #include "attn_tiles.cuh"
 #include "lut_pipeline.cuh"
+#include "paged_attn.cuh"
 
 namespace {
 
@@ -275,7 +294,7 @@ cudaError_t dispatch_tiles(const lutk::Params& p, cudaStream_t stream) {
 // q (B, H, Lq, Dh), k / v (B, KVH, Lk, Dh), all of dtype 0 = f32 or
 // 1 = bf16, contiguous; out (B, H, Lq, Dh) f32.  method 1 = REXP,
 // 2 = 2D-LUT; fused (REXP only) takes the α form; route 0 = rows,
-// 1 = tiles (bf16, Dh ≤ 128 only).
+// 1 = tiles (bf16, Dh ≤ 128 only), 2 = split.
 extern "C" int lut_attention_launch(
     const void* q, const void* k, const void* v, const void* lut_main,
     const void* lut_aux, void* out, int dtype, int B, int H, int KVH, int Lq,
@@ -288,7 +307,7 @@ extern "C" int lut_attention_launch(
   // the tile route takes bf16 with Dh ≤ 128 (a multiple of 8) only; the
   // wrapper has checked qmax ≤ 255 against its tables
   const bool tiles_ok = dtype == 1 && Dh <= 128 && Dh % 8 == 0;
-  if (!ok || (route == 1 && !tiles_ok) || route < 0 || route > 1)
+  if (!ok || (route == 1 && !tiles_ok) || route < 0 || route > 2)
     return int(cudaErrorInvalidValue);
   lutk::Params p = lutk::make_params(
       q, k, v, nullptr, nullptr, nullptr, lut_main, lut_aux, out, B, H, KVH,
@@ -300,5 +319,10 @@ extern "C" int lut_attention_launch(
   p.fused = fused;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) return int(dispatch_tiles(p, s));
+  // the split plan follows the valid length, known here exactly (an
+  // empty cache is planned as one key: its rows come out 0)
+  if (route == 2)
+    return int(paged::run<paged::DenseKeys, 1, 2>(p, kv_len > 0 ? kv_len : 1,
+                                                  dtype, s));
   return int(lutk::dispatch<DenseLaunch>(p, dtype, s));
 }

@@ -35,7 +35,7 @@ extern "C" int paged_decode_launch(
       q, k_pages, v_pages, block_tables, kv_lens, nullptr, lut_main, lut_aux,
       out, B, H, KVH, Dh, n_pages, ps, mp, /*C=*/1, n_main, aux_rows,
       aux_cols, method, round_mode, scale, inv_step, inv_q, inv_ex, inv_sum);
-  return int(paged::run<1>(p, max_kv_len, dtype,
+  return int(paged::run<paged::PagedKeys, 1>(p, max_kv_len, dtype,
                            static_cast<cudaStream_t>(stream)));
 }
 
@@ -55,6 +55,6 @@ extern "C" int paged_decode_int8_launch(
       out, B, H, KVH, Dh, n_pages, ps, mp, /*C=*/1, n_main, aux_rows,
       aux_cols, method, round_mode, scale, inv_step, inv_q, inv_ex, inv_sum,
       k_scales, v_scales);
-  return int(paged::run<1>(p, max_kv_len, q_dtype,
+  return int(paged::run<paged::PagedKeys, 1>(p, max_kv_len, q_dtype,
                            static_cast<cudaStream_t>(stream)));
 }

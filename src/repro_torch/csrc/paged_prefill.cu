@@ -43,7 +43,7 @@ extern "C" int paged_prefill_launch(
       q, k_pages, v_pages, block_tables, kv_lens, q_start, lut_main, lut_aux,
       out, B, H, KVH, Dh, n_pages, ps, mp, C, n_main, aux_rows, aux_cols,
       method, round_mode, scale, inv_step, inv_q, inv_ex, inv_sum);
-  return int(paged::run<1, 2>(p, max_kv_len, dtype,
+  return int(paged::run<paged::PagedKeys, 1, 2>(p, max_kv_len, dtype,
                               static_cast<cudaStream_t>(stream)));
 }
 
@@ -63,6 +63,6 @@ extern "C" int paged_prefill_int8_launch(
       out, B, H, KVH, Dh, n_pages, ps, mp, C, n_main, aux_rows, aux_cols,
       method, round_mode, scale, inv_step, inv_q, inv_ex, inv_sum, k_scales,
       v_scales);
-  return int(paged::run<1, 2>(p, max_kv_len, q_dtype,
+  return int(paged::run<paged::PagedKeys, 1, 2>(p, max_kv_len, q_dtype,
                               static_cast<cudaStream_t>(stream)));
 }

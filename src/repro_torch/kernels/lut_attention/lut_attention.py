@@ -7,11 +7,16 @@ fused ``_fused_sum_av_kernel``).  q (B, H, Lq, D) attends to contiguous
 k, v (B, KVH, Lk, D) with the REXP or 2D-LUT softmax; the output is f32.
 
 * :func:`lut_attention_cuda` launches ``csrc/lut_attention.cu`` on CUDA
-  tensors through one of two routes that :func:`dense_route` names
-  before the launch: ``"tiles"`` (the tensor-core tile engine, 64 query
-  rows a block) for bf16 inputs with Dh ≤ 128, qmax ≤ 255 and at least
-  :data:`MIN_TILE_ROWS` query rows, ``"rows"`` (the row engine, a block
-  per few query rows) for everything else.  A runtime ``kv_len`` (the
+  tensors through one of three routes that :func:`dense_route` names
+  before the launch: ``"split"`` (the paged kernels' Hopper design over
+  contiguous keys: a thread-block cluster per KV head and block of its
+  query rows, the keys split across the cluster's CTAs and their warps)
+  for calls of fewer than :data:`MIN_TILE_ROWS` query rows — decode steps
+  and short prefill chunks — in any type; ``"tiles"`` (the tensor-core
+  tile engine, 64 query rows a block) for longer bf16 calls with Dh ≤ 128
+  and qmax ≤ 255; ``"rows"`` (the row engine, a block per few query
+  rows) for the longer calls the tile engine does not take (f32, Dh >
+  128, int16 tables).  A runtime ``kv_len`` (the
   valid length of a pre-allocated cache; the JAX kernel's static
   ``lk_valid``) masks the tail, and causal queries are right-aligned to
   it.  On CPU tensors it runs the plain version — only because the
@@ -39,18 +44,17 @@ Tensor = torch.Tensor
 
 MODES = ("rexp_fused", "rexp", "lut2d")
 #: the kernel's routes, in the order of its C entry point's ``route``
-ROUTES = ("rows", "tiles")
-#: the fewest query rows a call needs to take the tile route.  A tile
-#: block owns 64 rows and takes the same time to walk 1500 keys however
-#: few of them are real; the row engine's time grows with the rows.  On
-#: an H100 at Whisper's cross-attention shape (B=4, H=12, 1500 keys,
-#: fused; the "[route]" lines of chip_smoke.py phase 6) the tile engine
-#: was the faster at every row count timed, one row included.  Calls of
-#: fewer than 8 rows — single-token decode steps, a short prompt's
-#: prefill — stay on the row engine all the same: a tile block spends 64
-#: rows' work on each, and their own design (keys split across blocks
-#: after a global row max) is the next step for them.
-MIN_TILE_ROWS = 8
+ROUTES = ("rows", "tiles", "split")
+#: the fewest query rows a call needs to take the tile route; fewer take
+#: the split route.  A tile block owns 64 rows and takes the same time to
+#: walk 1500 keys however few of them are real; the split route's time
+#: grows with the rows (CUDA cores, a warp a row).  On an H100 (700 W) at
+#: Whisper's cross-attention shape (B=4, H=12, 1500 keys, fused REXP,
+#: bf16; chip_smoke.py phase 6's "[route]" lines) the split route took
+#: 0.024 ms at 1 row, 0.037 at 4 and 0.058 at 8 against the tile route's
+#: 0.062; from 9 rows (a cluster's block of up to 16, two rows a warp) it
+#: took 0.070: 9 is the first row count at which the tile route wins.
+MIN_TILE_ROWS = 9
 #: what the tile engine takes: bf16 (f32 q·k feeds the bins, so f32 stays
 #: on the CUDA cores), head dims up to 128, and numerators that bf16 holds
 #: exactly (qmax ≤ 255: uint8, uint4, uint2; not int16)
@@ -77,16 +81,16 @@ def tiles_take(dtype: torch.dtype, dh: int, qmax: int) -> bool:
 
 def dense_route(dtype: torch.dtype, dh: int, lq: int, qmax: int,
                 mode: str) -> str:
-    """The route a dense call takes: ``"tiles"`` when the tile engine
-    takes its type, head dim and precision and it has at least
-    :data:`MIN_TILE_ROWS` query rows, else ``"rows"``.  Every mode takes
-    either route."""
+    """The route a dense call takes: ``"split"`` below
+    :data:`MIN_TILE_ROWS` query rows; else ``"tiles"`` when the tile
+    engine takes its type, head dim and precision, ``"rows"`` when it
+    does not.  Every mode takes every route."""
     if mode not in MODES:
         raise ValueError(f"unknown dense mode {mode!r}: expected one of "
                          f"{MODES}")
-    if tiles_take(dtype, dh, qmax) and lq >= MIN_TILE_ROWS:
-        return "tiles"
-    return "rows"
+    if lq < MIN_TILE_ROWS:
+        return "split"
+    return "tiles" if tiles_take(dtype, dh, qmax) else "rows"
 
 
 def lut_attention_plain(q: Tensor, k: Tensor, v: Tensor,
@@ -153,8 +157,10 @@ def lut_attention_cuda(q: Tensor, k: Tensor, v: Tensor,
     ``route`` (default: :func:`dense_route`'s choice), or raise; CPU
     tensors run :func:`lut_attention_plain`.  ``fused_requant`` selects
     REXP's α form (ignored for 2D-LUT, as in the JAX package).  A forced
-    ``route`` (tests and ``chip_smoke.py`` time both on the same inputs;
-    no model path passes one) that the inputs do not suit raises.
+    ``route`` (tests and ``chip_smoke.py`` time every route on the same
+    inputs; no model path passes one) that the inputs do not suit raises:
+    ``"rows"`` and ``"split"`` take every input the kernel takes,
+    ``"tiles"`` only those :func:`tiles_take` names, at any row count.
     """
     mode = mode_of(method, fused_requant)
     qmax = tables.precision.qmax

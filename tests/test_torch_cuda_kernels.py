@@ -11,9 +11,14 @@ head dims, ragged lengths and partial chunks.  The int8-pool kernels get
 exact-dequant inputs: codes in [−4, 4] and power-of-two scales, so every
 dequantized value and every dot is exact too.  The dense LUT-attention
 kernel gets exact-logit inputs in every mode (REXP fused and faithful,
-2D-LUT), with and without a cache's ``kv_len``, on both routes (the row
-engine, and the tensor-core tile engine for bf16 with qmax ≤ 255), and
-the encoder's shape on normal rows, held to one LUT step.  The tile
+2D-LUT), with and without a cache's ``kv_len``, on every route (the row
+engine, the split route, and the tensor-core tile engine for bf16 with
+qmax ≤ 255), and the encoder's shape on normal rows, held to one LUT
+step.  The split route is also held at the main path's few-row shapes,
+at 8192 keys and Dh 256, to the f64 referee within 2e-6 (exact-logit
+inputs) and to the plain version within one LUT step (normal rows);
+an empty cache gives exact zeros, and every config's widths plan within
+227 KB a CTA.  The tile
 route is also held, over a grid of Lq ∈ {1, 5, 17, 300}, Lk ∈ {1, 63,
 64, 1500}, causal masks with and without ``kv_len`` (0 too), GQA 1 and
 8, Dh 64 and 128, uint8 and uint4, to an f64 evaluation of the plain
@@ -599,7 +604,9 @@ def _dense_call(fn, q, k, v, pol, causal, kv_len, fused, **kw):
 
 @pytest.mark.parametrize("dtype,route", [(torch.float32, "rows"),
                                          (torch.bfloat16, "rows"),
-                                         (torch.bfloat16, "tiles")])
+                                         (torch.bfloat16, "tiles"),
+                                         (torch.float32, "split"),
+                                         (torch.bfloat16, "split")])
 @pytest.mark.parametrize("case", DENSE_CASES, ids=str)
 def test_dense_kernel_matches_plain(cuda, dtype, route, case):
     """Every mode (REXP fused and faithful, 2D-LUT) at every precision the
@@ -701,6 +708,93 @@ def test_dense_kernel_on_random_inputs_at_the_encoder_shape(cuda):
                                                               route)
 
 
+#: the few-row calls of the main path (chip_smoke.DENSE_CASES: Whisper's
+#: decode steps and a short prefill chunk, Qwen3-32B's lockstep decode),
+#: long caches and the wide head dims — (B, H, KVH, Lq, Lk, Dh, causal,
+#: kv_len)
+SPLIT_CASES = [
+    (4, 12, 12, 1, 1500, 64, False, None),   # Whisper cross decode
+    (4, 12, 12, 7, 1500, 64, False, None),   # Whisper cross prefill
+    (4, 12, 12, 1, 64, 64, True, 40),        # Whisper self decode
+    (4, 12, 12, 5, 64, 64, True, 40),        # Whisper self prefill
+    (4, 64, 8, 1, 332, 128, True, 301),      # Qwen3-32B lockstep decode
+    (1, 8, 2, 3, 8192, 128, True, 8000),     # a long cache, GQA 4
+    (2, 4, 4, 1, 8192, 64, False, None),     # long, one row a block
+    (2, 4, 2, 2, 700, 256, True, 650),       # Dh 256, GQA 2
+    (1, 6, 2, 7, 300, 128, True, 5),         # causal rows that see nothing
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_dense_split_route_matches_f64(cuda, case, dtype):
+    """The split route in every mode on exact-logit inputs within 2e-6 of
+    the plain version's bins carried on in f64, and on normal rows within
+    one LUT step of the plain version; each call counted on its route."""
+    b, h, kvh, lq, lk, dh, causal, kv_len = case
+    pol_r = SoftmaxPolicy(impl="rexp", precision="uint8")
+    pol_l = SoftmaxPolicy(impl="lut2d", precision="uint8")
+    for exact in (True, False):
+        q, k, v = _dense_problem(lq + lk + dh + exact, b=b, h=h, kvh=kvh,
+                                 lq=lq, lk=lk, dh=dh, dtype=dtype,
+                                 exact=exact)
+        limit = 2.0 / get_precision("uint8").qmax * float(
+            v.float().abs().max())
+        for pol, fused in ((pol_r, True), (pol_r, False), (pol_l, False)):
+            n = lut_attention_cuda.route_launches["split"]
+            out = _dense_call(lut_attention_cuda, q, k, v, pol, causal,
+                              kv_len, fused, route="split")
+            assert lut_attention_cuda.route_launches["split"] == n + 1
+            if exact:
+                ref = _dense_f64(q, k, v, pol, causal, kv_len, fused)
+                err = float((out.double() - ref).abs().max())
+                assert err <= TOL, (pol, fused, err)
+            else:
+                ref = _dense_call(lut_attention_plain, q, k, v, pol, causal,
+                                  kv_len, fused)
+                err = float((out - ref).abs().max())
+                assert err <= limit, (pol, fused, err, limit)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_dense_split_route_on_an_empty_cache(cuda, dtype):
+    """kv_len 0: every row exactly 0, in every mode and precision."""
+    q, k, v = _dense_problem(31, b=2, h=8, kvh=2, lq=3, lk=64, dh=128,
+                             dtype=dtype)
+    for pol in DENSE_POLICIES:
+        for fused in ((False, True) if pol.impl == "rexp" else (False,)):
+            for causal in (False, True):
+                out = _dense_call(lut_attention_cuda, q, k, v, pol, causal, 0,
+                                  fused, route="split")
+                assert not out.any(), (pol, fused, causal)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_dense_split_plans_fit_a_cta(cuda, arch):
+    """Every config's attention widths on the split route, f32 and bf16,
+    one and seven query rows against 1 to 8192 keys, int16 and uint8
+    tables: the launcher plans within Hopper's 227 KB a CTA (it refuses a
+    plan that does not, and the wrapper raises) and matches the f64
+    referee."""
+    cfg = ARCHS[arch]
+    g, kvh, dh = cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    kvh = min(kvh, 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        for lq, lk in ((1, 1), (1, 8192), (7, 1500)):
+            q, k, v = _dense_problem(lk + lq, b=1, h=g * kvh, kvh=kvh,
+                                     lq=lq, lk=lk, dh=dh, dtype=dtype)
+            for prec in ("int16", "uint8"):
+                pol = SoftmaxPolicy(impl="lut2d", precision=prec)
+                if prec == "int16" and lk > 2 ** 24 // 32767:
+                    continue      # Σ past 2^24: not exact in any order
+                out = _dense_call(lut_attention_cuda, q, k, v, pol, True,
+                                  None, False, route="split")
+                ref = _dense_f64(q, k, v, pol, True, None, False)
+                err = float((out.double() - ref).abs().max())
+                assert err <= TOL, (dtype, lq, lk, prec, err)
+
+
 def test_dense_long_rows_recompute_path(cuda):
     """Rows past the shared-memory budget recompute q·k in every pass."""
     q, k, v = _dense_problem(22, b=1, h=2, kvh=1, lq=9, lk=12000, dh=64,
@@ -731,9 +825,9 @@ def test_dense_dispatch_on_cuda(cuda):
     got = lut_attention_cuda.launches
     assert got["rexp_fused"] == n["rexp_fused"] + 2
     assert got["rexp"] == n["rexp"] + 2 and got["lut2d"] == n["lut2d"]
-    # three query rows: the row engine
+    # three query rows: the split route
     assert lut_attention_cuda.route_launches == dict(
-        n_routes, rows=n_routes["rows"] + 4)
+        n_routes, split=n_routes["split"] + 4)
     # a non-contiguous query (a transposed projection) is made contiguous
     # by the dispatcher, never by the kernel wrapper
     qt = q.transpose(1, 2).contiguous().transpose(1, 2)

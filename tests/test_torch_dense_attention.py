@@ -183,7 +183,8 @@ def test_modes():
 
 
 #: (name, dtype, Dh, Lq, precision, route) — the main path's calls and
-#: the inputs the tile engine does not take
+#: the inputs the tile engine does not take; calls of fewer than
+#: MIN_TILE_ROWS rows take the split route in any type
 ROUTE_CASES = [
     ("whisper encoder", torch.bfloat16, 64, 1500, "uint8", "tiles"),
     ("gqa prefill", torch.bfloat16, 128, 256, "uint8", "tiles"),
@@ -193,8 +194,12 @@ ROUTE_CASES = [
     ("int16", torch.bfloat16, 64, 1500, "int16", "rows"),
     ("Dh 256", torch.bfloat16, 256, 1500, "uint8", "rows"),
     ("Dh 36", torch.bfloat16, 36, 1500, "uint8", "rows"),
-    ("decode step", torch.bfloat16, 64, 1, "uint8", "rows"),
-    ("cross prefill", torch.bfloat16, 64, 5, "uint8", "rows"),
+    ("decode step", torch.bfloat16, 64, 1, "uint8", "split"),
+    ("cross prefill", torch.bfloat16, 64, 5, "uint8", "split"),
+    ("f32 decode step", torch.float32, 64, 1, "uint8", "split"),
+    ("int16 decode step", torch.bfloat16, 64, 1, "int16", "split"),
+    ("Dh 256 decode step", torch.bfloat16, 256, 1, "uint8", "split"),
+    ("qwen3 lockstep decode", torch.bfloat16, 128, 1, "uint8", "split"),
 ]
 
 
@@ -202,12 +207,14 @@ ROUTE_CASES = [
 @pytest.mark.parametrize("case", ROUTE_CASES, ids=lambda c: c[0])
 def test_dense_route(case, mode):
     """bf16 calls with Dh ≤ 128, qmax ≤ 255 and at least MIN_TILE_ROWS
-    rows take the tile engine in every mode; f32, int16, Dh 256, head
-    dims off the 16-byte grid and few-row calls take the row engine."""
+    rows take the tile engine in every mode; f32, int16, Dh 256 and head
+    dims off the 16-byte grid take the row engine at as many rows; calls
+    of fewer rows take the split route, whatever their type."""
     _, dtype, dh, lq, prec, want = case
     qmax = get_precision(prec).qmax
     assert dense_route(dtype, dh, lq, qmax, mode) == want
-    assert dense_route(dtype, dh, MIN_TILE_ROWS - 1, qmax, mode) == "rows"
+    assert dense_route(dtype, dh, MIN_TILE_ROWS - 1, qmax, mode) == "split"
+    assert dense_route(dtype, dh, MIN_TILE_ROWS, qmax, mode) != "split"
 
 
 @pytest.mark.parametrize("case", [c for c in ROUTE_CASES
@@ -236,10 +243,10 @@ def test_forced_tile_route_the_engine_does_not_take_raises(case):
 
 
 def test_forced_routes_on_cpu_run_the_plain_version():
-    """On CPU tensors either forced route runs the plain version, so a test
-    may name the route without a card; nothing is counted.  The tile
-    engine does not look at the row count: a forced route takes a
-    five-row call."""
+    """On CPU tensors every forced route runs the plain version, so a
+    test may name the route without a card; nothing is counted.  No
+    route looks at the row count: a forced route takes a five-row
+    call."""
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
                for x in _inputs(17, CASES[1], True))
     tables = tops._tables_for(TPol(impl="lut2d", precision="uint8"))

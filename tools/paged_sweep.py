@@ -2,7 +2,7 @@
 """Times the paged LUT-attention kernels on one NVIDIA GPU.
 
     python3 tools/paged_sweep.py [--root DIR] [--label NAME] [--out FILE]
-                                 [--host]
+                                 [--host | --smoke]
     python3 tools/paged_sweep.py --variants [WORD]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout) before
@@ -24,8 +24,9 @@ widths:
 * the sweep (``chip_smoke.sweep``) and the harness's floor (one empty
   launch).
 
-With ``--host`` only the host's microseconds are taken (a quick process,
-for interleaving several trees).  With ``--out`` the numbers also go to
+With ``--host`` only the host's microseconds are taken, with ``--smoke``
+only the smoke's main shapes (quick processes, for interleaving several
+trees).  With ``--out`` the numbers also go to
 a JSON file.
 
 ``--variants`` instead times A/B variants of this tree's paged kernels
@@ -48,7 +49,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 ATTN = "paged_attn.cuh"
-PREFILL_ROWS = "paged::run<1, 2>"
+PREFILL_ROWS = "paged::run<paged::PagedKeys, 1, 2>"
 #: variant → (kernels it changes, [(file, committed text, variant text)])
 VARIANTS = {
     "split for 2 CTAs an SM, prefill too": (
@@ -64,9 +65,11 @@ VARIANTS = {
     "no split": (("paged_decode", "paged_prefill"), [
         (ATTN, "while (s.n_split < kMaxSplit &&", "while (s.n_split < 1 &&")]),
     "prefill blocks of 32 rows": ("paged_prefill", [
-        ("paged_prefill.cu", PREFILL_ROWS, "paged::run<1, 2, 4>")]),
+        ("paged_prefill.cu", PREFILL_ROWS,
+         "paged::run<paged::PagedKeys, 1, 2, 4>")]),
     "prefill blocks of 8 rows": ("paged_prefill", [
-        ("paged_prefill.cu", PREFILL_ROWS, "paged::run<1>")]),
+        ("paged_prefill.cu", PREFILL_ROWS,
+         "paged::run<paged::PagedKeys, 1>")]),
     "2-stage ring": (("paged_decode", "paged_prefill"), [
         (ATTN, "kStages = 4;", "kStages = 2;")]),
     "3-stage ring": (("paged_decode", "paged_prefill"), [
@@ -92,11 +95,11 @@ VARIANTS = {
         (ATTN, "for (int c0 = 0; c0 < 16 * NV; c0 += 2) {",
          "for (int c0 = 0; c0 < 0; c0 += 2) {")]),
     "what-if: no σ·V": (("paged_decode", "paged_prefill"), [
-        (ATTN, "for (int k0 = 0; k0 < n; k0 += A) {",
-         "for (int k0 = 0; k0 < 0; k0 += A) {")]),
+        (ATTN, "for (int k0 = 0; k0 < n; k0 += A * halves) {",
+         "for (int k0 = 0; k0 < 0; k0 += A * halves) {")]),
     "what-if: no keys (the fixed cost of a CTA)": (
         ("paged_decode", "paged_prefill"), [
-            (ATTN, "nt = (nkeys + kTile - 1) / kTile;", "nt = 0;")]),
+            (ATTN, "nt = (nkeys + span - 1) / span;", "nt = 0;")]),
     "what-if: no page copies": (("paged_decode", "paged_prefill"), [
         (ATTN, "if (item >= n_items) return;", "return;")]),
     "what-if: no LUT work": (("paged_decode", "paged_prefill"), [
@@ -169,6 +172,8 @@ def main() -> int:
     ap.add_argument("--out", help="also write the numbers to this JSON file")
     ap.add_argument("--host", action="store_true",
                     help="only the host's microseconds per call")
+    ap.add_argument("--smoke", action="store_true",
+                    help="only the smoke's main shapes")
     ap.add_argument("--variants", nargs="?", const="", metavar="WORD",
                     help="time the VARIANTS whose name holds WORD instead")
     args = ap.parse_args()
@@ -205,13 +210,16 @@ def main() -> int:
         result["empty_launch_ms"] = cs.empty_launch_ms()
         log(f"[floor] one empty launch: {result['empty_launch_ms']:.4f} ms")
     for kind in ("bf16", "int8"):
-        result[f"host_{kind}"] = cs.host_times(decode, prefill, pol, kind,
-                                               log)
+        if not args.smoke:
+            result[f"host_{kind}"] = cs.host_times(decode, prefill, pol,
+                                                   kind, log)
         if args.host:
             continue
         result[f"smoke_{kind}"] = smoke_times(cs, decode, prefill, kind,
                                               log=log)
-        result[f"sweep_{kind}"] = cs.sweep(decode, prefill, pol, kind, log)
+        if not args.smoke:
+            result[f"sweep_{kind}"] = cs.sweep(decode, prefill, pol, kind,
+                                               log)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

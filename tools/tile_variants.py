@@ -15,7 +15,11 @@ results to the plain versions:
   times at the Whisper encoder's and Qwen3-32B's causal prefill shapes;
 * dense LUT attention (bf16, every mode) at the Whisper encoder's shape
   (B=4, H=12, L=1500, Dh=64) — times, and the tile route against the row
-  route.
+  route;
+* the dense kernel's split route (variants named "split") at the
+  few-row shapes of ``chip_smoke.DENSE_CASES`` and 4- and 8-row cross calls —
+  times (fused REXP without a kv_len, faithful with one), and the
+  distance from the plain version.
 
 With WORD, only the variants whose name holds it are built and run.  A
 variant whose text is not found in the source fails the run: the
@@ -47,6 +51,13 @@ DENSE_BOUNDS = ("__launch_bounds__(tiles::kThreads)\n"
                 "    lut_attention_tiles_kernel")
 
 RING = "constexpr int kStages = 2;"
+ATTN = "paged_attn.cuh"
+MAX_SPLIT = "constexpr int kDenseMaxSplit = 4;"
+SHARE = "(ctas * s.n_split + n_sms - 1) / n_sms;"
+HALVES = "Keys::kDense && NV == 1 && p.Dh <= 64 ? 2 : 1;"
+RANKS = "4 * s.n_split <= tiles &&"
+TARGET = "constexpr size_t kDenseTarget = 64 * 1024;"
+
 
 #: variant → (kernel, [(source file, committed text, variant text), ...])
 VARIANTS = {
@@ -75,6 +86,34 @@ VARIANTS = {
     "what-if, flash: no exp": ("flash_attention", [
         ("flash_attention.cu", "expf(__fsub_rn(s, m_safe[i >> 1]))",
          "__fsub_rn(s, m_safe[i >> 1])")]),
+    # the dense kernel's split route (paged_attn.cuh's plan_dense)
+    "split: clusters of at most 8": ("lut_attention", [
+        (ATTN, MAX_SPLIT, MAX_SPLIT.replace("4", "8"))]),
+    "split: clusters of at most 2": ("lut_attention", [
+        (ATTN, MAX_SPLIT, MAX_SPLIT.replace("4", "2"))]),
+    "split: a spare CTA slot an SM": ("lut_attention", [
+        (ATTN, SHARE, SHARE.replace("n_sms;", "n_sms + 1;"))]),
+    "split: σ·V on 16 lanes at Dh 64": ("lut_attention", [
+        (ATTN, HALVES, HALVES.replace("p.Dh <= 64", "p.Dh < 0"))]),
+    "split: ranks of one tile or more": ("lut_attention", [
+        (ATTN, RANKS, RANKS.replace("4 *", "2 *"))]),
+    "split: CTAs of up to 112 KB": ("lut_attention", [
+        (ATTN, TARGET, TARGET.replace("64", "112"))]),
+    # the committed build, timed without the L2 flush
+    "what-if, split: L2 warm": ("lut_attention", []),
+    "what-if, split: no keys (the fixed cost)": ("lut_attention", [
+        (ATTN, "nt = (nkeys + span - 1) / span;", "nt = 0;")]),
+    "what-if, split: no exchange between CTAs": ("lut_attention", [
+        (ATTN, "cluster.map_shared_rank(table, lane)", "table"),
+        (ATTN, "cluster.map_shared_rank(part_s, owner)", "part_s")]),
+    "what-if, split: no q·k": ("lut_attention", [
+        (ATTN, "for (int c0 = 0; c0 < 16 * NV; c0 += 2) {",
+         "for (int c0 = 0; c0 < 0; c0 += 2) {")]),
+    "what-if, split: no σ·V": ("lut_attention", [
+        (ATTN, "for (int k0 = 0; k0 < n; k0 += A * halves) {",
+         "for (int k0 = 0; k0 < 0; k0 += A * halves) {")]),
+    "what-if, split: no copies": ("lut_attention", [
+        (ATTN, "if (item >= n_items) return;", "return;")]),
     "what-if, dense: no LUT work": ("lut_attention", [
         ("lut_pipeline.cuh", "  const float e = float(lut_main[",
          "  return fminf(d, 1.f);\n  const float e = float(lut_main["),
@@ -173,10 +212,35 @@ def main(word: str = "") -> int:
         print(f"[variants] flash tiles, {name}: "
               + ", ".join(f"{c} {t:.4f} ms" for c, t in times.items())
               + "; out max|err| / m rel / l rel: " + "; ".join(errs))
+    split_cases = {}
+    for case in [c for c in cs.DENSE_CASES if c[4] < cs.MIN_TILE_ROWS] + [
+            ("cross, 4 rows", cs.W_BATCH, cs.W_H, cs.W_H, 4, cs.W_LENC,
+             cs.W_DH, False, None),
+            ("cross, 8 rows", cs.W_BATCH, cs.W_H, cs.W_H, 8, cs.W_LENC,
+             cs.W_DH, False, None)]:
+        name, b, h, kvh, lq, lk, dh, causal, kv_len = case
+        split_cases[name] = (cs.dense_problem(rng, b, h, kvh, lq, lk, dh,
+                                              torch.bfloat16, False),
+                             causal, kv_len)
+    for name in ["committed"] + [n for n in names if "split" in n]:
+        use(name)
+        line = []
+        for case, (qkv, causal, kv_len) in split_cases.items():
+            mode = "rexp_fused" if kv_len is None else "rexp"
+            ms = cs.device_ms(lambda: cs.dense_call(
+                cs.lut_attention_cuda, mode, *qkv, causal, kv_len,
+                route="split"), cold="L2 warm" not in name)
+            err = float((cs.dense_call(cs.lut_attention_cuda, mode, *qkv,
+                                       causal, kv_len, route="split")
+                         - cs.dense_call(cs.lut_attention_plain, mode, *qkv,
+                                         causal, kv_len)).abs().max())
+            line.append(f"{case} {ms:.4f} ms (– plain {err:.3g})")
+        print(f"[variants] dense split, {name}: " + ", ".join(line))
     q, k, v = cs.dense_problem(rng, cs.W_BATCH, cs.W_H, cs.W_H, cs.W_LENC,
                                cs.W_LENC, cs.W_DH, torch.bfloat16, False)
     for name in ["committed"] + [n for n in names
-                                 if VARIANTS[n][0] == "lut_attention"]:
+                                 if VARIANTS[n][0] == "lut_attention"
+                                 and "split" not in n]:
         use(name)
         line = []
         for mode in cs.MODES:
