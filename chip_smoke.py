@@ -109,12 +109,19 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    Qwen3-32B's causal prefill logits (1, 64, 2048, 2048), upper
    triangle −inf — in f32 and bf16, REXP and 2D-LUT uint8: both launch
    counters must move, and every output is ``torch.equal`` to the plain
-   version; then every precision (int16 at 300 columns) × bin mode ×
-   f32/bf16/f16 with fully masked rows and rows holding +inf / NaN, and
-   16 384 columns, all ``torch.equal``; the kernels' times beside the
-   plain versions', ``torch.softmax`` on the same tensor (a yardstick of
-   a memory-bound row pass, not the same function) and the bound (bytes
-   in plus f32 bytes out at 3.35 TB/s);
+   version, and a ``[route]`` line names the launch each call took
+   (route ``warp`` — a row in one warp's registers — or ``cta``, the
+   vector width, the grid); then every precision (int16 at 300 columns)
+   × bin mode × f32/bf16/f16 with fully masked rows and rows holding
+   +inf / NaN, and the column-and-alignment sweep (``[rows]`` lines:
+   1–65 536 columns, both routes, rows staged in shared memory or
+   re-read, ``x[1:]`` and views one element off a 16-byte boundary, a
+   single row, more rows than the persistent grid walks in one pass),
+   all ``torch.equal``; the kernels' times in all eight cases (2 kernels
+   × 2 shapes × f32/bf16) beside the plain versions', ``torch.softmax``
+   on the same tensor (a yardstick of a memory-bound row pass, not the
+   same function) and the bound (bytes in plus f32 bytes out at 3.35
+   TB/s);
 9. exact flash attention through ``flash_attention(backend="auto")`` at
    the Whisper encoder's shape (B=4, H=12, L=1500, Dh=64), Qwen3-32B's
    causal prefill (H=64, KVH=8, L=2048, Dh=128), a 16-token chunk at its
@@ -134,7 +141,9 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of the eight kernels (the two with several
 routes add the routes' times and launches; the dense one also its
-few-row calls' times on the split and row routes); the last line is
+few-row calls' times on the split and row routes; the row kernels their
+eight cases under ``cases``, each with its bound, route and
+``torch.softmax`` time); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -163,8 +172,9 @@ from repro_torch.kernels.flash_attention import ops as FOPS  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402,E501
     flash_attention_cuda, flash_attention_plain, flash_route)
 from repro_torch.kernels.lut_softmax import ops as SOPS  # noqa: E402
+from repro_torch.kernels.common import kernel_tables  # noqa: E402
 from repro_torch.kernels.lut_softmax.lut_softmax import (  # noqa: E402
-    lut2d_softmax_cuda, lut2d_softmax_plain, rexp_softmax_cuda,
+    lut2d_softmax_cuda, lut2d_softmax_plain, plan_for, rexp_softmax_cuda,
     rexp_softmax_plain)
 from repro_torch.kernels.lut_attention import ops  # noqa: E402
 from repro_torch.kernels.lut_attention import ref as REF  # noqa: E402
@@ -1611,10 +1621,53 @@ def row_bound(numel, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def row_plan_of(x, out, impl, tables):
+    """The launch plan the row kernel's wrapper picks for ``x``."""
+    return plan_for(x, out, *kernel_tables(impl, tables, "round",
+                                           x.device)[:2])
+
+
+#: the column sweep of the row kernels: the warp route (1–2048 columns,
+#: vectors of 8, 4 and 1) and the cta route (staged in two buffers, one,
+#: or re-read past 227 KB)
+ROW_SWEEP_COLS = (1, 7, 8, 300, 1500, 1501, 2048, 4097, 16384, 65536)
+
+
+def row_sweep_inputs(dt):
+    """(label, x) of the column-and-alignment sweep in ``dt``: each column
+    count with a fully masked row, a +inf and a NaN row; ``x[1:]`` of a
+    (9, 1500) tensor (rows 8-byte aligned in bf16 / f16); flat views one
+    element off a 16-byte boundary; a single finite row; more rows than
+    the persistent grid walks in one pass."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def logits(rows, cols):
+        x = torch.randn(rows, cols, generator=gen, device="cuda") * 3
+        x[torch.rand(x.shape, generator=gen, device="cuda") < 0.25] = \
+            float("-inf")
+        x[0] = float("-inf")
+        if rows > 2:
+            x[1, cols // 2], x[2, cols // 3] = float("inf"), float("nan")
+        return x.to(dt)
+
+    cases = [(f"{c} columns", logits(4 if c > 2048 else 9, c))
+             for c in ROW_SWEEP_COLS]
+    cases.append(("x[1:] of (9, 1500)", logits(9, 1500)[1:]))
+    for rows, cols in ((6, 1500), (3, 16384)):
+        flat = logits(rows + 1, cols).reshape(-1)
+        cases.append((f"({rows}, {cols}) one element off",
+                      flat[1:1 + rows * cols].view(rows, cols)))
+    cases.append(("a single row of 1500", logits(4, 1500)[3:]))
+    cases.append(("9000 rows of 300", logits(9003, 300)[3:]))
+    cases.append(("700 rows of 16384", logits(703, 16384)[3:]))
+    return cases
+
+
 def phase_row_softmax():
     """Phase 8: the op entry point ``lut_softmax(use_kernel=True)`` at full
-    width, counted; every result ``torch.equal`` to the plain version;
-    the small-width sweep, non-finite rows and 16 384 columns; times."""
+    width, counted, with the route each call took; every result
+    ``torch.equal`` to the plain version; the precision sweep,
+    non-finite rows, the column-and-alignment sweep; times."""
     pols = {impl: SoftmaxPolicy(impl=impl, precision="uint8",
                                 use_kernel=True) for impl in ROW_KERNELS}
     inputs = {(name, dt): row_logits(shape, causal, dt, seed=8)
@@ -1634,9 +1687,18 @@ def phase_row_softmax():
         raise AssertionError(f"the op entry point skipped a kernel: "
                              f"{launches}")
     failures = []
+    routes = {}
     for ((name, dt), impl), out in outs.items():
         x = inputs[(name, dt)]
-        ref = ROW_KERNELS[impl][1](x, ops._tables_for(pols[impl]))
+        tables = ops._tables_for(pols[impl])
+        plan = row_plan_of(x, out, impl, tables)
+        routes[(name, dt)] = plan.route
+        print(f"[route] lut_softmax_{impl} {name} {tuple(x.shape)} "
+              f"{str(dt)[6:]}: route {plan.route}, {plan.vec}-element "
+              f"vectors, {plan.per_lane} elements a lane, stages "
+              f"{plan.stages}, grid {plan.grid} × {plan.threads} threads, "
+              f"{plan.smem} B shared")
+        ref = ROW_KERNELS[impl][1](x, tables)
         same = torch.equal(out, ref)
         sums = out.sum(-1)
         print(f"[rows] {impl} {name} {tuple(x.shape)} {str(dt)[6:]}: "
@@ -1668,16 +1730,27 @@ def phase_row_softmax():
                     if not (torch.equal(out, plain(x, tables, mode))
                             and not out[:4].any()):
                         failures.append(f"sweep {impl} {prec} {mode} {dt}")
-        for dt in (torch.float32, torch.bfloat16):
-            x = row_logits((16, 16384), False, dt, seed=10)
-            x[3, 100] = float("inf")
-            tables = ops._tables_for(pols[impl])
-            if not torch.equal(kernel(x, tables), plain(x, tables)):
-                failures.append(f"16384 columns {impl} {dt}")
     print(f"[rows] sweep: {n_sweep} cases (4 precisions × 2 bin modes × "
-          f"f32/bf16/f16, rows fully masked and holding +inf / NaN) and "
-          f"16 384 columns in f32 and bf16: "
+          f"f32/bf16/f16, rows fully masked and holding +inf / NaN): "
           f"{'all torch.equal' if not failures else failures}")
+
+    # the column-and-alignment sweep, uint8 in both bin modes (inside
+    # the Σ < 2^24 bound: 65 536 · 255 < 2^24)
+    for dt in FLOAT_TYPES:
+        for label, x in row_sweep_inputs(dt):
+            line = []
+            for impl, (kernel, plain) in ROW_KERNELS.items():
+                tables = ops._tables_for(pols[impl])
+                for mode in ("round", "floor"):
+                    out = kernel(x, tables, mode)
+                    same = torch.equal(out, plain(x, tables, mode))
+                    if not same:
+                        failures.append(f"{label} {impl} {mode} {dt}")
+                    line.append(f"{impl}/{mode} {same}")
+            plan = row_plan_of(x, out, "lut2d", tables)
+            print(f"[rows] {label} {str(dt)[6:]} (route {plan.route}, "
+                  f"{plan.vec}-element vectors, stages {plan.stages}, grid "
+                  f"{plan.grid}): torch.equal " + ", ".join(line))
     if failures:
         raise AssertionError(f"row kernels off their plain versions: "
                              f"{failures}")
@@ -1695,10 +1768,15 @@ def phase_row_softmax():
                   f"{plain_ms:.4f} ms, torch.softmax {lib:.4f} ms (a "
                   f"yardstick of a row pass, not the same function), bound "
                   f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound")
+            case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, softmax_ms=lib,
+                        route=routes[(name, dt)])
+            row = rows.setdefault(f"lut_softmax_{impl}", dict(
+                max_abs_err=0.0, library_ms=None, cases={}))
+            row["cases"][f"{name} {str(dt)[6:]}"] = case
             if name == "whisper encoder" and dt == torch.float32:
-                rows[f"lut_softmax_{impl}"] = dict(
-                    max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                row.update({k: case[k] for k in
+                            ("ms", "plain_ms", "bound_ms", "bound_by")})
     return rows, {f"lut_softmax_{k}": v for k, v in launches.items()}
 
 

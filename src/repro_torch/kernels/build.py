@@ -34,7 +34,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: scale pools, both the caller's bound on the live lengths (an int, 0 for
 #: none) before the stream; the dense kernel takes contiguous f32/bf16 q, k, v; the
 #: row-wise softmax has one entry point per method and the exact flash
-#: attention one, both over contiguous f32/bf16/f16 inputs.  The dense
+#: attention one, both over contiguous f32/bf16/f16 inputs; the row one
+#: takes its launch plan (``lut_softmax.row_plan``, seven ints) before
+#: the stream.  The dense
 #: and flash entry points take their route (an int) after their flags;
 #: flash takes its valid length after the scale (an int, and a pointer to
 #: B int32 lengths or null).
@@ -53,8 +55,10 @@ KERNELS = {
         "lut_attention_launch": [_P] * 6 + [_I] * 16 + [_F] * 5 + [_P],
     },
     "lut_softmax": {
-        "lut_softmax_rexp_launch": [_P] * 4 + [_I] * 7 + [_F] * 4 + [_P],
-        "lut_softmax_lut2d_launch": [_P] * 4 + [_I] * 7 + [_F] * 4 + [_P],
+        "lut_softmax_rexp_launch": [_P] * 4 + [_I] * 7 + [_F] * 4
+        + [_I] * 7 + [_P],
+        "lut_softmax_lut2d_launch": [_P] * 4 + [_I] * 7 + [_F] * 4
+        + [_I] * 7 + [_P],
     },
     "flash_attention": {
         "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F] + [_I, _P, _P],

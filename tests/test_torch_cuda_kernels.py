@@ -38,10 +38,14 @@ The row-wise LUT-softmax kernels take logits as their input, so no dot
 order enters: they must be ``torch.equal`` to their plain versions at
 every precision (int16 up to 512 columns, where its Σ stays below 2^24),
 both bin modes and f32 / bf16 / f16 inputs, with masked, fully masked
-and ``+inf`` / ``NaN`` rows, on short rows, rows kept in shared memory
-and rows past its budget.  The exact flash-attention kernel holds its
-plain version's ``(out, m, l)`` within 2e-5 (out) and 1e-5 relative
-(m, l), and rows that see no key exactly (out 0, m = −inf, l = 0), on
+and ``+inf`` / ``NaN`` rows, on both routes and every vector width:
+the warp route (a row in one warp's registers, 1–2048 columns), the cta
+route staged in shared memory in one or two buffers or re-read past
+227 KB (4097–65 536 columns), inputs whose rows start off a 16-byte
+boundary, a single row and more rows than the persistent grid's CTAs
+hold in one pass (cols · qmax < 2^24 throughout: bitwise needs it).
+The exact flash-attention kernel holds its plain version's
+``(out, m, l)`` within 2e-5 (out) and 1e-5 relative (m, l), and rows that see no key exactly (out 0, m = −inf, l = 0), on
 both routes for bf16 and f16 (tiles: the tensor cores, p in three
 16-bit pieces) and on the CUDA-core route for f32, also with a cache's
 ``kv_len`` (one for all sequences, or one each).
@@ -55,13 +59,14 @@ from repro_torch.configs import ARCHS
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.core.precision import get_precision
 from repro_torch.core.quantization import quantize_rows
+from repro_torch.kernels.common import kernel_tables
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention_cuda, flash_attention_plain, flash_route)
 from repro_torch.kernels.lut_attention import ops
 from repro_torch.kernels.lut_softmax import ops as sops
 from repro_torch.kernels.lut_softmax.lut_softmax import (
-    lut2d_softmax_cuda, lut2d_softmax_plain, rexp_softmax_cuda,
+    lut2d_softmax_cuda, lut2d_softmax_plain, plan_for, rexp_softmax_cuda,
     rexp_softmax_plain)
 from repro_torch.kernels.lut_attention import ref as dref
 from repro_torch.kernels.lut_attention.lut_attention import (
@@ -893,36 +898,115 @@ def _row_logits(seed, rows, cols, dtype):
     return torch.as_tensor(x, device="cuda").to(dtype)
 
 
+PRECISIONS = ("int16", "uint8", "uint4", "uint2")
+#: (rows, cols) of the warp route (one warp a row, in registers; 512 is
+#: int16's last column count inside the Σ bound) and column counts of the
+#: cta route (a CTA a row: staged in shared memory by a bulk copy in one
+#: or two buffers, or re-read from L2 — 65 536 f32 columns are past
+#: 227 KB)
+WARP_SHAPES = ((5, 1), (5, 7), (5, 8), (33, 200), (9, 300), (16, 512),
+               (7, 1500), (7, 1501), (7, 2048))
+CTA_COLS = (4097, 16384, 20000, 65536)
+
+
+def _row_cases(impl, cols):
+    """(tables, index_mode) for every precision × bin mode whose integer
+    Σ stays exact (cols · qmax < 2**24, where the kernel is bitwise the
+    plain version)."""
+    for prec in PRECISIONS:
+        if cols * get_precision(prec).qmax >= 1 << 24:
+            continue
+        tables = ops._tables_for(SoftmaxPolicy(impl=impl, precision=prec))
+        for mode in ("round", "floor"):
+            yield tables, mode
+
+
+def _row_plan(x, impl, tables):
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    return plan_for(x, out, *kernel_tables(impl, tables, "round",
+                                           x.device)[:2])
+
+
+def _check_rows(kernel, plain, x, tables, mode, label):
+    n = kernel.launches
+    out = kernel(x, tables, mode)
+    assert kernel.launches == n + 1
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    assert torch.equal(out, plain(x, tables, mode)), label
+    return out
+
+
 @pytest.mark.parametrize("dtype", ROW_DTYPES, ids=str)
 @pytest.mark.parametrize("impl", ["rexp", "lut2d"])
 def test_row_softmax_kernel_equals_plain(cuda, impl, dtype):
-    """Every precision × bin mode, short rows (one warp), rows in shared
-    memory, and 512 columns for int16; bitwise."""
+    """The warp route at every column count up to 2048 (vectors of 8, 4
+    and 1 elements), every precision × bin mode; bitwise, with a fully
+    masked row, a +inf row and a NaN row."""
     kernel, plain = ROW_KERNELS[impl]
-    for prec in ("int16", "uint8", "uint4", "uint2"):
-        tables = ops._tables_for(SoftmaxPolicy(impl=impl, precision=prec))
-        for mode in ("round", "floor"):
-            for rows, cols in ((5, 8), (33, 200), (16, 512), (7, 1500)):
-                if prec == "int16" and cols > 512:
-                    continue
-                x = _row_logits(rows + cols, rows, cols, dtype)
-                n = kernel.launches
-                out = kernel(x, tables, mode)
-                assert kernel.launches == n + 1
-                ref = plain(x, tables, mode)
-                assert out.dtype == torch.float32
-                assert torch.equal(out, ref), (prec, mode, rows, cols)
-                assert not out[0].any()
+    for rows, cols in WARP_SHAPES:
+        x = _row_logits(rows + cols, rows, cols, dtype)
+        for tables, mode in _row_cases(impl, cols):
+            assert _row_plan(x, impl, tables).route == "warp"
+            out = _check_rows(kernel, plain, x, tables, mode, (cols, mode))
+            assert not out[0].any()
 
 
-@pytest.mark.parametrize("cols", [16384, 20000])
+@pytest.mark.parametrize("cols", CTA_COLS)
 def test_row_softmax_long_rows(cuda, cols):
-    """16 384 columns fit the shared-memory row; 20 000 are re-read from
-    global memory in passes 2 and 3."""
+    """The cta route: staged in two buffers (16 384, 20 000), one (65 536
+    in 16-bit) or none (65 536 f32, past 227 KB; 4097, whose vectors are
+    one element), every precision × bin mode inside the Σ bound × f32 /
+    bf16 / f16; bitwise."""
+    stages = set()
     for impl, (kernel, plain) in ROW_KERNELS.items():
-        tables = ops._tables_for(SoftmaxPolicy(impl=impl, precision="uint8"))
-        x = _row_logits(cols, 6, cols, torch.bfloat16)
-        assert torch.equal(kernel(x, tables), plain(x, tables))
+        for dtype in ROW_DTYPES:
+            x = _row_logits(cols, 5, cols, dtype)
+            for tables, mode in _row_cases(impl, cols):
+                plan = _row_plan(x, impl, tables)
+                assert plan.route == "cta" and plan.smem <= 232448
+                stages.add(plan.stages)
+                out = _check_rows(kernel, plain, x, tables, mode,
+                                  (impl, dtype, mode))
+                assert not out[0].any()
+    if cols in (16384, 65536):
+        assert stages == {16384: {2}, 65536: {0, 1}}[cols]
+
+
+@pytest.mark.parametrize("impl", ["rexp", "lut2d"])
+def test_row_softmax_misaligned_inputs(cuda, impl):
+    """Views whose rows start off a 16-byte boundary: ``x[1:]`` of a bf16
+    (rows, 1500) tensor (8-byte aligned: vectors of 4) and flat views
+    shifted by one element (vectors of 1), on both routes; bitwise."""
+    kernel, plain = ROW_KERNELS[impl]
+    tables = ops._tables_for(SoftmaxPolicy(impl=impl, precision="uint8"))
+    x = _row_logits(11, 9, 1500, torch.bfloat16)[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 == 8
+    assert _row_plan(x, impl, tables).vec == 4
+    _check_rows(kernel, plain, x, tables, "round", "x[1:]")
+    for dtype in ROW_DTYPES:
+        for rows, cols in ((6, 1500), (6, 2048), (3, 16384)):
+            flat = _row_logits(cols, rows + 1, cols, dtype).reshape(-1)
+            x = flat[1:1 + rows * cols].view(rows, cols)
+            plan = _row_plan(x, impl, tables)
+            assert plan.vec == 1 and plan.stages == 0
+            _check_rows(kernel, plain, x, tables, "round", (dtype, cols))
+
+
+@pytest.mark.parametrize("impl", ["rexp", "lut2d"])
+def test_row_softmax_row_counts(cuda, impl):
+    """A single row, and more rows than the persistent grid holds in one
+    pass (each CTA walks several rows), on both routes; bitwise."""
+    kernel, plain = ROW_KERNELS[impl]
+    tables = ops._tables_for(SoftmaxPolicy(impl=impl, precision="uint8"))
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, cols in ((1, 300), (1, 1500), (1, 16384), (9000, 300),
+                           (5000, 1500), (700, 16384)):
+            x = _row_logits(rows, rows + 3, cols, dtype)[3:]  # finite rows
+            plan = _row_plan(x, impl, tables)
+            per_cta = plan.threads // 32 if plan.route == "warp" else 1
+            if rows > 1:
+                assert rows > plan.grid * per_cta
+            _check_rows(kernel, plain, x, tables, "round", (rows, cols))
 
 
 def test_row_softmax_op_on_cuda(cuda):

@@ -194,3 +194,58 @@ def test_refs_and_stages(index_mode):
     np.testing.assert_array_equal(      # finite/−inf rows: kernel == core
         _bits(tker.rexp_softmax_plain(xt, tr, index_mode).numpy()),
         _bits(JS.softmax_rexp(xj, jr, index_mode=index_mode)))
+
+
+ROW_COLS = [1, 7, 8, 300, 1500, 1501, 2048, 4097, 16384, 65536]
+
+
+@pytest.mark.parametrize("esize", [4, 2], ids=["f32", "16-bit"])
+@pytest.mark.parametrize("cols", ROW_COLS)
+def test_row_plan_fits_alignment_and_shared_memory(cols, esize):
+    """The CUDA kernel's launch plan (``row_plan``, computed on the host):
+    over input pointers shifted by 0–8 elements or by one row (``x[1:]``)
+    and output pointers shifted by 0–3 floats, the vector it picks is the
+    widest of 8, 4 and 1 elements whose loads divide the input's row
+    alignment and whose f32 stores divide the output's (a misaligned
+    vector access faults on the card); the warp route's register bucket
+    holds the row; a row staged by a bulk copy is 16-byte aligned; the
+    shared memory stays within 227 KB and holds the tables and the row
+    buffers (a warp's next row, or the cta route's staged rows)."""
+    base = 1 << 20
+
+    def fits(v, x_ptr, out_ptr):
+        store = min(16, 4 * v)
+        return (v * esize <= 16 and cols % v == 0
+                and x_ptr % (v * esize) == 0 and out_ptr % store == 0
+                and (cols * esize) % (v * esize) == 0
+                and (cols * 4) % store == 0)
+
+    for n_main, n_aux in ((8, 16), (101, 11 * 60)):
+        for rows in (1, 72000):
+            for x_off in [*range(9), cols]:
+                for out_off in range(4):
+                    x_ptr, out_ptr = base + x_off * esize, base + out_off * 4
+                    plan = tker.row_plan(rows, cols, esize, x_ptr, out_ptr,
+                                         132, n_main, n_aux)
+                    assert fits(plan.vec, x_ptr, out_ptr), plan
+                    assert not any(fits(v, x_ptr, out_ptr) for v in (8, 4)
+                                   if v > plan.vec), plan
+                    tables = tker.table_bytes(n_main, n_aux)
+                    assert tables <= plan.smem <= tker.SMEM_LIMIT
+                    assert plan.grid >= 1 and plan.threads % 32 == 0
+                    if plan.route == "warp":
+                        stage = (-(-cols * esize // 16) * 16
+                                 if esize == 2 and plan.vec * esize >= 4
+                                 else 0)
+                        assert plan.smem >= (tables + plan.threads // 32
+                                             * stage)
+                        assert cols <= 32 * plan.per_lane
+                        assert plan.per_lane % plan.vec == 0
+                        assert plan.grid <= -(-rows // (plan.threads // 32))
+                    else:
+                        assert plan.route == "cta" and cols > 2048
+                        assert plan.grid <= rows
+                        if plan.stages:
+                            assert plan.vec * esize == 16
+                            assert (plan.smem >= plan.stages * cols * esize
+                                    + tables)
