@@ -66,6 +66,23 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    (``serve_loop.generate``, each request alone at B = 1 over
    contiguous fake-quantized caches, on the plain attention:
    ``attention_backend="naive"``) within 2%;
+5b. pipelined engine and streaming server — the same model, requests,
+   REXP uint8 and bf16 weights through ``PipelinedEngine`` (on-device
+   sampling, one-step-ahead dispatch): at depths 1, 2 and 4 on the bf16
+   pool and at depth 2 on the int8 pool every request's 32 greedy tokens
+   must equal the synchronous engine's on the same pool, with the same
+   paged launches (480 / 376); at temperature 0.8 the device's Gumbel-max
+   draws must equal the synchronous engine's host-side ``sample_row``;
+   a greedy and the sampled drive run every ``_dispatch`` under
+   ``torch.cuda.set_sync_debug_mode("error")``, and every step hands
+   the harvest ``(n_slots,)`` or ``(1,)`` int32 tokens; tok/s, mean TTFT,
+   host ms a dispatch and harvest wait a step for sync, depths 1, 2, 4
+   and sync again, and one profiled depth-2 drive's busy share beside the
+   sync drive's (also its device time over the unprofiled drive's wall);
+   then the 8 requests submitted concurrently through
+   ``AsyncServingServer`` over a depth-2 engine (``max_queue=4``,
+   ``backpressure="wait"``), consumed with ``async for``: every stream
+   must equal its batch result (lines ``[pipelined]`` and ``[server]``);
 6. the dense LUT-attention kernel against its plain version, in its
    three modes (REXP's fused α form, REXP's and 2D-LUT's faithful σ),
    q/k/v in f32 and bf16, at Whisper-small's shapes: the encoder
@@ -149,6 +166,7 @@ eight cases under ``cases``, each with its bound, route and
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import json
 import subprocess
@@ -190,10 +208,11 @@ from repro_torch.models import layers as LAYERS  # noqa: E402
 from repro_torch.models import encdec as ENCDEC  # noqa: E402
 from repro_torch.models.convert import cast_params, tree_map  # noqa: E402
 from repro_torch.runtime.engine import (EngineConfig,  # noqa: E402
-                                        ServingEngine)
+                                        PipelinedEngine, ServingEngine)
 from repro_torch.runtime.paged_cache import PagedCacheConfig  # noqa: E402
 from repro_torch.runtime.serve_loop import (generate,  # noqa: E402
                                             make_prefill_step)
+from repro_torch.runtime.server import AsyncServingServer  # noqa: E402
 
 #: H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
 #: the operation rate for each input type (bf16 tensor cores; f32
@@ -750,13 +769,63 @@ def phase_kernels(int8=False):
     return results
 
 
+def engine_config(depth=2):
+    return EngineConfig(n_slots=N_SLOTS, prefill_chunk=CHUNK,
+                        pipeline_depth=depth,
+                        cache=PagedCacheConfig(n_pages=128, page_size=PS,
+                                               max_pages_per_seq=MP))
+
+
+def watch_pipelined(eng, dispatch_s, guard_sync=False):
+    """Instrument a ``PipelinedEngine``: each ``_dispatch``'s host seconds
+    go to ``dispatch_s``; every step it hands to the harvest must be an
+    ``(n_slots,)`` (decode) or ``(1,)`` (final chunk) int32 tensor on the
+    card, copied into a pinned host tensor of the same shape.  With
+    ``guard_sync`` every ``_dispatch`` runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a blocking copy,
+    ``.item()``, ``.cpu()`` or a pageable host-to-device copy inside it
+    raises; the mode is restored after each."""
+    dispatch, push = eng._dispatch, eng._push_inflight
+
+    def timed():
+        t0 = time.perf_counter()
+        prev = torch.cuda.get_sync_debug_mode()
+        if guard_sync:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+            dispatch_s.append(time.perf_counter() - t0)
+
+    def checked(toks, entries, kind):
+        want = (N_SLOTS,) if kind == "decode" else (1,)
+        push(toks, entries, kind)
+        host = eng._inflight[-1].tokens
+        if not (tuple(toks.shape) == want == tuple(host.shape)
+                and toks.dtype == host.dtype == torch.int32 and toks.is_cuda
+                and host.is_pinned()):
+            raise AssertionError(f"{kind} step handed the harvest "
+                                 f"{tuple(toks.shape)} {toks.dtype} on "
+                                 f"{toks.device}, not {want} int32 tokens")
+
+    eng._dispatch, eng._push_inflight = timed, checked
+
+
 def run_engine(model, params, policy, backend, requests, shadow=None,
-               around=None, kv_dtype="f32"):
+               around=None, kv_dtype="f32", depth=None, temperature=0.0,
+               guard_sync=False):
     """Serve ``requests`` through a fresh bf16 engine whose pool is
     ``kv_dtype``; returns the results, each request's first-token
-    logits, the kernels' launches during the drive, its wall seconds and
-    the engine's stats.  ``around`` is a context manager entered around
-    the drive only (a profiler).
+    logits, the kernels' launches during the drive, its wall seconds,
+    the engine's stats and the host seconds of each dispatch.
+    ``around`` is a context manager entered around the drive only (a
+    profiler).  Request r samples at ``temperature`` with seed r.
+
+    ``depth`` serves through a ``PipelinedEngine`` of that pipeline depth
+    instead of the synchronous ``ServingEngine``, watched by
+    :func:`watch_pipelined` (which ``guard_sync`` passes on); its
+    first-token logits never reach the host, so none are recorded.
 
     ``shadow`` (a list) makes every paged-attention call of the engine
     also run the plain version (``backend="dense"``) on the same inputs,
@@ -765,10 +834,14 @@ def run_engine(model, params, policy, backend, requests, shadow=None,
     """
     run = RunConfig(dtype="bfloat16", softmax_policy=policy,
                     paged_backend=backend, kv_dtype=kv_dtype)
-    eng = ServingEngine(model, params, run, EngineConfig(
-        n_slots=N_SLOTS, prefill_chunk=CHUNK,
-        cache=PagedCacheConfig(n_pages=128, page_size=PS,
-                               max_pages_per_seq=MP)), device="cuda")
+    dispatch_s = []
+    if depth is None:
+        eng = ServingEngine(model, params, run, engine_config(),
+                            device="cuda")
+    else:
+        eng = PipelinedEngine(model, params, run, engine_config(depth),
+                              device="cuda")
+        watch_pipelined(eng, dispatch_s, guard_sync)
     first_logits = {}
     sample = eng._sample
 
@@ -801,8 +874,8 @@ def run_engine(model, params, policy, backend, requests, shadow=None,
         LAYERS.lut_attention_paged_prefill = shadowed(
             ops.lut_attention_paged_prefill)
     try:
-        for prompt, n_new in requests:
-            eng.add_request(prompt, n_new)
+        for rid, (prompt, n_new) in enumerate(requests):
+            eng.add_request(prompt, n_new, temperature=temperature, seed=rid)
         torch.cuda.synchronize()
         for wrapper in (paged_decode_attention, paged_prefill_attention):
             wrapper.launches = wrapper.int8_launches = 0
@@ -825,14 +898,24 @@ def run_engine(model, params, policy, backend, requests, shadow=None,
     ttft = np.mean([r.ttft_s for r in results.values()])
     name = (policy.impl if policy.impl == "exact"
             else f"{policy.impl}-{policy.precision}")
-    print(f"[engine] {name} kv_dtype={kv_dtype} paged_backend={backend}"
+    st = eng.stats
+    kind = ("[engine]" if depth is None else
+            f"[pipelined] depth {depth}{' (sync-guarded)' * guard_sync}")
+    temp = f" temperature {temperature}" if temperature > 0 else ""
+    harvests = st.steps + st.prefills
+    extra = ("" if depth is None else
+             f", host {np.mean(dispatch_s) * 1e3:.3f} ms a dispatch "
+             f"({len(dispatch_s)}), harvest wait "
+             f"{st.harvest_wait_s / harvests * 1e3:.3f} ms a step "
+             f"({harvests}), {st.inflight_peak} steps in flight at most")
+    print(f"{kind} {name}{temp} kv_dtype={kv_dtype} paged_backend={backend}"
           f"{' (shadowed)' if shadow is not None else ''}: {len(results)} "
-          f"requests, {eng.stats.tokens} tokens in {wall:.2f}s "
-          f"({eng.stats.tokens / wall:.1f} tok/s), mean TTFT {ttft:.3f}s, "
-          f"{eng.stats.steps} decode steps, {eng.stats.prefill_steps} "
-          f"prefill chunks, {eng.stats.preemptions} preemptions, kernel "
+          f"requests, {st.tokens} tokens in {wall:.2f}s "
+          f"({st.tokens / wall:.1f} tok/s), mean TTFT {ttft:.3f}s, "
+          f"{st.steps} decode steps, {st.prefill_steps} "
+          f"prefill chunks, {st.preemptions} preemptions{extra}, kernel "
           f"launches {launches}")
-    return results, first_logits, launches, wall, eng.stats
+    return results, first_logits, launches, wall, st, dispatch_s
 
 
 def profiler_runs() -> bool:
@@ -849,18 +932,20 @@ def profiler_runs() -> bool:
     return True
 
 
-def profile_drive(model, params, requests, kv_dtype="f32"):
+def profile_drive(model, params, requests, kv_dtype="f32", depth=None):
     """Where the main path's device time goes: torch.profiler's kernel
-    times over one drive, grouped, and the device's busy share of the
-    drive's wall time (the profiler's own cost lengthens the wall time,
-    so the share is a lower bound).  Prints "not measured" when the
-    profiler records no device time."""
+    times over one drive (through a ``PipelinedEngine`` of ``depth`` if
+    given), grouped, and the device's busy share of the drive's wall
+    time (the profiler's own cost lengthens the wall time, so the share
+    is a lower bound).  Prints "not measured" when the profiler records
+    no device time."""
     from torch.profiler import ProfilerActivity, profile
     if not profiler_runs():
-        return
+        return None
     prof = profile(activities=[ProfilerActivity.CUDA])
     wall = run_engine(model, params, POLICIES[MAIN_POLICY], "auto",
-                      requests, around=prof, kv_dtype=kv_dtype)[3]
+                      requests, around=prof, kv_dtype=kv_dtype,
+                      depth=depth)[3]
     kernels = []
     for e in prof.key_averages():
         us = (getattr(e, "self_device_time_total", None)
@@ -869,7 +954,7 @@ def profile_drive(model, params, requests, kv_dtype="f32"):
             kernels.append((us, e.count, e.key))
     if not kernels:
         print("[profile] the profiler recorded no device time: not measured")
-        return
+        return None
     busy = sum(us for us, _, _ in kernels) / 1e6
     groups = {"paged attention kernels": ("paged_attention_kernel",),
               "matmuls": ("gemm", "gemv", "nvjet", "cutlass", "xmma",
@@ -878,7 +963,9 @@ def profile_drive(model, params, requests, kv_dtype="f32"):
                      if any(n in k for n in names)) / 1e6
               for g, names in groups.items()}
     shares["everything else"] = busy - sum(shares.values())
-    print(f"[profile] {MAIN_POLICY} kv_dtype={kv_dtype} drive, profiled: "
+    engine = "sync" if depth is None else f"pipelined depth {depth}"
+    print(f"[profile] {MAIN_POLICY} kv_dtype={kv_dtype} {engine} drive, "
+          f"profiled: "
           f"device busy "
           f"{busy * 1e3:.1f} ms of {wall * 1e3:.1f} ms wall "
           f"({busy / wall:.1%}); "
@@ -886,6 +973,7 @@ def profile_drive(model, params, requests, kv_dtype="f32"):
                       for g, t in shares.items()))
     for us, count, key in sorted(kernels, reverse=True)[:8]:
         print(f"[profile]   {us / 1e3:8.2f} ms  {count:5d} calls  {key[:90]}")
+    return busy, wall
 
 
 def compare_runs(label, a, b):
@@ -956,7 +1044,7 @@ def phase_engine(model, params, requests):
     if not (launches["paged_decode"] > 0 and launches["paged_prefill"] > 0):
         raise AssertionError(f"main path skipped a kernel: {launches}")
 
-    profile_drive(model, params, requests)
+    busy = profile_drive(model, params, requests)
     shadow = []
     run_engine(model, params, main, "auto", requests, shadow=shadow)
     check_shadow(shadow, "main path")
@@ -974,7 +1062,7 @@ def phase_engine(model, params, requests):
     if not worst <= 0.02:
         raise AssertionError(f"exact-policy first-token logits differ by "
                              f"{worst:.3g} > 0.02")
-    return launches, main_run[4]
+    return launches, main_run[4], busy
 
 
 def lockstep_first_logits(model, params, policy, requests):
@@ -1048,6 +1136,157 @@ def phase_int8_engine(model, params, requests, bf16_stats):
         raise AssertionError(f"int8 engine vs int8 lockstep first-token "
                              f"logits differ by {worst:.3g} > 0.02")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the pipelined engine and the streaming server
+# ---------------------------------------------------------------------------
+
+
+def same_as_sync(label, got, ref):
+    """Every request's tokens and the drive's kernel launches equal the
+    synchronous drive's; prints how many tokens agree."""
+    agree = sum(int((got[0][r].tokens == ref[0][r].tokens).sum())
+                for r in ref[0])
+    total = sum(len(res.tokens) for res in ref[0].values())
+    print(f"[pipelined] {label}: {agree} of {total} tokens equal the "
+          f"synchronous engine's; launches {got[2]} against {ref[2]}")
+    bad = [r for r in ref[0] if not np.array_equal(got[0][r].tokens,
+                                                   ref[0][r].tokens)]
+    if bad or got[2] != ref[2]:
+        raise AssertionError(f"{label}: requests {bad} differ from the "
+                             f"synchronous engine, or launches {got[2]} "
+                             f"!= {ref[2]}")
+
+
+def serve_streams(model, params, requests, card):
+    """The 8 requests submitted concurrently through an
+    ``AsyncServingServer`` over a depth-2 ``PipelinedEngine`` (bf16
+    pool), ``max_queue=4``, ``backpressure="wait"``, each consumed with
+    ``async for``; returns (streamed tokens, result, seconds from submit
+    to first streamed token) per request and the drive's launches."""
+    eng = PipelinedEngine(model, params, RunConfig(
+        dtype="bfloat16", softmax_policy=POLICIES[MAIN_POLICY],
+        paged_backend="auto"), engine_config(2), device="cuda")
+
+    async def go():
+        async with AsyncServingServer(eng, max_queue=4,
+                                      backpressure="wait") as srv:
+            async def one(prompt, n_new):
+                t0 = time.perf_counter()
+                stream = await srv.submit(prompt, n_new)
+                toks, first = [], None
+                async for tok in stream:
+                    if first is None:
+                        first = time.perf_counter() - t0
+                    toks.append(tok)
+                return toks, await stream.result(), first
+
+            return await asyncio.wait_for(asyncio.gather(
+                *[one(p, n) for p, n in requests]), 300)
+
+    torch.cuda.synchronize()
+    for wrapper in (paged_decode_attention, paged_prefill_attention):
+        wrapper.launches = wrapper.int8_launches = 0
+    t0 = time.perf_counter()
+    outs = asyncio.run(go())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_decode": paged_decode_attention.launches,
+                "paged_prefill": paged_prefill_attention.launches}
+    firsts = [f for _, _, f in outs]
+    n_tok = sum(len(t) for t, _, _ in outs)
+    print(f"[server] AsyncServingServer over PipelinedEngine depth 2, "
+          f"max_queue 4, backpressure wait: {len(outs)} streams, {n_tok} "
+          f"tokens in {wall:.2f}s ({n_tok / wall:.1f} tok/s), submit to "
+          f"first streamed token mean {np.mean(firsts):.3f}s, max "
+          f"{max(firsts):.3f}s; {eng.stats.steps} decode steps, launches "
+          f"{launches} — {card}")
+    if not (launches["paged_decode"] > 0 and launches["paged_prefill"] > 0):
+        raise AssertionError(f"server drive skipped a kernel: {launches}")
+    return outs
+
+
+def phase_pipelined(model, params, requests, card, sync_busy):
+    """Phase 5b: the pipelined engine (on-device sampling, one-step-ahead
+    dispatch) against the synchronous engine on the same requests, then
+    the streaming server over it.
+
+    The shapes are fixed ((n_slots, 1) decode, (1, chunk) prefill) and the
+    kernels the same, so the greedy tokens must equal the sync engine's
+    bit for bit — at depths 1, 2 and 4 on the bf16 pool and at depth 2 on
+    the int8 pool — with the same paged launches (the drive has no EOS,
+    so nothing is speculated away).  At temperature 0.8 the device's
+    Gumbel-max draws must equal the sync engine's host-side
+    ``sample_row`` draws of the same hash.  Two drives (one greedy, the
+    sampled one) run every ``_dispatch`` under
+    ``set_sync_debug_mode("error")``.  Then the
+    times: sync, depths 1, 2 and 4, sync again; and one profiled depth-2
+    drive's busy share beside the sync drive's.  The server's streams
+    must equal the batch results.
+    """
+    main = POLICIES[MAIN_POLICY]
+    timed = [("sync", run_engine(model, params, main, "auto", requests))]
+    sync = timed[0][1]
+    for depth in (1, 2, 4):
+        got = run_engine(model, params, main, "auto", requests, depth=depth)
+        same_as_sync(f"depth {depth}, bf16 pool", got, sync)
+        timed.append((f"depth {depth}", got))
+    timed.append(("sync", run_engine(model, params, main, "auto",
+                                     requests)))
+    same_as_sync("sync again, bf16 pool", timed[-1][1], sync)
+    for label, r in timed:
+        st = r[4]
+        per = (f", host {np.mean(r[5]) * 1e3:.3f} ms a dispatch, harvest "
+               f"wait {st.harvest_wait_s / (st.steps + st.prefills) * 1e3:.3f}"
+               f" ms a step" if r[5] else
+               f", {r[3] / (st.steps + st.prefill_steps) * 1e3:.3f} ms a "
+               f"step (decode or chunk)")
+        print(f"[pipelined] {label:8s} {st.tokens / r[3]:7.1f} tok/s, mean "
+              f"TTFT {np.mean([x.ttft_s for x in r[0].values()]):.3f}s"
+              f"{per} — {card}")
+
+    sync8 = run_engine(model, params, main, "auto", requests,
+                       kv_dtype="int8")
+    same_as_sync("depth 2, int8 pool", run_engine(
+        model, params, main, "auto", requests, kv_dtype="int8", depth=2),
+        sync8)
+    hot = run_engine(model, params, main, "auto", requests, temperature=0.8)
+    same_as_sync("temperature 0.8, depth 2, bf16 pool, every dispatch "
+                 "under set_sync_debug_mode('error')", run_engine(
+                     model, params, main, "auto", requests, depth=2,
+                     temperature=0.8, guard_sync=True), hot)
+    moved = sum(int((hot[0][r].tokens != sync[0][r].tokens).sum())
+                for r in sync[0])
+    print(f"[pipelined] temperature 0.8: {moved} of {hot[4].tokens} tokens "
+          f"differ from the greedy drive's")
+    if not moved:
+        raise AssertionError("sampling at temperature 0.8 never left the "
+                             "argmax")
+    same_as_sync("every dispatch under set_sync_debug_mode('error'), depth "
+                 "2", run_engine(model, params, main, "auto", requests,
+                                 depth=2, guard_sync=True), sync)
+
+    busy = profile_drive(model, params, requests, depth=2)
+    sync_wall = np.mean([r[3] for label, r in timed if label == "sync"])
+    depth2_wall = dict(timed)["depth 2"][3]
+
+    def share(b, wall):
+        if b is None:
+            return "not measured"
+        return (f"{b[0] / b[1]:.1%} of the profiled drive, its "
+                f"{b[0] * 1e3:.1f} ms of device time over the unprofiled "
+                f"drive's "
+                f"{wall * 1e3:.1f} ms wall {b[0] / wall:.1%}")
+    print(f"[pipelined] device busy: sync {share(sync_busy, sync_wall)}; "
+          f"pipelined depth 2 {share(busy, depth2_wall)} — {card}")
+
+    outs = serve_streams(model, params, requests, card)
+    for rid, (toks, res, _) in enumerate(outs):
+        if not (toks == res.tokens.tolist() == sync[0][rid].tokens.tolist()):
+            raise AssertionError(f"server stream {rid} differs from the "
+                                 f"batch result")
+    print("[server] every stream equals its batch result")
 
 
 # ---------------------------------------------------------------------------
@@ -1459,7 +1698,7 @@ def whisper_profile(model, params, frames, prompt, run):
             kernels.append((us, e.count, e.key))
     if not kernels:
         print("[profile] the profiler recorded no device time: not measured")
-        return
+        return None
     busy = sum(us for us, _, _ in kernels) / 1e6
     dense = sum(us for us, _, k in kernels
                 if any(name in k for name in DENSE_KERNEL_NAMES)) / 1e6
@@ -1483,6 +1722,7 @@ def whisper_profile(model, params, frames, prompt, run):
           f"at a trace's edge)")
     for us, count, key in sorted(kernels, reverse=True)[:8]:
         print(f"[profile]   {us / 1e3:8.2f} ms  {count:5d} calls  {key[:90]}")
+    return busy, wall
 
 
 def first_token_logits(model, params, frames, prompt, run):
@@ -1969,10 +2209,11 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     model, params, requests = setup_model()
-    launches, bf16_stats = phase_engine(model, params, requests)
+    launches, bf16_stats, sync_busy = phase_engine(model, params, requests)
     kernels.update(phase_kernels(int8=True))
     launches.update({k: v for k, v in phase_int8_engine(
         model, params, requests, bf16_stats).items() if k.endswith("int8")})
+    phase_pipelined(model, params, requests, card, sync_busy)
     del model, params
     torch.cuda.empty_cache()
     kernels["lut_attention"] = phase_dense_kernel()

@@ -3,14 +3,29 @@
 Random-initializes an attention-only dense arch or Whisper-small
 (seeded ``torch.Generator``; depth cut by ``--layers``, widths
 optionally cut by ``--scale-down``) and serves ``--batch`` requests,
-two ways:
+three ways:
 
 * ``--engine continuous`` (default) — the paged ``ServingEngine``,
-  requests of mixed prompt lengths sharing the decode batch;
+  requests of mixed prompt lengths sharing the decode batch, sampled on
+  the host;
+* ``--engine pipelined`` — the paged ``PipelinedEngine``: the same
+  tokens, sampled on the device, with up to ``--pipeline-depth`` steps in
+  flight so the host plans the next step while the card runs this one;
 * ``--engine lockstep`` — ``serve_loop.generate`` over contiguous
   caches, every request one prompt length, finishing together.
 
-The engine serves decoder-only LMs: an encoder-decoder
+``--serve`` drives either paged engine through the asyncio streaming
+front end (``runtime/server.py``): the requests are submitted
+concurrently and consumed token by token, with admission bounded by
+``--max-queue`` (``--backpressure reject`` sheds a request past it,
+``wait`` parks its submitter); then the server shuts down.  The tokens
+are the batch path's.  ``--temperature`` samples every request (request
+b with seed ``--seed`` + b); ``--prefill-budget`` sets the prompt tokens
+prefilled a step; ``--prefix-cache`` shares full-page prompt prefixes
+copy-on-write: every prompt then starts with one shared preamble, and
+the batch runs as two waves, the second mapping the first's pages in.
+
+The engines serve decoder-only LMs: an encoder-decoder
 (``--arch whisper-small``) falls back to lockstep, as in the JAX
 package, with seeded random stub frames ``(batch, encoder_seq,
 d_model)`` from ``--seed`` as its audio.
@@ -34,6 +49,9 @@ LUT-attention kernel (``auto`` | ``cuda`` | ``naive``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \\
       --layers 4 --softmax rexp --precision uint8 --batch 4 \\
       --prompt-len 64 --new-tokens 32 --kv-dtype int8 --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \\
+      --scale-down 64,4,128 --layers 2 --device cpu --engine pipelined \\
+      --serve --max-queue 2 --backpressure wait
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
       --scale-down 64,4,128 --device cpu
 """
@@ -41,6 +59,7 @@ LUT-attention kernel (``auto`` | ``cuda`` | ``naive``).
 from __future__ import annotations
 
 import argparse
+import asyncio
 import time
 
 import numpy as np
@@ -54,9 +73,44 @@ from repro_torch.kernels.lut_attention.ops import (
 from repro_torch.models import build_model
 from repro_torch.models.convert import cast_params
 from repro_torch.models.model_zoo import resolve_device
-from repro_torch.runtime.engine import EngineConfig, ServingEngine
+from repro_torch.runtime.engine import (EngineConfig, PipelinedEngine,
+                                        ServingEngine)
 from repro_torch.runtime.paged_cache import KV_DTYPES, PagedCacheConfig
 from repro_torch.runtime.serve_loop import generate
+from repro_torch.runtime.server import AsyncServingServer, ServerSaturatedError
+
+
+async def serve_waves(eng, waves, max_queue, backpressure):
+    """Stream every request of each wave through an
+    :class:`AsyncServingServer` over ``eng``, the wave's requests
+    concurrently; returns the results by request id (a request shed by
+    ``backpressure="reject"`` has none)."""
+    results = {}
+    async with AsyncServingServer(eng, max_queue=max_queue,
+                                  backpressure=backpressure) as srv:
+
+        async def one(i, req):
+            try:
+                stream = await srv.submit(**req)
+            except ServerSaturatedError as err:
+                print(f"request {i}: shed ({err})")
+                return None
+            n = 0
+            async for _tok in stream:
+                n += 1
+            res = await stream.result()
+            print(f"request {res.request_id}: streamed {n} tokens (ttft "
+                  f"{res.ttft_s:.3f}s, finish={res.finish_reason})")
+            return res
+
+        first = 0
+        for reqs in waves:
+            done = await asyncio.gather(*[one(first + i, r)
+                                          for i, r in enumerate(reqs)])
+            results.update({r.request_id: r for r in done if r is not None})
+            first += len(reqs)
+    print("server: clean shutdown")
+    return results
 
 
 def main(argv=None) -> None:
@@ -75,8 +129,23 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature of every request (0: greedy)")
     ap.add_argument("--engine", default="continuous",
-                    choices=["continuous", "lockstep"])
+                    choices=["continuous", "pipelined", "lockstep"])
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="pipelined engine: most device steps in flight "
+                         "before the host waits on a harvest")
+    ap.add_argument("--serve", action="store_true",
+                    help="drive the engine through the asyncio streaming "
+                         "front end instead of the batch path")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="--serve: admission bound on requests waiting "
+                         "for a slot (default: unbounded)")
+    ap.add_argument("--backpressure", default="reject",
+                    choices=["reject", "wait"],
+                    help="--serve: at --max-queue, shed new requests or "
+                         "make their submitters wait")
     ap.add_argument("--paged-backend", default="auto",
                     choices=["auto", "cuda", "dense"])
     ap.add_argument("--attention-backend", default="auto",
@@ -89,6 +158,12 @@ def main(argv=None) -> None:
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--n-pages", type=int, default=256)
     ap.add_argument("--prefill-chunk", type=int, default=16)
+    ap.add_argument("--prefill-budget", type=int, default=None,
+                    help="prompt tokens prefilled per engine step "
+                         "(default: one chunk)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share full-page prompt prefixes across requests "
+                         "(refcounted pages, copy-on-write)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -115,10 +190,16 @@ def main(argv=None) -> None:
         params = cast_params(params, torch.bfloat16)
     rng = np.random.default_rng(args.seed)
     engine = args.engine
-    if engine == "continuous" and model.is_encdec:
-        print("the continuous engine serves decoder-only LMs; falling back "
-              "to lockstep")
+    if engine != "lockstep" and model.is_encdec:
+        print(f"the {engine} engine serves decoder-only LMs; falling back "
+              f"to lockstep")
         engine = "lockstep"
+    if engine == "lockstep" and args.serve:
+        ap.error("--serve requires the continuous or pipelined engine (the "
+                 "lockstep path has no scheduler to stream from)")
+    if engine == "lockstep" and args.prefix_cache:
+        ap.error("--prefix-cache requires the continuous or pipelined "
+                 "engine (the lockstep path has no page pool to share)")
     if engine == "lockstep":
         prompt = torch.as_tensor(
             rng.integers(0, arch.vocab_size, size=(args.batch,
@@ -132,7 +213,8 @@ def main(argv=None) -> None:
                 device=device)
         t0 = time.time()
         out = generate(model, params, prompt, run,
-                       max_new_tokens=args.new_tokens, encoder_input=frames)
+                       max_new_tokens=args.new_tokens, encoder_input=frames,
+                       temperature=args.temperature, seed=args.seed)
         if device.type == "cuda":
             torch.cuda.synchronize()
         dt = time.time() - t0
@@ -150,37 +232,72 @@ def main(argv=None) -> None:
     mp = -(-(args.prompt_len + args.new_tokens) // args.page_size)
     cache = PagedCacheConfig(n_pages=args.n_pages, page_size=args.page_size,
                              max_pages_per_seq=mp)
-    eng = ServingEngine(model, params, run, EngineConfig(
-        n_slots=args.batch, cache=cache, prefill_chunk=args.prefill_chunk),
-        device=device)
+    engine_cls = PipelinedEngine if engine == "pipelined" else ServingEngine
+    eng = engine_cls(model, params, run, EngineConfig(
+        n_slots=args.batch, cache=cache, prefill_chunk=args.prefill_chunk,
+        prefill_budget=args.prefill_budget, prefix_cache=args.prefix_cache,
+        pipeline_depth=args.pipeline_depth), device=device)
     tokens_in_pool = args.n_pages * args.page_size
     print(f"kv_dtype={args.kv_dtype}: {eng.stats.pool_bytes_per_layer} KV "
           f"pool bytes per layer, "
           f"{eng.stats.pool_bytes_per_layer / tokens_in_pool:g} per token")
 
-    handles = []
-    for _ in range(args.batch):
-        plen = max(1, int(rng.integers(args.prompt_len // 2,
-                                       args.prompt_len + 1)))
-        handles.append(eng.add_request(
-            rng.integers(0, arch.vocab_size, size=plen), args.new_tokens))
+    # with the prefix cache every prompt starts with one shared preamble,
+    # and the batch runs as two waves: the first writes the preamble's
+    # pages, the second (admitted after they are published) maps them in
+    preamble = (rng.integers(0, arch.vocab_size, size=args.prompt_len // 2)
+                if args.prefix_cache else None)
+
+    def wave(w):
+        reqs = []
+        for b in range(args.batch):
+            plen = max(1, int(rng.integers(args.prompt_len // 2,
+                                           args.prompt_len + 1)))
+            prompt = rng.integers(0, arch.vocab_size, size=plen)
+            if preamble is not None:
+                prompt = np.concatenate([preamble, prompt])[
+                    :cache.max_context - args.new_tokens]
+            reqs.append(dict(prompt=prompt, max_new_tokens=args.new_tokens,
+                             temperature=args.temperature,
+                             seed=args.seed + w * args.batch + b))
+        return reqs
+
+    waves = [wave(0)] + ([wave(1)] if args.prefix_cache else [])
     t0 = time.time()
-    results = {int(h): h.result() for h in handles}
+    if args.serve:
+        results = asyncio.run(serve_waves(eng, waves, args.max_queue,
+                                          args.backpressure))
+    else:
+        results = {}
+        for reqs in waves:
+            handles = [eng.add_request(**r) for r in reqs]
+            results.update({int(h): h.result() for h in handles})
+    if device.type == "cuda":
+        torch.cuda.synchronize()
     dt = time.time() - t0
     ttfts = [r.ttft_s for r in results.values() if r.ttft_s is not None]
     toks = eng.stats.tokens
+    st = eng.stats
+    pipelined = (f"; depth {eng.depth}, {st.inflight_peak} steps in flight "
+                 f"at most, {st.harvest_wait_s:.3f}s waiting on harvests, "
+                 f"{st.speculative_wasted} slot-steps rolled back"
+                 if isinstance(eng, PipelinedEngine) else "")
     print(f"{arch.name} x{arch.n_layers} layers on {device} "
-          f"policy={policy.impl}/{policy.precision} [decode attention: "
-          f"{resolve_paged_backend(args.paged_backend, device)}; prefill "
-          f"attention: "
+          f"policy={policy.impl}/{policy.precision} "
+          f"[{type(eng).__name__}{', streaming' * args.serve}; decode "
+          f"attention: {resolve_paged_backend(args.paged_backend, device)}; "
+          f"prefill attention: "
           f"{resolve_paged_prefill_backend(args.paged_backend, device)}]: "
           f"{toks} tokens in {dt:.2f}s ({toks / dt:.1f} tok/s incl. kernel "
-          f"build; {eng.stats.steps} decode steps, "
-          f"{eng.stats.prefill_steps} prefill chunks of "
-          f"{args.prefill_chunk}, {eng.stats.preemptions} preemptions, "
-          f"mean TTFT {np.mean(ttfts):.3f}s)")
-    print("sample token ids:", results[0].tokens[:16].tolist())
-
+          f"build; {st.steps} decode steps, {st.prefill_steps} prefill "
+          f"chunks of {args.prefill_chunk}, {st.preemptions} preemptions, "
+          f"mean TTFT {np.mean(ttfts):.3f}s{pipelined})")
+    if args.prefix_cache:
+        print(f"prefix cache: {st.prefix_hit_tokens} prompt tokens served "
+              f"from shared pages ({st.prompt_tokens} prefilled), "
+              f"{st.pages_shared} pages shared, {st.cow_copies} "
+              f"copy-on-write copies")
+    print("sample token ids:", results[min(results)].tokens[:16].tolist())
 
 if __name__ == "__main__":
     main()

@@ -16,28 +16,39 @@ card launches the CUDA paged-decode and paged-prefill kernels.
 
 The engine runs on ``device`` — ``cuda`` unless the caller passes
 ``device="cpu"`` (as the tests do); without a CUDA device a ``cuda``
-engine raises rather than carrying on on the CPU.  Sampling happens on
-the host: greedy is argmax; ``temperature > 0`` draws from a
-``torch.Generator`` seeded from ``(seed, position)``, so a sampled
-stream replays exactly but is not the JAX package's threefry stream.
+engine raises rather than carrying on on the CPU.
+
+Two engines share this machinery.  :class:`ServingEngine` copies each
+step's logits to the host and samples there, waiting for the step.
+:class:`PipelinedEngine` samples on the device and keeps up to
+``pipeline_depth`` steps in flight, so the host plans step N+1 while the
+card computes step N; only ``(n,)`` int32 tokens come back, through
+pinned non-blocking copies and CUDA events.  Both sample with
+``serve_loop.sample_tokens`` — greedy is the argmax; ``temperature > 0``
+takes a Gumbel-max draw keyed by ``(seed, position)`` — so they give the
+same tokens; a sampled stream replays exactly but is not the JAX
+package's threefry stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
 from typing import Callable, Sequence as SeqOf
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.models.convert import tree_map
 from repro_torch.models.model_zoo import Model, resolve_device
 from repro_torch.runtime.paged_cache import (KV_DTYPES, PagedCacheConfig,
                                              decode_view, prefill_chunk_view,
-                                             view_arrays)
-from repro_torch.runtime.scheduler import Request, Scheduler, Sequence
-from repro_torch.runtime.serve_loop import sample_row
+                                             to_device, view_arrays)
+from repro_torch.runtime.scheduler import (PENDING_TOKEN, Request, Scheduler,
+                                           SeqState, Sequence)
+from repro_torch.runtime.serve_loop import sample_row, sample_tokens
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +64,10 @@ class EngineConfig:
     #: pages in the run dtype, or ``int8`` pages with f32 row scales
     kv_dtype: str | None = None
     mesh: object = None              # tensor parallelism: not ported yet
+    #: :class:`PipelinedEngine` only — most device steps in flight before
+    #: the host waits on a harvest (2: plan step N+1 while step N runs;
+    #: 1: dispatch, harvest, dispatch, … with sampling still on-device)
+    pipeline_depth: int = 2
 
 
 class RequestHandle:
@@ -149,6 +164,10 @@ class EngineStats:
     queue_depth_peak: int = 0    # max waiting-queue depth observed
     pool_bytes_per_layer: int = 0  # KV pool bytes of one layer (pages
                                    # plus, for int8, the scales)
+    # pipelined-engine counters (all zero on the synchronous engine):
+    speculative_wasted: int = 0  # dispatched slot-steps rolled back at EOS
+    inflight_peak: int = 0       # max device steps simultaneously in flight
+    harvest_wait_s: float = 0.0  # host time blocked fetching step tokens
 
     @property
     def tokens(self) -> int:
@@ -387,7 +406,11 @@ class ServingEngine:
         if cb is None:
             return
         start = self._n_streamed.get(rid, 0)
-        emit = seq.generated[start:]
+        emit = []
+        for tok in seq.generated[start:]:
+            if tok == PENDING_TOKEN:
+                break  # dispatched but not yet harvested
+            emit.append(tok)
         # watermark BEFORE the callbacks: eviction replay regenerates
         # tokens [0, start) bit-identically, so they must not re-emit
         self._n_streamed[rid] = start + len(emit)
@@ -414,3 +437,240 @@ class ServingEngine:
         self._n_streamed.pop(rid, None)
         self._results[rid] = res
         return res
+
+
+@dataclasses.dataclass
+class _InflightStep:
+    """One dispatched-but-unharvested device step."""
+
+    #: (n_slots,) decode / (1,) final chunk, int32 — on a CUDA engine a
+    #: pinned host tensor that holds the tokens once ``ready`` has fired
+    tokens: torch.Tensor
+    #: (seq, index into ``tokens``, position in ``seq.generated`` this
+    #: token resolves, ``seq.n_evictions`` at dispatch) — the epoch lets
+    #: harvest drop tokens whose sequence was evicted after dispatch
+    #: (replay regenerates them bit-identically).
+    entries: list[tuple[Sequence, int, int, int]]
+    kind: str                    # 'decode' | 'chunk'
+    ready: object = None         # torch.cuda.Event after the copy (CUDA)
+
+
+class PipelinedEngine(ServingEngine):
+    """:class:`ServingEngine` with host scheduling overlapped onto device
+    compute.
+
+    Two changes, same token streams:
+
+    * **On-device sampling.**  The decode step and a prompt's final chunk
+      end in ``serve_loop.sample_tokens`` on the logits' device, so a
+      step returns ``(n,)`` int32 tokens, never ``(n_slots, 1, V)``
+      logits.  They come back through a pinned host tensor filled by a
+      ``non_blocking`` copy, with a CUDA event recorded after it; the
+      harvest waits on that event alone (``stats.harvest_wait_s``).
+    * **One-step-ahead dispatch.**  Up to ``config.pipeline_depth``
+      steps are in flight.  Step N+1 is planned and launched from step
+      N's unfetched tokens, which live in a device ``(n_slots,)``
+      last-token buffer: each decode's sampled tokens are the next
+      decode's input, and a final chunk writes its token into its slot.
+      The host marks speculated positions :data:`PENDING_TOKEN` and
+      resolves them at harvest.  Block tables, lengths and sampling
+      metadata go to the card by pinned non-blocking copies
+      (``paged_cache.to_device``), and every paged call's
+      ``max_kv_len`` comes from host counts, so a dispatch never waits
+      for the device.
+
+    The speculation rule: **length** finishes are known at dispatch and
+    retire the slot at once; **EOS** shows one harvest later, so a
+    sequence that hits EOS has dispatched at most one extra slot-step,
+    which harvest rolls back (``stats.speculative_wasted``).  Eviction
+    during speculation is handled by epoch tags: stale tokens are
+    dropped and replay regenerates them.  The pools are updated in place;
+    reusing a page across in-flight steps is safe because every kernel,
+    copy-on-write copy and scatter runs in order on one stream, so step
+    N+1's writes cannot overtake step N's reads.
+
+    On the CPU the same code runs with synchronous copies and no events.
+    """
+
+    def __init__(self, model: Model, params, run: RunConfig,
+                 config: EngineConfig | None = None, *, device="cuda"):
+        super().__init__(model, params, run, config, device=device)
+        if self.config.pipeline_depth < 1:
+            raise ValueError(
+                f"pipeline_depth {self.config.pipeline_depth} < 1")
+        self.depth = self.config.pipeline_depth
+        self._inflight: deque[_InflightStep] = deque()
+        self._token_buf = torch.zeros((self.n_slots,), dtype=torch.int32,
+                                      device=self.device)
+
+    # -- step loop ---------------------------------------------------------
+
+    def step(self) -> list[GenerationResult]:
+        """Harvest until under the in-flight cap, dispatch one step's
+        plan, and — when there was nothing to dispatch — drain one
+        in-flight step so the loop always makes progress."""
+        finished: list[Sequence] = []
+        while len(self._inflight) >= self.depth:
+            finished.extend(self._harvest())
+        if not self._dispatch() and self._inflight:
+            finished.extend(self._harvest())
+        self._sync_sched_stats()
+        return [self._record(seq) for seq in finished]
+
+    def has_work(self) -> bool:
+        return self.scheduler.has_work() or bool(self._inflight)
+
+    # -- dispatch (plan one step ahead) ------------------------------------
+
+    def _dispatch(self) -> bool:
+        """Plan and launch one engine step's device work (admission, COW
+        copies, budgeted prefill chunks, one decode batch) without
+        waiting for any of it.  False when there was nothing to do."""
+        dispatched = False
+        while self.scheduler.try_admit() is not None:
+            pass
+        self._run_pending_copies()
+        for seq, n in self.scheduler.plan_prefill(self.prefill_chunk,
+                                                  self.prefill_budget):
+            self._dispatch_chunk(seq, n)
+            dispatched = True
+        if self.scheduler.decode_slots():
+            self.scheduler.grow_for_decode()
+            decode = self.scheduler.decode_slots()  # eviction may shrink it
+            if decode:
+                self._dispatch_decode(decode)
+                dispatched = True
+        return dispatched
+
+    def _sample_meta(self, seeds, positions, temps):
+        """The sampling metadata on the device, by pinned copies."""
+        return (to_device(np.asarray(seeds, np.int64), self.device),
+                to_device(np.asarray(positions, np.int64), self.device),
+                to_device(np.asarray(temps, np.float64), self.device))
+
+    def _dispatch_chunk(self, seq: Sequence, n: int) -> None:
+        """Launch one prompt chunk; the final chunk samples the first
+        token on the device and joins the in-flight queue."""
+        host = prefill_chunk_view(seq, n, self.prefill_chunk, self.cache)
+        view = view_arrays(host, self.device)
+        logits = self.model.prefill_chunk_paged(
+            self.params, view.tokens, self.pools, view.block_tables,
+            view.cache_lens, view.chunk_lens, self.run_cfg,
+            max_kv_len=int(host.cache_lens[0]) + n)
+        self.stats.prefill_steps += 1
+        self.stats.prompt_tokens += n
+        if not self.scheduler.on_prefill_chunk(seq, n):
+            return
+        # prompt complete (→ RUNNING, owns a slot): the first token
+        # samples at position 0, even on re-admission after an eviction
+        req = seq.request
+        greedy = req.temperature <= 0.0
+        meta = ((None,) * 3 if greedy else
+                self._sample_meta([req.seed], [0], [req.temperature]))
+        toks = sample_tokens(logits, *meta, greedy=greedy)
+        self.stats.prefills += 1
+        self.stats.first_tokens += 1
+        self._token_buf[seq.slot] = toks[0]
+        self._push_inflight(toks, [(seq, 0, 0, seq.n_evictions)], "chunk")
+        self.scheduler.on_token_speculative(seq)
+
+    def _dispatch_decode(self, running: dict[int, Sequence]) -> None:
+        """Launch one batched decode step from the device-resident
+        last-token buffer."""
+        # the view is built BEFORE the speculative append: lengths count
+        # only tokens whose K/V the pool holds (plus the input token,
+        # written by this step) — exactly the sync math.  Its tokens
+        # column (PENDING_TOKEN after a speculated step) stays here.
+        host = decode_view(running, self.n_slots, self.cache)
+        seeds = [0] * self.n_slots
+        positions = [0] * self.n_slots
+        temps = [0.0] * self.n_slots
+        entries = []
+        for slot, seq in running.items():
+            req = seq.request
+            seeds[slot] = req.seed
+            positions[slot] = len(seq.generated)
+            temps[slot] = req.temperature
+            entries.append((seq, slot, len(seq.generated), seq.n_evictions))
+        greedy = all(t <= 0.0 for t in temps)
+        meta = ((None,) * 3 if greedy
+                else self._sample_meta(seeds, positions, temps))
+        logits = self.model.decode_step_paged(
+            self.params, self._token_buf[:, None], self.pools,
+            to_device(host.block_tables, self.device),
+            to_device(host.lengths, self.device), self.run_cfg,
+            max_kv_len=int(host.lengths.max()) + 1)
+        toks = sample_tokens(logits, *meta, greedy=greedy)
+        # the sampled batch IS the next step's input: empty slots get
+        # garbage tokens, but their rows are dead (null block table,
+        # zero length) and a re-admitted slot's final chunk overwrites
+        # its entry before the slot decodes again
+        self._token_buf = toks
+        self.stats.steps += 1
+        self.stats.decode_tokens += len(running)
+        self._push_inflight(toks, entries, "decode")
+        for seq in running.values():
+            self.scheduler.on_token_speculative(seq)
+
+    def _push_inflight(self, toks: torch.Tensor, entries, kind: str) -> None:
+        """Queue the copy of ``toks`` to the host and an event after it;
+        on the CPU the copy is made here (``toks`` may be the last-token
+        buffer, which a final chunk rewrites in place)."""
+        if toks.is_cuda:
+            host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+            host.copy_(toks, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        else:
+            host, ready = toks.clone(), None
+        self._inflight.append(_InflightStep(host, entries, kind, ready))
+        self.stats.inflight_peak = max(self.stats.inflight_peak,
+                                       len(self._inflight))
+
+    # -- harvest (resolve one step late) -----------------------------------
+
+    def _harvest(self) -> list[Sequence]:
+        """Wait for the oldest in-flight step's tokens and resolve them.
+
+        Returns sequences that finished AND have no pending positions
+        left (ready to record)."""
+        rec = self._inflight.popleft()
+        t0 = time.time()
+        if rec.ready is not None:
+            rec.ready.synchronize()  # the one wait: this step's (n,) tokens
+        host = rec.tokens.numpy()
+        now = time.time()
+        self.stats.harvest_wait_s += now - t0
+        if rec.kind == "decode":
+            # completion-to-completion stall metric, as in the sync path
+            if self._last_decode_end is not None:
+                self.stats.max_decode_gap_s = max(
+                    self.stats.max_decode_gap_s,
+                    now - self._last_decode_end)
+            self._last_decode_end = now
+        done: list[Sequence] = []
+        for seq, bidx, idx, epoch in rec.entries:
+            if seq.n_evictions != epoch:
+                continue  # evicted after dispatch; replay regenerates it
+            gen = seq.generated
+            if idx >= len(gen) or gen[idx] != PENDING_TOKEN:
+                continue  # rolled back by an earlier EOS resolution
+            tok = int(host[bidx])
+            gen[idx] = tok
+            req = seq.request
+            if idx == 0:
+                self._stamp_ttft(req.id)
+            if req.eos_id is not None and tok == req.eos_id:
+                # EOS surfaced one step late: drop the speculated tail
+                # (at most one slot-step per the dispatch rule)
+                self.stats.speculative_wasted += len(gen) - (idx + 1)
+                del gen[idx + 1:]
+                if seq.state is not SeqState.FINISHED:
+                    self.scheduler.finish(seq, "eos")
+                else:
+                    seq.finish_reason = "eos"  # length-cut was also EOS
+            self._emit_new_tokens(seq)
+            if (seq.state is SeqState.FINISHED
+                    and PENDING_TOKEN not in gen):
+                done.append(seq)
+        return done

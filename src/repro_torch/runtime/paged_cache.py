@@ -307,18 +307,36 @@ def prefill_chunk_view(seq: "object", n: int, chunk: int,
         chunk_lens=np.asarray([n], np.int32))
 
 
+def to_device(a: np.ndarray, device):
+    """``a`` as a tensor on ``device`` without waiting for the copy.
+
+    On a CUDA device the array is staged in pinned host memory and copied
+    with ``non_blocking=True``: the copy is queued on the current stream
+    and the host goes on at once (a copy from pageable memory would
+    synchronise the stream).  PyTorch's caching host allocator keeps the
+    pinned block from being reused until the copy has run, so the caller
+    may drop or rewrite ``a`` straight away.  On the CPU it is the plain
+    ``torch.as_tensor``.
+    """
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.as_tensor(a, device=device)
+    return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+        device, non_blocking=True)
+
+
 def view_arrays(view, device):
     """Device copy of a :class:`DecodeView` / :class:`PrefillChunkView`.
 
     Returns the same dataclass with every field as a tensor on
-    ``device`` — call sites keep addressing fields by name, no
-    positional coupling.
+    ``device`` (each copied by :func:`to_device`, so building a view
+    never waits for the device) — call sites keep addressing fields by
+    name, no positional coupling.
     """
-    import torch
-
     return dataclasses.replace(
-        view, **{f.name: torch.as_tensor(getattr(view, f.name),
-                                         device=device)
+        view, **{f.name: to_device(getattr(view, f.name), device)
                  for f in dataclasses.fields(view)})
 
 

@@ -10,10 +10,16 @@ embeddings as ``encoder_input``: the prefill step encodes them once.
 Every request of a batch shares one prompt length and finishes
 together.  The steps run where the tensors lie.
 
-Greedy decoding gives the JAX package's tokens.  Sampling draws from
-``torch.Generator`` streams (Philox on the card, not JAX's threefry), so
-sampled streams replay exactly from the same seed but do not match the
-JAX package's.
+Greedy decoding gives the JAX package's tokens.  The lockstep
+:func:`generate` samples from ``torch.Generator`` streams (Philox on the
+card, not JAX's threefry), so its sampled streams replay exactly from
+the same seed but do not match the JAX package's.  The engines sample
+with :func:`sample_tokens`: the Gumbel-max draw
+``argmax(logits / t + g)`` whose noise ``g`` is a counter-based integer
+hash of ``(seed, position, vocab index)``, so a row's token depends on
+nothing else — not its slot or batch, and not the device it is drawn
+on (:func:`sample_row` is the same function on one host row).  Those
+streams are not JAX's threefry streams either.
 """
 
 from __future__ import annotations
@@ -54,39 +60,90 @@ def sample_token(logits: Tensor, generator: torch.Generator | None = None,
     return torch.multinomial(probs, 1, generator=generator).to(torch.int32)
 
 
-def sample_row(logits_row: np.ndarray, temperature: float, seed: int,
-               position: int) -> int:
-    """One request's token from its (V,) logits row on the host: argmax
-    at temperature ≤ 0, else a draw from a CPU ``torch.Generator`` seeded
-    from ``(seed, position)`` — so a stream replays exactly whatever
-    slot or batch the request shares (the engine's sampling)."""
-    if temperature <= 0.0:
-        return int(np.argmax(logits_row))
-    gen = torch.Generator().manual_seed(
-        (seed * 1_000_003 + position) % (1 << 63))
-    probs = torch.softmax(torch.as_tensor(logits_row, dtype=torch.float64)
-                          / temperature, dim=-1)
-    return int(torch.multinomial(probs, 1, generator=gen))
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: Tensor, c: int) -> Tensor:
+    """``x · c mod 2^32`` for int64 ``x`` in [0, 2^32): the constant is
+    split into 16-bit halves so that no product leaves int64's range —
+    the same integers on every device, with no reliance on overflow."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: Tensor) -> Tensor:
+    """A 32-bit integer finalizer (xor-shift-multiply, "lowbias32"):
+    a bijection of [0, 2^32) in int64 tensor ops."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def hash_bits(seeds: Tensor, positions: Tensor, vocab: int) -> Tensor:
+    """(B, V) int64: 52 random bits a vocab index, a counter-based hash
+    of each row's ``(seed, position)`` and the index — two 32-bit hashes
+    of the counter, 26 bits of each.  The same integers on every
+    device."""
+    dev = seeds.device
+    key = _mix32(_mix32((seeds.long() & _M32) ^ 0x9E3779B9)
+                 ^ (positions.long() & _M32))[:, None]           # (B, 1)
+    idx = 2 * torch.arange(vocab, dtype=torch.int64, device=dev)[None]
+    hi = _mix32(_mix32(key ^ idx)) >> 6
+    lo = _mix32(_mix32(key ^ (idx + 1))) >> 6
+    return (hi << 26) | lo
+
+
+def gumbel_noise(seeds: Tensor, positions: Tensor, vocab: int) -> Tensor:
+    """(B, V) f64 Gumbel noise from :func:`hash_bits` ``k``: ``u = (2k +
+    1) · 2^-53`` is exact in f64 and lies strictly inside (0, 1); then
+    ``g = −log(−log u)`` in f64 (only ``log``'s last ulp may differ
+    between devices)."""
+    u = (2 * hash_bits(seeds, positions, vocab) + 1).double() * 2.0 ** -53
+    return -torch.log(-torch.log(u))
 
 
 def sample_tokens(logits: Tensor, seeds, positions, temperatures, *,
                   greedy: bool = False) -> Tensor:
-    """Batched per-slot sampling: logits (B, 1, V) → (B,) int32.
+    """Batched per-row sampling on the logits' device: logits (B, 1, V)
+    → (B,) int32.
 
-    Row b is :func:`sample_row` of ``(temperatures[b], seeds[b],
-    positions[b])``: the argmax at temperature ≤ 0, else its own
-    ``(seed, position)`` stream, so slot assignment and batch
-    composition do not change a token.  ``greedy=True`` promises every
-    temperature is ≤ 0 and takes the argmax on the logits' device.
+    Row b takes the argmax at ``temperatures[b] ≤ 0``, else the
+    Gumbel-max draw ``argmax(logits[b] / t + g)`` in f64 with
+    :func:`gumbel_noise` of ``(seeds[b], positions[b])`` — so slot
+    assignment, batch composition and the device do not change a token.
+    ``seeds``, ``positions`` and ``temperatures`` are tensors on the
+    logits' device or host sequences.  ``greedy=True`` promises every
+    temperature is ≤ 0 and takes the argmax alone.
     """
-    argmax = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
-    temps = np.asarray(temperatures, np.float64)
-    if greedy or not (temps > 0.0).any():
+    rows = logits[:, 0]
+    argmax = torch.argmax(rows, dim=-1).to(torch.int32)
+    if greedy:
         return argmax
-    rows = logits[:, 0].float().cpu().numpy()
-    out = [sample_row(rows[b], float(temps[b]), int(seeds[b]),
-                      int(positions[b])) for b in range(rows.shape[0])]
-    return torch.as_tensor(out, dtype=torch.int32, device=logits.device)
+    dev = rows.device
+    temps = torch.as_tensor(temperatures, dtype=torch.float64, device=dev)
+    seeds = torch.as_tensor(seeds, dtype=torch.int64, device=dev)
+    positions = torch.as_tensor(positions, dtype=torch.int64, device=dev)
+    hot = temps > 0.0
+    # rows that take the argmax still flow through the draw: divide by 1
+    safe_t = torch.where(hot, temps, torch.ones_like(temps))
+    drawn = torch.argmax(rows.double() / safe_t[:, None]
+                         + gumbel_noise(seeds, positions, rows.shape[-1]),
+                         dim=-1).to(torch.int32)
+    return torch.where(hot, drawn, argmax)
+
+
+def sample_row(logits_row: np.ndarray, temperature: float, seed: int,
+               position: int) -> int:
+    """One request's token from its (V,) logits row on the host: row 0 of
+    :func:`sample_tokens` — the argmax at temperature ≤ 0, else the
+    Gumbel-max draw of ``(seed, position)`` — so the synchronous engine's
+    host sampling and the pipelined engine's device sampling give the
+    same tokens."""
+    row = torch.as_tensor(np.asarray(logits_row))[None, None]
+    return int(sample_tokens(row, [seed], [position], [temperature],
+                             greedy=temperature <= 0.0)[0])
 
 
 def generate(model: Model, params, prompt: Tensor, run: RunConfig, *,

@@ -40,6 +40,7 @@ from repro_torch.models.convert import (cast_params, params_from_jax,
                                         pool_from_jax)
 from repro_torch.models.device import resolve_device
 from repro_torch.runtime.engine import EngineConfig as TEngineConfig
+from repro_torch.runtime.engine import PipelinedEngine
 from repro_torch.runtime.engine import ServingEngine as TEngine
 from repro_torch.runtime.paged_cache import PagedCacheConfig as TCache
 
@@ -261,6 +262,10 @@ DEVICE_DEFAULTS = {
         {"w": np.zeros((2, 2), np.float32)}),
     "convert.pool_from_jax": lambda: pool_from_jax(
         {"k_pages": np.zeros((2, 4, 1, 8), np.float32)}),
+    "engine.PipelinedEngine": lambda: PipelinedEngine(
+        torch_build(_arch(TARCHS)), {}, TRun(dtype="float32"),
+        TEngineConfig(cache=TCache(n_pages=8, page_size=4,
+                                   max_pages_per_seq=4))),
 }
 
 
