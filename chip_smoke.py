@@ -83,6 +83,24 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    ``AsyncServingServer`` over a depth-2 engine (``max_queue=4``,
    ``backpressure="wait"``), consumed with ``async for``: every stream
    must equal its batch result (lines ``[pipelined]`` and ``[server]``);
+5c. tensor-parallel paged serving — the same model and requests (16 new
+   tokens) through ``launch/mesh.start_ranks``: tp = 2 (the 'heads'
+   regime: each rank holds 4 of the 8 KV heads and launches the paged
+   CUDA kernels on them) and tp = 3 (the 'pages' regime: 8 % 3 ≠ 0, 128
+   pages padded to 129, each rank a slab of 43 plus a sink page, its
+   partials in plain torch), each rank a process sharing this card over
+   gloo (the kernels built above; a card is one device, so NCCL cannot
+   run): sync engines on bf16 pools under REXP and exact, a pipelined
+   depth-2 drive (tp 2), a ``shard_params`` drive (tp 2, exact) and int8
+   pools (tp 3, REXP and exact); against the tp = 1 sync engine of this
+   call: exact-policy first-token logits within 2% of the largest (REXP
+   printed: its LUT steps turn the ranks' other summation orders into
+   whole steps), the share of equal greedy tokens with the first parting
+   decision's top-2 margin, every rank's paged launches (the tp = 1
+   drive's in 'heads', none in 'pages'), and the decode collectives'
+   bytes a layer within 2·B·H·(D+2)·4 (plus 2·B·d_model·4 under
+   ``shard_params``); its tok/s are shared-device gloo figures, not a
+   tensor-parallel speed (lines ``[tp]``);
 6. the dense LUT-attention kernel against its plain version, in its
    three modes (REXP's fused α form, REXP's and 2D-LUT's faithful σ),
    q/k/v in f32 and bf16, at Whisper-small's shapes: the encoder
@@ -168,6 +186,8 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -892,7 +912,7 @@ def run_engine(model, params, policy, backend, requests, shadow=None,
                 "paged_decode_int8": paged_decode_attention.int8_launches,
                 "paged_prefill_int8": paged_prefill_attention.int8_launches}
     for rid, res in results.items():
-        if len(res.tokens) != 32:
+        if len(res.tokens) != requests[rid][1]:
             raise AssertionError(f"{backend}: request {rid} gave "
                                  f"{len(res.tokens)} tokens")
     ttft = np.mean([r.ttft_s for r in results.values()])
@@ -1287,6 +1307,278 @@ def phase_pipelined(model, params, requests, card, sync_busy):
             raise AssertionError(f"server stream {rid} differs from the "
                                  f"batch result")
     print("[server] every stream equals its batch result")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: tensor-parallel serving, ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+TP_NEW_TOKENS = 16
+#: per tp, the drives: (label, policy, kv_dtype, pipeline depth or None
+#: for the sync engine, shard_params).  tp 2 splits Qwen3-32B's 8 KV
+#: heads ('heads'); tp 3 does not divide them ('pages', 128 pages padded
+#: to 129).  The first-token logits are held within 2% of the tp = 1
+#: engine's under the exact policy, as in phase 3: the ranks sum in
+#: other orders (the 'pages' partials, the kernels' split plan for fewer
+#: KV heads, the cut weights' bf16 partial products), and REXP's
+#: piecewise-constant numerators carry such roundoff into whole LUT
+#: steps, so its drives print the gap and the first parting decision's
+#: top-2 margin
+TP_DRIVES = {
+    2: [("sync bf16 pool", MAIN_POLICY, "f32", None, False),
+        ("sync bf16 pool", "exact", "f32", None, False),
+        ("pipelined depth 2, bf16 pool", MAIN_POLICY, "f32", 2, False),
+        ("sync bf16 pool, shard_params", "exact", "f32", None, True)],
+    3: [("sync bf16 pool", MAIN_POLICY, "f32", None, False),
+        ("sync bf16 pool", "exact", "f32", None, False),
+        ("sync int8 pool", MAIN_POLICY, "int8", None, False),
+        ("sync int8 pool", "exact", "int8", None, False)],
+}
+#: sites of the collective log that run once a layer
+LAYER_SITES = ("attn_out", "pages_max", "pages_sum", "pages_pv", "wo",
+               "w_down")
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _paged_launches() -> dict:
+    return {"paged_decode": paged_decode_attention.launches,
+            "paged_prefill": paged_prefill_attention.launches,
+            "paged_decode_int8": paged_decode_attention.int8_launches,
+            "paged_prefill_int8": paged_prefill_attention.int8_launches}
+
+
+def _zero_launches() -> None:
+    for wrapper in (paged_decode_attention, paged_prefill_attention):
+        wrapper.launches = wrapper.int8_launches = 0
+
+
+def tp_reference(model, params, requests, policy, kv_dtype):
+    """The tp = 1 sync engine of this call on phase 5c's requests: each
+    request's tokens, first-token logits and, at every decision, the
+    top-2 margin of its logits; the paged launches of the drive."""
+    run = RunConfig(dtype="bfloat16", softmax_policy=POLICIES[policy],
+                    paged_backend="auto", kv_dtype=kv_dtype)
+    eng = ServingEngine(model, params, run, engine_config(), device="cuda")
+    firsts, margins = {}, {}
+    sample = eng._sample
+
+    def recording(seq, row):
+        top2 = np.sort(row)[-2:]
+        margins[seq.request.id, len(seq.generated)] = float(top2[1] - top2[0])
+        if not seq.generated:
+            firsts[seq.request.id] = row.copy()
+        return sample(seq, row)
+
+    eng._sample = recording
+    for rid, (prompt, n_new) in enumerate(requests):
+        eng.add_request(prompt, n_new, seed=rid)
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(tokens={r: res.tokens.tolist() for r, res in results.items()},
+                firsts=firsts, margins=margins, launches=_paged_launches(),
+                wall=wall, n_tokens=eng.stats.tokens,
+                pool_bytes=eng.stats.pool_bytes_per_layer)
+
+
+def tp_rank(mesh, arch, drives, requests):
+    """One rank of phase 5c: the smoke's seeded bf16 weights (initialised
+    one rank at a time: an f32 init peaks at twice the bf16 model), then
+    each drive — rank 0 serves the requests and closes, the others
+    follow its plans.  Returns (rank 0) per drive its tokens, first-token
+    logits, and every rank's paged launches, decode wire bytes a layer
+    (the most any decode step moved), collective sites and wall
+    seconds."""
+    model = build_model(arch)
+    params = None
+    for r in range(mesh.tp):
+        if r == mesh.rank:
+            gen = torch.Generator(device=mesh.device).manual_seed(0)
+            params = cast_params(model.init(gen, mesh.device),
+                                 torch.bfloat16)
+            _sync(mesh.device)
+        torch.distributed.barrier(group=mesh.group)
+    out = []
+    for label, policy, kv_dtype, depth, shard in drives:
+        run = RunConfig(dtype="bfloat16", softmax_policy=POLICIES[policy],
+                        paged_backend="auto", kv_dtype=kv_dtype)
+        cfg = dataclasses.replace(engine_config(depth or 2), mesh=mesh,
+                                  shard_params=shard)
+        eng = (PipelinedEngine if depth else ServingEngine)(
+            model, params, run, cfg, device=mesh.device)
+        firsts = {}
+        if mesh.rank == 0 and depth is None:
+            sample = eng._sample
+
+            def recording(seq, row, sample=sample):
+                if not seq.generated:
+                    firsts[seq.request.id] = row.copy()
+                return sample(seq, row)
+            eng._sample = recording
+        per_layer, sites = [], set()
+        decode = eng._op_decode
+
+        def watched(*a, decode=decode, **kw):
+            mesh.log.records.clear()
+            got = decode(*a, **kw)
+            sites.update((r.site, r.kind, r.shape)
+                         for r in mesh.log.records)
+            per_layer.append(mesh.log.nbytes(*LAYER_SITES)
+                             / model.cfg.n_layers)
+            return got
+        eng._op_decode = watched
+        _sync(mesh.device)
+        _zero_launches()
+        mesh.log.clear()
+        t0 = time.perf_counter()
+        results = None
+        if mesh.rank == 0:
+            for rid, (prompt, n_new) in enumerate(requests):
+                eng.add_request(prompt, n_new, seed=rid)
+            try:
+                results = eng.run()
+            finally:
+                eng.close()
+        else:
+            eng.follow()
+        _sync(mesh.device)
+        mine = dict(launches=_paged_launches(),
+                    wall=time.perf_counter() - t0,
+                    decode_bytes=max(per_layer), sites=sorted(sites),
+                    plans=mesh.log.plans,
+                    pool_bytes=eng.stats.pool_bytes_per_layer)
+        ranks = [None] * mesh.tp
+        torch.distributed.all_gather_object(ranks, mine, group=mesh.group)
+        if mesh.rank == 0:
+            out.append(dict(
+                label=label, policy=policy, kv_dtype=kv_dtype, depth=depth,
+                shard=shard,
+                regime=eng.regime, ranks=ranks, firsts=firsts,
+                n_tokens=eng.stats.tokens,
+                tokens={r: res.tokens.tolist()
+                        for r, res in results.items()}))
+        del eng
+        if torch.device(mesh.device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out if mesh.rank == 0 else None
+
+
+def tp_agreement(ref, got):
+    """Share of greedy tokens equal to the tp = 1 drive's, and the first
+    parting decision (request, position, the tp = 1 top-2 margin
+    there), or None."""
+    same = total = 0
+    first = None
+    for rid, want in ref["tokens"].items():
+        have = got["tokens"][rid]
+        same += sum(a == b for a, b in zip(want, have))
+        total += len(want)
+        part = next((i for i, (a, b) in enumerate(zip(want, have))
+                     if a != b), None)
+        if part is not None and (first is None or part < first[1]):
+            first = (rid, part, ref["margins"][rid, part])
+    return same / total, first
+
+
+def check_tp_drive(tp, ref, got, card, cfg):
+    """Phase 5c's checks of one drive against the tp = 1 sync engine of
+    this call; returns the printed line's key numbers."""
+    label = f"tp {tp} {got['policy']} {got['label']} ({got['regime']!r})"
+    if got["firsts"]:
+        worst = max(float(np.abs(row - ref["firsts"][rid]).max()
+                          / np.abs(ref["firsts"][rid]).max())
+                    for rid, row in got["firsts"].items())
+        held = got["policy"] == "exact"
+        if held and not worst <= 0.02:
+            raise AssertionError(f"{label}: first-token logits differ by "
+                                 f"{worst:.3g} > 0.02 of the largest")
+        logits = (f"first-token logits max|Δ|/max|logit| {worst:.4g}"
+                  f"{' (held within 0.02)' if held else ' (printed)'}; ")
+    else:
+        worst = None
+        logits = "(first tokens sampled on the card); "
+    share, first = tp_agreement(ref, got)
+    parting = ("no parting" if first is None else
+               f"first parting: request {first[0]} decision {first[1]}, "
+               f"tp = 1 top-2 margin {first[2]:.4g}")
+    kv = "_int8" if got["kv_dtype"] == "int8" else ""
+    want = {f"paged_decode{kv}": ref["launches"][f"paged_decode{kv}"],
+            f"paged_prefill{kv}": ref["launches"][f"paged_prefill{kv}"]}
+    for rank, mine in enumerate(got["ranks"]):
+        have = {k: mine["launches"][k] for k in want}
+        expect = want if got["regime"] == "heads" else dict.fromkeys(want, 0)
+        if have != expect or sum(mine["launches"].values()) != sum(
+                expect.values()):
+            raise AssertionError(f"{label}: rank {rank} launched "
+                                 f"{mine['launches']}, want {expect}")
+    b, h, d = N_SLOTS, cfg.n_heads, cfg.resolved_head_dim
+    budget = 2 * b * h * (d + 2) * 4 + (2 * b * cfg.d_model * 4
+                                        if got["shard"] else 0)
+    wire = max(m["decode_bytes"] for m in got["ranks"])
+    if not wire <= budget:
+        raise AssertionError(f"{label}: a decode step moved {wire:.0f} B a "
+                             f"layer > {budget} B")
+    wall = max(m["wall"] for m in got["ranks"])
+    print(f"[tp] {label}: {logits}greedy tokens equal to tp = 1 "
+          f"{share:.1%} ({parting}); paged launches a rank "
+          f"{[{k: m['launches'][k] for k in want} for m in got['ranks']]} "
+          f"(tp = 1: {want}); decode wire {wire:.0f} B a layer (budget "
+          f"{budget}); {got['ranks'][0]['plans']} plans; KV pool "
+          f"{got['ranks'][0]['pool_bytes']} B a layer a rank (tp = 1: "
+          f"{ref['pool_bytes']}); {got['n_tokens'] / wall:.1f} tok/s — a "
+          f"shared-device gloo figure, not a tensor-parallel speed — "
+          f"{card}")
+    for site in sorted({s for m in got["ranks"] for s in m["sites"]}):
+        print(f"[tp]   decode collective on the wire: {site}")
+    return dict(tp=tp, label=got["label"], regime=got["regime"],
+                logits=worst, agree=share, parting=first, wire=wire,
+                budget=budget)
+
+
+def phase_tp(model, params, requests, card):
+    """Phase 5c: tensor-parallel paged serving through ``mesh.start_ranks``
+    — tp 2 ('heads': each rank launches the paged CUDA kernels on its 4
+    KV heads) and tp 3 ('pages': each rank holds a slab of the pages and
+    reduces plain-torch partials) — as separate processes sharing this
+    card over gloo, against the tp = 1 sync engine of this call on the
+    same requests (16 new tokens).  The card is one device, so the
+    figures are a check of the path, not of tensor-parallel speed.
+    Frees ``params`` (the ranks build their own) after the reference
+    drives."""
+    from repro_torch.launch.mesh import start_ranks
+    reqs = [(p, TP_NEW_TOKENS) for p, _ in requests]
+    refs = {key: tp_reference(model, params, reqs, *key)
+            for key in sorted({(d[1], d[2]) for drives in TP_DRIVES.values()
+                               for d in drives})}
+    for (policy, kv), ref in refs.items():
+        print(f"[tp] tp = 1 sync reference, {policy} kv_dtype={kv}: "
+              f"{ref['n_tokens'] / ref['wall']:.1f} tok/s, paged launches "
+              f"{ref['launches']} — {card}")
+    print("[tp] set_sync_debug_mode('error') guards the tp = 1 pipelined "
+          "drives only: gloo stages each collective of a CUDA tensor "
+          "through the host, a synchronising copy by design")
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = []
+    for tp, drives in TP_DRIVES.items():
+        t0 = time.perf_counter()
+        got = start_ranks(tp_rank, tp, backend="gloo", device="cuda",
+                          args=(model.cfg, drives, reqs), threads=0).join()
+        print(f"[tp] tp {tp}: {tp} ranks on one card over gloo, "
+              f"{len(drives)} drives in {time.perf_counter() - t0:.1f}s "
+              f"(start-up and weights included)")
+        for g in got:
+            rows.append(check_tp_drive(
+                tp, refs[g["policy"], g["kv_dtype"]], g, card, model.cfg))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2214,6 +2506,7 @@ def main() -> int:
     launches.update({k: v for k, v in phase_int8_engine(
         model, params, requests, bf16_stats).items() if k.endswith("int8")})
     phase_pipelined(model, params, requests, card, sync_busy)
+    phase_tp(model, params, requests, card)
     del model, params
     torch.cuda.empty_cache()
     kernels["lut_attention"] = phase_dense_kernel()

@@ -35,6 +35,25 @@ already in the pool).  Both follow ONE dispatch matrix, keyed by the
     ``cuda``                   the CUDA kernel       raises
     ``dense``                  the plain version     the plain version
 
+and two ``mesh`` rows (tensor-parallel serving; any knob with a mesh of
+``tp > 1`` — :func:`paged_mesh_regime` picks the row, and the pool each
+rank passes is its own share, ``partitioning.local_pool_specs``):
+
+    ``mesh``, KVH % tp == 0    ``'heads'``: each rank attends its H/tp
+                               query heads against its KVH/tp pool heads
+                               through the knob's row above (the CUDA
+                               kernel on CUDA tensors), then one
+                               all-gather of the (B, H, Lq, D) output
+    ``mesh``, KVH % tp != 0    ``'pages'``: each rank holds a slab of the
+                               pages; plain-torch (m, Σ, σ·V) partials
+                               over its slab, reduced by all-reduces of
+                               (B, H, Lq, 1) max and Σ and of the
+                               (B, H, Lq, D) σ·V — never gathered KV
+
+(``kernels/lut_attention/sharded_paged.py``; the JAX package computes
+its ``'pages'`` partials in plain JAX too, and no CUDA kernel returns
+them yet).
+
 There is no fallback in either matrix: on CUDA tensors ``auto`` and
 ``cuda`` launch the hand-written kernel (``csrc/paged_decode.cu`` /
 ``csrc/paged_prefill.cu`` / ``csrc/lut_attention.cu``) or raise — a
@@ -468,6 +487,34 @@ def resolve_paged_prefill_backend(backend: str = "auto",
     return _resolve_paged(backend, device, kind="prefill")
 
 
+def paged_mesh_regime(mesh, n_kv_heads: int) -> str | None:
+    """The mesh rows of the paged dispatch matrix (module docstring):
+    ``None`` without a mesh of ``tp > 1`` (the single-device rows apply),
+    ``'heads'`` when the KV-head count divides ``tp``, else ``'pages'``."""
+    from repro_torch.runtime.partitioning import mesh_model_tp
+    tp = mesh_model_tp(mesh)
+    if tp <= 1:
+        return None
+    return "heads" if n_kv_heads % tp == 0 else "pages"
+
+
+def _sharded(q, k_pages, v_pages, block_tables, kv_lens, policy, mesh,
+             n_kv_heads, gather, **kw):
+    """The mesh rows, or None when no mesh row applies."""
+    if mesh is None:
+        return None
+    if n_kv_heads is None:
+        raise ValueError("a mesh needs n_kv_heads, the arch's KV-head count "
+                         "(a rank's pool holds only its share)")
+    regime = paged_mesh_regime(mesh, n_kv_heads)
+    if regime is None:
+        return None
+    from repro_torch.kernels.lut_attention import sharded_paged
+    return sharded_paged.paged_attention_sharded(
+        q, k_pages, v_pages, block_tables, kv_lens, policy, mesh=mesh,
+        regime=regime, gather=gather, **kw)
+
+
 def lut_attention_paged_decode(
     q: Tensor,              # (B, H, 1, D) single-token queries
     k_pages: Tensor,        # (num_pages, page_size, KVH, D) shared pool
@@ -481,6 +528,9 @@ def lut_attention_paged_decode(
     k_scales: Tensor | None = None,  # (num_pages, page_size, KVH) f32 —
     v_scales: Tensor | None = None,  # int8 pool dequant scales (or None)
     max_kv_len: int | None = None,   # host-known bound on kv_lens
+    mesh=None,                       # partitioning.Mesh (tensor parallel)
+    n_kv_heads: int | None = None,   # the arch's KVH (with a mesh)
+    gather: bool = True,             # 'heads': q and output hold every head
 ) -> Tensor:
     """Decode attention straight off the paged KV pool; (B, H, 1, D) f32.
 
@@ -488,11 +538,19 @@ def lut_attention_paged_decode(
     the block tables page by page (no gathered view, no logits tensor),
     its split of the keys steered by ``max_kv_len``; the plain version
     gathers the block-table view and reuses
-    :func:`lut_attention_decode_varlen`.
+    :func:`lut_attention_decode_varlen`.  With a ``mesh`` of ``tp > 1``
+    the pools are this rank's share and ``n_kv_heads`` (the arch's KV
+    heads) picks the mesh row; in the ``'heads'`` row ``gather=False``
+    passes and returns this rank's heads only (``shard_params``, where
+    ``wo`` is split by rows).
     """
     from repro_torch.kernels.lut_attention import paged_decode
     args = (q, k_pages, v_pages, block_tables, kv_lens, policy)
     kw = dict(scale=scale, k_scales=k_scales, v_scales=v_scales)
+    out = _sharded(*args, mesh, n_kv_heads, gather, backend=backend,
+                   max_kv_len=max_kv_len, **kw)
+    if out is not None:
+        return out
     if resolve_paged_backend(backend, q.device) == "cuda":
         return paged_decode.paged_decode_attention(*args, **kw,
                                                    max_kv_len=max_kv_len)
@@ -513,14 +571,23 @@ def lut_attention_paged_prefill(
     k_scales: Tensor | None = None,  # (num_pages, page_size, KVH) f32 —
     v_scales: Tensor | None = None,  # int8 pool dequant scales (or None)
     max_kv_len: int | None = None,   # host-known bound on kv_lens
+    mesh=None,                       # partitioning.Mesh (tensor parallel)
+    n_kv_heads: int | None = None,   # the arch's KVH (with a mesh)
+    gather: bool = True,             # 'heads': q and output hold every head
 ) -> Tensor:
     """Prefill-chunk attention reading prior keys through the block
     tables; (B, H, C, D) f32.  The chunk's K/V were already scattered
     into the pool, so the pool is the only KV storage.  Dispatches per
-    the module docstring's matrix (``max_kv_len`` as for decode)."""
+    the module docstring's matrix (``max_kv_len``, ``mesh``,
+    ``n_kv_heads`` and ``gather`` as for decode)."""
     from repro_torch.kernels.lut_attention import paged_prefill
     args = (q, k_pages, v_pages, block_tables, q_start, kv_lens, policy)
     kw = dict(scale=scale, k_scales=k_scales, v_scales=v_scales)
+    out = _sharded(q, k_pages, v_pages, block_tables, kv_lens, policy, mesh,
+                   n_kv_heads, gather, q_start=q_start, backend=backend,
+                   max_kv_len=max_kv_len, **kw)
+    if out is not None:
+        return out
     if resolve_paged_prefill_backend(backend, q.device) == "cuda":
         return paged_prefill.paged_prefill_attention(*args, **kw,
                                                      max_kv_len=max_kv_len)

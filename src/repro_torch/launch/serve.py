@@ -39,6 +39,18 @@ f32 scale per token × KV head (the int8 CUDA kernels dequantize them in
 place); the lockstep path fake-quantizes its caches with the same
 rounding instead.
 
+``--tp N`` serves through N tensor-parallel ranks (the continuous or
+pipelined engine): the launcher spawns one process a rank
+(``launch/mesh.start_ranks``, a ``file://`` store in a temporary
+directory), the page pools split over the ranks by KV heads when they
+divide N, else by pages, and ``--shard-params`` cuts the weights too;
+rank 0 schedules and prints, the others follow its plans.  The tokens
+are ``--tp 1``'s.  ``--dist-backend`` names the collectives' backend:
+``nccl`` (the default on ``--device cuda``) needs one card a rank;
+``gloo`` (the default on ``--device cpu``) runs every rank on the one
+device, a card shared by all ranks included — a check of the path, not
+a speed-up.
+
 ``--paged-backend`` selects the paged attention of BOTH phases (decode
 steps and prefill chunks): ``auto`` launches the CUDA kernels on the card
 and the plain versions on the CPU, ``cuda`` forces the kernels (raises on
@@ -52,6 +64,8 @@ LUT-attention kernel (``auto`` | ``cuda`` | ``naive``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \\
       --scale-down 64,4,128 --layers 2 --device cpu --engine pipelined \\
       --serve --max-queue 2 --backpressure wait
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \\
+      --scale-down 64,4,128 --layers 2 --device cpu --tp 2 --shard-params
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
       --scale-down 64,4,128 --device cpu
 """
@@ -66,6 +80,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, RunConfig, get_arch
+from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.kernels.lut_attention.ops import (
     resolve_attention_backend, resolve_paged_backend,
@@ -164,17 +179,58 @@ def main(argv=None) -> None:
     ap.add_argument("--prefix-cache", action="store_true",
                     help="share full-page prompt prefixes across requests "
                          "(refcounted pages, copy-on-write)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree of the continuous or "
+                         "pipelined engine: one process a rank, the page "
+                         "pools split by KV heads when they divide it, "
+                         "else by pages; the tokens are --tp 1's")
+    ap.add_argument("--shard-params", action="store_true",
+                    help="with --tp > 1: cut the weights over the ranks "
+                         "instead of replicating them (matmul sums may "
+                         "reassociate at roundoff level)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="--tp > 1: the collectives' backend (default nccl "
+                         "on --device cuda, gloo on --device cpu); nccl "
+                         "needs one card a rank, gloo shares one device")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+    if args.shard_params and args.tp <= 1:
+        ap.error("--shard-params requires --tp > 1 (there is no mesh to "
+                 "shard the weights over)")
+    if args.dist_backend is None:
+        args.dist_backend = "nccl" if args.device == "cuda" else "gloo"
+    if args.tp > 1:
+        arch = _arch(args)
+        if args.engine == "lockstep" or build_model(arch).is_encdec:
+            # never report single-device lockstep numbers as a --tp run
+            ap.error("--tp > 1 requires the continuous engine "
+                     "(attention-only decoder LM with --engine continuous)")
+        spawn_ranks(_serve_rank, args.tp, backend=args.dist_backend,
+                    device=args.device, args=(args,),
+                    threads=1 if args.device == "cpu" else 0)
+        return
+    _serve(ap, args)
 
-    device = resolve_device(args.device)
+
+def _arch(args):
+    """The served arch: ``--arch`` cut to ``--layers`` (and to
+    ``--scale-down``'s widths)."""
     arch = get_arch(args.arch)
     if args.scale_down:
         d, h, v = (int(x) for x in args.scale_down.split(","))
-        arch = arch.scaled_down(d_model=d, n_heads=h, vocab=v,
+        return arch.scaled_down(d_model=d, n_heads=h, vocab=v,
                                 n_periods=args.layers or 2)
-    elif args.layers:
-        arch = arch.with_layers(args.layers)
+    return arch.with_layers(args.layers) if args.layers else arch
+
+
+def _serve_rank(mesh, args) -> None:
+    """One rank of ``--tp``: rank 0 serves and prints, the others follow."""
+    _serve(argparse.ArgumentParser(), args, mesh)
+
+
+def _serve(ap, args, mesh=None) -> None:
+    device = resolve_device(mesh.device if mesh is not None else args.device)
+    arch = _arch(args)
     model = build_model(arch)
     policy = (SoftmaxPolicy(impl=args.softmax, precision=args.precision)
               if args.softmax != "exact" else SoftmaxPolicy())
@@ -236,11 +292,28 @@ def main(argv=None) -> None:
     eng = engine_cls(model, params, run, EngineConfig(
         n_slots=args.batch, cache=cache, prefill_chunk=args.prefill_chunk,
         prefill_budget=args.prefill_budget, prefix_cache=args.prefix_cache,
-        pipeline_depth=args.pipeline_depth), device=device)
+        pipeline_depth=args.pipeline_depth, mesh=mesh,
+        shard_params=args.shard_params), device=device)
+    if mesh is not None and mesh.rank != 0:
+        eng.follow()
+        return
+    try:
+        _drive(args, arch, policy, cache, eng, rng, device)
+    finally:
+        eng.close()
+
+
+def _drive(args, arch, policy, cache, eng, rng, device) -> None:
+    """Serve the requests through ``eng`` and print what it did."""
+    if eng.tp > 1:
+        print(f"tensor-parallel tp={eng.tp} over {args.dist_backend}: "
+              f"{eng.regime!r} regime (KVH={arch.n_kv_heads})"
+              f"{', weights cut over the ranks' * args.shard_params}")
     tokens_in_pool = args.n_pages * args.page_size
     print(f"kv_dtype={args.kv_dtype}: {eng.stats.pool_bytes_per_layer} KV "
           f"pool bytes per layer, "
-          f"{eng.stats.pool_bytes_per_layer / tokens_in_pool:g} per token")
+          f"{eng.stats.pool_bytes_per_layer / tokens_in_pool:g} per token"
+          f"{' (rank 0)' * (eng.tp > 1)}")
 
     # with the prefix cache every prompt starts with one shared preamble,
     # and the batch runs as two waves: the first writes the preamble's

@@ -39,11 +39,21 @@ def cast_params(params, dtype: torch.dtype):
 
 
 def params_from_jax(tree, device="cuda",
-                    dtype: torch.dtype | None = None):
+                    dtype: torch.dtype | None = None, *, mesh=None,
+                    cfg=None):
     """JAX parameter tree (leaves numpy-convertible arrays) → the same
     tree of tensors on ``device`` (the card unless ``device="cpu"``),
-    cast like :func:`cast_params` when ``dtype`` is given."""
+    cast like :func:`cast_params` when ``dtype`` is given.
+
+    With a tensor-parallel ``mesh`` (and the decoder's ``cfg``) the tree
+    is rank ``mesh.rank``'s shard under ``shard_params``
+    (``partitioning.shard_params``): only the rank's slice of each cut
+    leaf is copied to the device."""
     device = resolve_device(device)
+    if mesh is not None:
+        from repro_torch.runtime.partitioning import shard_params
+        tree = shard_params(tree_map(lambda x, _: np.asarray(x), tree), cfg,
+                            mesh)
     params = tree_map(
         lambda x, _: torch.from_numpy(np.array(x, copy=True)).to(device),
         tree)

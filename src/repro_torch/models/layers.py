@@ -23,6 +23,22 @@ slice assignment) and advance a contiguous cache's ``length`` in place:
 the KV storage is the largest serving buffer, and a copy per step would
 double it.
 
+Under an active tensor-parallel mesh (``partitioning.mesh_scope``, which
+the serving engine enters around its steps) the paged steps attend
+through the mesh rows of the paged dispatch (``ops.paged_mesh_regime``):
+in the ``'heads'`` regime each rank scatters and attends its own KV
+heads; in the ``'pages'`` regime each rank writes only the pages of its
+slab (``sharded_paged.scatter_chunk_sharded``).  Weights cut by
+``partitioning.shard_params`` are recognised by their shapes: q/k/v
+projections cut by output column give the rank's heads and ``wo`` cut
+by input row ends in an all-reduce of ``(B, L, d_model)``; in the
+``'pages'`` regime the attention weights are never cut — its heads do
+not split on KV-head boundaries — and only the MLP, the embedding and
+the LM head shard (a memory layout; the function is the same).  A
+single-token lockstep step against an :class:`AttnCache` whose KV heads
+do not divide ``tp`` takes the length-sharded decode
+(``sharded_decode.lut_decode_sharded``), as in the JAX package.
+
 An int8 page pool (``kv_dtype="int8"``) quantizes K/V at scatter time
 with ``core.quantization.quantize_rows``, one f32 scale per token × KV
 head; the lockstep path's contiguous cache instead fake-quantizes the
@@ -43,7 +59,9 @@ from repro_torch.core.policies import EXACT, SoftmaxPolicy
 from repro_torch.core.quantization import fake_quant_rows, quantize_rows
 from repro_torch.kernels.lut_attention.ops import (lut_attention,
                                                    lut_attention_paged_decode,
-                                                   lut_attention_paged_prefill)
+                                                   lut_attention_paged_prefill,
+                                                   paged_mesh_regime)
+from repro_torch.runtime import partitioning as PT
 
 Tensor = torch.Tensor
 Params = dict[str, Any]
@@ -238,21 +256,57 @@ def _project_qkv(p: Params, x: Tensor, n_heads: int, n_kv_heads: int,
     return q, k, v
 
 
-def _scatter(cache, phys: Tensor, offs: Tensor, k: Tensor,
-             v: Tensor) -> None:
+def _scatter(cache, phys: Tensor, offs: Tensor, k: Tensor, v: Tensor,
+             slab_mesh=None) -> None:
     """Write token rows k, v (..., KVH, Dh) into the pool at (page, offset)
     pairs ``phys``, ``offs`` (...), in place.  An int8 pool quantizes each
     (token, KV head) row with its own scale — appending a token never
-    requants its neighbours, so chunking and placement stay invisible."""
+    requants its neighbours, so chunking and placement stay invisible.
+    ``slab_mesh`` (the ``'pages'`` regime) keeps the writes to this
+    rank's page slab."""
     if cache.k_scales is None:
-        cache.k_pages[phys, offs] = k.to(cache.k_pages.dtype)
-        cache.v_pages[phys, offs] = v.to(cache.v_pages.dtype)
+        toks = (k.to(cache.k_pages.dtype), v.to(cache.v_pages.dtype))
+        scales = (None, None)
+    else:
+        (kc, ks), (vc, vs) = quantize_rows(k), quantize_rows(v)
+        toks, scales = (kc, vc), (ks, vs)
+    if slab_mesh is not None:
+        from repro_torch.kernels.lut_attention.sharded_paged import (
+            scatter_chunk_sharded)
+        scatter_chunk_sharded(cache.k_pages, cache.v_pages, phys, offs,
+                              *toks, cache.k_scales, cache.v_scales,
+                              *scales, mesh=slab_mesh)
         return
-    for pages, scales, x in ((cache.k_pages, cache.k_scales, k),
-                             (cache.v_pages, cache.v_scales, v)):
-        codes, sc = quantize_rows(x)
-        pages[phys, offs] = codes
-        scales[phys, offs] = sc
+    cache.k_pages[phys, offs] = toks[0]
+    cache.v_pages[phys, offs] = toks[1]
+    if cache.k_scales is not None:
+        cache.k_scales[phys, offs] = scales[0]
+        cache.v_scales[phys, offs] = scales[1]
+
+
+def _local_qkv(p: Params, x: Tensor, positions: Tensor, *, n_heads: int,
+               n_kv_heads: int, head_dim: int, qk_norm: bool,
+               norm_eps: float, rope_theta: float | None):
+    """q, k, v of a paged step and how the rank's attention output is
+    laid out: ``(q, k, v, mesh, regime, split)``.  k and v hold the KV
+    heads this rank's pool stores; ``split`` (the ``'heads'`` regime
+    under cut weights) means q holds this rank's heads only and ``wo``
+    is cut by rows, else q holds every head."""
+    mesh = PT.active_mesh()
+    regime = paged_mesh_regime(mesh, n_kv_heads)
+    if regime is None:
+        mesh = None
+    split = (regime == "heads"
+             and p["wq"].shape[-1] != n_heads * head_dim)
+    tp = PT.mesh_model_tp(mesh)
+    h, kvh = ((n_heads // tp, n_kv_heads // tp) if split
+              else (n_heads, n_kv_heads))
+    q, k, v = _project_qkv(p, x, h, kvh, head_dim, qk_norm, norm_eps,
+                           rope_theta, positions)
+    if regime == "heads" and not split:
+        n = n_kv_heads // tp
+        k, v = (t[:, mesh.rank * n:(mesh.rank + 1) * n] for t in (k, v))
+    return q, k, v, mesh, regime, split
 
 
 def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
@@ -272,8 +326,10 @@ def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
     b, c, _ = x.shape
     positions = cache.lengths[:, None] + torch.arange(
         c, dtype=cache.lengths.dtype, device=x.device)
-    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, qk_norm,
-                           norm_eps, rope_theta, positions)
+    q, k, v, mesh, regime, split = _local_qkv(
+        p, x, positions, n_heads=n_heads, n_kv_heads=n_kv_heads,
+        head_dim=head_dim, qk_norm=qk_norm, norm_eps=norm_eps,
+        rope_theta=rope_theta)
     ps = cache.page_size
     mp = cache.block_tables.shape[1]
     pos = positions.long()
@@ -284,12 +340,15 @@ def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
     # padding rows (and anything past the block table) land on the null
     # page, which is garbage by definition — the write needs no branch
     phys = torch.where(valid, phys, torch.zeros_like(phys))
-    _scatter(cache, phys, pos % ps, k.transpose(1, 2), v.transpose(1, 2))
-    return lut_attention_paged_prefill(
+    _scatter(cache, phys, pos % ps, k.transpose(1, 2), v.transpose(1, 2),
+             slab_mesh=mesh if regime == "pages" else None)
+    out = lut_attention_paged_prefill(
         q, cache.k_pages, cache.v_pages, cache.block_tables,
         q_start=cache.lengths, kv_lens=cache.lengths + cache.chunk_lens,
         policy=policy, backend=paged_backend, k_scales=cache.k_scales,
-        v_scales=cache.v_scales, max_kv_len=cache.max_kv_len)
+        v_scales=cache.v_scales, max_kv_len=cache.max_kv_len, mesh=mesh,
+        n_kv_heads=n_kv_heads, gather=not split)
+    return out, (mesh if split else None)
 
 
 def _paged_decode(p: Params, x: Tensor, cache: PagedAttnCache, *,
@@ -304,20 +363,26 @@ def _paged_decode(p: Params, x: Tensor, cache: PagedAttnCache, *,
     null page; their duplicate writes there are harmless.
     """
     positions = cache.lengths[:, None]                  # (B, 1)
-    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, qk_norm,
-                           norm_eps, rope_theta, positions)
+    q, k, v, mesh, regime, split = _local_qkv(
+        p, x, positions, n_heads=n_heads, n_kv_heads=n_kv_heads,
+        head_dim=head_dim, qk_norm=qk_norm, norm_eps=norm_eps,
+        rope_theta=rope_theta)
     ps = cache.page_size
     lengths = cache.lengths.long()
     phys = torch.gather(cache.block_tables.long(), 1,
                         (lengths // ps)[:, None])[:, 0]  # (B,)
-    _scatter(cache, phys, lengths % ps, k[:, :, 0], v[:, :, 0])
-    return lut_attention_paged_decode(q, cache.k_pages, cache.v_pages,
-                                      cache.block_tables,
-                                      kv_lens=cache.lengths + 1,
-                                      policy=policy, backend=paged_backend,
-                                      k_scales=cache.k_scales,
-                                      v_scales=cache.v_scales,
-                                      max_kv_len=cache.max_kv_len)
+    _scatter(cache, phys, lengths % ps, k[:, :, 0], v[:, :, 0],
+             slab_mesh=mesh if regime == "pages" else None)
+    out = lut_attention_paged_decode(q, cache.k_pages, cache.v_pages,
+                                     cache.block_tables,
+                                     kv_lens=cache.lengths + 1,
+                                     policy=policy, backend=paged_backend,
+                                     k_scales=cache.k_scales,
+                                     v_scales=cache.v_scales,
+                                     max_kv_len=cache.max_kv_len, mesh=mesh,
+                                     n_kv_heads=n_kv_heads,
+                                     gather=not split)
+    return out, (mesh if split else None)
 
 
 def apply_paged_attention(p: Params, x: Tensor,
@@ -336,16 +401,16 @@ def apply_paged_attention(p: Params, x: Tensor,
               qk_norm=qk_norm, norm_eps=norm_eps, rope_theta=rope_theta,
               policy=policy, paged_backend=paged_backend)
     if isinstance(cache, PagedPrefillCache):
-        out = _paged_prefill_chunk(p, x, cache, **kw)
+        out, row_mesh = _paged_prefill_chunk(p, x, cache, **kw)
     elif isinstance(cache, PagedAttnCache):
         if l != 1:
             raise ValueError("paged KV cache decodes one token at a time; "
                              "prompts go through chunked paged prefill "
                              "(PagedPrefillCache)")
-        out = _paged_decode(p, x, cache, **kw)
+        out, row_mesh = _paged_decode(p, x, cache, **kw)
     else:
         raise TypeError(f"unsupported cache {type(cache).__name__}")
-    return _out_projection(p, x, out, b, l)
+    return _out_projection(p, x, out, b, l, row_mesh)
 
 
 def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
@@ -412,6 +477,20 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
         cache.v[:, :, cache.length:end] = v.to(cache.v.dtype)
         cache.length = end
         k, v, kv_len = cache.k, cache.v, end
+        mesh = PT.active_mesh()
+        tp = PT.mesh_model_tp(mesh)
+        if (l == 1 and tp > 1 and n_kv_heads % tp and k.shape[2] % tp == 0
+                and policy.impl in ("exact", "rexp")):
+            # single-token step against a cache whose KV heads do not
+            # split: this rank attends its length shard, and only
+            # (B, H, 1) partials cross (sharded_decode)
+            from repro_torch.kernels.lut_attention.sharded_decode import (
+                lut_decode_sharded)
+            n = k.shape[2] // tp
+            shard = slice(mesh.rank * n, (mesh.rank + 1) * n)
+            out = lut_decode_sharded(q, k[:, :, shard], v[:, :, shard],
+                                     policy, kv_len=kv_len, mesh=mesh)
+            return _out_projection(p, x, out, b, l)
     out = lut_attention(q, k, v, policy, causal=causal and not is_cross,
                         kv_len=kv_len, backend=backend)
     return _out_projection(p, x, out, b, l)
@@ -433,11 +512,15 @@ def cross_attention_kv(p: Params, src: Tensor, *, n_kv_heads: int,
     return proj("wk", "bk"), proj("wv", "bv")
 
 
-def _out_projection(p: Params, x: Tensor, out: Tensor, b: int,
-                    l: int) -> Tensor:
-    """(B, H, L, Dh) attention output → (B, L, D) through wo (+bo)."""
+def _out_projection(p: Params, x: Tensor, out: Tensor, b: int, l: int,
+                    row_mesh=None) -> Tensor:
+    """(B, H, L, Dh) attention output → (B, L, D) through wo (+bo).
+    ``row_mesh``: ``out`` holds this rank's heads and ``wo`` its rows, so
+    the partial products are summed over the ranks before the bias."""
     out = out.to(x.dtype).transpose(1, 2).reshape(b, l, -1)
     out = out @ p["wo"].to(x.dtype)
+    if row_mesh is not None:
+        out = PT.all_reduce(out, row_mesh, "sum", site="wo")
     if "bo" in p:
         out = out + p["bo"].to(x.dtype)
     return out
@@ -458,14 +541,20 @@ def init_mlp(d_model: int, d_ff: int, generator: torch.Generator, device,
     return p
 
 
-def apply_mlp(p: Params, x: Tensor) -> Tensor:
+def apply_mlp(p: Params, x: Tensor, row_mesh=None) -> Tensor:
+    """The MLP; ``row_mesh``: the weights are this rank's cut of the
+    hidden axis (gate and up by column, down by row), and the partial
+    outputs are summed over the ranks."""
     up = x @ p["w_up"].to(x.dtype)
     if "w_gate" in p:
         gate = x @ p["w_gate"].to(x.dtype)
         h = F.silu(gate.float()).to(x.dtype) * up
     else:
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
-    return h @ p["w_down"].to(x.dtype)
+    out = h @ p["w_down"].to(x.dtype)
+    if row_mesh is not None:
+        out = PT.all_reduce(out, row_mesh, "sum", site="w_down")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -479,8 +568,23 @@ def init_embedding(vocab: int, d_model: int, generator: torch.Generator,
     return {"table": t.normal_(0.0, 1.0, generator=generator).mul_(0.02)}
 
 
-def apply_embedding(p: Params, tokens: Tensor, dtype) -> Tensor:
-    return p["table"][tokens.long()].to(dtype)
+def apply_embedding(p: Params, tokens: Tensor, dtype,
+                    vocab: int | None = None) -> Tensor:
+    """Rows of the table for ``tokens``.  Under an active mesh a table
+    cut to ``vocab / tp`` rows (``shard_params``) looks up the tokens in
+    this rank's range, zeros the rest, and sums over the ranks — exactly
+    one rank contributes each row."""
+    table = p["table"]
+    mesh = PT.active_mesh()
+    if vocab is None or mesh is None or table.shape[0] == vocab:
+        return table[tokens.long()].to(dtype)
+    n = table.shape[0]
+    t = tokens.long() - mesh.rank * n
+    mine = (t >= 0) & (t < n)
+    rows = table[t.clamp(0, n - 1)].to(dtype)
+    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=dtype,
+                                                          device=rows.device))
+    return PT.all_reduce(rows, mesh, "sum", site="embed")
 
 
 def init_lm_head(d_model: int, vocab: int, generator: torch.Generator,

@@ -59,14 +59,15 @@ class Model:
             raise NotImplementedError(f"{what}: decoder-only LMs")
 
     def init_paged_pools(self, n_pages: int, page_size: int, run: RunConfig,
-                         device):
+                         device, mesh=None):
         """Per-layer paged KV pools on ``device``: pages of dtype
         ``run.dtype`` (``kv_dtype="f32"``), or int8 pages plus f32 row
-        scales (``kv_dtype="int8"``)."""
+        scales (``kv_dtype="int8"``); with a ``mesh``, this rank's
+        share."""
         self._check_paged("paged decode")
         return TF.init_paged_pools(self.cfg, n_pages, page_size,
                                    TF.run_dtype(run), device,
-                                   kv_dtype=run.kv_dtype)
+                                   kv_dtype=run.kv_dtype, mesh=mesh)
 
     def decode_step_paged(self, params, token, pools, block_tables, lengths,
                           run: RunConfig, max_kv_len: int | None = None):

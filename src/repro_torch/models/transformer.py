@@ -10,6 +10,14 @@ serving paths, restricted to attention+MLP blocks (the dense archs in
   * ``prefill_chunk_paged`` / ``decode_step_paged`` — the
     continuous-batching engine's steps against the paged pools.
 
+Under an active tensor-parallel mesh (``partitioning.mesh_scope``) the
+paged steps serve one rank's share: its pools
+(:func:`init_paged_pools` with the ``mesh``), and — with weights cut by
+``partitioning.shard_params`` — its cut of the MLP (summed over the
+ranks after ``w_down``), of the embedding (vocabulary rows, summed) and
+of the LM head (vocabulary columns, gathered); see ``layers.py`` for the
+attention.
+
 Parameters keep the JAX package's tree: the period blocks are stacked on
 a leading ``n_periods`` axis, so ``params_from_jax`` converts a JAX tree
 leaf by leaf.  The JAX package scans over the periods; here a Python
@@ -27,6 +35,7 @@ from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.models import layers as L
 from repro_torch.models.convert import tree_map
 from repro_torch.models.device import resolve_device
+from repro_torch.runtime import partitioning as PT
 from repro_torch.runtime.paged_cache import pool_leaf_specs
 
 Tensor = torch.Tensor
@@ -87,7 +96,9 @@ def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig, *,
         backend=run.attention_backend, cache=cache,
         paged_backend=run.paged_backend, kv_dtype=run.kv_dtype)
     h2 = L.apply_norm(p["norm2"], x, cfg.norm_eps)
-    return x + L.apply_mlp(p["ffn"], h2)
+    mesh = PT.active_mesh()
+    cut = mesh is not None and p["ffn"]["w_down"].shape[0] != cfg.d_ff
+    return x + L.apply_mlp(p["ffn"], h2, row_mesh=mesh if cut else None)
 
 
 def _tree_stack(trees):
@@ -134,17 +145,24 @@ def init_caches(cfg: ArchConfig, b: int, max_len: int, dtype, device):
 
 
 def init_paged_pools(cfg: ArchConfig, n_pages: int, page_size: int,
-                     dtype: torch.dtype, device, kv_dtype: str = "f32"):
+                     dtype: torch.dtype, device, kv_dtype: str = "f32",
+                     mesh=None):
     """Per-layer paged KV pools, periods-stacked: one dict per period
     spec, each leaf ``(n_periods,) + spec shape``.  Every leaf takes its
     own dtype from ``pool_leaf_specs``: ``dtype`` pages for an ``f32``
     pool; int8 pages plus zeroed f32 ``k_scales`` / ``v_scales`` for
-    ``int8``.  Page 0 of every pool is the reserved null page."""
+    ``int8``.  Page 0 of every pool is the reserved null page.  With a
+    ``mesh`` of ``tp > 1`` the page axis is padded to a multiple of tp
+    and each rank allocates only its share
+    (``partitioning.local_pool_specs``: its KV heads, or its page slab
+    and sink page)."""
     check_paged_supported(cfg)
     page_dtype = {v: k for k, v in _DTYPES.items()}[dtype]
-    specs = pool_leaf_specs(n_pages, page_size, cfg.n_kv_heads,
-                            cfg.resolved_head_dim, kv_dtype=kv_dtype,
-                            page_dtype=page_dtype)
+    specs = PT.local_pool_specs(
+        pool_leaf_specs(n_pages, page_size, cfg.n_kv_heads,
+                        cfg.resolved_head_dim, kv_dtype=kv_dtype,
+                        page_dtype=page_dtype, tp=PT.mesh_model_tp(mesh)),
+        mesh, cfg.n_kv_heads)
     return tuple(
         {name: torch.zeros((cfg.n_periods,) + shape, dtype=_DTYPES[dt],
                            device=device)
@@ -168,10 +186,26 @@ def _apply_stack(params: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
 
 
 def _head(params: Params, cfg: ArchConfig, x: Tensor) -> Tensor:
+    """f32 logits; a head (or tied table) cut over the vocabulary under
+    an active mesh gives this rank's columns, gathered over the ranks."""
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return x.float() @ params["embed"]["table"].float().T
-    return L.apply_lm_head(params["head"], x)
+        table = params["embed"]["table"]
+        logits = x.float() @ table.float().T
+        cut = table.shape[0] != cfg.vocab_size
+    else:
+        logits = L.apply_lm_head(params["head"], x)
+        cut = params["head"]["w"].shape[1] != cfg.vocab_size
+    if cut:
+        logits = PT.all_gather(logits, PT.active_mesh(), dim=-1,
+                               site="head")
+    return logits
+
+
+def _embed(params: Params, tokens: Tensor, cfg: ArchConfig,
+           run: RunConfig) -> Tensor:
+    return L.apply_embedding(params["embed"], tokens, run_dtype(run),
+                             vocab=cfg.vocab_size)
 
 
 def prefill(params: Params, tokens: Tensor, cfg: ArchConfig, run: RunConfig,
@@ -181,7 +215,7 @@ def prefill(params: Params, tokens: Tensor, cfg: ArchConfig, run: RunConfig,
     final position only."""
     caches = init_caches(cfg, tokens.shape[0], max_len, run_dtype(run),
                          tokens.device)
-    x = L.apply_embedding(params["embed"], tokens, run_dtype(run))
+    x = _embed(params, tokens, cfg, run)
     x = _apply_stack(params, x, cfg, run, lambda si, pi: caches[pi][si])
     if logits == "last":
         x = x[:, -1:]
@@ -192,7 +226,7 @@ def decode_step(params: Params, token: Tensor, caches, cfg: ArchConfig,
                 run: RunConfig):
     """One lockstep decode step: token (B, 1) against the caches (updated
     in place); returns ``(logits (B, 1, V), caches)``."""
-    x = L.apply_embedding(params["embed"], token, run_dtype(run))
+    x = _embed(params, token, cfg, run)
     x = _apply_stack(params, x, cfg, run, lambda si, pi: caches[pi][si])
     return _head(params, cfg, x), caches
 
@@ -214,7 +248,7 @@ def decode_step_paged(params: Params, token: Tensor, pools, block_tables,
     per layer and updated in place); ``max_kv_len`` the host's bound on
     ``lengths + 1``, if it knows one.  Returns logits (B, 1, V) f32.
     """
-    x = L.apply_embedding(params["embed"], token, run_dtype(run))
+    x = _embed(params, token, cfg, run)
 
     def make_cache(si, pi):
         pool = pools[si]
@@ -243,7 +277,7 @@ def prefill_chunk_paged(params: Params, tokens: Tensor, pools, block_tables,
     row's last valid chunk position (only meaningful for the final chunk
     of a prompt).
     """
-    x = L.apply_embedding(params["embed"], tokens, run_dtype(run))
+    x = _embed(params, tokens, cfg, run)
 
     def make_cache(si, pi):
         pool = pools[si]

@@ -28,6 +28,23 @@ pinned non-blocking copies and CUDA events.  Both sample with
 takes a Gumbel-max draw keyed by ``(seed, position)`` — so they give the
 same tokens; a sampled stream replays exactly but is not the JAX
 package's threefry stream.
+
+Tensor parallelism (``EngineConfig.mesh``, a
+``partitioning.Mesh``): every rank is a process with an engine of its
+own over the same model, run and config.  Rank 0 owns the scheduler,
+the prefix cache and the requests; each device program it runs — a
+copy-on-write page copy, a prompt chunk, a decode step — it first sends
+as a host plan (block tables, lengths, tokens, chunk spans,
+``max_kv_len``, page copies, sampling metadata) to the other ranks,
+whose :meth:`ServingEngine.follow` runs the same program, so the ranks
+meet at the same collectives and never diverge; :meth:`close` sends the
+stop.  Each rank's pools hold its share (its KV heads in the
+``'heads'`` regime, a slab of the pages in ``'pages'``), the scheduler
+interleaves page allocation across the slabs, and with
+``shard_params`` each rank holds its cut of the weights
+(``partitioning.shard_params``).  The logits are the same on every
+rank, so the pipelined engine's on-device sampling gives every rank the
+same token, each into its own last-token buffer.
 """
 
 from __future__ import annotations
@@ -43,6 +60,8 @@ import torch
 from repro_torch.configs.base import RunConfig
 from repro_torch.models.convert import tree_map
 from repro_torch.models.model_zoo import Model, resolve_device
+from repro_torch.kernels.lut_attention.ops import paged_mesh_regime
+from repro_torch.runtime import partitioning as PT
 from repro_torch.runtime.paged_cache import (KV_DTYPES, PagedCacheConfig,
                                              decode_view, prefill_chunk_view,
                                              to_device, view_arrays)
@@ -63,7 +82,11 @@ class EngineConfig:
     #: KV page-pool storage: None inherits ``RunConfig.kv_dtype``; ``f32``
     #: pages in the run dtype, or ``int8`` pages with f32 row scales
     kv_dtype: str | None = None
-    mesh: object = None              # tensor parallelism: not ported yet
+    #: tensor-parallel serving: this rank's ``partitioning.Mesh``
+    mesh: object = None
+    #: with a mesh: this rank holds its cut of the weights
+    #: (``partitioning.shard_params``) instead of all of them
+    shard_params: bool = False
     #: :class:`PipelinedEngine` only — most device steps in flight before
     #: the host waits on a harvest (2: plan step N+1 while step N runs;
     #: 1: dispatch, harvest, dispatch, … with sampling still on-device)
@@ -183,21 +206,36 @@ class ServingEngine:
         parameter tree (moved to ``device`` as given — cast it with
         ``convert.cast_params`` to serve in bf16) and the run config.
       config: an :class:`EngineConfig` (``n_slots``, page-pool sizing,
-        ``prefill_chunk`` and ``prefill_budget``, ``prefix_cache``).
-      device: ``cuda`` (default) or ``cpu``.
+        ``prefill_chunk`` and ``prefill_budget``, ``prefix_cache``,
+        ``mesh`` and ``shard_params``).
+      device: ``cuda`` (default) or ``cpu``; with a mesh the engine runs
+        on the mesh's device, whose type ``device`` must name.
 
     ``kv_dtype="int8"`` (in ``config`` or ``run``) stores the pool as
     int8 pages with f32 per-token × KV-head scales; K/V are quantized
     once, at scatter time, and the paged kernels dequantize in place.
-    Tensor parallelism (``config.mesh``) raises ``NotImplementedError``.
+
+    With ``config.mesh`` (``tp > 1``) every rank builds this engine with
+    the same arguments; rank 0 serves (``add_request``, ``step``,
+    ``run``, then :meth:`close`), every other rank calls :meth:`follow`.
+    ``shard_params`` cuts full weights to the rank's share (a tree
+    already cut, as ``convert.params_from_jax(..., mesh=)`` gives it,
+    passes as it is).
     """
 
     def __init__(self, model: Model, params, run: RunConfig,
                  config: EngineConfig | None = None, *, device="cuda"):
         config = config if config is not None else EngineConfig()
-        if config.mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh) is not "
-                                      "ported yet")
+        mesh = config.mesh
+        if mesh is not None and not isinstance(mesh, PT.Mesh):
+            raise TypeError(f"mesh must be a partitioning.Mesh "
+                            f"(launch.mesh.make_serving_mesh), got "
+                            f"{type(mesh).__name__}")
+        if config.shard_params and mesh is None:
+            raise ValueError("shard_params=True requires a mesh")
+        if mesh is not None and torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
         if config.prefill_chunk < 1:
             raise ValueError(f"prefill_chunk {config.prefill_chunk} < 1")
         if config.prefill_budget is not None and config.prefill_budget < 1:
@@ -221,9 +259,15 @@ class ServingEngine:
                     f"{policy.impl}/{policy.precision}: qmax·Lk must stay "
                     f"under the f32-exact Σ limit; shrink max_pages_per_seq"
                     f"·page_size or pick a narrower table precision")
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         self.config = config
         self.model = model
+        self.mesh = mesh
+        self.tp = PT.mesh_model_tp(mesh)
+        self.regime = paged_mesh_regime(mesh, model.cfg.n_kv_heads)
+        if config.shard_params:
+            params = PT.shard_params(params, model.cfg, mesh)
         self.params = tree_map(lambda t, _: t.to(self.device), params)
         self.run_cfg = run
         self.cache = cache
@@ -232,10 +276,11 @@ class ServingEngine:
         self.prefill_budget = (config.prefill_budget
                                if config.prefill_budget is not None
                                else config.prefill_chunk)
-        self.scheduler = Scheduler(cache, config.n_slots,
+        self.scheduler = Scheduler(cache, config.n_slots, tp=self.tp,
                                    prefix_cache=config.prefix_cache)
         self.pools = model.init_paged_pools(cache.n_pages, cache.page_size,
-                                            run, self.device)
+                                            run, self.device, mesh=mesh)
+        self._closed = False
         self.stats = EngineStats(pool_bytes_per_layer=sum(
             leaf[0].nbytes for leaf in self.pools[0].values()))
         self._results: dict[int, GenerationResult] = {}
@@ -316,34 +361,100 @@ class ServingEngine:
         self.stats.wall_s += time.time() - t0
         return out
 
+    # -- tensor parallelism: the plans ------------------------------------
+
+    def _launch(self, op: str, **plan):
+        """Run device program ``op`` (``copy`` | ``chunk`` | ``decode``) of
+        this step with its host ``plan``; under a mesh of ``tp > 1`` rank
+        0 first sends the plan to the other ranks."""
+        if self.tp > 1:
+            if self.mesh.rank != 0:
+                raise RuntimeError(f"rank {self.mesh.rank} runs rank 0's "
+                                   f"plans: call follow(), not step()")
+            if self._closed:
+                raise RuntimeError("the engine was closed")
+            PT.send_plan(self.mesh, (op, plan))
+        with PT.mesh_scope(self.mesh):
+            return getattr(self, "_op_" + op)(**plan)
+
+    def follow(self) -> None:
+        """Ranks other than 0: run rank 0's plans, in order, until it
+        calls :meth:`close`."""
+        if self.tp <= 1 or self.mesh.rank == 0:
+            raise RuntimeError("only ranks other than 0 of a mesh follow")
+        while True:
+            op, plan = PT.recv_plan(self.mesh)
+            if op == "stop":
+                return
+            with PT.mesh_scope(self.mesh):
+                getattr(self, "_op_" + op)(**plan)
+
+    def close(self) -> None:
+        """Rank 0 of a mesh: send the stop that ends the other ranks'
+        :meth:`follow`.  Nothing to do without a mesh."""
+        if self.tp > 1 and self.mesh.rank == 0 and not self._closed:
+            PT.send_plan(self.mesh, ("stop", {}))
+            self._closed = True
+
     # -- internals --------------------------------------------------------
 
     def _run_pending_copies(self) -> None:
-        """Execute the scheduler's queued copy-on-write page copies: each
-        duplicates one physical page in every pool leaf (axis 0 is the
-        period stack, axis 1 the page id) — an int8 page's scales with
-        it — bitwise, before any prefill chunk of this step writes into
-        the duplicate."""
+        """Execute the scheduler's queued copy-on-write page copies before
+        any prefill chunk of this step writes into the duplicates."""
         if not self.scheduler.pending_copies:
             return
         copies, self.scheduler.pending_copies = \
             self.scheduler.pending_copies, []
-        for src, dst in copies:
-            for pool in self.pools:
-                for leaf in pool.values():
-                    leaf[:, dst] = leaf[:, src]
+        self._launch("copy", copies=copies)
         self.scheduler.confirm_copies(copies)
+
+    def _op_copy(self, copies) -> None:
+        """Duplicate each ``(src, dst)`` physical page in every pool leaf
+        (axis 0 is the period stack, axis 1 the page id) — an int8 page's
+        scales with it — bitwise.  In the ``'pages'`` regime a page whose
+        copy lands on another rank's slab is sent there: one page of
+        every layer per leaf, the only KV-shaped traffic of the mesh."""
+        leaves = [leaf for pool in self.pools for leaf in pool.values()]
+        if self.regime != "pages":
+            for src, dst in copies:
+                for leaf in leaves:
+                    leaf[:, dst] = leaf[:, src]
+            return
+        lo, slab = PT.slab_of(self.mesh, leaves[0].shape[1])
+        rank = self.mesh.rank
+        for src, dst in copies:
+            owner, to = PT.page_owner(src, slab), PT.page_owner(dst, slab)
+            for leaf in leaves:
+                if owner == to == rank:
+                    leaf[:, dst - lo] = leaf[:, src - lo]
+                elif owner == rank != to:
+                    PT.send(leaf[:, src - lo], to, self.mesh, site="cow")
+                elif to == rank != owner:
+                    PT.recv_into(leaf[:, dst - lo], owner, self.mesh,
+                                 site="cow")
+
+    def _op_chunk(self, host, max_kv_len: int):
+        """One prompt chunk through the model; its (1, 1, V) logits."""
+        view = view_arrays(host, self.device)
+        return self.model.prefill_chunk_paged(
+            self.params, view.tokens, self.pools, view.block_tables,
+            view.cache_lens, view.chunk_lens, self.run_cfg,
+            max_kv_len=max_kv_len)
+
+    def _op_decode(self, host, max_kv_len: int):
+        """One decode step through the model; its (n_slots, 1, V) logits."""
+        view = view_arrays(host, self.device)
+        return self.model.decode_step_paged(
+            self.params, view.tokens, self.pools, view.block_tables,
+            view.lengths, self.run_cfg, max_kv_len=max_kv_len)
 
     def _prefill_chunk_step(self, seq: Sequence, n: int) -> bool:
         """Push one prompt chunk into the pool; True if the request
         finished outright (single-token budgets / instant EOS)."""
         host = prefill_chunk_view(seq, n, self.prefill_chunk, self.cache)
-        view = view_arrays(host, self.device)
         # the chunk's keys end at cache_lens + n, known here on the host
-        logits = self.model.prefill_chunk_paged(
-            self.params, view.tokens, self.pools, view.block_tables,
-            view.cache_lens, view.chunk_lens, self.run_cfg,
-            max_kv_len=int(host.cache_lens[0]) + n)
+        logits = self._launch("chunk", host=host,
+                              max_kv_len=int(host.cache_lens[0]) + n)
         self.stats.prefill_steps += 1
         self.stats.prompt_tokens += n
         if not self.scheduler.on_prefill_chunk(seq, n):
@@ -362,12 +473,9 @@ class ServingEngine:
     def _decode_step(self, running: dict[int, Sequence]) -> list[Sequence]:
         """One batched decode step over the running slots."""
         host = decode_view(running, self.n_slots, self.cache)
-        view = view_arrays(host, self.device)
         # every slot attends to its cached tokens and the one entering
-        logits = self.model.decode_step_paged(
-            self.params, view.tokens, self.pools, view.block_tables,
-            view.lengths, self.run_cfg,
-            max_kv_len=int(host.lengths.max()) + 1)
+        logits = self._launch("decode", host=host,
+                              max_kv_len=int(host.lengths.max()) + 1)
         logits = logits.cpu().numpy()  # (n_slots, 1, V); waits for the step
         now = time.time()
         if self._last_decode_end is not None:
@@ -548,29 +656,58 @@ class PipelinedEngine(ServingEngine):
                 to_device(np.asarray(positions, np.int64), self.device),
                 to_device(np.asarray(temps, np.float64), self.device))
 
+    def _op_chunk(self, host, max_kv_len: int, first=None):
+        """One prompt chunk; for a prompt's final chunk ``first`` is
+        ``(slot, seed, temperature)``: its first token is sampled here —
+        at position 0, even on re-admission after an eviction — and
+        written into the slot's entry of the last-token buffer."""
+        logits = super()._op_chunk(host, max_kv_len)
+        if first is None:
+            return None
+        slot, seed, temperature = first
+        greedy = temperature <= 0.0
+        meta = ((None,) * 3 if greedy else
+                self._sample_meta([seed], [0], [temperature]))
+        toks = sample_tokens(logits, *meta, greedy=greedy)
+        self._token_buf[slot] = toks[0]
+        return toks
+
+    def _op_decode(self, host, max_kv_len: int, meta=None):
+        """One decode step from the last-token buffer, sampled on the
+        device (``meta``: the ``(seeds, positions, temperatures)`` lists,
+        None when every slot is greedy); the sampled batch becomes the
+        buffer."""
+        logits = self.model.decode_step_paged(
+            self.params, self._token_buf[:, None], self.pools,
+            to_device(host.block_tables, self.device),
+            to_device(host.lengths, self.device), self.run_cfg,
+            max_kv_len=max_kv_len)
+        toks = sample_tokens(logits, *(self._sample_meta(*meta) if meta
+                                       else (None,) * 3),
+                             greedy=meta is None)
+        # empty slots get garbage tokens, but their rows are dead (null
+        # block table, zero length) and a re-admitted slot's final chunk
+        # overwrites its entry before the slot decodes again
+        self._token_buf = toks
+        return toks
+
     def _dispatch_chunk(self, seq: Sequence, n: int) -> None:
         """Launch one prompt chunk; the final chunk samples the first
         token on the device and joins the in-flight queue."""
         host = prefill_chunk_view(seq, n, self.prefill_chunk, self.cache)
-        view = view_arrays(host, self.device)
-        logits = self.model.prefill_chunk_paged(
-            self.params, view.tokens, self.pools, view.block_tables,
-            view.cache_lens, view.chunk_lens, self.run_cfg,
-            max_kv_len=int(host.cache_lens[0]) + n)
+        req = seq.request
+        first = ((seq.slot, req.seed, req.temperature)
+                 if seq.prefilled + n == seq.prompt_len else None)
+        toks = self._launch("chunk", host=host,
+                            max_kv_len=int(host.cache_lens[0]) + n,
+                            first=first)
         self.stats.prefill_steps += 1
         self.stats.prompt_tokens += n
         if not self.scheduler.on_prefill_chunk(seq, n):
             return
-        # prompt complete (→ RUNNING, owns a slot): the first token
-        # samples at position 0, even on re-admission after an eviction
-        req = seq.request
-        greedy = req.temperature <= 0.0
-        meta = ((None,) * 3 if greedy else
-                self._sample_meta([req.seed], [0], [req.temperature]))
-        toks = sample_tokens(logits, *meta, greedy=greedy)
+        # prompt complete (→ RUNNING, owns a slot)
         self.stats.prefills += 1
         self.stats.first_tokens += 1
-        self._token_buf[seq.slot] = toks[0]
         self._push_inflight(toks, [(seq, 0, 0, seq.n_evictions)], "chunk")
         self.scheduler.on_token_speculative(seq)
 
@@ -593,19 +730,10 @@ class PipelinedEngine(ServingEngine):
             temps[slot] = req.temperature
             entries.append((seq, slot, len(seq.generated), seq.n_evictions))
         greedy = all(t <= 0.0 for t in temps)
-        meta = ((None,) * 3 if greedy
-                else self._sample_meta(seeds, positions, temps))
-        logits = self.model.decode_step_paged(
-            self.params, self._token_buf[:, None], self.pools,
-            to_device(host.block_tables, self.device),
-            to_device(host.lengths, self.device), self.run_cfg,
-            max_kv_len=int(host.lengths.max()) + 1)
-        toks = sample_tokens(logits, *meta, greedy=greedy)
-        # the sampled batch IS the next step's input: empty slots get
-        # garbage tokens, but their rows are dead (null block table,
-        # zero length) and a re-admitted slot's final chunk overwrites
-        # its entry before the slot decodes again
-        self._token_buf = toks
+        toks = self._launch("decode", host=host,
+                            max_kv_len=int(host.lengths.max()) + 1,
+                            meta=None if greedy else (seeds, positions,
+                                                      temps))
         self.stats.steps += 1
         self.stats.decode_tokens += len(running)
         self._push_inflight(toks, entries, "decode")

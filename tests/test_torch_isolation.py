@@ -52,6 +52,15 @@ def test_scan_covers_the_encdec_and_dense_kernel_modules():
             "configs/whisper_small.py", "models/model_zoo.py"} <= scanned
 
 
+def test_scan_covers_the_tensor_parallel_modules():
+    """... and the tensor-parallel ones: the mesh, its placement rules and
+    collectives, and the sharded attention."""
+    scanned = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"runtime/partitioning.py", "launch/mesh.py",
+            "kernels/lut_attention/sharded_paged.py",
+            "kernels/lut_attention/sharded_decode.py"} <= scanned
+
+
 def test_package_imports_with_jax_and_repro_blocked():
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)

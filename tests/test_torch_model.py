@@ -233,7 +233,7 @@ def test_engine_refuses_what_is_not_ported(models):
     _, _, tm, tp = models
     _, trun = _runs("rexp")
     cache = TCache(n_pages=8, page_size=4, max_pages_per_seq=4)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         TEngine(tm, tp, trun, TEngineConfig(cache=cache, mesh=object()),
                 device="cpu")
     with pytest.raises(ValueError, match="kv_dtype"):
