@@ -17,7 +17,10 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    junk in null and unused pages), and at GQA 6 and 12 (H=48 and 96 over
    8 KV heads) with block tables 512 pages wide and kv_lens up to 8192
    that cross the kernels' split ranges and page boundaries (a slot of
-   0 keys, prefill rows past the logits cache):
+   0 keys, prefill rows past the logits cache), and at the MoE decoders'
+   widths at the smoke's kv_lens and chunks (``MOE_SHAPES``: DeepSeek-
+   MoE-16B's GQA 1, 16 / 16 heads of 128; Granite-MoE-3B's GQA 3, 24 / 8
+   heads of 64):
    (a) exact-logit inputs (q, k small integers × 2^-2, so every dot order
        gives the same logits): outputs within 2e-6 — a LUT bin that moved
        would shift a weight by ≥ 1/qmax, far above that; on the long rows
@@ -31,7 +34,8 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
        orders and a logit on a bin edge may land in the neighbouring bin;
    then the kernel's time, the plain version's, SDPA on the gathered
    view for exact (a yardstick only: the port never calls it) and the
-   least time the card could take; then one empty launch timed the same
+   least time the card could take, at each of the three widths; then one
+   empty launch timed the same
    way (the harness's floor), the host's µs a wrapper call, and the
    sweep (:func:`sweep`: decode at B 1–64 × kv_len 1–8192, a 16-token
    prefill chunk at q_start 0–8176) on a bf16 pool;
@@ -91,16 +95,41 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    partials in plain torch), each rank a process sharing this card over
    gloo (the kernels built above; a card is one device, so NCCL cannot
    run): sync engines on bf16 pools under REXP and exact, a pipelined
-   depth-2 drive (tp 2), a ``shard_params`` drive (tp 2, exact) and int8
-   pools (tp 3, REXP and exact); against the tp = 1 sync engine of this
-   call: exact-policy first-token logits within 2% of the largest (REXP
+   depth-2 drives (tp 2, REXP and exact), a ``shard_params`` drive (tp 2,
+   exact) and int8 pools (tp 3, REXP and exact); against the tp = 1 sync
+   engine of this call: the replicated-weight 'heads' drives' tokens
+   all equal and their first-token logits ``torch.equal`` (the ranks'
+   paged kernels plan their split of the keys for the model's 8 KV
+   heads, so each head runs the tp = 1 arithmetic); elsewhere
+   exact-policy first-token logits within 2% of the largest (REXP
    printed: its LUT steps turn the ranks' other summation orders into
-   whole steps), the share of equal greedy tokens with the first parting
+   whole steps); the share of equal greedy tokens with the first parting
    decision's top-2 margin, every rank's paged launches (the tp = 1
    drive's in 'heads', none in 'pages'), and the decode collectives'
    bytes a layer within 2·B·H·(D+2)·4 (plus 2·B·d_model·4 under
    ``shard_params``); its tok/s are shared-device gloo figures, not a
    tensor-parallel speed (lines ``[tp]``);
+5d. the MoE decoders (lines ``[moe]``) — DeepSeek-MoE-16B (d_model
+   2048, 16 / 16 heads of 128, 64 routed experts of 1408 plus 2 shared,
+   top-6, vocab 102 400; 16.9B parameters in 28 layers) and
+   Granite-MoE-3B (d_model 1536, 24 / 8 heads of 64, 40 experts of 512,
+   top-8, tied embeddings; 32 layers) at full width, depth cut to 6
+   layers (``MOE_LAYERS``), seeded random bf16 weights drawn and cast
+   block by block, router f32 and exact, through the paged engines on
+   the smoke's 8 requests
+   (prompts over each model's vocabulary, 32 new tokens): DeepSeek
+   under REXP uint8 on the bf16 and the int8 pool (the pool type's
+   paged launches must move, the other's not), pipelined depth 2 on
+   each with every ``_dispatch`` under ``set_sync_debug_mode("error")``
+   (tokens and launches equal to the sync drive's), the exact policy on
+   both pools, one profiled drive (busy share), every paged call of a
+   drive held to its plain version on its own inputs (one LUT step) and
+   a ``paged_backend="dense"`` drive (REXP printed); Granite under REXP
+   and exact; for each, the exact drive's first-token logits within 2%
+   of a dense-path drive that replays its expert choices (top-k routing
+   is discontinuous: bf16 roundoff moves tokens across near-ties of the
+   random router, and the count of such tokens is printed); tok/s and
+   TTFT of every drive, the phase's seconds;
 6. the dense LUT-attention kernel against its plain version, in its
    three modes (REXP's fused α form, REXP's and 2D-LUT's faithful σ),
    q/k/v in f32 and bf16, at Whisper-small's shapes: the encoder
@@ -173,12 +202,14 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    three 16-bit pieces of p·V at the tensor-core peak; f32: both at the
    f32 peak; over the visible pairs) beside the bound as first stated.
 
-The line before the last is the card's name and power limit, the one
-before it a JSON summary of the eight kernels (the two with several
-routes add the routes' times and launches; the dense one also its
-few-row calls' times on the split and row routes; the row kernels their
-eight cases under ``cases``, each with its bound, route and
-``torch.softmax`` time); the last line is
+The whole run's seconds follow the phases.  The line before the last
+is the card's name and power limit, the one before it a JSON summary of
+the eight kernels (the two with several routes add the routes' times
+and launches; the dense one also its few-row calls' times on the split
+and row routes; the row kernels their eight cases under ``cases``, each
+with its bound, route and ``torch.softmax`` time; the two f32/bf16
+paged kernels their rows at the MoE widths under ``shapes``, with the
+launches of that model's REXP bf16 drive); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -225,6 +256,7 @@ from repro_torch.kernels.lut_attention.paged_prefill import (  # noqa: E402
     paged_prefill_attention, paged_prefill_plain)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import layers as LAYERS  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import encdec as ENCDEC  # noqa: E402
 from repro_torch.models.convert import cast_params, tree_map  # noqa: E402
 from repro_torch.runtime.engine import (EngineConfig,  # noqa: E402
@@ -267,6 +299,12 @@ LONG_DECODE = [dict(h=48, kv_lens=(8192, 4111, 1000, 33, 1)),
                dict(h=96, kv_lens=(5003, 2049, 17, 0))]
 LONG_PREFILL = [dict(h=48, q_start=(8176, 1000, 0), chunk_lens=(16, 9, 16)),
                 dict(h=96, q_start=(2032, 40), chunk_lens=(16, 3))]
+#: the MoE decoders' attention widths: DeepSeek-MoE-16B's MHA (GQA 1, 16
+#: heads over 16 KV heads of 128) and Granite-MoE-3B's GQA 3 (24 heads
+#: over 8 KV heads of 64) — phase 2 holds and times the paged kernels
+#: there too, at the smoke's kv_lens and chunks
+MOE_SHAPES = {"deepseek-moe-16b": dict(h=16, kvh=16, dh=128),
+              "granite-moe-3b-a800m": dict(h=24, kvh=8, dh=64)}
 EXACT_TOL = 2e-6
 
 
@@ -306,19 +344,20 @@ def block_tables(rng, kv_lens, n_pages, mp):
 
 
 def paged_problem(rng, *, kv_lens, c, q_start, dtype, exact_logits, h=H,
-                  mp=MP):
+                  mp=MP, kvh=KVH, dh=DH):
     """Pool + permuted block tables; slot i owns ceil(kv_lens[i]/PS)
     pages; every page (the null page and unowned pages too) holds finite
-    junk, so only the masks keep it out."""
+    junk, so only the masks keep it out.  Qwen3-32B's KV heads and head
+    width unless ``kvh`` / ``dh`` say otherwise."""
     b = len(kv_lens)
     n_pages = pool_pages(kv_lens, mp)
     if exact_logits:
-        q = rng.integers(-4, 5, size=(b, h, c, DH)) * 0.25
-        k = rng.integers(-4, 5, size=(n_pages, PS, KVH, DH)) * 0.25
+        q = rng.integers(-4, 5, size=(b, h, c, dh)) * 0.25
+        k = rng.integers(-4, 5, size=(n_pages, PS, kvh, dh)) * 0.25
     else:
-        q = rng.normal(size=(b, h, c, DH))
-        k = rng.normal(size=(n_pages, PS, KVH, DH))
-    v = rng.normal(size=(n_pages, PS, KVH, DH))
+        q = rng.normal(size=(b, h, c, dh))
+        k = rng.normal(size=(n_pages, PS, kvh, dh))
+    v = rng.normal(size=(n_pages, PS, kvh, dh))
     bt = block_tables(rng, kv_lens, n_pages, mp)
 
     def dev(x, dt=dtype):
@@ -331,7 +370,7 @@ def paged_problem(rng, *, kv_lens, c, q_start, dtype, exact_logits, h=H,
 
 
 def int8_problem(rng, *, kv_lens, c, q_start, dtype, exact_logits, h=H,
-                 mp=MP):
+                 mp=MP, kvh=KVH, dh=DH):
     """As :func:`paged_problem`, over an int8 pool with f32 row scales:
     exact-dequant or normal rows through ``quantize_rows``.  The null
     page holds junk codes and NaN / inf scales: only the masks keep it
@@ -347,18 +386,18 @@ def int8_problem(rng, *, kv_lens, c, q_start, dtype, exact_logits, h=H,
     the kernel's — reaches the 2e-6 limit in either summation order."""
     b = len(kv_lens)
     n_pages = pool_pages(kv_lens, mp)
-    shape = (n_pages, PS, KVH, DH)
+    shape = (n_pages, PS, kvh, dh)
 
     def dev(x, dt):
         return torch.as_tensor(np.asarray(x), device="cuda").to(dt)
 
     if exact_logits:
-        q = rng.integers(-4, 5, size=(b, h, c, DH)) * 0.25
+        q = rng.integers(-4, 5, size=(b, h, c, dh)) * 0.25
         pools = [(dev(rng.integers(-4, 5, size=shape), torch.int8),
                   dev(2.0 ** rng.integers(-3, 0, size=shape[:3]),
                       torch.float32)) for _ in range(2)]
     else:
-        q = rng.normal(size=(b, h, c, DH))
+        q = rng.normal(size=(b, h, c, dh))
         pools = [quantize_rows(dev(rng.normal(size=shape), torch.float32))
                  for _ in range(2)]
     (kp, ks), (vp, vs) = pools
@@ -407,16 +446,17 @@ def bound(p, kv_lens, q_start, c, dtype):
     visible (row, key) pairs at the input type's peak."""
     esize = torch.empty((), dtype=dtype).element_size()
     b, h = len(kv_lens), p["q"].shape[1]
+    kvh, dh = p["k_pages"].shape[2:]
     live_rows = sum(min(kl, p["block_tables"].shape[1] * PS)
                     for kl in kv_lens)
-    row_bytes = DH * p["k_pages"].element_size()
+    row_bytes = dh * p["k_pages"].element_size()
     if "k_scales" in p:
         row_bytes += 4                               # the row's f32 scale
-    nbytes = (2 * live_rows * KVH * row_bytes       # K and V pages
-              + b * h * c * DH * esize              # queries
-              + b * h * c * DH * 4                  # f32 outputs
+    nbytes = (2 * live_rows * kvh * row_bytes       # K and V pages
+              + b * h * c * dh * esize              # queries
+              + b * h * c * dh * 4                  # f32 outputs
               + p["block_tables"].numel() * 4 + 2 * b * 4)
-    ops_count = 4 * h * DH * visible_pairs(kv_lens, q_start, c)
+    ops_count = 4 * h * dh * visible_pairs(kv_lens, q_start, c)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops_count / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -477,8 +517,9 @@ def sdpa_ms(p, c, q_start_t):
     k, v = ops.gather_kv(p["k_pages"], p["v_pages"], p["block_tables"],
                          p["kv_lens"], **scales_of(p))
     k, v = k.to(p["q"].dtype), v.to(p["q"].dtype)
-    k = k.repeat_interleave(H // KVH, dim=1)
-    v = v.repeat_interleave(H // KVH, dim=1)
+    g = p["q"].shape[1] // k.shape[1]
+    k = k.repeat_interleave(g, dim=1)
+    v = v.repeat_interleave(g, dim=1)
     lk = k.shape[2]
     ki = torch.arange(lk, device="cuda")[None, None, None, :]
     qi = (q_start_t[:, None] + torch.arange(c, device="cuda")[None, :]
@@ -686,7 +727,8 @@ def check_kernel(name, kernel, plain, args_of, rng, cases,
                                         f"output")
                     tag = (f"[kernel] {name} {pol_name} {str(dtype)[6:]} "
                            f"B={len(case['kv_lens'])} "
-                           f"H={case.get('h', H)}/{KVH} "
+                           f"H={case.get('h', H)}/{case.get('kvh', KVH)} "
+                           f"Dh={case.get('dh', DH)} "
                            f"max kv_len={max(case['kv_lens'])} "
                            f"{'exact-logit' if exact_logits else 'random'}")
                     if exact_logits and max(case["kv_lens"]) > MP * PS:
@@ -738,6 +780,8 @@ def time_kernel(name, kernel, plain, args_of, rng, case, make=paged_problem):
         b_ms, b_by = bound(p, case["kv_lens"], case["q_start"], c,
                            torch.bfloat16)
         print(f"[time] {name} {pol_name} bf16 B={len(case['kv_lens'])} "
+              f"H={case.get('h', H)}/{case.get('kvh', KVH)} "
+              f"Dh={case.get('dh', DH)} "
               f"C={c} kv_lens={list(case['kv_lens'])}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, "
               f"library {'n/a' if lib is None else f'{lib:.4f} ms'}, "
@@ -749,10 +793,11 @@ def time_kernel(name, kernel, plain, args_of, rng, case, make=paged_problem):
 
 def phase_kernels(int8=False):
     """Phase 2, or with ``int8`` phase 4: both kernels held to their plain
-    versions and timed, on float pools or on int8 pools; then the sweep
-    over batch and context length (:func:`sweep`) and the
-    host's time per wrapper call on that pool type, and in phase 2 the
-    harness's floor (one empty launch)."""
+    versions and timed, on float pools or on int8 pools — in phase 2 also
+    at the MoE decoders' widths (``MOE_SHAPES``, each kernel's row under
+    ``shapes``); then the sweep over batch and context length
+    (:func:`sweep`) and the host's time per wrapper call on that pool
+    type, and in phase 2 the harness's floor (one empty launch)."""
     rng = np.random.default_rng(2 if int8 else 0)
 
     def dec_case(kv_lens, **kw):
@@ -779,6 +824,16 @@ def phase_kernels(int8=False):
         results[name] = dict(max_abs_err=err,
                              **time_kernel(name, kernel, plain, args_of, rng,
                                            main, make))
+        if int8:
+            continue
+        results[name]["shapes"] = {}
+        for arch, shape in MOE_SHAPES.items():
+            mine = [dict(c, **shape) for c in cases if c.get("mp", MP) == MP]
+            err = check_kernel(name, kernel, plain, args_of, rng, mine, make)
+            results[name]["shapes"][arch] = dict(
+                max_abs_err=err, **time_kernel(name, kernel, plain, args_of,
+                                               rng, dict(main, **shape),
+                                               make))
     kind = "int8" if int8 else "bf16"
     pol = POLICIES[MAIN_POLICY]
     if not int8:
@@ -834,7 +889,7 @@ def watch_pipelined(eng, dispatch_s, guard_sync=False):
 
 def run_engine(model, params, policy, backend, requests, shadow=None,
                around=None, kv_dtype="f32", depth=None, temperature=0.0,
-               guard_sync=False):
+               guard_sync=False, tag=None):
     """Serve ``requests`` through a fresh bf16 engine whose pool is
     ``kv_dtype``; returns the results, each request's first-token
     logits, the kernels' launches during the drive, its wall seconds,
@@ -850,7 +905,8 @@ def run_engine(model, params, policy, backend, requests, shadow=None,
     ``shadow`` (a list) makes every paged-attention call of the engine
     also run the plain version (``backend="dense"``) on the same inputs,
     appending ``(dispatcher, max error, one-LUT-step bound, share of rows
-    beyond 1e-4)``; the model's dispatchers are restored after.
+    beyond 1e-4)``; the model's dispatchers are restored after.  ``tag``
+    starts the printed line in place of ``[engine]`` / ``[pipelined]``.
     """
     run = RunConfig(dtype="bfloat16", softmax_policy=policy,
                     paged_backend=backend, kv_dtype=kv_dtype)
@@ -921,6 +977,9 @@ def run_engine(model, params, policy, backend, requests, shadow=None,
     st = eng.stats
     kind = ("[engine]" if depth is None else
             f"[pipelined] depth {depth}{' (sync-guarded)' * guard_sync}")
+    if tag is not None:
+        kind = (f"{tag} sync" if depth is None else
+                f"{tag} pipelined{kind[len('[pipelined]'):]}")
     temp = f" temperature {temperature}" if temperature > 0 else ""
     harvests = st.steps + st.prefills
     extra = ("" if depth is None else
@@ -952,13 +1011,14 @@ def profiler_runs() -> bool:
     return True
 
 
-def profile_drive(model, params, requests, kv_dtype="f32", depth=None):
+def profile_drive(model, params, requests, kv_dtype="f32", depth=None,
+                  label=None):
     """Where the main path's device time goes: torch.profiler's kernel
     times over one drive (through a ``PipelinedEngine`` of ``depth`` if
     given), grouped, and the device's busy share of the drive's wall
     time (the profiler's own cost lengthens the wall time, so the share
     is a lower bound).  Prints "not measured" when the profiler records
-    no device time."""
+    no device time.  ``label`` names the model in the printed line."""
     from torch.profiler import ProfilerActivity, profile
     if not profiler_runs():
         return None
@@ -984,7 +1044,8 @@ def profile_drive(model, params, requests, kv_dtype="f32", depth=None):
               for g, names in groups.items()}
     shares["everything else"] = busy - sum(shares.values())
     engine = "sync" if depth is None else f"pipelined depth {depth}"
-    print(f"[profile] {MAIN_POLICY} kv_dtype={kv_dtype} {engine} drive, "
+    print(f"[profile] {label + ' ' if label else ''}{MAIN_POLICY} "
+          f"kv_dtype={kv_dtype} {engine} drive, "
           f"profiled: "
           f"device busy "
           f"{busy * 1e3:.1f} ms of {wall * 1e3:.1f} ms wall "
@@ -996,24 +1057,24 @@ def profile_drive(model, params, requests, kv_dtype="f32", depth=None):
     return busy, wall
 
 
-def compare_runs(label, a, b):
+def compare_runs(label, a, b, tag="[engine]"):
     """First-token logits max|Δ|/max|logit| and the share of generated
     tokens that agree between two engine runs."""
     worst = max(float(np.abs(row - b[1][rid]).max()
                       / np.abs(b[1][rid]).max()) for rid, row in a[1].items())
     agree = float(np.mean([np.mean(a[0][r].tokens == b[0][r].tokens)
                            for r in a[0]]))
-    print(f"[engine] {label}: first-token logits max|Δ|/max|logit| "
+    print(f"{tag} {label}: first-token logits max|Δ|/max|logit| "
           f"{worst:.4g}; tokens agreeing {agree:.1%}")
     return worst
 
 
-def check_shadow(shadow, label):
+def check_shadow(shadow, label, tag="[engine]"):
     """Every kernel call of a shadowed drive within one LUT step of its
     plain version on the same inputs."""
     worst = max(e for _, e, _, _ in shadow)
     beyond = max(s for _, _, _, s in shadow)
-    print(f"[engine] shadowed {label}: {len(shadow)} kernel calls held to "
+    print(f"{tag} shadowed {label}: {len(shadow)} kernel calls held to "
           f"the plain version on the same inputs: max|err| {worst:.3g}, "
           f"largest share of rows beyond 1e-4 in one call {beyond:.4%}")
     for i, (name, err, limit, share) in enumerate(shadow):
@@ -1038,10 +1099,15 @@ def setup_model():
           f"{arch.vocab_size}, qk_norm {arch.qk_norm}, {arch.n_layers} of "
           f"64 layers: {arch.param_count() / 1e9:.2f}B params bf16, init "
           f"{time.perf_counter() - t0:.1f}s")
+    return model, params, make_requests(arch.vocab_size)
+
+
+def make_requests(vocab):
+    """The smoke's 8 requests: seeded 16–300-token prompts over ``vocab``
+    (the same lengths for every model) and 32 new tokens each."""
     rng = np.random.default_rng(1)
-    requests = [(rng.integers(0, arch.vocab_size, size=int(n)).tolist(), 32)
-                for n in rng.integers(16, 301, size=8)]
-    return model, params, requests
+    return [(rng.integers(0, vocab, size=int(n)).tolist(), 32)
+            for n in rng.integers(16, 301, size=8)]
 
 
 def phase_engine(model, params, requests):
@@ -1317,17 +1383,21 @@ TP_NEW_TOKENS = 16
 #: per tp, the drives: (label, policy, kv_dtype, pipeline depth or None
 #: for the sync engine, shard_params).  tp 2 splits Qwen3-32B's 8 KV
 #: heads ('heads'); tp 3 does not divide them ('pages', 128 pages padded
-#: to 129).  The first-token logits are held within 2% of the tp = 1
-#: engine's under the exact policy, as in phase 3: the ranks sum in
-#: other orders (the 'pages' partials, the kernels' split plan for fewer
-#: KV heads, the cut weights' bf16 partial products), and REXP's
-#: piecewise-constant numerators carry such roundoff into whole LUT
-#: steps, so its drives print the gap and the first parting decision's
-#: top-2 margin
+#: to 129).  A 'heads' rank with replicated weights runs the tp = 1
+#: arithmetic head for head (its paged kernels plan their split of the
+#: keys for the model's 8 KV heads): its tokens must equal the tp = 1
+#: engine's and its first-token logits be ``torch.equal`` to them, under
+#: REXP and exact, sync and pipelined.  Elsewhere the ranks sum in other
+#: orders (the 'pages' partials, the cut weights' bf16 partial products):
+#: the first-token logits are held within 2% of the tp = 1 engine's
+#: under the exact policy, as in phase 3, and REXP's piecewise-constant
+#: numerators carry such roundoff into whole LUT steps, so its drives
+#: print the gap and the first parting decision's top-2 margin
 TP_DRIVES = {
     2: [("sync bf16 pool", MAIN_POLICY, "f32", None, False),
         ("sync bf16 pool", "exact", "f32", None, False),
         ("pipelined depth 2, bf16 pool", MAIN_POLICY, "f32", 2, False),
+        ("pipelined depth 2, bf16 pool", "exact", "f32", 2, False),
         ("sync bf16 pool, shard_params", "exact", "f32", None, True)],
     3: [("sync bf16 pool", MAIN_POLICY, "f32", None, False),
         ("sync bf16 pool", "exact", "f32", None, False),
@@ -1491,6 +1561,17 @@ def check_tp_drive(tp, ref, got, card, cfg):
     """Phase 5c's checks of one drive against the tp = 1 sync engine of
     this call; returns the printed line's key numbers."""
     label = f"tp {tp} {got['policy']} {got['label']} ({got['regime']!r})"
+    bitwise = got["regime"] == "heads" and not got["shard"]
+    if bitwise:
+        parted = [r for r, want in ref["tokens"].items()
+                  if got["tokens"][r] != want]
+        moved = [r for r, row in got["firsts"].items()
+                 if not np.array_equal(row, ref["firsts"][r])]
+        if parted or moved:
+            raise AssertionError(
+                f"{label}: replicated weights, yet requests {parted} part "
+                f"from tp = 1 and requests {moved} have other first-token "
+                f"logits")
     if got["firsts"]:
         worst = max(float(np.abs(row - ref["firsts"][rid]).max()
                           / np.abs(ref["firsts"][rid]).max())
@@ -1499,8 +1580,9 @@ def check_tp_drive(tp, ref, got, card, cfg):
         if held and not worst <= 0.02:
             raise AssertionError(f"{label}: first-token logits differ by "
                                  f"{worst:.3g} > 0.02 of the largest")
-        logits = (f"first-token logits max|Δ|/max|logit| {worst:.4g}"
-                  f"{' (held within 0.02)' if held else ' (printed)'}; ")
+        how = ("held equal" if bitwise else "held within 0.02" if held
+               else "printed")
+        logits = f"first-token logits max|Δ|/max|logit| {worst:.4g} ({how}); "
     else:
         worst = None
         logits = "(first tokens sampled on the card); "
@@ -1527,7 +1609,8 @@ def check_tp_drive(tp, ref, got, card, cfg):
                              f"layer > {budget} B")
     wall = max(m["wall"] for m in got["ranks"])
     print(f"[tp] {label}: {logits}greedy tokens equal to tp = 1 "
-          f"{share:.1%} ({parting}); paged launches a rank "
+          f"{share:.1%}{' (held)' * bitwise} ({parting}); paged launches a "
+          f"rank "
           f"{[{k: m['launches'][k] for k in want} for m in got['ranks']]} "
           f"(tp = 1: {want}); decode wire {wire:.0f} B a layer (budget "
           f"{budget}); {got['ranks'][0]['plans']} plans; KV pool "
@@ -1579,6 +1662,173 @@ def phase_tp(model, params, requests, card):
             rows.append(check_tp_drive(
                 tp, refs[g["policy"], g["kv_dtype"]], g, card, model.cfg))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 5d: the MoE decoders through the paged engines
+# ---------------------------------------------------------------------------
+
+#: depth of the MoE drives, at full width: the port's Python launches
+#: take ~3.5 ms a layer and step, so a full-depth DeepSeek drive (28
+#: layers) took 22 s, and at 8 layers the phase still took 145 s (this
+#: script on an H100 80GB HBM3, 700 W); 6 layers keep it near 110 s
+MOE_LAYERS = 6
+
+
+def setup_moe(name):
+    """An MoE decoder at full width, depth cut to ``MOE_LAYERS``, with
+    seeded random bf16 weights, drawn and cast block by block
+    (DeepSeek-MoE-16B's f32 weights would not fit the card beside their
+    bf16 copy at full depth)."""
+    full = ARCHS[name]
+    arch = full.with_layers(MOE_LAYERS)
+    model = build_model(arch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, "cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    m = arch.moe
+    print(f"[moe] {name}: {arch.n_layers} of {full.n_layers} layers of "
+          f"d_model {arch.d_model}, "
+          f"heads {arch.n_heads}/{arch.n_kv_heads} of "
+          f"{arch.resolved_head_dim}, {m.n_experts} routed experts of "
+          f"{m.d_expert} (+{m.n_shared} shared), top-{m.top_k}, vocab "
+          f"{arch.vocab_size}{', tied embeddings' * arch.tie_embeddings}: "
+          f"{arch.param_count() / 1e9:.2f}B params "
+          f"({arch.param_count(active_only=True) / 1e9:.2f}B active; "
+          f"{full.param_count() / 1e9:.2f}B at full depth) bf16, "
+          f"router f32, init {time.perf_counter() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    return model, params
+
+
+def moe_launches(name, run, kv_dtype="f32"):
+    """A drive's paged launches on its pool type, which must have moved;
+    the other pool type's kernels must not have launched."""
+    launches = run[2]
+    kv = "_int8" if kv_dtype == "int8" else ""
+    other = "" if kv else "_int8"
+    mine = {k: launches[f"paged_{k}{kv}"] for k in ("decode", "prefill")}
+    if not all(mine.values()) or any(launches[f"paged_{k}{other}"]
+                                     for k in ("decode", "prefill")):
+        raise AssertionError(f"{name} {kv_dtype} pool: paged launches "
+                             f"{launches}")
+    return mine
+
+
+@contextlib.contextmanager
+def pinned_routes(record=None, replay=None, flips=None):
+    """Every MoE routing call of a sync drive, in call order: ``record``
+    (a list) gets its expert indices; with ``replay`` (such a list) the
+    call takes the recorded experts instead of its own top-k — their
+    gates from this call's own router probabilities, their slots
+    recomputed — and ``flips`` gets, per call, whether each token's own
+    top-k differed.  Top-k routing is discontinuous: under random
+    weights the router's 64 probabilities lie close, and bf16 roundoff
+    of the attention output (kernel against plain version) moves tokens
+    across ties, each flip swapping an expert; a replayed drive isolates
+    the continuous rest."""
+    route = MOE.route
+    calls = iter(replay or ())
+
+    def pinned(p, xt, **kw):
+        out = route(p, xt, **kw)
+        if record is not None:
+            record.append(out[1])
+        if replay is None:
+            return out
+        experts, cap, g = next(calls), out[4], out[5]
+        flips.append((experts != out[1]).any(-1))
+        logits = xt.float() @ p["router"].float()
+        probs = LUT.make_softmax_fn(kw["router_policy"])(logits, axis=-1)
+        gates = torch.gather(probs, -1, experts)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        slots, kept = MOE.assign_slots(experts, kw["n_experts"], g, cap)
+        return gates, experts, slots, kept, cap, g
+
+    MOE.route = pinned
+    try:
+        yield
+    finally:
+        MOE.route = route
+
+
+def phase_moe(card):
+    """Phase 5d: DeepSeek-MoE-16B and Granite-MoE-3B at full width and
+    depth, seeded random bf16 weights, through the paged engines on the
+    smoke's 8 requests (32 new tokens).
+
+    DeepSeek: REXP uint8 sync on the bf16 and the int8 pool (their paged
+    launches must move, and only their pool type's), a pipelined depth-2
+    drive on each pool with every ``_dispatch`` under
+    ``set_sync_debug_mode("error")`` (tokens and launches equal to the
+    sync drive's), one profiled drive (the device's busy share), the same
+    requests with every paged call held to its plain version on the
+    drive's own inputs (one LUT step) and with ``paged_backend="dense"``
+    (printed: REXP's free-running streams part).  Both models: an exact
+    sync drive, and the same requests exact with
+    ``paged_backend="dense"`` replaying the exact drive's expert choices
+    (:func:`pinned_routes`): first-token logits within 2% of the
+    kernel drive's, with the routing decisions the dense path would have
+    taken otherwise counted.  Returns each model's launches of its REXP
+    bf16 sync drive, by kernel."""
+    t0 = time.perf_counter()
+    main, exact = POLICIES[MAIN_POLICY], POLICIES["exact"]
+    out = {}
+    for name in MOE_SHAPES:
+        model, params = setup_moe(name)
+        requests = make_requests(model.cfg.vocab_size)
+        tag = f"[moe] {name}"
+
+        def drive(policy, backend="auto", **kw):
+            return run_engine(model, params, policy, backend, requests,
+                              tag=tag, **kw)
+
+        sync = drive(main)
+        out[name] = moe_launches(name, sync)
+        routes, flips = [], []
+        with pinned_routes(record=routes):
+            ex = drive(exact)
+        moe_launches(name, ex)
+        with pinned_routes(replay=routes, flips=flips):
+            dense_ex = drive(exact, "dense")
+        flipped = torch.cat(flips)
+        print(f"[moe] {name} exact, dense path replaying the kernel drive's "
+              f"experts: {len(routes)} routing calls; the dense path's own "
+              f"top-k would differ for {int(flipped.sum())} of "
+              f"{flipped.numel()} token routings")
+        worst = compare_runs(f"{name} exact kernel vs dense, experts "
+                             f"pinned", ex, dense_ex, tag="[moe]")
+        if not worst <= 0.02:
+            raise AssertionError(f"{name}: exact-policy first-token logits "
+                                 f"differ by {worst:.3g} > 0.02")
+        if name == "deepseek-moe-16b":
+            same_as_sync(f"{name} depth 2, bf16 pool, every dispatch under "
+                         f"set_sync_debug_mode('error')",
+                         drive(main, depth=2, guard_sync=True), sync)
+            sync8 = drive(main, kv_dtype="int8")
+            moe_launches(name, sync8, "int8")
+            same_as_sync(f"{name} depth 2, int8 pool, every dispatch under "
+                         f"set_sync_debug_mode('error')",
+                         drive(main, kv_dtype="int8", depth=2,
+                               guard_sync=True), sync8)
+            profile_drive(model, params, requests, label=name)
+            shadow = []
+            drive(main, shadow=shadow)
+            check_shadow(shadow, f"{name} bf16 pool", tag="[moe]")
+            dense = drive(main, "dense")
+            if any(dense[2].values()):
+                raise AssertionError(f"dense run launched kernels: "
+                                     f"{dense[2]}")
+            compare_runs(f"{name} {MAIN_POLICY} kernel vs dense "
+                         f"(free-running)", sync, dense, tag="[moe]")
+        print(f"[moe] {name}: paged launches a REXP bf16 sync drive "
+              f"{out[name]} — {card}")
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[moe] phase 5d: {time.perf_counter() - t0:.1f}s — {card}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2495,6 +2745,7 @@ def main() -> int:
     # the plain versions are the reference: full f32 products, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_run = time.perf_counter()
     card = gpu_line()
     print(f"[device] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
@@ -2509,6 +2760,9 @@ def main() -> int:
     phase_tp(model, params, requests, card)
     del model, params
     torch.cuda.empty_cache()
+    for arch, mine in phase_moe(card).items():
+        for kernel, n in mine.items():
+            kernels[f"paged_{kernel}"]["shapes"][arch]["launches"] = n
     kernels["lut_attention"] = phase_dense_kernel()
     launches["lut_attention"], dense_routes = phase_whisper()
     kernels["lut_attention"]["route_launches"] = dense_routes
@@ -2537,6 +2791,7 @@ def main() -> int:
              "lut_softmax/lut_softmax.py:128"),
             ("flash_attention", "flash_attention",
              "flash_attention/flash_attention.py:103"))]}
+    print(f"[time] the whole run: {time.perf_counter() - t_run:.1f}s")
     print(json.dumps(summary))
     print(card)
     print(json.dumps({"ok": True, "device": {

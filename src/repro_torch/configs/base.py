@@ -3,8 +3,9 @@
 An :class:`ArchConfig` fully determines a model; the layer stack is
 described as a repeating *period* of :class:`LayerSpec`s (homogeneous
 dense models have a period of 1).  A copy of the JAX package's
-``configs/base.py``: the port serves the attention-only dense archs, but
-the dataclass keeps every field so a config converts one to one.
+``configs/base.py``: the port serves the dense and MoE attention
+decoders, but the dataclass keeps every field so a config converts one
+to one.
 """
 
 from __future__ import annotations
@@ -159,6 +160,7 @@ class RunConfig:
     dtype: str = "bfloat16"                        # activations and the
                                                    # KV pool on the card
     softmax_policy: SoftmaxPolicy = EXACT          # serving softmax
+    router_policy: SoftmaxPolicy = EXACT           # MoE router softmax
     attention_backend: str = "auto"                # contiguous / full-seq
                                                    # attention (lockstep,
                                                    # enc-dec): auto | cuda

@@ -323,6 +323,6 @@ extern "C" int lut_attention_launch(
   // empty cache is planned as one key: its rows come out 0)
   if (route == 2)
     return int(paged::run<paged::DenseKeys, 1, 2>(p, kv_len > 0 ? kv_len : 1,
-                                                  dtype, s));
+                                                  0, dtype, s));
   return int(lutk::dispatch<DenseLaunch>(p, dtype, s));
 }

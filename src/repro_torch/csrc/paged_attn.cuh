@@ -811,9 +811,12 @@ inline cudaError_t multiprocessors(int& n) {
   return cudaSuccess;
 }
 
-// The plan of one call, from what the host knows: the shapes and the
+// The plan of one call, from what the host knows: the shapes, the
 // longest live length, `live` keys (the caller's bound on kv_lens, or
-// the block table's whole width).
+// the block table's whole width), and `kvh`, the KV heads the CTAs are
+// counted for (the call's own, or the whole model's when a
+// tensor-parallel rank launches its share of them, so that each head
+// is split, and sums, as in the single-device launch).
 //   * split: doubled from 1 while the doubled grid still holds no more
 //     CTAs than two a multiprocessor for the light one-row-a-warp CTAs,
 //     one for heavier ones (every CTA pays a fixed chain of memory trips
@@ -826,7 +829,7 @@ inline cudaError_t multiprocessors(int& n) {
 //     (a CTA whose range is longer recomputes q·k in every pass).
 template <typename TQ, typename TK, int RPT>
 Split plan(const lutk::Params& p, int rows_per_block, int blocks, int live,
-           int n_sms) {
+           int kvh, int n_sms) {
   Split s{1, rows_per_block, 0, 1, kStages};
   auto bytes = [&](int keys) {
     s.cache_keys = keys;
@@ -834,7 +837,7 @@ Split plan(const lutk::Params& p, int rows_per_block, int blocks, int live,
   };
   const int pages = max((live + p.ps - 1) / p.ps, 1);
   auto range_keys = [&](int ns) { return (pages + ns - 1) / ns * p.ps; };
-  const long long ctas = static_cast<long long>(p.B) * p.KVH * blocks;
+  const long long ctas = static_cast<long long>(p.B) * kvh * blocks;
   const int per_sm = RPT == 1 ? 2 : 1;
   while (s.n_split < kMaxSplit && 2 * s.n_split <= pages &&
          (2 * ctas * s.n_split <= static_cast<long long>(per_sm) * n_sms ||
@@ -870,10 +873,10 @@ Split plan(const lutk::Params& p, int rows_per_block, int blocks, int live,
 //     past that, fewer slices, then no cache.
 template <typename TQ, typename TK, int RPT>
 Split plan_dense(const lutk::Params& p, int rows_per_block, int blocks,
-                 int live, int n_sms) {
+                 int live, int kvh, int n_sms) {
   Split s{1, rows_per_block, 0, 1, 2};
   const int tiles = max((live + kTile - 1) / kTile, 1);
-  const long long ctas = static_cast<long long>(p.B) * p.KVH * blocks;
+  const long long ctas = static_cast<long long>(p.B) * kvh * blocks;
   while (s.n_split < kDenseMaxSplit && 4 * s.n_split <= tiles &&
          2 * ctas * s.n_split <= static_cast<long long>(kDensePerSm) * n_sms)
     s.n_split *= 2;
@@ -902,7 +905,7 @@ Split plan_dense(const lutk::Params& p, int rows_per_block, int blocks,
 
 template <typename TQ, typename TK, int RPT, int NV, typename Keys>
 cudaError_t launch(const lutk::Params& p, int rows_per_block, int live,
-                   cudaStream_t stream) {
+                   int kvh, cudaStream_t stream) {
   void (*kernel)(lutk::Params, Split);
   if constexpr (Keys::kDense)
     kernel = lut_attention_split_kernel<TQ, TK, RPT, NV>;
@@ -915,8 +918,9 @@ cudaError_t launch(const lutk::Params& p, int rows_per_block, int live,
   const int blocks = (rows + rows_per_block - 1) / rows_per_block;
   const Split sp =
       Keys::kDense
-          ? plan_dense<TQ, TK, RPT>(p, rows_per_block, blocks, live, n_sms)
-          : plan<TQ, TK, RPT>(p, rows_per_block, blocks, live, n_sms);
+          ? plan_dense<TQ, TK, RPT>(p, rows_per_block, blocks, live, kvh,
+                                    n_sms)
+          : plan<TQ, TK, RPT>(p, rows_per_block, blocks, live, kvh, n_sms);
   const Layout L = layout<TQ, TK>(p, kWarps * RPT, sp);
   if (L.total > kSmemLimit) return cudaErrorInvalidValue;
   static int reserved = 0;
@@ -942,22 +946,23 @@ cudaError_t launch(const lutk::Params& p, int rows_per_block, int live,
 template <typename TQ, typename TK, typename Keys, int NV, int RPT,
           int... More>
 cudaError_t launch_rows(const lutk::Params& p, int rows_per_block, int live,
-                        cudaStream_t stream) {
+                        int kvh, cudaStream_t stream) {
   if (rows_per_block <= kWarps * RPT)
-    return launch<TQ, TK, RPT, NV, Keys>(p, rows_per_block, live, stream);
+    return launch<TQ, TK, RPT, NV, Keys>(p, rows_per_block, live, kvh,
+                                         stream);
   if constexpr (sizeof...(More) > 0)
     return launch_rows<TQ, TK, Keys, NV, More...>(p, rows_per_block, live,
-                                                  stream);
+                                                  kvh, stream);
   return cudaErrorInvalidValue;
 }
 
 template <typename TQ, typename TK, typename Keys, int... RPTs>
 cudaError_t launch_dh(const lutk::Params& p, int rows_per_block, int live,
-                      cudaStream_t stream) {
+                      int kvh, cudaStream_t stream) {
   if (p.Dh <= 128)
     return launch_rows<TQ, TK, Keys, 1, RPTs...>(p, rows_per_block, live,
-                                                 stream);
-  return launch_rows<TQ, TK, Keys, 2, RPTs...>(p, rows_per_block, live,
+                                                 kvh, stream);
+  return launch_rows<TQ, TK, Keys, 2, RPTs...>(p, rows_per_block, live, kvh,
                                                stream);
 }
 
@@ -968,13 +973,18 @@ cudaError_t launch_dh(const lutk::Params& p, int rows_per_block, int live,
 // of at most 8·max(RPTs) rows, evened out; max_kv_len is the caller's
 // bound on the slots' kv_lens (0: none, the block table's whole width) —
 // the split follows it, and a slot past it is still computed in full,
-// only split less well.
+// only split less well.  plan_kv_heads is the KV-head count the split
+// is planned for (0: the call's own, p.KVH): a tensor-parallel rank that
+// launches its share of a model's KV heads passes the model's count, and
+// each of its heads then runs the single-device launch's split and
+// summation order.
 template <typename Keys, int... RPTs>
-cudaError_t run(const lutk::Params& p, int max_kv_len, int q_dtype,
-                cudaStream_t stream) {
+cudaError_t run(const lutk::Params& p, int max_kv_len, int plan_kv_heads,
+                int q_dtype, cudaStream_t stream) {
   const bool ok = p.B >= 1 && p.KVH >= 1 && p.H % p.KVH == 0 && p.C >= 1 &&
                   p.Dh >= 8 && p.Dh <= 256 && p.Dh % 8 == 0 && p.ps >= 1 &&
                   p.mp >= 1 && p.n_pages >= 1 && max_kv_len >= 0 &&
+                  plan_kv_heads >= 0 &&
                   (p.k_scales == nullptr) == (p.v_scales == nullptr) &&
                   (!Keys::kDense || p.k_scales == nullptr);
   if (!ok) return cudaErrorInvalidValue;
@@ -984,21 +994,23 @@ cudaError_t run(const lutk::Params& p, int max_kv_len, int q_dtype,
   const int rpb = (rows + blocks - 1) / blocks;
   const int cap = p.mp * p.ps;
   const int live = max_kv_len > 0 && max_kv_len < cap ? max_kv_len : cap;
+  const int kvh = plan_kv_heads > 0 ? plan_kv_heads : p.KVH;
   if constexpr (!Keys::kDense) {
     if (p.k_scales) {
       if (q_dtype == 0)
-        return launch_dh<float, int8_t, Keys, RPTs...>(p, rpb, live, stream);
+        return launch_dh<float, int8_t, Keys, RPTs...>(p, rpb, live, kvh,
+                                                       stream);
       if (q_dtype == 1)
         return launch_dh<__nv_bfloat16, int8_t, Keys, RPTs...>(p, rpb, live,
-                                                               stream);
+                                                               kvh, stream);
       return cudaErrorInvalidValue;
     }
   }
   if (q_dtype == 0)
-    return launch_dh<float, float, Keys, RPTs...>(p, rpb, live, stream);
+    return launch_dh<float, float, Keys, RPTs...>(p, rpb, live, kvh, stream);
   if (q_dtype == 1)
     return launch_dh<__nv_bfloat16, __nv_bfloat16, Keys, RPTs...>(
-        p, rpb, live, stream);
+        p, rpb, live, kvh, stream);
   return cudaErrorInvalidValue;
 }
 

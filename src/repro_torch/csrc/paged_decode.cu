@@ -30,13 +30,14 @@ extern "C" int paged_decode_launch(
     const void* lut_aux, void* out, int dtype, int B, int H, int KVH, int Dh,
     int n_pages, int ps, int mp, int n_main, int aux_rows, int aux_cols,
     int method, int round_mode, float scale, float inv_step, float inv_q,
-    float inv_ex, float inv_sum, int max_kv_len, void* stream) {
+    float inv_ex, float inv_sum, int max_kv_len, int plan_kv_heads,
+    void* stream) {
   lutk::Params p = lutk::make_params(
       q, k_pages, v_pages, block_tables, kv_lens, nullptr, lut_main, lut_aux,
       out, B, H, KVH, Dh, n_pages, ps, mp, /*C=*/1, n_main, aux_rows,
       aux_cols, method, round_mode, scale, inv_step, inv_q, inv_ex, inv_sum);
-  return int(paged::run<paged::PagedKeys, 1>(p, max_kv_len, dtype,
-                           static_cast<cudaStream_t>(stream)));
+  return int(paged::run<paged::PagedKeys, 1>(
+      p, max_kv_len, plan_kv_heads, dtype, static_cast<cudaStream_t>(stream)));
 }
 
 // The int8-pool entry: k/v pages int8, k/v scales f32 (n_pages, ps, KVH),
@@ -48,13 +49,14 @@ extern "C" int paged_decode_int8_launch(
     void* out, int q_dtype, int B, int H, int KVH, int Dh, int n_pages,
     int ps, int mp, int n_main, int aux_rows, int aux_cols, int method,
     int round_mode, float scale, float inv_step, float inv_q, float inv_ex,
-    float inv_sum, int max_kv_len, void* stream) {
+    float inv_sum, int max_kv_len, int plan_kv_heads, void* stream) {
   if (!k_scales || !v_scales) return int(cudaErrorInvalidValue);
   lutk::Params p = lutk::make_params(
       q, k_pages, v_pages, block_tables, kv_lens, nullptr, lut_main, lut_aux,
       out, B, H, KVH, Dh, n_pages, ps, mp, /*C=*/1, n_main, aux_rows,
       aux_cols, method, round_mode, scale, inv_step, inv_q, inv_ex, inv_sum,
       k_scales, v_scales);
-  return int(paged::run<paged::PagedKeys, 1>(p, max_kv_len, q_dtype,
-                           static_cast<cudaStream_t>(stream)));
+  return int(paged::run<paged::PagedKeys, 1>(
+      p, max_kv_len, plan_kv_heads, q_dtype,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -38,13 +38,13 @@ extern "C" int paged_prefill_launch(
     int H, int KVH, int Dh, int n_pages, int ps, int mp, int C, int n_main,
     int aux_rows, int aux_cols, int method, int round_mode, float scale,
     float inv_step, float inv_q, float inv_ex, float inv_sum, int max_kv_len,
-    void* stream) {
+    int plan_kv_heads, void* stream) {
   lutk::Params p = lutk::make_params(
       q, k_pages, v_pages, block_tables, kv_lens, q_start, lut_main, lut_aux,
       out, B, H, KVH, Dh, n_pages, ps, mp, C, n_main, aux_rows, aux_cols,
       method, round_mode, scale, inv_step, inv_q, inv_ex, inv_sum);
-  return int(paged::run<paged::PagedKeys, 1, 2>(p, max_kv_len, dtype,
-                              static_cast<cudaStream_t>(stream)));
+  return int(paged::run<paged::PagedKeys, 1, 2>(
+      p, max_kv_len, plan_kv_heads, dtype, static_cast<cudaStream_t>(stream)));
 }
 
 // The int8-pool entry: k/v pages int8, k/v scales f32 (n_pages, ps, KVH),
@@ -56,13 +56,15 @@ extern "C" int paged_prefill_int8_launch(
     const void* lut_aux, void* out, int q_dtype, int B, int H, int KVH,
     int Dh, int n_pages, int ps, int mp, int C, int n_main, int aux_rows,
     int aux_cols, int method, int round_mode, float scale, float inv_step,
-    float inv_q, float inv_ex, float inv_sum, int max_kv_len, void* stream) {
+    float inv_q, float inv_ex, float inv_sum, int max_kv_len,
+    int plan_kv_heads, void* stream) {
   if (!k_scales || !v_scales) return int(cudaErrorInvalidValue);
   lutk::Params p = lutk::make_params(
       q, k_pages, v_pages, block_tables, kv_lens, q_start, lut_main, lut_aux,
       out, B, H, KVH, Dh, n_pages, ps, mp, C, n_main, aux_rows, aux_cols,
       method, round_mode, scale, inv_step, inv_q, inv_ex, inv_sum, k_scales,
       v_scales);
-  return int(paged::run<paged::PagedKeys, 1, 2>(p, max_kv_len, q_dtype,
-                              static_cast<cudaStream_t>(stream)));
+  return int(paged::run<paged::PagedKeys, 1, 2>(
+      p, max_kv_len, plan_kv_heads, q_dtype,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -31,25 +31,27 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: kernel name (one library each) → {C entry point: its argument types};
 #: the stream is last.  For the paged kernels ``<name>_launch`` takes
 #: f32/bf16 pools, ``<name>_int8_launch`` int8 pools plus their two f32
-#: scale pools, both the caller's bound on the live lengths (an int, 0 for
-#: none) before the stream; the dense kernel takes contiguous f32/bf16 q, k, v; the
-#: row-wise softmax has one entry point per method and the exact flash
-#: attention one, both over contiguous f32/bf16/f16 inputs; the row one
-#: takes its launch plan (``lut_softmax.row_plan``, seven ints) before
-#: the stream.  The dense
+#: scale pools, both the caller's bound on the live lengths and the KV
+#: heads the split is planned for (two ints, 0 for none: the block
+#: table's width, the call's own heads) before the stream; the dense
+#: kernel takes contiguous f32/bf16 q, k, v; the row-wise softmax has one
+#: entry point per method and the exact flash attention one, both over
+#: contiguous f32/bf16/f16 inputs; the row one takes its launch plan
+#: (``lut_softmax.row_plan``, seven ints) before the stream.  The dense
 #: and flash entry points take their route (an int) after their flags;
 #: flash takes its valid length after the scale (an int, and a pointer to
 #: B int32 lengths or null).
 KERNELS = {
     "paged_decode": {
-        "paged_decode_launch": [_P] * 8 + [_I] * 13 + [_F] * 5 + [_I, _P],
+        "paged_decode_launch": [_P] * 8 + [_I] * 13 + [_F] * 5 + [_I, _I, _P],
         "paged_decode_int8_launch": [_P] * 10 + [_I] * 13 + [_F] * 5
-        + [_I, _P],
+        + [_I, _I, _P],
     },
     "paged_prefill": {
-        "paged_prefill_launch": [_P] * 9 + [_I] * 14 + [_F] * 5 + [_I, _P],
+        "paged_prefill_launch": [_P] * 9 + [_I] * 14 + [_F] * 5
+        + [_I, _I, _P],
         "paged_prefill_int8_launch": [_P] * 11 + [_I] * 14 + [_F] * 5
-        + [_I, _P],
+        + [_I, _I, _P],
     },
     "lut_attention": {
         "lut_attention_launch": [_P] * 6 + [_I] * 16 + [_F] * 5 + [_P],

@@ -531,12 +531,15 @@ def lut_attention_paged_decode(
     mesh=None,                       # partitioning.Mesh (tensor parallel)
     n_kv_heads: int | None = None,   # the arch's KVH (with a mesh)
     gather: bool = True,             # 'heads': q and output hold every head
+    plan_kv_heads: int | None = None,  # KV heads the kernel's split plans
+                                       # for (a 'heads' rank: the model's)
 ) -> Tensor:
     """Decode attention straight off the paged KV pool; (B, H, 1, D) f32.
 
     Dispatches per the module docstring's matrix: the CUDA kernel walks
     the block tables page by page (no gathered view, no logits tensor),
-    its split of the keys steered by ``max_kv_len``; the plain version
+    its split of the keys steered by ``max_kv_len`` and
+    ``plan_kv_heads``; the plain version
     gathers the block-table view and reuses
     :func:`lut_attention_decode_varlen`.  With a ``mesh`` of ``tp > 1``
     the pools are this rank's share and ``n_kv_heads`` (the arch's KV
@@ -552,8 +555,8 @@ def lut_attention_paged_decode(
     if out is not None:
         return out
     if resolve_paged_backend(backend, q.device) == "cuda":
-        return paged_decode.paged_decode_attention(*args, **kw,
-                                                   max_kv_len=max_kv_len)
+        return paged_decode.paged_decode_attention(
+            *args, **kw, max_kv_len=max_kv_len, plan_kv_heads=plan_kv_heads)
     return paged_decode.paged_decode_plain(*args, **kw)
 
 
@@ -574,12 +577,14 @@ def lut_attention_paged_prefill(
     mesh=None,                       # partitioning.Mesh (tensor parallel)
     n_kv_heads: int | None = None,   # the arch's KVH (with a mesh)
     gather: bool = True,             # 'heads': q and output hold every head
+    plan_kv_heads: int | None = None,  # KV heads the kernel's split plans
+                                       # for (a 'heads' rank: the model's)
 ) -> Tensor:
     """Prefill-chunk attention reading prior keys through the block
     tables; (B, H, C, D) f32.  The chunk's K/V were already scattered
     into the pool, so the pool is the only KV storage.  Dispatches per
     the module docstring's matrix (``max_kv_len``, ``mesh``,
-    ``n_kv_heads`` and ``gather`` as for decode)."""
+    ``n_kv_heads``, ``gather`` and ``plan_kv_heads`` as for decode)."""
     from repro_torch.kernels.lut_attention import paged_prefill
     args = (q, k_pages, v_pages, block_tables, q_start, kv_lens, policy)
     kw = dict(scale=scale, k_scales=k_scales, v_scales=v_scales)
@@ -589,6 +594,6 @@ def lut_attention_paged_prefill(
     if out is not None:
         return out
     if resolve_paged_prefill_backend(backend, q.device) == "cuda":
-        return paged_prefill.paged_prefill_attention(*args, **kw,
-                                                     max_kv_len=max_kv_len)
+        return paged_prefill.paged_prefill_attention(
+            *args, **kw, max_kv_len=max_kv_len, plan_kv_heads=plan_kv_heads)
     return paged_prefill.paged_prefill_plain(*args, **kw)

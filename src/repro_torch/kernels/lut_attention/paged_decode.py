@@ -11,8 +11,9 @@ to its own sequence, whose K/V lie scattered over the shared page pool
   CUDA tensors: one thread-block cluster per (slot, KV head) holds the
   KV head's query heads as its rows and runs the three passes (row max,
   integer Σ, per-element σ·V) over the live pages only, split across
-  its CTAs (the launcher picks the split from the shapes and
-  ``max_kv_len``, the caller's bound on ``kv_lens``).  Given
+  its CTAs (the launcher picks the split from the shapes,
+  ``max_kv_len``, the caller's bound on ``kv_lens``, and
+  ``plan_kv_heads``, the KV heads it plans for).  Given
   ``k_scales`` / ``v_scales`` (an int8 pool, the JAX package's
   ``_pg_*_kernel_int8`` bodies) it launches the int8 entry point
   instead, which dequantizes each row before use.  On CPU tensors it
@@ -128,6 +129,20 @@ def max_len_arg(max_kv_len: int | None) -> int:
     return int(max_kv_len)
 
 
+def plan_heads_arg(plan_kv_heads: int | None, kvh: int) -> int:
+    """The launchers' ``plan_kv_heads``: the KV-head count the split of
+    the keys is planned for (0: the call's own ``kvh``).  A
+    tensor-parallel rank that launches ``kvh`` of the model's heads passes
+    the model's count, so each head's keys split, and sum, as in the
+    single-device launch; the grid still covers the call's own heads."""
+    if plan_kv_heads is None:
+        return 0
+    if plan_kv_heads < kvh:
+        raise ValueError(f"plan_kv_heads ({plan_kv_heads}) below the "
+                         f"call's {kvh} KV heads")
+    return int(plan_kv_heads)
+
+
 def paged_decode_plain(q: Tensor, k_pages: Tensor, v_pages: Tensor,
                        block_tables: Tensor, kv_lens: Tensor,
                        policy: SoftmaxPolicy, *,
@@ -154,12 +169,14 @@ def paged_decode_attention(
     k_scales: Tensor | None = None,  # (num_pages, page_size, KVH) f32 —
     v_scales: Tensor | None = None,  # an int8 pool's row scales
     max_kv_len: int | None = None,   # host-known bound on kv_lens
+    plan_kv_heads: int | None = None,  # KV heads the split is planned for
 ) -> Tensor:
     """Paged-decode attention; returns (B, H, 1, Dh) f32.
 
     CUDA tensors launch the kernel on the current stream (or raise);
-    CPU tensors run :func:`paged_decode_plain`.  ``max_kv_len`` only
-    steers the kernel's split of the keys (:func:`max_len_arg`).
+    CPU tensors run :func:`paged_decode_plain`.  ``max_kv_len`` and
+    ``plan_kv_heads`` only steer the kernel's split of the keys
+    (:func:`max_len_arg`, :func:`plan_heads_arg`).
     ``launches`` counts the launches on f32/bf16 pools, ``int8_launches``
     those on int8 pools.
     """
@@ -186,7 +203,7 @@ def paged_decode_attention(
         q.data_ptr(), *pools, bt.data_ptr(), kl.data_ptr(), main.data_ptr(),
         aux.data_ptr(), out.data_ptr(), KERNEL_DTYPES[q.dtype], b, h, kvh,
         dh, n_pages, ps, bt.shape[1], *ints, scale, *floats,
-        max_len_arg(max_kv_len),
+        max_len_arg(max_kv_len), plan_heads_arg(plan_kv_heads, kvh),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode{'_int8' * int8} kernel launch "

@@ -31,7 +31,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import KERNEL_DTYPES
 from repro_torch.kernels.lut_attention import ops
 from repro_torch.kernels.lut_attention.paged_decode import (
-    _kernel_tables, aligned, check_kernel_inputs, max_len_arg)
+    _kernel_tables, aligned, check_kernel_inputs, max_len_arg,
+    plan_heads_arg)
 
 Tensor = torch.Tensor
 
@@ -63,14 +64,16 @@ def paged_prefill_attention(
     k_scales: Tensor | None = None,  # (num_pages, page_size, KVH) f32 —
     v_scales: Tensor | None = None,  # an int8 pool's row scales
     max_kv_len: int | None = None,   # host-known bound on kv_lens
+    plan_kv_heads: int | None = None,  # KV heads the split is planned for
 ) -> Tensor:
     """Paged-prefill attention; returns (B, H, C, Dh) f32.
 
     CUDA tensors launch the kernel on the current stream (or raise);
-    CPU tensors run :func:`paged_prefill_plain`.  ``max_kv_len`` only
-    steers the kernel's split of the keys
-    (``paged_decode.max_len_arg``).  ``launches`` counts the launches on
-    f32/bf16 pools, ``int8_launches`` those on int8 pools.
+    CPU tensors run :func:`paged_prefill_plain`.  ``max_kv_len`` and
+    ``plan_kv_heads`` only steer the kernel's split of the keys
+    (``paged_decode.max_len_arg``, ``plan_heads_arg``).  ``launches``
+    counts the launches on f32/bf16 pools, ``int8_launches`` those on
+    int8 pools.
     """
     if not q.is_cuda:
         return paged_prefill_plain(q, k_pages, v_pages, block_tables,
@@ -95,6 +98,7 @@ def paged_prefill_attention(
         main.data_ptr(), aux.data_ptr(), out.data_ptr(),
         KERNEL_DTYPES[q.dtype], b, h, kvh, dh, n_pages, ps, bt.shape[1], c,
         *ints, scale, *floats, max_len_arg(max_kv_len),
+        plan_heads_arg(plan_kv_heads, kvh),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_prefill{'_int8' * int8} kernel launch "

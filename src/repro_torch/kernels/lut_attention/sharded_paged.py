@@ -13,6 +13,10 @@ phases (decode steps and prompt chunks) attend through
   the single-device paged op — the CUDA paged-decode or paged-prefill
   kernel on CUDA tensors, the plain version on CPU tensors — and one
   all-gather of the ``(B, H, Lq, D)`` output is the only collective.
+  The kernel plans its split of the keys for the model's KV heads, not
+  the rank's (``plan_kv_heads``), so each head sums in the single-device
+  launch's order and a rank with replicated weights gives the
+  single-device logits bit for bit.
   Under ``shard_params`` (``gather=False``) the rank keeps its heads and
   the row-split ``wo`` reduces instead.
 
@@ -197,7 +201,9 @@ def paged_attention_sharded(
     output holds every head, the same on every rank — except in the
     ``'heads'`` regime with ``gather=False``, where ``q`` and the output
     hold this rank's H/tp heads.  ``backend`` and ``max_kv_len`` steer
-    the ``'heads'`` regime's single-device call."""
+    the ``'heads'`` regime's single-device call, which plans its split of
+    the keys for the model's ``tp · KVH/tp`` KV heads: each of the rank's
+    heads then runs the single-device launch's arithmetic."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     ops.check_scales(k_scales, v_scales)
     if regime == "heads":
@@ -209,7 +215,8 @@ def paged_attention_sharded(
             hl = q.shape[1] // tp
             q = q[:, mesh.rank * hl:(mesh.rank + 1) * hl]
         kw = dict(scale=scale, backend=backend, k_scales=k_scales,
-                  v_scales=v_scales, max_kv_len=max_kv_len)
+                  v_scales=v_scales, max_kv_len=max_kv_len,
+                  plan_kv_heads=tp * k_pages.shape[2])
         if q_start is None:
             out = ops.lut_attention_paged_decode(
                 q.contiguous(), k_pages, v_pages, block_tables, kv_lens,

@@ -1,9 +1,11 @@
 """Serving launcher: batched generation with the LUT softmax.
 
-Random-initializes an attention-only dense arch or Whisper-small
-(seeded ``torch.Generator``; depth cut by ``--layers``, widths
-optionally cut by ``--scale-down``) and serves ``--batch`` requests,
-three ways:
+Random-initializes a dense decoder, an MoE decoder (``--arch
+deepseek-moe-16b`` or ``granite-moe-3b-a800m``: attention with an MoE
+FFN, its router exact) or Whisper-small (seeded ``torch.Generator``;
+bf16 on the card, cast block by block as drawn; depth cut by
+``--layers``, widths optionally cut by ``--scale-down``) and serves
+``--batch`` requests, three ways:
 
 * ``--engine continuous`` (default) — the paged ``ServingEngine``,
   requests of mixed prompt lengths sharing the decode batch, sampled on
@@ -43,13 +45,16 @@ rounding instead.
 pipelined engine): the launcher spawns one process a rank
 (``launch/mesh.start_ranks``, a ``file://`` store in a temporary
 directory), the page pools split over the ranks by KV heads when they
-divide N, else by pages, and ``--shard-params`` cuts the weights too;
-rank 0 schedules and prints, the others follow its plans.  The tokens
-are ``--tp 1``'s.  ``--dist-backend`` names the collectives' backend:
-``nccl`` (the default on ``--device cuda``) needs one card a rank;
-``gloo`` (the default on ``--device cpu``) runs every rank on the one
-device, a card shared by all ranks included — a check of the path, not
-a speed-up.
+divide N, else by pages, and ``--shard-params`` cuts the weights too
+(not an MoE arch's: expert parallelism is not ported, and it raises
+``NotImplementedError``); rank 0 schedules and prints, the others follow
+its plans.  With replicated weights the tokens are ``--tp 1``'s: a
+'heads' rank's paged kernels plan their split of the keys for the
+model's KV heads, so each head sums as on one device.
+``--dist-backend`` names the collectives' backend: ``nccl`` (the
+default on ``--device cuda``) needs one card a rank; ``gloo`` (the
+default on ``--device cpu``) runs every rank on the one device, a card
+shared by all ranks included — a check of the path, not a speed-up.
 
 ``--paged-backend`` selects the paged attention of BOTH phases (decode
 steps and prefill chunks): ``auto`` launches the CUDA kernels on the card
@@ -68,6 +73,8 @@ LUT-attention kernel (``auto`` | ``cuda`` | ``naive``).
       --scale-down 64,4,128 --layers 2 --device cpu --tp 2 --shard-params
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
       --scale-down 64,4,128 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-moe-16b --batch 4 --prompt-len 64 --new-tokens 16
 """
 
 from __future__ import annotations
@@ -86,11 +93,11 @@ from repro_torch.kernels.lut_attention.ops import (
     resolve_attention_backend, resolve_paged_backend,
     resolve_paged_prefill_backend)
 from repro_torch.models import build_model
-from repro_torch.models.convert import cast_params
 from repro_torch.models.model_zoo import resolve_device
 from repro_torch.runtime.engine import (EngineConfig, PipelinedEngine,
                                         ServingEngine)
 from repro_torch.runtime.paged_cache import KV_DTYPES, PagedCacheConfig
+from repro_torch.runtime.partitioning import check_shardable
 from repro_torch.runtime.serve_loop import generate
 from repro_torch.runtime.server import AsyncServingServer, ServerSaturatedError
 
@@ -183,7 +190,8 @@ def main(argv=None) -> None:
                     help="tensor-parallel degree of the continuous or "
                          "pipelined engine: one process a rank, the page "
                          "pools split by KV heads when they divide it, "
-                         "else by pages; the tokens are --tp 1's")
+                         "else by pages; with replicated weights the "
+                         "tokens are --tp 1's")
     ap.add_argument("--shard-params", action="store_true",
                     help="with --tp > 1: cut the weights over the ranks "
                          "instead of replicating them (matmul sums may "
@@ -197,6 +205,8 @@ def main(argv=None) -> None:
     if args.shard_params and args.tp <= 1:
         ap.error("--shard-params requires --tp > 1 (there is no mesh to "
                  "shard the weights over)")
+    if args.shard_params:
+        check_shardable(_arch(args))
     if args.dist_backend is None:
         args.dist_backend = "nccl" if args.device == "cuda" else "gloo"
     if args.tp > 1:
@@ -241,9 +251,8 @@ def _serve(ap, args, mesh=None) -> None:
                     kv_dtype=args.kv_dtype)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = model.init(gen, device)
-    if device.type == "cuda":
-        params = cast_params(params, torch.bfloat16)
+    params = model.init(gen, device, dtype=torch.bfloat16
+                        if device.type == "cuda" else None)
     rng = np.random.default_rng(args.seed)
     engine = args.engine
     if engine != "lockstep" and model.is_encdec:

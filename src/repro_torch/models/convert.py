@@ -25,17 +25,20 @@ def tree_map(fn, tree, name: str = ""):
     return fn(tree, name)
 
 
-#: the leaves of a norm (``init_norm``): its scale and its LayerNorm
-#: bias, which the norms read in f32
-NORM_LEAVES = ("scale", "bias")
+#: the leaves that stay f32 in any serving dtype: a norm's scale and its
+#: LayerNorm bias (``init_norm``), which the norms read in f32, and an MoE
+#: FFN's ``router``, whose logits are computed in f32 (a bf16 router would
+#: move expert choices)
+F32_LEAVES = ("scale", "bias", "router")
 
 
 def cast_params(params, dtype: torch.dtype):
     """Cast weights and projection biases to ``dtype`` (the serving dtype
-    on the card); norm scales and LayerNorm biases stay f32, as the JAX
-    package keeps every master in f32 and the norms compute in f32."""
+    on the card); norm scales, LayerNorm biases and MoE routers stay f32,
+    as the JAX package keeps every master in f32 and computes norms and
+    routing in f32."""
     return tree_map(
-        lambda t, name: t if name in NORM_LEAVES else t.to(dtype), params)
+        lambda t, name: t if name in F32_LEAVES else t.to(dtype), params)
 
 
 def params_from_jax(tree, device="cuda",

@@ -1,5 +1,6 @@
-"""Uniform model interface over the port's zoo: decoder-only LMs
-(``transformer.py``) and the Whisper encoder-decoder (``encdec.py``)."""
+"""Uniform model interface over the port's zoo: decoder-only LMs, dense
+or MoE (``transformer.py``, ``moe.py``), and the Whisper encoder-decoder
+(``encdec.py``)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
+from repro_torch.models.convert import cast_params
 from repro_torch.models.device import resolve_device
 
 
@@ -29,13 +31,17 @@ class Model:
     cfg: ArchConfig
     is_encdec: bool = False
 
-    def init(self, generator: torch.Generator, device="cuda"):
+    def init(self, generator: torch.Generator, device="cuda",
+             dtype: torch.dtype | None = None):
         """Random f32 parameters drawn from ``generator`` (which must
-        live on ``device``)."""
+        live on ``device``), cast to ``dtype`` as ``convert.cast_params``
+        casts when it is given (a decoder casts block by block, so its
+        f32 weights never exist whole)."""
         device = resolve_device(device)
         if self.is_encdec:
-            return ED.init_params(self.cfg, generator, device)
-        return TF.init_params(self.cfg, generator, device)
+            params = ED.init_params(self.cfg, generator, device)
+            return params if dtype is None else cast_params(params, dtype)
+        return TF.init_params(self.cfg, generator, device, dtype)
 
     def prefill(self, params, tokens, run: RunConfig, max_len: int,
                 encoder_input=None, logits: str = "all"):

@@ -1,8 +1,8 @@
 """Decoder-only LM assembled from an ArchConfig's layer periods.
 
 The counterpart of the JAX package's ``models/transformer.py`` for the
-serving paths, restricted to attention+MLP blocks (the dense archs in
-``configs``):
+serving paths, restricted to attention mixers with an MLP or an MoE FFN
+(the dense and MoE archs in ``configs``; ``models/moe.py``):
 
   * ``prefill`` / ``decode_step`` — the lockstep path over contiguous
     per-layer caches (:class:`layers.AttnCache`), ``run.softmax_policy``
@@ -16,7 +16,9 @@ paged steps serve one rank's share: its pools
 ``partitioning.shard_params`` — its cut of the MLP (summed over the
 ranks after ``w_down``), of the embedding (vocabulary rows, summed) and
 of the LM head (vocabulary columns, gathered); see ``layers.py`` for the
-attention.
+attention.  An MoE FFN runs replicated on every rank (its weights are
+not cut: expert parallelism is not ported, and ``shard_params`` refuses
+an MoE arch).
 
 Parameters keep the JAX package's tree: the period blocks are stacked on
 a leading ``n_periods`` axis, so ``params_from_jax`` converts a JAX tree
@@ -30,10 +32,11 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.configs.base import ArchConfig, LayerSpec, RunConfig
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.models import layers as L
-from repro_torch.models.convert import tree_map
+from repro_torch.models import moe as MOE
+from repro_torch.models.convert import cast_params, tree_map
 from repro_torch.models.device import resolve_device
 from repro_torch.runtime import partitioning as PT
 from repro_torch.runtime.paged_cache import pool_leaf_specs
@@ -50,14 +53,15 @@ def run_dtype(run: RunConfig) -> torch.dtype:
 
 
 def check_paged_supported(cfg: ArchConfig) -> None:
-    """This module serves attention+MLP decoders (the dense serving
-    archs); an encoder-decoder goes through ``models/encdec.py``."""
+    """This module serves decoders of attention mixers with an MLP or an
+    MoE FFN (the dense and MoE serving archs), as the JAX package's paged
+    path does; an encoder-decoder goes through ``models/encdec.py``."""
     bad = [(s.mixer, s.ffn) for s in cfg.period
-           if s.mixer != "attn" or s.ffn != "mlp"]
+           if s.mixer != "attn" or s.ffn not in ("mlp", "moe")]
     if bad or cfg.encoder_layers:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention+MLP decoders only, got "
-            f"{bad or 'an encoder-decoder'}")
+            f"{cfg.name}: the port serves attention decoders with an MLP or "
+            f"MoE FFN only, got {bad or 'an encoder-decoder'}")
 
 
 # ---------------------------------------------------------------------------
@@ -65,18 +69,24 @@ def check_paged_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_block(cfg: ArchConfig, generator: torch.Generator,
-               device) -> Params:
-    return {
+def init_block(cfg: ArchConfig, spec: LayerSpec,
+               generator: torch.Generator, device) -> Params:
+    p = {
         "norm1": L.init_norm(cfg.d_model, device),
         "mixer": L.init_attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                   cfg.resolved_head_dim, generator, device,
                                   qk_norm=cfg.qk_norm,
                                   with_bias=cfg.attn_bias),
         "norm2": L.init_norm(cfg.d_model, device),
-        "ffn": L.init_mlp(cfg.d_model, cfg.d_ff, generator, device,
-                          gated=cfg.mlp_gated),
     }
+    if spec.ffn == "moe":
+        m = cfg.moe
+        p["ffn"] = MOE.init_moe(cfg.d_model, m.d_expert, m.n_experts,
+                                m.n_shared, generator, device)
+    else:
+        p["ffn"] = L.init_mlp(cfg.d_model, cfg.d_ff, generator, device,
+                              gated=cfg.mlp_gated)
+    return p
 
 
 def block_cache(cfg: ArchConfig, b: int, max_len: int, dtype,
@@ -85,8 +95,8 @@ def block_cache(cfg: ArchConfig, b: int, max_len: int, dtype,
                              cfg.resolved_head_dim, dtype, device)
 
 
-def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig, *,
-                policy: SoftmaxPolicy, cache) -> Tensor:
+def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
+                spec: LayerSpec, *, policy: SoftmaxPolicy, cache) -> Tensor:
     h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
     x = x + L.apply_attention(
         p["mixer"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -96,16 +106,24 @@ def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig, *,
         backend=run.attention_backend, cache=cache,
         paged_backend=run.paged_backend, kv_dtype=run.kv_dtype)
     h2 = L.apply_norm(p["norm2"], x, cfg.norm_eps)
+    if spec.ffn == "moe":
+        m = cfg.moe
+        return x + MOE.apply_moe(
+            p["ffn"], h2, n_experts=m.n_experts, top_k=m.top_k,
+            capacity_factor=m.capacity_factor,
+            router_policy=run.router_policy)
     mesh = PT.active_mesh()
     cut = mesh is not None and p["ffn"]["w_down"].shape[0] != cfg.d_ff
     return x + L.apply_mlp(p["ffn"], h2, row_mesh=mesh if cut else None)
 
 
-def _tree_stack(trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _tree_stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees, dim=0)
+def _stack_into(out, tree, i: int):
+    """Write ``tree``'s leaves into slot ``i`` of the stacked ``out``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _stack_into(out[k], v, i)
+    else:
+        out[i].copy_(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -114,16 +132,31 @@ def _tree_stack(trees):
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device="cuda") -> Params:
+                device="cuda", dtype: torch.dtype | None = None) -> Params:
     """Random f32 parameters in the JAX package's tree layout, drawn from
     ``generator`` (torch's own stream: not the JAX package's numbers), on
-    the card unless ``device="cpu"``."""
+    the card unless ``device="cpu"``.
+
+    With ``dtype`` each block is cast (``convert.cast_params``) as soon as
+    it is drawn and written into the periods-stacked leaves, so the f32
+    model never exists whole: the result equals ``cast_params`` of the
+    f32 init, at the memory of the cast model plus one f32 block (a
+    16.9B-parameter MoE decoder fits the card in bf16, not in f32)."""
     check_paged_supported(cfg)
     device = resolve_device(device)
-    periods = [
-        _tree_stack([init_block(cfg, generator, device)
-                     for _ in range(cfg.n_periods)])
-        for _ in cfg.period]
+    periods = []
+    for spec in cfg.period:
+        stacked = None
+        for i in range(cfg.n_periods):
+            block = init_block(cfg, spec, generator, device)
+            if dtype is not None:
+                block = cast_params(block, dtype)
+            if stacked is None:
+                stacked = tree_map(lambda a, _: a.new_empty(
+                    (cfg.n_periods,) + tuple(a.shape)), block)
+            _stack_into(stacked, block, i)
+            del block
+        periods.append(stacked)
     p = {
         "embed": L.init_embedding(cfg.vocab_size, cfg.d_model, generator,
                                   device),
@@ -133,7 +166,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         p["head"] = L.init_lm_head(cfg.d_model, cfg.vocab_size, generator,
                                    device)
-    return p
+    return p if dtype is None else cast_params(p, dtype)
 
 
 def init_caches(cfg: ArchConfig, b: int, max_len: int, dtype, device):
@@ -177,10 +210,10 @@ def _apply_stack(params: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
     lockstep cache, or a paged cache over views of its pools), written
     in place."""
     for pi in range(cfg.n_periods):
-        for si in range(len(cfg.period)):
+        for si, spec in enumerate(cfg.period):
             pp = tree_map(lambda a, _, pi=pi: a[pi],
                           params["periods"][si])
-            x = apply_block(pp, x, cfg, run, policy=run.softmax_policy,
+            x = apply_block(pp, x, cfg, run, spec, policy=run.softmax_policy,
                             cache=make_cache(si, pi))
     return x
 

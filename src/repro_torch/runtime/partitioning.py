@@ -303,6 +303,19 @@ def _full_dims(cfg) -> dict[str, int]:
             "w_gate": cfg.d_ff, "w_up": cfg.d_ff, "w_down": cfg.d_ff}
 
 
+def check_shardable(cfg) -> None:
+    """``shard_params`` cuts the dense decoder's 2-D weights; an MoE FFN's
+    3-D expert stacks need expert parallelism (the JAX package's 3-D
+    rules), which is not ported: raises ``NotImplementedError`` rather
+    than cut them with the 2-D rules.  An MoE arch serves under a mesh
+    with replicated weights."""
+    if any(s.ffn == "moe" for s in cfg.period):
+        raise NotImplementedError(
+            f"{cfg.name}: shard_params on an MoE FFN needs expert "
+            f"parallelism, which is not ported yet; serve it with "
+            f"replicated weights")
+
+
 def shard_params(params, cfg, mesh: Mesh | None):
     """Rank ``mesh.rank``'s shard of a decoder parameter tree (numpy
     arrays or tensors): a cut leaf is a copy of the rank's slice, every
@@ -312,9 +325,11 @@ def shard_params(params, cfg, mesh: Mesh | None):
     a leaf already cut to ``full / tp`` is kept, so a tree that was
     sharded on the way in (``convert.params_from_jax(..., mesh=)``)
     passes unchanged.  In the ``'pages'`` regime the attention leaves
-    stay whole.  Norms and ``bo`` are replicated."""
+    stay whole.  Norms and ``bo`` are replicated.  An MoE arch raises
+    (:func:`check_shardable`)."""
     if mesh_model_tp(mesh) <= 1:
         return params
+    check_shardable(cfg)
     full = _full_dims(cfg)
     heads = _regime(mesh, cfg.n_kv_heads) == "heads"
 

@@ -287,6 +287,57 @@ def test_max_kv_len_steers_only_the_split(cuda, bound, phase):
     assert float((out - ref).abs().max()) <= TOL
 
 
+@pytest.mark.parametrize("impl", ["exact", "rexp"])
+@pytest.mark.parametrize("pool", ["float", "int8"])
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+def test_plan_kv_heads_gives_the_whole_models_arithmetic(cuda, phase, pool,
+                                                         impl):
+    """A tensor-parallel 'heads' rank's call — 4 of the model's 8 KV
+    heads, planned with ``plan_kv_heads=8`` — is ``torch.equal`` to those
+    heads of the 8-head call on random rows (whose sums depend on the
+    split): each head's keys split, and sum, as in the whole launch."""
+    c = 1 if phase == "decode" else 16
+    kv = (2000, 1500, 700, 33)
+    q_start = [k - 1 for k in kv] if phase == "decode" else \
+        [k - c for k in kv]
+    g, kvh, half = 8, 8, 4
+    pol = SoftmaxPolicy(impl=impl, precision="uint8") if impl != "exact" \
+        else SoftmaxPolicy()
+    if pool == "int8":
+        q, kp, vp, bt, qs, kl, sc = _int8_problem(
+            90, kv_lens=kv, g=g, c=c, q_start=q_start, kvh=kvh, mp=128,
+            dtype=torch.bfloat16, exact=False)
+    else:
+        q, kp, vp, bt, qs, kl = _problem(90, kv_lens=kv, g=g, c=c, mp=128,
+                                         q_start=q_start, kvh=kvh,
+                                         dtype=torch.bfloat16)
+        q = torch.randn(q.shape, generator=torch.Generator(
+            device="cuda").manual_seed(5), device="cuda").to(q.dtype)
+        kp = torch.randn(kp.shape, generator=torch.Generator(
+            device="cuda").manual_seed(6), device="cuda").to(kp.dtype)
+        sc = {}
+
+    def call(q, kp, vp, sc, **kw):
+        if phase == "decode":
+            return paged_decode_attention(q, kp, vp, bt, kl, pol,
+                                          max_kv_len=max(kv), **sc, **kw)
+        return paged_prefill_attention(q, kp, vp, bt, qs, kl, pol,
+                                       max_kv_len=max(kv), **sc, **kw)
+
+    whole = call(q, kp, vp, sc)
+    heads = slice(half, kvh)
+    part = call(q[:, half * g:].contiguous(), kp[:, :, heads].contiguous(),
+                vp[:, :, heads].contiguous(),
+                {k: v[:, :, heads].contiguous() for k, v in sc.items()},
+                plan_kv_heads=kvh)
+    assert torch.equal(part, whole[:, half * g:])
+    with pytest.raises(ValueError, match="plan_kv_heads"):
+        call(q[:, half * g:].contiguous(), kp[:, :, heads].contiguous(),
+             vp[:, :, heads].contiguous(),
+             {k: v[:, :, heads].contiguous() for k, v in sc.items()},
+             plan_kv_heads=half - 1)
+
+
 @pytest.mark.parametrize("phase", ["decode", "prefill"])
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_every_config_fits_a_cta(cuda, arch, phase):

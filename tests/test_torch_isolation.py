@@ -88,3 +88,10 @@ def test_scan_covers_the_row_softmax_and_flash_modules():
             "kernels/flash_attention/ops.py",
             "kernels/flash_attention/ref.py", "core/lut_softmax.py",
             "core/__init__.py"} <= scanned
+
+
+def test_scan_covers_the_moe_modules():
+    """... and the MoE FFN with its two configs."""
+    scanned = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"models/moe.py", "configs/deepseek_moe_16b.py",
+            "configs/granite_moe_3b_a800m.py"} <= scanned

@@ -336,3 +336,67 @@ def test_sharded_decode_rejects_lut2d():
     with pytest.raises(ValueError, match="exact and rexp"):
         lut_decode_sharded(x, x, x, R.policy_of("lut2d"), kv_len=1,
                            mesh=mesh)
+
+
+@pytest.mark.parametrize("tp,kvh", [(2, 8), (4, 8), (2, 2)])
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+def test_heads_regime_plans_the_split_for_the_models_kv_heads(
+        monkeypatch, phase, tp, kvh):
+    """A 'heads' rank holds ``kvh / tp`` KV heads, and its single-device
+    call plans the kernel's split of the keys for the model's ``kvh``
+    (``plan_kv_heads``) — on both paged entry points, and through them to
+    the kernel wrapper — so each head sums as in the tp = 1 launch; a
+    call without a mesh plans for its own heads."""
+    from repro_torch.kernels.lut_attention import (paged_decode,
+                                                   paged_prefill,
+                                                   sharded_paged)
+    from repro_torch.runtime.partitioning import Mesh
+    seen = []
+    entry = f"lut_attention_paged_{phase}"
+    module = paged_decode if phase == "decode" else paged_prefill
+    kernel = getattr(module, f"paged_{phase}_attention")
+    op = getattr(TOPS, entry)
+
+    def op_recording(*args, **kw):
+        seen.append(("entry", kw.get("plan_kv_heads")))
+        return op(*args, **kw)
+
+    def kernel_recording(*args, plan_kv_heads=None, **kw):
+        seen.append(("kernel", plan_kv_heads))
+        return kernel(*args, **kw)
+
+    local = kvh // tp
+    q = torch.zeros((2, 2 * local, 1 if phase == "decode" else 3, 8))
+    pages = torch.zeros((5, 4, local, 8))
+    bt = torch.zeros((2, 2), dtype=torch.int32)
+    kl = torch.tensor([3, 5], dtype=torch.int32)
+    extra = dict(q_start=kl - q.shape[2]) if phase == "prefill" else {}
+    for rank in range(tp):
+        mesh = Mesh(tp=tp, rank=rank, device=torch.device("cpu"),
+                    backend="gloo")
+        with monkeypatch.context() as m:
+            m.setattr(TOPS, entry, op_recording)
+            out = sharded_paged.paged_attention_sharded(
+                q, pages, pages, bt, kl, R.policy_of("rexp"), mesh=mesh,
+                regime="heads", gather=False, **extra)
+        assert out.shape == q.shape
+    assert seen == [("entry", kvh)] * tp
+    seen.clear()
+    # the entry point hands the count to the kernel wrapper
+    monkeypatch.setattr(TOPS, "resolve_paged_backend", lambda *a: "cuda")
+    monkeypatch.setattr(TOPS, "resolve_paged_prefill_backend",
+                        lambda *a: "cuda")
+    monkeypatch.setattr(module, f"paged_{phase}_attention", kernel_recording)
+    args = (q, pages, pages, bt) + ((kl - q.shape[2],) if phase == "prefill"
+                                    else ()) + (kl, R.policy_of("rexp"))
+    op(*args, plan_kv_heads=kvh)
+    op(*args)
+    assert seen == [("kernel", kvh), ("kernel", None)]
+
+
+def test_plan_kv_heads_argument_checks():
+    from repro_torch.kernels.lut_attention.paged_decode import plan_heads_arg
+    assert plan_heads_arg(None, 4) == 0
+    assert plan_heads_arg(8, 4) == 8
+    with pytest.raises(ValueError, match="below the call's 4 KV heads"):
+        plan_heads_arg(2, 4)

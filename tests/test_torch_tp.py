@@ -489,6 +489,80 @@ def test_tp_shard_params(runs, name):
 
 
 # ---------------------------------------------------------------------------
+# MoE decoders: the FFN replicated on every rank
+# ---------------------------------------------------------------------------
+
+#: tp-2 'heads' cases of the scaled-down MoE decoders (4 experts, top-2):
+#: DeepSeek-MoE-16B's MHA (KVH = H = 4; 2 shared experts) and
+#: Granite-MoE-3B at GQA 2 (KVH 2, H 4), sync and pipelined
+MOE_TP_CASES = {c["name"]: c for c in [
+    dict(name="moe-deepseek-heads-rexp", base="deepseek-moe-16b", kvh=4,
+         heads=4, impl="rexp", router="rexp", cache=CACHE, chunk=5,
+         requests=_reqs(3, [(9, 7), (21, 6), (4, 8), (14, 5)])),
+    dict(name="moe-granite-heads-gqa-exact", base="granite-moe-3b-a800m",
+         kvh=2, heads=4, impl="exact", cache=CACHE, chunk=5,
+         requests=_reqs(6, [(12, 6), (3, 9), (25, 5)])),
+    dict(name="moe-granite-heads-gqa-lut2d-int8-pipelined",
+         base="granite-moe-3b-a800m", kvh=2, heads=4, impl="lut2d",
+         router="rexp", kv_dtype="int8", engine="pipelined", cache=CACHE,
+         chunk=5, requests=_reqs(7, [(10, 7), (18, 6), (5, 8)],
+                                 temps=(0.0, 0.8, 0.0)))]}
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_numpy_tree(v) for v in tree)
+    return tree.numpy()
+
+
+@pytest.fixture(scope="module")
+def moe_runs(tmp_path_factory):
+    """Every MoE case through 2 port ranks (seeded port weights, as
+    numpy trees) beside the port's own single-device sync engine."""
+    trees = {}
+    for c in MOE_TP_CASES.values():
+        arch = R.arch_of(c["kvh"], c["heads"], c["base"])
+        params = build_model(arch).init(torch.Generator().manual_seed(0),
+                                        device="cpu")
+        trees[R.case_key(c)] = _numpy_tree(params)
+    ranks = start_ranks(R.engine_cases, 2, backend="gloo", device="cpu",
+                        args=(list(MOE_TP_CASES.values()), trees),
+                        store_dir=str(tmp_path_factory.mktemp("tp_moe")))
+    single = {}
+    for name, c in MOE_TP_CASES.items():
+        one = dict(c, engine=None)
+        eng = R.engine_of(one, params_from_jax(trees[R.case_key(c)],
+                                               device="cpu"))
+        firsts = R.first_logits_of(eng)
+        res = R.drive(eng, one)
+        single[name] = dict(tokens={k: v.tokens.tolist()
+                                    for k, v in res.items()},
+                            first_logits=firsts)
+    return ranks.join(), single
+
+
+@pytest.mark.parametrize("name", list(MOE_TP_CASES))
+def test_tp2_heads_moe_token_identical_to_tp1(moe_runs, name):
+    """Two 'heads' ranks, each attending its half of the KV heads and
+    running the whole MoE FFN on replicated weights (no collective beyond
+    the attention's gather): every request's tokens equal the port's
+    tp = 1 engine's, greedy and sampled, and the sync drives' first-token
+    logits agree within 1e-5."""
+    port, single = moe_runs
+    res = port[name]
+    assert res["tp"] == 2 and res["regime"] == "heads"
+    _same(res["tokens"], single[name]["tokens"], f"{name} vs port tp=1")
+    for rid, row in res["first_logits"].items():
+        np.testing.assert_allclose(row, single[name]["first_logits"][rid],
+                                   rtol=0, atol=1e-5, err_msg=f"{name} {rid}")
+    sites = {rec[0] for tr in res["traces"] for _, recs in tr
+             for rec in recs}
+    assert sites == {"attn_out"}, sites
+
+
+# ---------------------------------------------------------------------------
 # The wire budget, from the collective log
 # ---------------------------------------------------------------------------
 

@@ -30,12 +30,19 @@ from repro_torch.runtime.paged_cache import PagedCacheConfig
 VOCAB = 128
 
 
-def arch_of(kvh: int, heads: int):
-    """Qwen3-32B scaled down: d_model 64, ``heads``/``kvh`` heads, vocab
-    128, two layers (the JAX suite's ``small_model``)."""
-    return ARCHS["qwen3-32b"].scaled_down(d_model=64, n_heads=heads,
-                                          n_kv_heads=kvh, vocab=VOCAB,
-                                          n_periods=2)
+def arch_of(kvh: int, heads: int, base: str = "qwen3-32b"):
+    """``base`` (Qwen3-32B unless named: the JAX suite's ``small_model``)
+    scaled down: d_model 64, ``heads``/``kvh`` heads, vocab 128, two
+    layers (an MoE base: 4 experts, top-2)."""
+    return ARCHS[base].scaled_down(d_model=64, n_heads=heads,
+                                   n_kv_heads=kvh, vocab=VOCAB, n_periods=2)
+
+
+def case_key(case) -> tuple:
+    """The key of a case's weights in ``trees``: its (kvh, heads), and its
+    ``base`` arch where it names one."""
+    key = (case["kvh"], case["heads"])
+    return key + (case["base"],) if "base" in case else key
 
 
 def policy_of(impl: str) -> SoftmaxPolicy:
@@ -45,8 +52,9 @@ def policy_of(impl: str) -> SoftmaxPolicy:
 
 def engine_of(case, params, mesh=None, device="cpu"):
     """The case's engine (sync or pipelined) over the port's model."""
-    arch = arch_of(case["kvh"], case["heads"])
+    arch = arch_of(case["kvh"], case["heads"], case.get("base", "qwen3-32b"))
     run = RunConfig(dtype="float32", softmax_policy=policy_of(case["impl"]),
+                    router_policy=policy_of(case.get("router", "exact")),
                     kv_dtype=case.get("kv_dtype", "f32"))
     n_pages, ps, mp = case["cache"]
     cfg = EngineConfig(
@@ -112,8 +120,9 @@ def engine_cases(mesh, cases, trees):
     every rank's per-program collective records."""
     results = {}
     for case in cases:
-        tree = trees[(case["kvh"], case["heads"])]
-        arch = arch_of(case["kvh"], case["heads"])
+        tree = trees[case_key(case)]
+        arch = arch_of(case["kvh"], case["heads"],
+                       case.get("base", "qwen3-32b"))
         shard = case.get("shard_params", False)
         params = params_from_jax(tree, device="cpu",
                                  mesh=mesh if shard else None, cfg=arch)
