@@ -130,6 +130,30 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    is discontinuous: bf16 roundoff moves tokens across near-ties of the
    random router, and the count of such tokens is printed); tok/s and
    TTFT of every drive, the phase's seconds;
+5e. the hybrid and recurrent decoders (lines ``[ssm]``) — Jamba-v0.1-52B
+   at full width (d_model 4096, 32 / 8 heads of 128 without RoPE, Mamba
+   d_inner 8192 and d_state 16, 16 experts of 14 336, top-2, vocab
+   65 536), depth cut to one period of 8 layers (attention at index 3,
+   Mamba elsewhere, the MoE FFN on odd layers: 13.3B parameters; the 32
+   layers' ~103 GB in bf16 do not fit the card), seeded random bf16
+   weights drawn and cast block by block, through ``serve_loop.generate``
+   with ``attention_backend="auto"``: 4 prompts of 64 tokens, 32 new
+   tokens, under REXP uint8 and 2D-LUT uint8 — exactly 32 dense
+   launches a drive (the prompt's call on the tile route, 31 decode
+   calls on the split route), every call of a shadowed drive within one
+   LUT step of its plain version, REXP first-token logits within 2 % of
+   a ``naive`` drive that replays the kernel drive's expert choices
+   (:func:`pinned_routes`; the flipped routings printed), tok/s, the
+   prefill's and a decode step's time, one profiled drive (busy share;
+   matmuls, the dense kernel, everything else); the dense kernel at
+   Jamba's two shapes (the prompt call: 64 rows over the first 64 keys
+   of a 96-position cache; a decode call at kv_len 95) against its
+   plain version, timed beside it, exact SDPA and its bound; then one
+   Mamba block at Jamba's width (a 64-token prefill, 8 decode steps) and
+   the whole xLSTM-125M (9 mLSTM + 3 sLSTM layers; the card's greedy
+   drive teacher-forced for 32 steps) on the card against the CPU in
+   f32, TF32 off: every output, logit and state leaf within 1e-4 of its
+   largest entry; xLSTM's bf16 drive's tok/s and step times;
 6. the dense LUT-attention kernel against its plain version, in its
    three modes (REXP's fused α form, REXP's and 2D-LUT's faithful σ),
    q/k/v in f32 and bf16, at Whisper-small's shapes: the encoder
@@ -209,7 +233,9 @@ and launches; the dense one also its few-row calls' times on the split
 and row routes; the row kernels their eight cases under ``cases``, each
 with its bound, route and ``torch.softmax`` time; the two f32/bf16
 paged kernels their rows at the MoE widths under ``shapes``, with the
-launches of that model's REXP bf16 drive); the last line is
+launches of that model's REXP bf16 drive, and the dense one its rows at
+Jamba's two shapes, with the Jamba REXP drive's launches); the last
+line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -257,6 +283,7 @@ from repro_torch.kernels.lut_attention.paged_prefill import (  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import layers as LAYERS  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import encdec as ENCDEC  # noqa: E402
 from repro_torch.models.convert import cast_params, tree_map  # noqa: E402
 from repro_torch.runtime.engine import (EngineConfig,  # noqa: E402
@@ -1832,6 +1859,311 @@ def phase_moe(card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5e: the hybrid and recurrent decoders through lockstep
+# ---------------------------------------------------------------------------
+
+#: Jamba's lockstep drive: 4 requests of a 64-token prompt and 32 new
+#: tokens each, so its attention cache holds 96 positions
+J_BATCH, J_PROMPT, J_NEW = 4, 64, 32
+#: the recurrent code on the card against the CPU in f32: every output,
+#: logit and state leaf within this share of its largest entry
+SSM_TOL = 1e-4
+#: Mamba decode steps after the 64-token prefill of the block check
+MAMBA_STEPS = 8
+
+
+def setup_jamba():
+    """Jamba-v0.1-52B at full width, depth cut to one period (8 layers:
+    attention at index 3, Mamba elsewhere, the MoE FFN on odd layers),
+    seeded random bf16 weights drawn and cast block by block (the 32
+    layers' ~103 GB do not fit the card), and the drive's seeded
+    prompts."""
+    full = ARCHS["jamba-v0.1-52b"]
+    arch = full.with_layers(1)
+    model = build_model(arch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = model.init(gen, "cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(5)
+    prompt = torch.as_tensor(rng.integers(0, arch.vocab_size,
+                                          size=(J_BATCH, J_PROMPT)),
+                             dtype=torch.int32, device="cuda")
+    m = arch.moe
+    print(f"[ssm] {arch.name}: {arch.n_layers} of {full.n_layers} layers "
+          f"(attention at 3, Mamba elsewhere; MoE FFN on odd layers) of "
+          f"d_model {arch.d_model}, heads {arch.n_heads}/{arch.n_kv_heads} "
+          f"of {arch.resolved_head_dim} (no RoPE), Mamba d_inner "
+          f"{SSM.EXPAND * arch.d_model} d_state {SSM.D_STATE}, "
+          f"{m.n_experts} experts of {m.d_expert} top-{m.top_k}, d_ff "
+          f"{arch.d_ff}, vocab {arch.vocab_size}: "
+          f"{arch.param_count() / 1e9:.2f}B params "
+          f"({full.param_count() / 1e9:.2f}B at full depth) bf16, init "
+          f"{time.perf_counter() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card; "
+          f"{J_BATCH} prompts of {J_PROMPT} tokens, {J_NEW} new tokens")
+    return model, params, prompt
+
+
+def held_to_cpu(label, got, ref, worst):
+    """``got`` (on the card) within ``SSM_TOL`` of the largest entry of
+    ``ref`` (on the CPU); returns the larger of ``worst`` and this
+    ratio."""
+    ref = ref.float()
+    err = float((got.float().cpu() - ref).abs().max()
+                / max(float(ref.abs().max()), 1e-30))
+    if not err <= SSM_TOL:
+        raise AssertionError(f"{label}: card against CPU {err:.3g} of the "
+                             f"largest entry > {SSM_TOL}")
+    return max(worst, err)
+
+
+def state_leaves(caches):
+    """(name, tensor) of every leaf of a lockstep model's caches."""
+    for pi, period in enumerate(caches):
+        for si, cache in enumerate(period):
+            for f in dataclasses.fields(cache):
+                leaf = getattr(cache, f.name)
+                if isinstance(leaf, torch.Tensor):
+                    yield f"period {pi} layer {si} {f.name}", leaf
+
+
+def mamba_block_check(card):
+    """One Mamba block at Jamba's width (d_model 4096, d_inner 8192,
+    d_state 16, dt_rank 256), f32: a 64-token prefill into a fresh cache
+    and ``MAMBA_STEPS`` decode steps on the card against the same weights
+    and inputs on the CPU."""
+    d = ARCHS["jamba-v0.1-52b"].d_model
+    t0 = time.perf_counter()
+    p_cpu = SSM.init_mamba(d, torch.Generator().manual_seed(9), "cpu")
+    p_gpu = tree_map(lambda t, _: t.to("cuda"), p_cpu)
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        (J_BATCH, J_PROMPT + MAMBA_STEPS, d), dtype=np.float32))
+    caches = [SSM.MambaCache.zeros(J_BATCH, d, torch.float32, dev)
+              for dev in ("cuda", "cpu")]
+    worst = 0.0
+    steps = [x[:, :J_PROMPT]] + [x[:, J_PROMPT + i:J_PROMPT + i + 1]
+                                 for i in range(MAMBA_STEPS)]
+    for i, xs in enumerate(steps):
+        label = "prefill" if i == 0 else f"decode {i}"
+        got = SSM.apply_mamba(p_gpu, xs.to("cuda"), cache=caches[0])
+        ref = SSM.apply_mamba(p_cpu, xs, cache=caches[1])
+        worst = held_to_cpu(f"mamba {label} out", got, ref, worst)
+        for leaf in ("h", "conv"):
+            worst = held_to_cpu(f"mamba {label} {leaf}",
+                                getattr(caches[0], leaf),
+                                getattr(caches[1], leaf), worst)
+    print(f"[ssm] one Mamba block at Jamba's width (d_inner {2 * d}, "
+          f"dt_rank {p_cpu['dt_proj'].shape[0]}), f32, B={J_BATCH}: a "
+          f"{J_PROMPT}-token prefill and {MAMBA_STEPS} decode steps on the "
+          f"card against the CPU: outputs and state (h, conv) within "
+          f"{worst:.3g} of their largest entry (limit {SSM_TOL}); "
+          f"{time.perf_counter() - t0:.1f}s — {card}")
+
+
+def xlstm_check(card):
+    """The whole xLSTM-125M (12 layers: 9 mLSTM, 3 sLSTM), seeded f32
+    weights: the card's greedy drive of 4 prompts of 64 tokens,
+    teacher-forced on the CPU with the card's tokens — every step's
+    logits and every state leaf within ``SSM_TOL`` of its largest entry;
+    then the same weights in bf16 through ``generate``: tok/s, the
+    prefill's and a decode step's time."""
+    arch = ARCHS["xlstm-125m"]
+    model = build_model(arch)
+    t0 = time.perf_counter()
+    p_cpu = model.init(torch.Generator().manual_seed(10), "cpu")
+    p_gpu = tree_map(lambda t, _: t.to("cuda"), p_cpu)
+    prompt = torch.as_tensor(np.random.default_rng(10).integers(
+        0, arch.vocab_size, size=(J_BATCH, J_PROMPT)), dtype=torch.int32)
+    run = lockstep_run(POLICIES["exact"], dtype="float32")
+    max_len = J_PROMPT + J_NEW
+    lg, sg = model.prefill(p_gpu, prompt.to("cuda"), run, max_len,
+                           logits="last")
+    lc, sc = model.prefill(p_cpu, prompt, run, max_len, logits="last")
+    worst = 0.0
+    for i in range(J_NEW):
+        worst = held_to_cpu(f"xlstm step {i} logits", lg, lc, worst)
+        for (name, g), (_, c) in zip(state_leaves(sg), state_leaves(sc)):
+            worst = held_to_cpu(f"xlstm step {i} {name}", g, c, worst)
+        if i == J_NEW - 1:
+            break
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+        lg, sg = model.decode_step(p_gpu, tok, sg, run)
+        lc, sc = model.decode_step(p_cpu, tok.cpu(), sc, run)
+    mixers = [s.mixer for s in arch.period] * arch.n_periods
+    print(f"[ssm] {arch.name} ({mixers.count('mlstm')} mLSTM + "
+          f"{mixers.count('slstm')} sLSTM layers, d_model {arch.d_model}, "
+          f"{arch.n_heads} heads, vocab {arch.vocab_size}: "
+          f"{arch.param_count() / 1e6:.0f}M params), f32, B={J_BATCH}: the "
+          f"card's greedy drive teacher-forced on the CPU for {J_NEW} "
+          f"steps: logits and {sum(1 for _ in state_leaves(sg))} state "
+          f"leaves within {worst:.3g} of their largest entry (limit "
+          f"{SSM_TOL}); {time.perf_counter() - t0:.1f}s")
+    params = cast_params(p_gpu, torch.bfloat16)
+    run = lockstep_run(POLICIES["exact"])
+    prompt = prompt.to("cuda")
+    lockstep_drive(model, params, prompt, run, J_NEW)           # warm-up
+    out, _, wall, _ = lockstep_drive(model, params, prompt, run, J_NEW)
+    if out.shape != (J_BATCH, J_NEW) or not (
+            (out >= 0) & (out < arch.vocab_size)).all():
+        raise AssertionError(f"xlstm tokens out of range: {out}")
+    t_pre, t_dec = lockstep_step_times(model, params, prompt, run, J_NEW)
+    print(f"[ssm] {arch.name} bf16 lockstep drive: {out.numel()} tokens in "
+          f"{wall:.3f}s ({out.numel() / wall:.1f} tok/s); prefill "
+          f"{t_pre * 1e3:.2f} ms ({J_BATCH} × {J_PROMPT} tokens), mean "
+          f"decode step {t_dec * 1e3:.2f} ms — {card}")
+
+
+def jamba_dense_rows(cfg, qmax, card):
+    """The dense kernel at Jamba's two lockstep shapes, bf16, REXP
+    faithful (a cache's kv_len): the prompt call (64 rows over the first
+    64 keys of the 96-position cache, causal) and a decode call at
+    kv_len 95, on the route the dispatcher picks — within one LUT step of
+    the plain version on normal rows, timed beside it, exact SDPA on the
+    same inputs and the bound over the visible pairs and valid keys."""
+    rng = np.random.default_rng(11)
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    lk = J_PROMPT + J_NEW
+    rows = {}
+    for name, lq, kv_len in (("prompt", J_PROMPT, J_PROMPT),
+                             ("decode", 1, lk - 1)):
+        q, k, v = dense_problem(rng, J_BATCH, h, kvh, lq, lk, dh,
+                                torch.bfloat16, False)
+        route = dense_route(q.dtype, dh, lq, qmax, "rexp")
+        ref = dense_call(lut_attention_plain, "rexp", q, k, v, True, kv_len)
+        out = dense_call(lut_attention_cuda, "rexp", q, k, v, True, kv_len,
+                         route=route)
+        err = float((out - ref).abs().max())
+        limit = 2.0 / qmax * float(v.float().abs().max())
+        if not err <= limit:
+            raise AssertionError(f"jamba {name} call off its plain version "
+                                 f"by {err} > one LUT step {limit}")
+        b_ms, b_by = dense_bound(J_BATCH, h, kvh, lq, kv_len, dh,
+                                 torch.bfloat16,
+                                 dense_pairs(lq, lk, True, kv_len))
+        row = dict(route=route, ms=device_ms(lambda: dense_call(
+            lut_attention_cuda, "rexp", q, k, v, True, kv_len, route=route)),
+            plain_ms=device_ms(lambda: dense_call(
+                lut_attention_plain, "rexp", q, k, v, True, kv_len)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            sdpa_ms=dense_sdpa_ms(q, k, v, True, kv_len), max_abs_err=err)
+        rows[name] = row
+        print(f"[time] lut_attention rexp bf16 jamba {name} B={J_BATCH} "
+              f"H={h}/{kvh} Lq={lq} Lk={lk} kv_len={kv_len} Dh={dh} "
+              f"{route}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, exact SDPA {row['sdpa_ms']:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / row['ms']:.1%} of bound; max|err| {err:.3g} (limit "
+              f"{limit:.3g}) — {card}")
+    return rows
+
+
+def phase_ssm(card):
+    """Phase 5e: Jamba-v0.1-52B (one period at full width, seeded bf16
+    weights) through ``serve_loop.generate`` with
+    ``attention_backend="auto"``: 4 prompts of 64 tokens, 32 new tokens,
+    under REXP uint8 and 2D-LUT uint8 — exactly 32 dense launches a drive
+    (the prompt's call on the tile route, 31 decode calls on the split
+    route), every call of a shadowed drive within one LUT step of its
+    plain version, REXP first-token logits within 2 % of a ``naive``
+    drive that replays the kernel drive's expert choices, tok/s, the
+    prefill's and a decode step's time, one profiled drive; the dense
+    kernel timed at Jamba's two shapes; one Mamba block at Jamba's width
+    and the whole xLSTM-125M on the card against the CPU in f32.
+    Returns the dense kernel's Jamba row: both shapes' times and the
+    REXP drive's launches."""
+    t0 = time.perf_counter()
+    model, params, prompt = setup_jamba()
+    cfg = model.cfg
+    main, lut2d = POLICIES[MAIN_POLICY], POLICIES["lut2d-uint8"]
+    qmax = get_precision(main.precision).qmax
+    dh = cfg.resolved_head_dim
+    n_attn = cfg.n_periods * sum(s.mixer == "attn" for s in cfg.period)
+    expect_routes = dict.fromkeys(ROUTES, 0)
+    for n, rows in ((n_attn, J_PROMPT), (n_attn * (J_NEW - 1), 1)):
+        expect_routes[dense_route(torch.bfloat16, dh, rows, qmax,
+                                  "rexp")] += n
+
+    def drive(policy, backend="auto", around=None):
+        return lockstep_drive(model, params, prompt,
+                              lockstep_run(policy, backend), J_NEW,
+                              around=around)
+
+    def counted(label, got, mode):
+        expect = dict.fromkeys(MODES, 0)
+        expect[mode] = n_attn * J_NEW
+        out, launches, wall, by_route = got
+        print(f"[ssm] jamba {label}: {out.numel()} tokens in {wall:.3f}s "
+              f"({out.numel() / wall:.1f} tok/s); dense launches {launches} "
+              f"by route {by_route} (expected {expect} by route "
+              f"{expect_routes})")
+        if launches != expect or by_route != expect_routes:
+            raise AssertionError(f"jamba {label} launched {launches} by "
+                                 f"route {by_route}")
+        if out.shape != (J_BATCH, J_NEW) or not (
+                (out >= 0) & (out < cfg.vocab_size)).all():
+            raise AssertionError(f"jamba tokens out of range: {out}")
+        return got
+
+    drive(main)                                                  # warm-up
+    got = counted(f"{MAIN_POLICY} auto", drive(main), "rexp")
+    t_pre, t_dec = lockstep_step_times(model, params, prompt,
+                                       lockstep_run(main), J_NEW)
+    print(f"[ssm] jamba {MAIN_POLICY}: prefill {t_pre * 1e3:.2f} ms "
+          f"({J_BATCH} × {J_PROMPT} tokens), mean decode step "
+          f"{t_dec * 1e3:.2f} ms ({J_BATCH} tokens) — {card}")
+    counted("lut2d-uint8 auto", drive(lut2d), "lut2d")
+    for pol_name, pol in ((MAIN_POLICY, main), ("lut2d-uint8", lut2d)):
+        shadow = []
+        LAYERS.lut_attention = dense_shadow(shadow, qmax)
+        try:
+            counted(f"{pol_name} auto (shadowed)", drive(pol),
+                    "rexp" if pol is main else "lut2d")
+        finally:
+            LAYERS.lut_attention = ops.lut_attention
+        if len(shadow) != n_attn * J_NEW:
+            raise AssertionError(f"shadowed drive: {len(shadow)} calls")
+        check_shadow(shadow, f"jamba {pol_name} drive", tag="[ssm]")
+    naive = drive(main, "naive")
+    if any(naive[1].values()):
+        raise AssertionError(f"naive drive launched {naive[1]}")
+    print(f"[ssm] jamba {MAIN_POLICY} naive drive: {naive[2]:.3f}s; tokens "
+          f"agreeing with the kernel drive (free-running) "
+          f"{float((naive[0] == got[0]).float().mean()):.1%}")
+    routes, flips = [], []
+    with pinned_routes(record=routes):
+        a = first_token_logits(model, params, None, prompt,
+                               lockstep_run(main), J_NEW)
+    with pinned_routes(replay=routes, flips=flips):
+        b = first_token_logits(model, params, None, prompt,
+                               lockstep_run(main, "naive"), J_NEW)
+    flipped = torch.cat(flips)
+    worst = float(np.abs(a - b).max() / np.abs(b).max())
+    print(f"[ssm] jamba {MAIN_POLICY} auto vs naive, the naive prefill "
+          f"replaying the kernel prefill's experts ({len(routes)} routing "
+          f"calls; its own top-k would differ for {int(flipped.sum())} of "
+          f"{flipped.numel()} token routings): first-token logits "
+          f"max|Δ|/max|logit| {worst:.4g}; first tokens agreeing "
+          f"{float(np.mean(a.argmax(-1) == b.argmax(-1))):.1%}")
+    if not worst <= 0.02:
+        raise AssertionError(f"jamba first-token logits differ by "
+                             f"{worst:.3g} > 0.02")
+    lockstep_profile(f"jamba {MAIN_POLICY}",
+                     lambda around: drive(main, around=around))
+    rows = jamba_dense_rows(cfg, qmax, card)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mamba_block_check(card)
+    xlstm_check(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[ssm] phase 5e: {time.perf_counter() - t0:.1f}s — {card}")
+    return {cfg.name: dict(rows, launches=sum(got[1].values()),
+                           route_launches=got[3])}
+
+
+# ---------------------------------------------------------------------------
 # Phases 6 and 7: the dense LUT-attention kernel and Whisper-small
 # ---------------------------------------------------------------------------
 
@@ -2166,15 +2498,17 @@ def setup_whisper():
     return model, params, frames, prompt
 
 
-def whisper_run(policy, backend="auto"):
-    return RunConfig(dtype="bfloat16", softmax_policy=policy,
+def lockstep_run(policy, backend="auto", dtype="bfloat16"):
+    return RunConfig(dtype=dtype, softmax_policy=policy,
                      attention_backend=backend)
 
 
-def whisper_drive(model, params, frames, prompt, run, around=None):
-    """One ``serve_loop.generate`` of the clips; returns the tokens, the
-    dense kernel's launches by mode during it, its wall seconds and its
-    launches by route."""
+def lockstep_drive(model, params, prompt, run, new_tokens=W_NEW,
+                   frames=None, around=None):
+    """One ``serve_loop.generate`` of the prompts (an encoder-decoder's
+    with its clips' ``frames``); returns the tokens, the dense kernel's
+    launches by mode during it, its wall seconds and its launches by
+    route."""
     torch.cuda.synchronize()
     for counts in (lut_attention_cuda.launches,
                    lut_attention_cuda.route_launches):
@@ -2182,12 +2516,35 @@ def whisper_drive(model, params, frames, prompt, run, around=None):
             counts[key] = 0
     with around or contextlib.nullcontext():
         t0 = time.perf_counter()
-        out = generate(model, params, prompt, run, max_new_tokens=W_NEW,
-                       encoder_input=frames)
+        out = generate(model, params, prompt, run,
+                       max_new_tokens=new_tokens, encoder_input=frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return (out, dict(lut_attention_cuda.launches), wall,
             dict(lut_attention_cuda.route_launches))
+
+
+def lockstep_step_times(model, params, prompt, run, new_tokens,
+                        frames=None):
+    """The prefill (an encoder-decoder's encode included), then the
+    decode steps one by one, each ended by a synchronize: (prefill s,
+    mean decode step s)."""
+    max_len = prompt.shape[1] + new_tokens
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = make_prefill_step(model, run, max_len)(params, prompt,
+                                                           frames)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    steps = []
+    for _ in range(new_tokens - 1):
+        t0 = time.perf_counter()
+        logits, state = model.decode_step(params, tok, state, run)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    return t_pre, float(np.mean(steps))
 
 
 def whisper_step_times(model, params, frames, prompt, run):
@@ -2199,21 +2556,8 @@ def whisper_step_times(model, params, frames, prompt, run):
                   run.softmax_policy)
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
-    max_len = prompt.shape[1] + W_NEW
-    t0 = time.perf_counter()
-    logits, state = make_prefill_step(model, run, max_len)(params, prompt,
-                                                           frames)
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    torch.cuda.synchronize()
-    t_pre = time.perf_counter() - t0
-    steps = []
-    for _ in range(W_NEW - 1):
-        t0 = time.perf_counter()
-        logits, state = model.decode_step(params, tok, state, run)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        torch.cuda.synchronize()
-        steps.append(time.perf_counter() - t0)
-    return t_enc, t_pre, float(np.mean(steps))
+    return (t_enc, *lockstep_step_times(model, params, prompt, run, W_NEW,
+                                        frames))
 
 
 #: the dense kernel's bodies as the profiler names them (the tile
@@ -2222,16 +2566,16 @@ DENSE_KERNEL_NAMES = ("lut_attention_tiles_kernel", "lut_attention_kernel",
                       "lut_attention_split_kernel")
 
 
-def whisper_profile(model, params, frames, prompt, run):
-    """The device's busy share of a profiled drive and the dense kernel's
-    share of the busy time ("not measured" when the profiler records no
-    device time)."""
+def lockstep_profile(label, drive):
+    """The device's busy share of a profiled lockstep drive (``drive(
+    around)`` → :func:`lockstep_drive`'s result) and its device time by
+    class: the dense kernel, matmuls, everything else ("not measured"
+    when the profiler records no device time)."""
     from torch.profiler import ProfilerActivity, profile
     if not profiler_runs():
-        return
+        return None
     prof = profile(activities=[ProfilerActivity.CUDA])
-    _, launches, wall, _ = whisper_drive(model, params, frames, prompt, run,
-                                         around=prof)
+    _, launches, wall, _ = drive(prof)
     kernels = []
     for e in prof.key_averages():
         us = (getattr(e, "self_device_time_total", None)
@@ -2247,7 +2591,7 @@ def whisper_profile(model, params, frames, prompt, run):
     mm = sum(us for us, _, k in kernels
              if any(n in k for n in ("gemm", "gemv", "nvjet", "cutlass",
                                      "xmma", "sm90_"))) / 1e6
-    print(f"[profile] whisper rexp-uint8 drive, profiled: device busy "
+    print(f"[profile] {label} drive, profiled: device busy "
           f"{busy * 1e3:.1f} ms of {wall * 1e3:.1f} ms wall "
           f"({busy / wall:.1%}); dense LUT-attention kernel "
           f"{dense * 1e3:.1f} ms ({dense / busy:.1%} of busy); matmuls "
@@ -2267,8 +2611,25 @@ def whisper_profile(model, params, frames, prompt, run):
     return busy, wall
 
 
-def first_token_logits(model, params, frames, prompt, run):
-    max_len = prompt.shape[1] + W_NEW
+def dense_shadow(shadow, qmax):
+    """A stand-in for ``layers.lut_attention`` that makes each call, makes
+    it again on the plain version (``backend="naive"``) and appends
+    (name, max|err|, one LUT step of 2/qmax · max|v|, share of rows
+    beyond 1e-4) to ``shadow``."""
+    def shadowed(*args, **kw):
+        out = ops.lut_attention(*args, **kw)
+        ref = ops.lut_attention(*args, **{**kw, "backend": "naive"})
+        rows = (out - ref).abs().amax(dim=-1)
+        shadow.append(("lut_attention", float(rows.max()),
+                       2.0 / qmax * float(args[2].float().abs().max()),
+                       float((rows > 1e-4).float().mean())))
+        return out
+    return shadowed
+
+
+def first_token_logits(model, params, frames, prompt, run,
+                       new_tokens=W_NEW):
+    max_len = prompt.shape[1] + new_tokens
     logits, _ = make_prefill_step(model, run, max_len)(params, prompt, frames)
     return logits[:, 0].float().cpu().numpy()
 
@@ -2283,10 +2644,10 @@ def phase_whisper():
     model, params, frames, prompt = setup_whisper()
     cfg = model.cfg
     main = POLICIES[MAIN_POLICY]
-    run = whisper_run(main)
-    whisper_drive(model, params, frames, prompt, run)          # warm-up
-    out, launches, wall, by_route = whisper_drive(model, params, frames,
-                                                  prompt, run)
+    run = lockstep_run(main)
+    lockstep_drive(model, params, prompt, run, frames=frames)  # warm-up
+    out, launches, wall, by_route = lockstep_drive(model, params, prompt,
+                                                   run, frames=frames)
     toks = out.numel()
     n_steps = W_NEW                           # the prefill and 31 decodes
     expect = {"rexp_fused": cfg.encoder_layers + cfg.n_layers * n_steps,
@@ -2321,19 +2682,10 @@ def phase_whisper():
           f"mean decode step {t_dec * 1e3:.2f} ms ({W_BATCH} tokens)")
 
     shadow = []
-
-    def shadowed(*args, **kw):
-        out = ops.lut_attention(*args, **kw)
-        ref = ops.lut_attention(*args, **{**kw, "backend": "naive"})
-        rows = (out - ref).abs().amax(dim=-1)
-        shadow.append(("lut_attention", float(rows.max()),
-                       2.0 / qmax * float(args[2].float().abs().max()),
-                       float((rows > 1e-4).float().mean())))
-        return out
-
-    LAYERS.lut_attention = shadowed
+    LAYERS.lut_attention = dense_shadow(shadow, qmax)
     try:
-        shadow_out = whisper_drive(model, params, frames, prompt, run)
+        shadow_out = lockstep_drive(model, params, prompt, run,
+                                    frames=frames)
     finally:
         LAYERS.lut_attention = ops.lut_attention
     if len(shadow) != total or shadow_out[1] != expect \
@@ -2342,8 +2694,8 @@ def phase_whisper():
                              f"launches {shadow_out[1]} {shadow_out[3]}")
     check_shadow(shadow, "whisper drive")
 
-    naive_out = whisper_drive(model, params, frames, prompt,
-                              whisper_run(main, "naive"))
+    naive_out = lockstep_drive(model, params, prompt,
+                               lockstep_run(main, "naive"), frames=frames)
     if any(naive_out[1].values()):
         raise AssertionError(f"naive drive launched {naive_out[1]}")
     agree = float((naive_out[0] == out).float().mean())
@@ -2353,9 +2705,9 @@ def phase_whisper():
     for pol_name in ("exact", MAIN_POLICY):
         pol = POLICIES[pol_name]
         a = first_token_logits(model, params, frames, prompt,
-                               whisper_run(pol))
+                               lockstep_run(pol))
         b = first_token_logits(model, params, frames, prompt,
-                               whisper_run(pol, "naive"))
+                               lockstep_run(pol, "naive"))
         worst = float(np.abs(a - b).max() / np.abs(b).max())
         same = float(np.mean(a.argmax(-1) == b.argmax(-1)))
         print(f"[whisper] {pol_name} auto vs naive: first-token logits "
@@ -2364,7 +2716,8 @@ def phase_whisper():
         if not worst <= 0.02:
             raise AssertionError(f"whisper {pol_name} first-token logits "
                                  f"differ by {worst:.3g} > 0.02")
-    whisper_profile(model, params, frames, prompt, run)
+    lockstep_profile("whisper rexp-uint8", lambda around: lockstep_drive(
+        model, params, prompt, run, frames=frames, around=around))
     return total, by_route
 
 
@@ -2763,7 +3116,9 @@ def main() -> int:
     for arch, mine in phase_moe(card).items():
         for kernel, n in mine.items():
             kernels[f"paged_{kernel}"]["shapes"][arch]["launches"] = n
+    dense_shapes = phase_ssm(card)
     kernels["lut_attention"] = phase_dense_kernel()
+    kernels["lut_attention"]["shapes"] = dense_shapes
     launches["lut_attention"], dense_routes = phase_whisper()
     kernels["lut_attention"]["route_launches"] = dense_routes
     for phase in (phase_row_softmax, phase_flash):

@@ -2,10 +2,10 @@
 
 An :class:`ArchConfig` fully determines a model; the layer stack is
 described as a repeating *period* of :class:`LayerSpec`s (homogeneous
-dense models have a period of 1).  A copy of the JAX package's
-``configs/base.py``: the port serves the dense and MoE attention
-decoders, but the dataclass keeps every field so a config converts one
-to one.
+dense models have a period of 1; Jamba has a period of 8 with one
+attention layer; xLSTM alternates mLSTM/sLSTM).  A copy of the JAX
+package's ``configs/base.py`` without its shape registry, so a config
+converts one to one.
 """
 
 from __future__ import annotations

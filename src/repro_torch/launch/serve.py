@@ -2,10 +2,12 @@
 
 Random-initializes a dense decoder, an MoE decoder (``--arch
 deepseek-moe-16b`` or ``granite-moe-3b-a800m``: attention with an MoE
-FFN, its router exact) or Whisper-small (seeded ``torch.Generator``;
-bf16 on the card, cast block by block as drawn; depth cut by
-``--layers``, widths optionally cut by ``--scale-down``) and serves
-``--batch`` requests, three ways:
+FFN, its router exact), the hybrid Jamba-v0.1-52B or the recurrent
+xLSTM-125M (``models/ssm.py``), or Whisper-small (seeded
+``torch.Generator``; bf16 on the card, cast block by block as drawn;
+depth cut by ``--layers``, which counts periods — Jamba's period is 8
+layers, xLSTM's 4 — widths optionally cut by ``--scale-down``) and
+serves ``--batch`` requests, three ways:
 
 * ``--engine continuous`` (default) — the paged ``ServingEngine``,
   requests of mixed prompt lengths sharing the decode batch, sampled on
@@ -27,10 +29,12 @@ prefilled a step; ``--prefix-cache`` shares full-page prompt prefixes
 copy-on-write: every prompt then starts with one shared preamble, and
 the batch runs as two waves, the second mapping the first's pages in.
 
-The engines serve decoder-only LMs: an encoder-decoder
-(``--arch whisper-small``) falls back to lockstep, as in the JAX
-package, with seeded random stub frames ``(batch, encoder_seq,
-d_model)`` from ``--seed`` as its audio.
+The engines serve attention-only decoder LMs: an encoder-decoder
+(``--arch whisper-small``, with seeded random stub frames ``(batch,
+encoder_seq, d_model)`` from ``--seed`` as its audio) and the archs with
+Mamba, mLSTM or sLSTM mixers (``jamba-v0.1-52b``, ``xlstm-125m``) fall
+back to lockstep, as in the JAX package; ``--tp``, ``--serve`` and
+``--prefix-cache`` refuse them.
 
 Runs on the card by default: ``--device cuda`` needs a CUDA device and
 raises without one; ``--device cpu`` runs the plain PyTorch versions on
@@ -75,6 +79,8 @@ LUT-attention kernel (``auto`` | ``cuda`` | ``naive``).
       --scale-down 64,4,128 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-moe-16b --batch 4 --prompt-len 64 --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch jamba-v0.1-52b --scale-down 64,4,128 --layers 1 --device cpu
 """
 
 from __future__ import annotations
@@ -94,6 +100,7 @@ from repro_torch.kernels.lut_attention.ops import (
     resolve_paged_prefill_backend)
 from repro_torch.models import build_model
 from repro_torch.models.model_zoo import resolve_device
+from repro_torch.models.transformer import paged_supported
 from repro_torch.runtime.engine import (EngineConfig, PipelinedEngine,
                                         ServingEngine)
 from repro_torch.runtime.paged_cache import KV_DTYPES, PagedCacheConfig
@@ -139,7 +146,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the depth to this many layers (periods)")
+                    help="cut the depth to this many periods of the "
+                         "arch's layer pattern (one layer for a dense "
+                         "decoder, 8 for Jamba, 4 for xLSTM)")
     ap.add_argument("--scale-down", default=None,
                     help="d_model,heads,vocab: reduced widths for CPU runs")
     ap.add_argument("--softmax", default="rexp",
@@ -211,7 +220,7 @@ def main(argv=None) -> None:
         args.dist_backend = "nccl" if args.device == "cuda" else "gloo"
     if args.tp > 1:
         arch = _arch(args)
-        if args.engine == "lockstep" or build_model(arch).is_encdec:
+        if args.engine == "lockstep" or not paged_supported(arch):
             # never report single-device lockstep numbers as a --tp run
             ap.error("--tp > 1 requires the continuous engine "
                      "(attention-only decoder LM with --engine continuous)")
@@ -255,9 +264,9 @@ def _serve(ap, args, mesh=None) -> None:
                         if device.type == "cuda" else None)
     rng = np.random.default_rng(args.seed)
     engine = args.engine
-    if engine != "lockstep" and model.is_encdec:
-        print(f"the {engine} engine serves decoder-only LMs; falling back "
-              f"to lockstep")
+    if engine != "lockstep" and not paged_supported(arch):
+        print(f"the {engine} engine serves attention-only decoder LMs; "
+              f"falling back to lockstep")
         engine = "lockstep"
     if engine == "lockstep" and args.serve:
         ap.error("--serve requires the continuous or pipelined engine (the "

@@ -25,18 +25,24 @@ def tree_map(fn, tree, name: str = ""):
     return fn(tree, name)
 
 
-#: the leaves that stay f32 in any serving dtype: a norm's scale and its
-#: LayerNorm bias (``init_norm``), which the norms read in f32, and an MoE
-#: FFN's ``router``, whose logits are computed in f32 (a bf16 router would
-#: move expert choices)
-F32_LEAVES = ("scale", "bias", "router")
+#: the leaves that stay f32 in any serving dtype, because the JAX package
+#: reads them in f32 from its f32 masters: a norm's scale and its
+#: LayerNorm bias (``init_norm``); an MoE FFN's ``router``, whose logits
+#: are computed in f32 (a bf16 router would move expert choices); Mamba's
+#: step projection and bias, A and skip (``dt_proj``, ``dt_bias``,
+#: ``a_log``, ``d_skip``: the decay and drive are f32); the xLSTM gates'
+#: projections and biases (``w_igate``, ``w_fgate``, ``fgate_bias``) and
+#: sLSTM's recurrent weights (``r_*``, contracted with the f32 state).
+#: Matching is by leaf name: ``bias`` is a LayerNorm's only.
+F32_LEAVES = ("scale", "bias", "router", "dt_proj", "dt_bias", "a_log",
+              "d_skip", "w_igate", "w_fgate", "fgate_bias", "r_z", "r_i",
+              "r_f", "r_o")
 
 
 def cast_params(params, dtype: torch.dtype):
     """Cast weights and projection biases to ``dtype`` (the serving dtype
-    on the card); norm scales, LayerNorm biases and MoE routers stay f32,
-    as the JAX package keeps every master in f32 and computes norms and
-    routing in f32."""
+    on the card); the :data:`F32_LEAVES` stay f32, as the JAX package
+    keeps every master in f32 and reads those in f32."""
     return tree_map(
         lambda t, name: t if name in F32_LEAVES else t.to(dtype), params)
 

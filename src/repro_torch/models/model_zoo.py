@@ -1,6 +1,6 @@
-"""Uniform model interface over the port's zoo: decoder-only LMs, dense
-or MoE (``transformer.py``, ``moe.py``), and the Whisper encoder-decoder
-(``encdec.py``)."""
+"""Uniform model interface over the port's zoo: decoder-only LMs — dense,
+MoE, hybrid or recurrent (``transformer.py``, ``moe.py``, ``ssm.py``) —
+and the Whisper encoder-decoder (``encdec.py``)."""
 
 from __future__ import annotations
 
@@ -24,8 +24,9 @@ class Model:
     the steps here update the caches and pools in place (the lockstep
     steps still return them, as the JAX package's do).  Everything runs
     on the card unless the caller passes ``device="cpu"``.  An
-    encoder-decoder serves the lockstep path only: its paged methods
-    raise, as in the JAX package.
+    encoder-decoder, and a decoder with a mixer other than attention
+    (Jamba, xLSTM), serve the lockstep path only: their paged methods
+    raise ``NotImplementedError``, as in the JAX package.
     """
 
     cfg: ArchConfig
@@ -60,9 +61,12 @@ class Model:
             return ED.decode_step(params, token, state, self.cfg, run)
         return TF.decode_step(params, token, state, self.cfg, run)
 
-    def _check_paged(self, what: str) -> None:
+    def check_paged(self, what: str) -> None:
+        """Raise ``NotImplementedError`` unless the paged path serves this
+        model (a decoder of attention mixers)."""
         if self.is_encdec:
             raise NotImplementedError(f"{what}: decoder-only LMs")
+        TF.check_paged_supported(self.cfg)
 
     def init_paged_pools(self, n_pages: int, page_size: int, run: RunConfig,
                          device, mesh=None):
@@ -70,7 +74,7 @@ class Model:
         ``run.dtype`` (``kv_dtype="f32"``), or int8 pages plus f32 row
         scales (``kv_dtype="int8"``); with a ``mesh``, this rank's
         share."""
-        self._check_paged("paged decode")
+        self.check_paged("paged decode")
         return TF.init_paged_pools(self.cfg, n_pages, page_size,
                                    TF.run_dtype(run), device,
                                    kv_dtype=run.kv_dtype, mesh=mesh)
@@ -79,7 +83,7 @@ class Model:
                           run: RunConfig, max_kv_len: int | None = None):
         """One decode step against paged pools (per-slot lengths;
         ``max_kv_len`` the host's bound on ``lengths + 1``)."""
-        self._check_paged("paged decode")
+        self.check_paged("paged decode")
         return TF.decode_step_paged(params, token, pools, block_tables,
                                     lengths, self.cfg, run, max_kv_len)
 
@@ -88,7 +92,7 @@ class Model:
                             max_kv_len: int | None = None):
         """One fixed-shape prompt chunk straight into the paged pools
         (``max_kv_len`` the host's bound on ``cache_lens + chunk_lens``)."""
-        self._check_paged("paged prefill")
+        self.check_paged("paged prefill")
         return TF.prefill_chunk_paged(params, tokens, pools, block_tables,
                                       cache_lens, chunk_lens, self.cfg, run,
                                       max_kv_len)
@@ -97,5 +101,5 @@ class Model:
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.encoder_layers:
         return Model(cfg=cfg, is_encdec=True)
-    TF.check_paged_supported(cfg)
+    TF.check_supported(cfg)
     return Model(cfg=cfg)

@@ -1,14 +1,19 @@
 """Decoder-only LM assembled from an ArchConfig's layer periods.
 
 The counterpart of the JAX package's ``models/transformer.py`` for the
-serving paths, restricted to attention mixers with an MLP or an MoE FFN
-(the dense and MoE archs in ``configs``; ``models/moe.py``):
+serving paths.  A block is a norm, a mixer — attention, or Mamba, mLSTM
+or sLSTM (``models/ssm.py``) — and, unless its FFN is ``"none"``
+(xLSTM), a second norm and an MLP or an MoE FFN (``models/moe.py``):
 
-  * ``prefill`` / ``decode_step`` — the lockstep path over contiguous
-    per-layer caches (:class:`layers.AttnCache`), ``run.softmax_policy``
-    in every attention;
+  * ``prefill`` / ``decode_step`` — the lockstep path over per-layer
+    caches (:class:`layers.AttnCache` for attention, the recurrent
+    state of ``ssm.py`` for the other mixers), ``run.softmax_policy``
+    in every attention; every arch of ``configs`` but the
+    encoder-decoder (:func:`check_supported`);
   * ``prefill_chunk_paged`` / ``decode_step_paged`` — the
-    continuous-batching engine's steps against the paged pools.
+    continuous-batching engine's steps against the paged pools, for
+    decoders of attention mixers only (:func:`check_paged_supported`),
+    as in the JAX package.
 
 Under an active tensor-parallel mesh (``partitioning.mesh_scope``) the
 paged steps serve one rank's share: its pools
@@ -36,6 +41,7 @@ from repro_torch.configs.base import ArchConfig, LayerSpec, RunConfig
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.convert import cast_params, tree_map
 from repro_torch.models.device import resolve_device
 from repro_torch.runtime import partitioning as PT
@@ -52,16 +58,39 @@ def run_dtype(run: RunConfig) -> torch.dtype:
     return _DTYPES[run.dtype]
 
 
-def check_paged_supported(cfg: ArchConfig) -> None:
-    """This module serves decoders of attention mixers with an MLP or an
-    MoE FFN (the dense and MoE serving archs), as the JAX package's paged
-    path does; an encoder-decoder goes through ``models/encdec.py``."""
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+FFNS = ("mlp", "moe", "none")
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """The lockstep path serves decoders of any mixer of :data:`MIXERS`
+    with an FFN of :data:`FFNS`; an encoder-decoder goes through
+    ``models/encdec.py``."""
     bad = [(s.mixer, s.ffn) for s in cfg.period
-           if s.mixer != "attn" or s.ffn not in ("mlp", "moe")]
+           if s.mixer not in MIXERS or s.ffn not in FFNS]
     if bad or cfg.encoder_layers:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention decoders with an MLP or "
-            f"MoE FFN only, got {bad or 'an encoder-decoder'}")
+            f"{cfg.name}: the port's decoders take mixers {MIXERS} with an "
+            f"FFN of {FFNS}, got {bad or 'an encoder-decoder'}")
+
+
+def paged_supported(cfg: ArchConfig) -> bool:
+    """Whether the paged path serves ``cfg``: a decoder of attention
+    mixers with an MLP or an MoE FFN (the dense and MoE serving archs),
+    as the JAX package's paged path is — a recurrent mixer keeps no
+    per-token KV to page."""
+    return not cfg.encoder_layers and all(
+        s.mixer == "attn" and s.ffn in ("mlp", "moe") for s in cfg.period)
+
+
+def check_paged_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` unless :func:`paged_supported`."""
+    if not paged_supported(cfg):
+        got = ("an encoder-decoder" if cfg.encoder_layers else
+               sorted({(s.mixer, s.ffn) for s in cfg.period}))
+        raise NotImplementedError(
+            f"{cfg.name}: paged KV serving takes attention decoders with an "
+            f"MLP or MoE FFN only, got {got}")
 
 
 # ---------------------------------------------------------------------------
@@ -71,14 +100,22 @@ def check_paged_supported(cfg: ArchConfig) -> None:
 
 def init_block(cfg: ArchConfig, spec: LayerSpec,
                generator: torch.Generator, device) -> Params:
-    p = {
-        "norm1": L.init_norm(cfg.d_model, device),
-        "mixer": L.init_attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                  cfg.resolved_head_dim, generator, device,
-                                  qk_norm=cfg.qk_norm,
-                                  with_bias=cfg.attn_bias),
-        "norm2": L.init_norm(cfg.d_model, device),
-    }
+    p: Params = {"norm1": L.init_norm(cfg.d_model, device)}
+    if spec.mixer == "attn":
+        p["mixer"] = L.init_attention(
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            generator, device, qk_norm=cfg.qk_norm, with_bias=cfg.attn_bias)
+    elif spec.mixer == "mamba":
+        p["mixer"] = SSM.init_mamba(cfg.d_model, generator, device)
+    elif spec.mixer == "mlstm":
+        p["mixer"] = SSM.init_mlstm(cfg.d_model, cfg.n_heads, generator,
+                                    device)
+    else:
+        p["mixer"] = SSM.init_slstm(cfg.d_model, cfg.n_heads, generator,
+                                    device)
+    if spec.ffn == "none":
+        return p
+    p["norm2"] = L.init_norm(cfg.d_model, device)
     if spec.ffn == "moe":
         m = cfg.moe
         p["ffn"] = MOE.init_moe(cfg.d_model, m.d_expert, m.n_experts,
@@ -89,22 +126,42 @@ def init_block(cfg: ArchConfig, spec: LayerSpec,
     return p
 
 
-def block_cache(cfg: ArchConfig, b: int, max_len: int, dtype,
-                device) -> L.AttnCache:
-    return L.AttnCache.zeros(b, cfg.n_kv_heads, max_len,
-                             cfg.resolved_head_dim, dtype, device)
+def block_cache(cfg: ArchConfig, spec: LayerSpec, b: int, max_len: int,
+                dtype, device):
+    """A layer's lockstep cache: K/V for attention, the recurrent state
+    for the other mixers."""
+    if spec.mixer == "attn":
+        return L.AttnCache.zeros(b, cfg.n_kv_heads, max_len,
+                                 cfg.resolved_head_dim, dtype, device)
+    if spec.mixer == "mamba":
+        return SSM.MambaCache.zeros(b, cfg.d_model, dtype, device)
+    if spec.mixer == "mlstm":
+        return SSM.MLSTMCache.zeros(b, cfg.d_model, cfg.n_heads, device)
+    return SSM.SLSTMCache.zeros(b, cfg.d_model, cfg.n_heads, device)
 
 
 def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
                 spec: LayerSpec, *, policy: SoftmaxPolicy, cache) -> Tensor:
     h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
-    x = x + L.apply_attention(
-        p["mixer"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, causal=True, qk_norm=cfg.qk_norm,
-        norm_eps=cfg.norm_eps,
-        rope_theta=cfg.rope_theta if cfg.rope else None, policy=policy,
-        backend=run.attention_backend, cache=cache,
-        paged_backend=run.paged_backend, kv_dtype=run.kv_dtype)
+    if spec.mixer == "attn":
+        mixed = L.apply_attention(
+            p["mixer"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, causal=True, qk_norm=cfg.qk_norm,
+            norm_eps=cfg.norm_eps,
+            rope_theta=cfg.rope_theta if cfg.rope else None, policy=policy,
+            backend=run.attention_backend, cache=cache,
+            paged_backend=run.paged_backend, kv_dtype=run.kv_dtype)
+    elif spec.mixer == "mamba":
+        mixed = SSM.apply_mamba(p["mixer"], h, cache=cache)
+    elif spec.mixer == "mlstm":
+        mixed = SSM.apply_mlstm(p["mixer"], h, n_heads=cfg.n_heads,
+                                cache=cache)
+    else:
+        mixed = SSM.apply_slstm(p["mixer"], h, n_heads=cfg.n_heads,
+                                cache=cache)
+    x = x + mixed
+    if spec.ffn == "none":
+        return x
     h2 = L.apply_norm(p["norm2"], x, cfg.norm_eps)
     if spec.ffn == "moe":
         m = cfg.moe
@@ -142,7 +199,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     model never exists whole: the result equals ``cast_params`` of the
     f32 init, at the memory of the cast model plus one f32 block (a
     16.9B-parameter MoE decoder fits the card in bf16, not in f32)."""
-    check_paged_supported(cfg)
+    check_supported(cfg)
     device = resolve_device(device)
     periods = []
     for spec in cfg.period:
@@ -170,11 +227,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 
 def init_caches(cfg: ArchConfig, b: int, max_len: int, dtype, device):
-    """Lockstep caches: ``caches[period][spec]``, one zeroed
-    :class:`layers.AttnCache` per layer."""
-    check_paged_supported(cfg)
-    return [[block_cache(cfg, b, max_len, dtype, device) for _ in cfg.period]
-            for _ in range(cfg.n_periods)]
+    """Lockstep caches: ``caches[period][spec]``, one zeroed cache per
+    layer (:func:`block_cache`)."""
+    check_supported(cfg)
+    return [[block_cache(cfg, spec, b, max_len, dtype, device)
+             for spec in cfg.period] for _ in range(cfg.n_periods)]
 
 
 def init_paged_pools(cfg: ArchConfig, n_pages: int, page_size: int,

@@ -202,9 +202,11 @@ class ServingEngine:
     """Fixed-capacity continuous-batching driver.
 
     Args:
-      model/params/run: a decoder-only attention+MLP :class:`Model`, its
-        parameter tree (moved to ``device`` as given — cast it with
-        ``convert.cast_params`` to serve in bf16) and the run config.
+      model/params/run: a decoder-only :class:`Model` of attention
+        mixers with an MLP or MoE FFN (any other raises
+        ``NotImplementedError``), its parameter tree (moved to ``device``
+        as given — cast it with ``convert.cast_params`` to serve in
+        bf16) and the run config.
       config: an :class:`EngineConfig` (``n_slots``, page-pool sizing,
         ``prefill_chunk`` and ``prefill_budget``, ``prefix_cache``,
         ``mesh`` and ``shard_params``).
@@ -226,6 +228,7 @@ class ServingEngine:
     def __init__(self, model: Model, params, run: RunConfig,
                  config: EngineConfig | None = None, *, device="cuda"):
         config = config if config is not None else EngineConfig()
+        model.check_paged("the paged serving engine")
         mesh = config.mesh
         if mesh is not None and not isinstance(mesh, PT.Mesh):
             raise TypeError(f"mesh must be a partitioning.Mesh "

@@ -7,6 +7,10 @@ the K/V entering the contiguous caches with the int8 pool's rounding,
 which makes :func:`generate` the reference the int8 ``ServingEngine``
 is held to.  An encoder-decoder (Whisper) takes its stub frame
 embeddings as ``encoder_input``: the prefill step encodes them once.
+The hybrid and recurrent decoders (Jamba, xLSTM), which the paged
+engines refuse, are served here: their Mamba, mLSTM and sLSTM layers
+carry their recurrent state from the prefill through the decode steps
+(``models/ssm.py``).
 Every request of a batch shares one prompt length and finishes
 together.  The steps run where the tensors lie.
 

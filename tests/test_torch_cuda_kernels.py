@@ -70,7 +70,7 @@ from repro_torch.kernels.lut_softmax.lut_softmax import (
     rexp_softmax_plain)
 from repro_torch.kernels.lut_attention import ref as dref
 from repro_torch.kernels.lut_attention.lut_attention import (
-    ROUTES, lut_attention_cuda, lut_attention_plain, mode_of)
+    ROUTES, dense_route, lut_attention_cuda, lut_attention_plain, mode_of)
 from repro_torch.core import lut_softmax as lsm
 from repro_torch.kernels.lut_attention.paged_decode import (
     paged_decode_attention, paged_decode_plain)
@@ -81,6 +81,9 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
 
 TOL = 2e-6
+#: the configs with attention layers (xLSTM has none)
+ATTN_ARCHS = sorted(name for name, cfg in ARCHS.items()
+                    if any(s.mixer == "attn" for s in cfg.period))
 
 
 @pytest.fixture
@@ -339,7 +342,7 @@ def test_plan_kv_heads_gives_the_whole_models_arithmetic(cuda, phase, pool,
 
 
 @pytest.mark.parametrize("phase", ["decode", "prefill"])
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_every_config_fits_a_cta(cuda, arch, phase):
     """Every config's attention widths, on f32, bf16 and int8 pools with
     block tables 2048 pages wide (the launcher sizes the logits cache for
@@ -825,7 +828,7 @@ def test_dense_split_route_on_an_empty_cache(cuda, dtype):
                 assert not out.any(), (pol, fused, causal)
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_dense_split_plans_fit_a_cta(cuda, arch):
     """Every config's attention widths on the split route, f32 and bf16,
     one and seven query rows against 1 to 8192 keys, int16 and uint8
@@ -849,6 +852,32 @@ def test_dense_split_plans_fit_a_cta(cuda, arch):
                 ref = _dense_f64(q, k, v, pol, True, None, False)
                 err = float((out.double() - ref).abs().max())
                 assert err <= TOL, (dtype, lq, lk, prec, err)
+
+
+@pytest.mark.parametrize("impl", ["rexp", "lut2d"])
+def test_dense_kernel_at_jambas_attention_shape(cuda, impl):
+    """Jamba-v0.1-52B's lockstep attention (GQA 4: 32 heads over 8 KV
+    heads of 128, causal, no RoPE) into a cache of 96 positions: the
+    64-row prompt call on the tile route and a decode step at kv_len 95
+    on the split route, each as the dispatcher picks it, on normal rows
+    in bf16 — within one LUT step of the plain version, one launch on
+    its route."""
+    pol = SoftmaxPolicy(impl=impl, precision="uint8")
+    qmax = get_precision("uint8").qmax
+    for lq, kv_len, route in ((64, 64, "tiles"), (1, 95, "split")):
+        q, k, v = _dense_problem(lq + kv_len, b=4, h=32, kvh=8, lq=lq,
+                                 lk=96, dh=128, dtype=torch.bfloat16,
+                                 exact=False)
+        assert dense_route(q.dtype, 128, lq, qmax, impl) == route
+        before = lut_attention_cuda.route_launches[route]
+        out = ops.lut_attention(q, k, v, pol, causal=True, kv_len=kv_len,
+                                backend="cuda")
+        assert lut_attention_cuda.route_launches[route] == before + 1
+        ref = _dense_call(lut_attention_plain, q, k, v, pol, True, kv_len,
+                          False)
+        limit = 2.0 / qmax * float(v.float().abs().max())
+        err = float((out - ref).abs().max())
+        assert err <= limit, (lq, kv_len, err, limit)
 
 
 def test_dense_long_rows_recompute_path(cuda):

@@ -95,3 +95,11 @@ def test_scan_covers_the_moe_modules():
     scanned = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
     assert {"models/moe.py", "configs/deepseek_moe_16b.py",
             "configs/granite_moe_3b_a800m.py"} <= scanned
+
+
+def test_scan_covers_the_recurrent_modules():
+    """... and the Mamba / xLSTM mixers with the hybrid and recurrent
+    configs."""
+    scanned = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"models/ssm.py", "configs/jamba_v0_1_52b.py",
+            "configs/xlstm_125m.py"} <= scanned
