@@ -224,7 +224,38 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    times beside the plain version's, SDPA's on the same inputs (a
    yardstick: the port never calls it) and the bound (bf16: q·kᵀ and
    three 16-bit pieces of p·V at the tensor-core peak; f32: both at the
-   f32 peak; over the visible pairs) beside the bound as first stated.
+   f32 peak; over the visible pairs) beside the bound as first stated;
+10. training (lines ``[train]``), after every earlier phase has released
+   its models (the memory still allocated printed at entry): a
+   scaled-down Qwen3 and Granite-MoE (d_model 256, 4 heads, vocab 1024,
+   2 layers; Granite's load-balance loss and routing backward) trained
+   3 f32 steps from one seeded init on the card and on the CPU (TF32
+   off): every loss and parameter leaf within 1e-4 of its largest
+   entry; a ``ResilientTrainer`` on the card (``checkpoint_every=2``,
+   checkpoints in a temporary directory removed after) with a failure
+   injected once at step 4 recovers and reaches step 8 within 1e-6 of
+   an uninterrupted run; Qwen3-32B widths (2 of 64 layers, 2.53B
+   parameters, untied) trained 6 steps on one synthetic batch of 4 ×
+   511 inputs in 2 microbatches, bf16 activations over f32 masters, lr
+   1e-4: the step-0 loss within 0.5 of ln V, every loss finite, the
+   last below the first; its step time, tokens/s, peak memory and the
+   share of AdamW and the clip (CUDA events around them); then
+   ``make_eval_step`` on the trained weights and a held-out batch
+   (step 10 000 of the stream, as the launcher's evals) under exact, REXP
+   uint8
+   and 2D-LUT uint8, ``attention_backend`` auto and naive: exactly 2
+   dense launches a LUT eval, on the tile route, every call of a
+   shadowed eval within one LUT step (but rows — at most 4 a call —
+   where roundoff carried Σ across a denominator bin edge: within one
+   LUT step of the plain version at logits moved by 2^-20 relative and
+   that bin moved one step, each printed),
+   auto against naive within 1e-3,
+   the LUT-minus-exact deltas printed; a ``SumCollector`` through one
+   exact prefill, its samples within 1e-5 relative of the CPU's on the
+   same slices, with its count, p99.9 and recommended table sizes; the
+   dense kernel at the eval's call (B 4, 64 / 8 × 128, 511 × 511,
+   causal, bf16 tiles) timed beside its plain version, exact SDPA and
+   its bound.
 
 The whole run's seconds follow the phases.  The line before the last
 is the card's name and power limit, the one before it a JSON summary of
@@ -234,7 +265,9 @@ and row routes; the row kernels their eight cases under ``cases``, each
 with its bound, route and ``torch.softmax`` time; the two f32/bf16
 paged kernels their rows at the MoE widths under ``shapes``, with the
 launches of that model's REXP bf16 drive, and the dense one its rows at
-Jamba's two shapes, with the Jamba REXP drive's launches); the last
+Jamba's two shapes, with the Jamba REXP drive's launches, and at the
+Qwen3-32B eval's, with the REXP eval's launches and the full-width
+step's numbers under ``train``); the last
 line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -246,8 +279,12 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -257,7 +294,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import ARCHS, RunConfig  # noqa: E402
+from repro_torch.core.calibration import SumCollector  # noqa: E402
+from repro_torch.data.synthetic import DataConfig, SyntheticDataset  # noqa: E402,E501
 from repro_torch.core import lut_softmax as LUT  # noqa: E402
 from repro_torch.core.policies import SoftmaxPolicy  # noqa: E402
 from repro_torch.core.precision import get_precision  # noqa: E402
@@ -285,7 +325,11 @@ from repro_torch.models import layers as LAYERS  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import encdec as ENCDEC  # noqa: E402
-from repro_torch.models.convert import cast_params, tree_map  # noqa: E402
+from repro_torch.models.convert import (cast_params, tree_flatten,  # noqa: E402,E501
+                                        tree_map)
+from repro_torch.optim import adamw as ADAMW  # noqa: E402
+from repro_torch.runtime import train_loop as TL  # noqa: E402
+from repro_torch.runtime.fault_tolerance import ResilientTrainer  # noqa: E402,E501
 from repro_torch.runtime.engine import (EngineConfig,  # noqa: E402
                                         PipelinedEngine, ServingEngine)
 from repro_torch.runtime.paged_cache import PagedCacheConfig  # noqa: E402
@@ -2503,17 +2547,22 @@ def lockstep_run(policy, backend="auto", dtype="bfloat16"):
                      attention_backend=backend)
 
 
+def _zero_dense():
+    """Sync, then set the dense kernel's launch counters to 0."""
+    torch.cuda.synchronize()
+    for counts in (lut_attention_cuda.launches,
+                   lut_attention_cuda.route_launches):
+        for key in counts:
+            counts[key] = 0
+
+
 def lockstep_drive(model, params, prompt, run, new_tokens=W_NEW,
                    frames=None, around=None):
     """One ``serve_loop.generate`` of the prompts (an encoder-decoder's
     with its clips' ``frames``); returns the tokens, the dense kernel's
     launches by mode during it, its wall seconds and its launches by
     route."""
-    torch.cuda.synchronize()
-    for counts in (lut_attention_cuda.launches,
-                   lut_attention_cuda.route_launches):
-        for key in counts:
-            counts[key] = 0
+    _zero_dense()
     with around or contextlib.nullcontext():
         t0 = time.perf_counter()
         out = generate(model, params, prompt, run,
@@ -3091,6 +3140,510 @@ def phase_flash():
     return rows, {"flash_attention": sum(launches.values())}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: training
+# ---------------------------------------------------------------------------
+
+#: the scaled-down models of the card-against-CPU and resume checks
+T_SMALL = dict(d_model=256, n_heads=4, vocab=1024, n_periods=2)
+T_TOL = 1e-4             # card against CPU, of each leaf's largest entry
+RESUME_TOL = 1e-6        # resumed against uninterrupted run, on the card
+#: the full-width step: Qwen3-32B widths, 2 of 64 layers, B 4 × 511
+#: input tokens in 2 microbatches, bf16 activations over f32 masters
+T_LAYERS, T_BATCH, T_SEQ, T_STEPS = 2, 4, 511, 6
+T_EVAL_POLICIES = ("exact", "rexp-uint8", "lut2d-uint8")
+
+
+def largest_off(got, ref) -> float:
+    """max |got − ref| over the largest |ref| (both moved to the CPU)."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    return float((got - ref).abs().max() / max(float(ref.abs().max()),
+                                               1e-30))
+
+
+def tree_off(a, b) -> tuple[float, str]:
+    """The worst :func:`largest_off` over two trees' leaves, and its
+    path."""
+    return max((largest_off(x, y), p) for (p, x), (_, y) in zip(
+        tree_flatten(a), tree_flatten(b)))
+
+
+def params_off(got, ref, tol, lr, steps, label):
+    """Parameters after ``steps`` AdamW steps held to ``ref``: every
+    element within ``tol`` of its leaf's largest entry but Adam's flips.
+    Adam moves an element by about ``lr`` whatever its gradient's size,
+    so an element whose gradient is at the two runs' f32 roundoff (the
+    first non-zero gradient of an embedding row, say) may move by ``lr``
+    one way in one run and the other way in the other: such elements
+    (at most a 1e-3 share of a leaf) are held within ``2 · lr · steps``
+    instead.  Returns the worst other element's share of its leaf's
+    largest entry and the number of flips."""
+    worst, flips = 0.0, 0
+    for (path, x), (_, y) in zip(tree_flatten(got), tree_flatten(ref)):
+        x, y = x.detach().float().cpu(), y.detach().float().cpu()
+        d = (x - y).abs()
+        over = d > tol * float(y.abs().max())
+        flips += int(over.sum())
+        if over.float().mean() > 1e-3 or float(d.max()) > 2 * lr * steps:
+            raise AssertionError(f"{label}: {path} off by {float(d.max())} "
+                                 f"in {int(over.sum())} of {d.numel()} "
+                                 f"elements")
+        rest = torch.where(over, torch.zeros_like(d), d)
+        worst = max(worst, float(rest.max() / y.abs().max()))
+    return worst, flips
+
+
+def step0_grads(name, device, params):
+    """The loss's gradients at ``params`` (a copy on ``device``) on the
+    smoke's first small batch, by checkpoint path."""
+    arch = ARCHS[name].scaled_down(**T_SMALL)
+    run = RunConfig(dtype="float32")
+    p = TL.train_state(tree_map(lambda t, _: t.detach().to(
+        device, copy=True), params), run).params
+    ds = SyntheticDataset(DataConfig(arch.vocab_size, 64, 4, seed=3))
+    loss, _ = TL.make_loss_fn(build_model(arch), run)(
+        p, {"tokens": torch.from_numpy(ds.batch(0)).to(device)})
+    loss.backward()
+    return {path: t.grad for path, t in tree_flatten(p)}
+
+
+def small_train(name, device, params, steps):
+    """``steps`` f32 train steps of the scaled-down ``name`` from a copy
+    of ``params`` on ``device``, on the seeded synthetic stream: (the
+    losses, the final state)."""
+    arch = ARCHS[name].scaled_down(**T_SMALL)
+    model = build_model(arch)
+    run = RunConfig(dtype="float32", learning_rate=1e-3)
+    state = TL.train_state(tree_map(lambda t, _: t.detach().to(
+        device, copy=True), params), run)
+    step = TL.make_train_step(model, run)
+    ds = SyntheticDataset(DataConfig(arch.vocab_size, 64, 4, seed=3))
+    losses = []
+    for i in range(steps):
+        state, m = step(state, {"tokens": torch.from_numpy(ds.batch(i))
+                                .to(device)})
+        losses.append(float(m["loss"]))
+    return losses, state
+
+
+def train_card_vs_cpu(card):
+    """The scaled-down Qwen3 and Granite-MoE (its load-balance loss and
+    the routing backward) from one seeded init, on the card and on the
+    CPU: the first step's gradients within ``T_TOL`` of each leaf's
+    largest entry; 3 train steps' losses within ``T_TOL`` relative and
+    parameters within ``T_TOL`` of each leaf's largest entry but Adam's
+    flips (:func:`params_off`)."""
+    for name in ("qwen3-32b", "granite-moe-3b-a800m"):
+        arch = ARCHS[name].scaled_down(**T_SMALL)
+        params = build_model(arch).init(torch.Generator().manual_seed(3),
+                                        "cpu")
+        g_off, g_where = tree_off(step0_grads(name, "cuda", params),
+                                  step0_grads(name, "cpu", params))
+        t0 = time.perf_counter()
+        card_l, card_s = small_train(name, "cuda", params, 3)
+        t_card = time.perf_counter() - t0
+        cpu_l, cpu_s = small_train(name, "cpu", params, 3)
+        loss_off = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+        off, flips = params_off(card_s.params, cpu_s.params, T_TOL, 1e-3, 3,
+                                f"{name} card against CPU")
+        print(f"[train] {name} (d_model {arch.d_model}, {arch.n_layers} "
+              f"layers, vocab {arch.vocab_size}) card against CPU, f32: "
+              f"first-step gradients worst {g_off:.3g} of the largest entry "
+              f"({g_where}); 3 steps' losses {card_l} / {cpu_l}, worst "
+              f"{loss_off:.3g} relative; parameters worst {off:.3g} of the "
+              f"largest entry but {flips} Adam flips; card {t_card:.2f}s "
+              f"incl. first calls")
+        if not (g_off <= T_TOL and loss_off <= T_TOL):
+            raise AssertionError(f"{name}: card against CPU {g_off:.3g} / "
+                                 f"{loss_off:.3g} > {T_TOL}")
+
+
+def train_resume(card):
+    """A ``ResilientTrainer`` on the card (the scaled-down Qwen3,
+    ``checkpoint_every=2``) with a failure injected once at step 4
+    recovers from the step-4 checkpoint and reaches step 8: its losses
+    and parameters within ``RESUME_TOL`` of an uninterrupted run's."""
+    name = "qwen3-32b"
+    arch = ARCHS[name].scaled_down(**T_SMALL)
+    model = build_model(arch)
+    params = model.init(torch.Generator().manual_seed(4), "cpu")
+    ref_l, ref_s = small_train(name, "cuda", params, 8)
+    run = RunConfig(dtype="float32", learning_rate=1e-3)
+    state = TL.train_state(tree_map(lambda t, _: t.to("cuda"), params), run)
+    ds = SyntheticDataset(DataConfig(arch.vocab_size, 64, 4, seed=3))
+    armed, losses = [True], {}
+
+    def hook(step):
+        if step == 4 and armed[0]:
+            armed[0] = False
+            raise RuntimeError("injected failure at step 4")
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        final, report = ResilientTrainer(
+            TL.make_train_step(model, run),
+            CheckpointManager(directory, keep_n=2), checkpoint_every=2).run(
+            state, lambda i: {"tokens": torch.from_numpy(ds.batch(i))
+                              .to("cuda")}, 8, failure_hook=hook,
+            metrics_cb=lambda i, m: losses.__setitem__(i, m["loss"]))
+        kept = sorted(os.listdir(directory))
+    finally:
+        shutil.rmtree(directory)
+    loss_off = max(abs(losses[i] - ref_l[i]) / abs(ref_l[i])
+                   for i in range(8))
+    off, flips = params_off(final.params, ref_s.params, RESUME_TOL, 1e-3, 8,
+                            "resumed run")
+    print(f"[train] resilient run on the card: {report.failures_recovered} "
+          f"failure recovered, {report.steps_run} steps, checkpoints "
+          f"{kept}; against the uninterrupted run: losses worst "
+          f"{loss_off:.3g} relative, parameters worst {off:.3g} of the "
+          f"largest entry but {flips} Adam flips")
+    if (report.failures_recovered != 1 or int(final.opt.step) != 8
+            or not loss_off <= RESUME_TOL):
+        raise AssertionError(f"resumed run off: {report}, {loss_off:.3g}")
+
+
+@contextlib.contextmanager
+def timed_optimizer(times):
+    """Record CUDA events around every ``adamw_update`` of the train step
+    and every gradient clip inside it; ``times`` gets (name, start,
+    end) triples."""
+    update, clip = TL.adamw_update, ADAMW.clip_by_global_norm
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*args, **kw)
+            ev[1].record()
+            times.append((name, *ev))
+            return out
+        return timed
+
+    TL.adamw_update = wrap("adamw", update)
+    ADAMW.clip_by_global_norm = wrap("clip", clip)
+    try:
+        yield
+    finally:
+        TL.adamw_update, ADAMW.clip_by_global_norm = update, clip
+
+
+def full_width_train(card):
+    """Qwen3-32B widths cut to ``T_LAYERS`` layers: ``T_STEPS`` steps of
+    B ``T_BATCH`` × ``T_SEQ`` inputs in 2 microbatches, bf16 activations
+    over f32 masters, lr 1e-4, on one synthetic batch: the step-0 loss
+    within 0.5 of ln V, every loss finite, the last below the first;
+    step time, tokens/s, peak memory and the optimizer's share."""
+    full = ARCHS["qwen3-32b"]
+    arch = full.with_layers(T_LAYERS)
+    model = build_model(arch)
+    run = RunConfig(dtype="bfloat16", microbatch=2, learning_rate=1e-4)
+    t0 = time.perf_counter()
+    state = TL.init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(7), run, "cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for _, p in tree_flatten(state.params))
+    print(f"[train] {arch.name}: d_model {arch.d_model}, heads "
+          f"{arch.n_heads}/{arch.n_kv_heads} of {arch.resolved_head_dim}, "
+          f"d_ff {arch.d_ff}, vocab {arch.vocab_size}, untied, "
+          f"{arch.n_layers} of {full.n_layers} layers: {n / 1e9:.3f}B "
+          f"params (f32 masters, grads, m, v: {16 * n / 1e9:.1f} GB), init "
+          f"{time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    ds = SyntheticDataset(DataConfig(arch.vocab_size, T_SEQ, T_BATCH,
+                                     seed=11))
+    batch = {"tokens": torch.from_numpy(ds.batch(0)).to("cuda")}
+    step = TL.make_train_step(model, run)
+    losses, walls, times = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    with timed_optimizer(times):
+        for i in range(T_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss = float(m["loss"])
+            walls.append(time.perf_counter() - t0)
+            losses.append(loss)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(walls[1:]))
+    ms = {name: float(np.median([s.elapsed_time(e) for k, s, e in times[2:]
+                                 if k == name])) for name in ("adamw", "clip")}
+    toks = T_BATCH * T_SEQ
+    print(f"[train] full-width step (B {T_BATCH} × {T_SEQ} tokens, 2 "
+          f"microbatches, bf16 over f32 masters, remat): losses "
+          f"{[round(x, 4) for x in losses]} (ln V = "
+          f"{math.log(arch.vocab_size):.4f}); step {step_s * 1e3:.1f} ms "
+          f"(median of steps 1–{T_STEPS - 1}; step 0 {walls[0]:.2f}s), "
+          f"{toks / step_s:.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.1f} GiB; AdamW {ms['adamw']:.1f} ms "
+          f"({ms['adamw'] / (step_s * 1e3):.1%} of the step) of which the "
+          f"clip {ms['clip']:.1f} ms ({ms['clip'] / (step_s * 1e3):.1%}) "
+          f"— {card}")
+    if not (all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - math.log(arch.vocab_size)) <= 0.5
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"full-width losses {losses}")
+    # the evals score a held-out batch of the stream, as the launcher's
+    held_out = {"tokens": torch.from_numpy(ds.batch(10_000)).to("cuda")}
+    return model, state.params, held_out, dict(
+        step_ms=step_s * 1e3, tokens_per_s=toks / step_s,
+        peak_gib=peak / 2**30, adamw_ms=ms["adamw"], clip_ms=ms["clip"])
+
+
+#: a call of the eval's shadow may hold this many rows that only the
+#: plain version's roundoff neighbours explain
+FLIP_ROWS = 4
+#: the relative change of a row's logits that stands for the kernel's
+#: q·k roundoff against cuBLAS's (a few f32 ulps of a 128-term sum)
+LOGIT_ROUNDOFF = 2.0 ** -20
+
+
+def roundoff_neighbours(s, v, pol):
+    """The plain version's row (faithful REXP or 2D-LUT) on f32 logits
+    ``s`` (Lk,) scaled by 1 − ``LOGIT_ROUNDOFF``, 1 and 1 +
+    ``LOGIT_ROUNDOFF`` (every ``max − x`` moved by that share: the
+    numerators a roundoff-sized change bins otherwise), each with its
+    denominator's bin — REXP's α index, 2D-LUT's Σ column — as binned
+    and moved one step down and up (a Σ that such a change carried
+    across a bin edge moves every weight of the row).  The plain row
+    itself is among them."""
+    tables = ops._tables_for(pol)
+    qmax = tables.precision.qmax
+    inv = LUT.inv_scale(qmax)
+    vf, out = v.float(), []
+    for f in (1.0 - LOGIT_ROUNDOFF, 1.0, 1.0 + LOGIT_ROUNDOFF):
+        x = s * f
+        if pol.impl == "rexp":
+            e = LUT.rexp_exp_int(x, tables, index_mode=pol.index_mode)
+            ja = LUT.rexp_alpha_index(e.float().sum(-1, keepdim=True),
+                                      tables, pol.index_mode)
+            lut = torch.as_tensor(tables.lut_alpha, dtype=torch.int32,
+                                  device=s.device)
+            out += [torch.matmul(torch.round((e * lut[torch.clamp(
+                ja + dj, 0, lut.numel() - 1)]).float() * inv) * inv, vf)
+                for dj in (-1, 0, 1)]
+            continue
+        e = LUT.lut2d_exp_int(x, tables, index_mode=pol.index_mode)
+        sig = torch.as_tensor(tables.lut_sigma, dtype=torch.int32,
+                              device=s.device)
+        n_rows, n_cols = sig.shape
+        i_idx = LUT._bin_index(e.float() * LUT.inv_scale(
+            qmax * tables.scale_ex), pol.index_mode, 0, n_rows - 1)
+        j_idx = LUT._bin_index(e.float().sum(-1, keepdim=True)
+                               * LUT.inv_scale(qmax * tables.scale_sum),
+                               pol.index_mode, 1, n_cols) - 1
+        out += [torch.matmul(sig[i_idx, torch.clamp(
+            j_idx + dj, 0, n_cols - 1).expand_as(i_idx)].float() * inv, vf)
+            for dj in (-1, 0, 1)]
+    return out
+
+
+def eval_shadow(shadow, pol):
+    """:func:`dense_shadow` for the evals' calls: each call made on the
+    kernel and on its plain version; a row beyond one LUT step of the
+    plain version must lie within one LUT step of one of
+    :func:`roundoff_neighbours`' rows, at most ``FLIP_ROWS`` of them a
+    call.  Appends (name, max|err| of the other rows, one LUT step,
+    share of rows beyond 1e-4) and prints each such row."""
+    qmax = get_precision(pol.precision).qmax
+
+    def shadowed(q, k, v, policy, **kw):
+        out = ops.lut_attention(q, k, v, policy, **kw)
+        ref = ops.lut_attention(q, k, v, policy, **{**kw,
+                                                    "backend": "naive"})
+        limit = 2.0 / qmax * float(v.float().abs().max())
+        rows = (out - ref).abs().amax(dim=-1)
+        bad = (rows > limit).nonzero().tolist()
+        if len(bad) > FLIP_ROWS:
+            raise AssertionError(f"{len(bad)} rows beyond one LUT step")
+        g = q.shape[1] // k.shape[1]
+        for b, h, r in bad:
+            s = REF._logits(q[b:b + 1, h:h + 1], k[b:b + 1, h // g:h // g + 1],
+                            q.shape[-1] ** -0.5, kw["causal"],
+                            kw.get("kv_len"))[0, 0, r]
+            moved = min(float((out[b, h, r] - alt).abs().max()) for alt in
+                        roundoff_neighbours(s, v[b, h // g], policy))
+            print(f"[train] row (b {b}, head {h}, row {r}: "
+                  f"{int(torch.isfinite(s).sum())} keys) off the plain "
+                  f"version by {float(rows[b, h, r]):.4g} > one LUT step "
+                  f"{limit:.4g}; off its nearest roundoff neighbour (the "
+                  f"logits moved by {LOGIT_ROUNDOFF:.3g} relative, the "
+                  f"denominator bin by at most one step) by {moved:.4g}")
+            if not moved <= limit:
+                raise AssertionError(f"row ({b}, {h}, {r}) unexplained")
+            rows[b, h, r] = 0
+        shadow.append(("lut_attention", float(rows.max()), limit,
+                       float((rows > 1e-4).float().mean())))
+        return out
+    return shadowed
+
+
+def eval_policies(model, params, batch, card):
+    """``make_eval_step`` on the trained parameters and a held-out batch
+    under exact, REXP uint8 and 2D-LUT uint8, ``attention_backend`` auto
+    and naive: each LUT eval launches the dense kernel once a layer on
+    the tile route, every launched call within one LUT step of its plain
+    version (a shadowed eval, :func:`eval_shadow`), auto against naive
+    ``eval_loss`` within 1e-3 relative; the LUT-minus-exact deltas
+    printed.  Returns the REXP
+    eval's launches by route.
+
+    Across 130 816 rows a call, a row may sit where the f32 roundoff of
+    the kernel's q·k against the plain version's moves one numerator
+    bin and with it the row's Σ across a bin edge of the denominator:
+    every weight of the row then moves by one step of LUT_α (or of the
+    σ table's column), more than one LUT step of the output
+    (:func:`eval_shadow` holds such rows to the plain version's
+    roundoff neighbours)."""
+    n_attn = model.cfg.n_layers
+    qmax = get_precision("uint8").qmax
+    expect = dict.fromkeys(ROUTES, 0)
+    expect[dense_route(torch.bfloat16, model.cfg.resolved_head_dim, T_SEQ,
+                       qmax, "rexp")] = n_attn
+    got = {}
+    for pol in T_EVAL_POLICIES:
+        for backend in ("auto", "naive"):
+            ev = TL.make_eval_step(model, lockstep_run(POLICIES[pol],
+                                                       backend))
+            _zero_dense()
+            t0 = time.perf_counter()
+            m = {k: float(v) for k, v in ev(params, batch).items()}
+            wall = time.perf_counter() - t0
+            routes = dict(lut_attention_cuda.route_launches)
+            want = (expect if backend == "auto" and pol != "exact"
+                    else dict.fromkeys(ROUTES, 0))
+            print(f"[train] eval {pol} {backend}: eval_loss "
+                  f"{m['eval_loss']:.5f}, next_token_acc "
+                  f"{m['next_token_acc']:.4f}, {wall * 1e3:.0f} ms; dense "
+                  f"launches by route {routes}")
+            if routes != want:
+                raise AssertionError(f"eval {pol} {backend} launched "
+                                     f"{routes}, expected {want}")
+            got[pol, backend] = (m, routes)
+        a, n = got[pol, "auto"][0], got[pol, "naive"][0]
+        rel = abs(a["eval_loss"] - n["eval_loss"]) / abs(n["eval_loss"])
+        if not rel <= 1e-3:
+            raise AssertionError(f"eval {pol}: auto against naive {rel:.3g}")
+    for pol in ("rexp-uint8", "lut2d-uint8"):
+        shadow = []
+        LAYERS.lut_attention = eval_shadow(shadow, POLICIES[pol])
+        try:
+            TL.make_eval_step(model, lockstep_run(POLICIES[pol]))(params,
+                                                                   batch)
+        finally:
+            LAYERS.lut_attention = ops.lut_attention
+        if len(shadow) != n_attn:
+            raise AssertionError(f"shadowed eval: {len(shadow)} calls")
+        check_shadow(shadow, f"{pol} eval", tag="[train]")
+        d_loss = (got[pol, "auto"][0]["eval_loss"]
+                  - got["exact", "auto"][0]["eval_loss"])
+        d_acc = (got[pol, "auto"][0]["next_token_acc"]
+                 - got["exact", "auto"][0]["next_token_acc"])
+        print(f"[train] {pol} minus exact: eval_loss {d_loss:+.5f}, "
+              f"next_token_acc {d_acc:+.4f} — {card}")
+    return got["rexp-uint8", "auto"][1]
+
+
+def calibrate_full_width(model, params, batch):
+    """A ``SumCollector`` through one exact bf16 ``prefill`` of the
+    full-width model, its samples against the same collector fed the
+    CPU's plain logits of the same slices (within 1e-5 relative)."""
+    slices = []
+    tap = LAYERS.attention_logits
+
+    def recorded(q, k, scale, causal):
+        slices.append((q.cpu(), k.cpu(), scale, causal))
+        return tap(q, k, scale, causal)
+
+    card = SumCollector()
+    LAYERS.attention_logits = recorded
+    try:
+        with torch.no_grad():
+            model.prefill(params, batch["tokens"][:, :-1],
+                          lockstep_run(POLICIES["exact"]), max_len=T_SEQ,
+                          collector=card)
+    finally:
+        LAYERS.attention_logits = tap
+    cpu = SumCollector()
+    for q, k, scale, causal in slices:
+        cpu.offer(REF._logits(q, k, scale, causal))
+    res = card.result()
+    off = float(np.max(np.abs(card.samples() - cpu.samples())
+                       / np.abs(cpu.samples())))
+    print(f"[train] calibration (exact prefill, {len(slices)} attention "
+          f"layers): count {res.count}, mean {res.mean:.3f}, p50 "
+          f"{res.p50:.3f}, p99 {res.p99:.3f}, p99.9 {res.p999:.3f}, max "
+          f"{res.max:.3f}; recommend_alpha_len {res.recommend_alpha_len()}, "
+          f"recommend_sigma_cols {res.recommend_sigma_cols()}; samples "
+          f"against the CPU's plain logits of the same slices: worst "
+          f"{off:.3g} relative")
+    if len(slices) != model.cfg.n_layers or res.count != T_SEQ * len(slices):
+        raise AssertionError(f"calibration: {len(slices)} taps, "
+                             f"{res.count} samples")
+    if not off <= 1e-5:
+        raise AssertionError(f"calibration samples off by {off:.3g}")
+
+
+def eval_shape_row(card):
+    """The dense kernel at the eval step's call (B 4, 64 / 8 heads of
+    128, 511 rows over a 511-key cache at kv_len 511, causal, bf16, REXP
+    faithful, the tile route as the dispatcher picks it): within one LUT
+    step of its plain version on normal rows, timed beside it, exact
+    SDPA on the same inputs and its bound."""
+    h, kvh, dh = H, KVH, DH
+    qmax = get_precision("uint8").qmax
+    q, k, v = dense_problem(np.random.default_rng(13), T_BATCH, h, kvh,
+                            T_SEQ, T_SEQ, dh, torch.bfloat16, False)
+    route = dense_route(q.dtype, dh, T_SEQ, qmax, "rexp")
+    ref = dense_call(lut_attention_plain, "rexp", q, k, v, True, T_SEQ)
+    out = dense_call(lut_attention_cuda, "rexp", q, k, v, True, T_SEQ,
+                     route=route)
+    err = float((out - ref).abs().max())
+    limit = 2.0 / qmax * float(v.float().abs().max())
+    if not err <= limit:
+        raise AssertionError(f"eval-shape call off its plain version by "
+                             f"{err} > one LUT step {limit}")
+    b_ms, b_by = dense_bound(T_BATCH, h, kvh, T_SEQ, T_SEQ, dh,
+                             torch.bfloat16,
+                             dense_pairs(T_SEQ, T_SEQ, True, T_SEQ))
+    row = dict(route=route, ms=device_ms(lambda: dense_call(
+        lut_attention_cuda, "rexp", q, k, v, True, T_SEQ, route=route)),
+        plain_ms=device_ms(lambda: dense_call(
+            lut_attention_plain, "rexp", q, k, v, True, T_SEQ)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        sdpa_ms=dense_sdpa_ms(q, k, v, True, T_SEQ), max_abs_err=err)
+    print(f"[time] lut_attention rexp bf16 qwen3-32b eval B={T_BATCH} "
+          f"H={h}/{kvh} Lq={T_SEQ} Lk={T_SEQ} kv_len={T_SEQ} Dh={dh} "
+          f"{route}: kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, exact SDPA {row['sdpa_ms']:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), {b_ms / row['ms']:.1%} of bound; "
+          f"max|err| {err:.3g} (limit {limit:.3g}) — {card}")
+    return row
+
+
+def phase_train(card):
+    """Phase 10 (lines ``[train]``): the training side of the port —
+    card against CPU, checkpoint and resume, the full-width step, the
+    exact-against-LUT evals, calibration, the dense kernel at the eval
+    shape.  Returns the dense kernel's ``qwen3-32b-eval`` row."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    print(f"[train] phase 10 starts with "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    train_card_vs_cpu(card)
+    train_resume(card)
+    model, params, batch, numbers = full_width_train(card)
+    routes = eval_policies(model, params, batch, card)
+    calibrate_full_width(model, params, batch)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = eval_shape_row(card)
+    print(f"[train] phase 10: {time.perf_counter() - t0:.1f}s — {card}")
+    return dict(row, launches=sum(routes.values()), route_launches=routes,
+                train=numbers)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3125,6 +3678,7 @@ def main() -> int:
         rows, counts = phase()
         kernels.update(rows)
         launches.update(counts)
+    kernels["lut_attention"]["shapes"]["qwen3-32b-eval"] = phase_train(card)
     summary = {"kernels": [
         dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}.cu",
              replaces=f"src/repro/kernels/{replaces}",

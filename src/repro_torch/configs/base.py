@@ -153,9 +153,11 @@ class ArchConfig:
 class RunConfig:
     """Runtime knobs independent of architecture identity.
 
-    The serving subset of the JAX package's ``RunConfig`` (the paged
-    engine and the lockstep path); the training and sharding knobs have
-    no counterpart here yet.
+    The JAX package's ``RunConfig`` with its defaults, less the knobs of
+    its scan: the port walks the periods in a Python loop and runs the
+    recurrent mixers as step loops, so ``scan_layers``, ``ssm_chunk`` and
+    ``probe_unroll`` have no counterpart (nor ``q_chunk`` / ``k_chunk``,
+    which ``lut_attention`` takes directly, or ``shard_kv_seq``).
     """
     dtype: str = "bfloat16"                        # activations and the
                                                    # KV pool on the card
@@ -173,3 +175,12 @@ class RunConfig:
                                                    # | int8 (per-row f32
                                                    # scales, in-kernel
                                                    # dequant)
+    remat: bool = True                             # recompute each period
+                                                   # in the backward
+    microbatch: int = 1                            # grad-accumulation steps
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    label_smoothing: float = 0.0
+    moe_aux_weight: float = 0.01
+    grad_compression: bool = False                 # int8 + error feedback

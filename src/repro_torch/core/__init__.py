@@ -6,6 +6,7 @@
                   baselines, in torch
   - policies:     SoftmaxPolicy — the switch threaded through the port
   - quantization: the int8 KV-pool rounding convention and PTQ-D
+  - calibration:  Σe^x distribution analysis / LUT sizing (Fig. 4, §5.3)
 
 ``precision``, ``policies`` and ``lut_builder`` are copies of the JAX
 package's numpy-only modules; the tests pin them to the originals.
@@ -32,6 +33,13 @@ from repro_torch.core.lut_softmax import (
     softmax_rexp_unnorm,
 )
 from repro_torch.core.policies import EXACT, SoftmaxPolicy
+from repro_torch.core.calibration import (
+    CalibrationResult,
+    SumCollector,
+    calibrate_from_logits,
+    calibrate_model,
+    row_exp_sums,
+)
 
 __all__ = [
     "PRECISIONS",
@@ -54,4 +62,9 @@ __all__ = [
     "softmax_rexp_unnorm",
     "EXACT",
     "SoftmaxPolicy",
+    "CalibrationResult",
+    "SumCollector",
+    "calibrate_from_logits",
+    "calibrate_model",
+    "row_exp_sums",
 ]

@@ -161,7 +161,15 @@ def lut_attention_cuda(q: Tensor, k: Tensor, v: Tensor,
     inputs; no model path passes one) that the inputs do not suit raises:
     ``"rows"`` and ``"split"`` take every input the kernel takes,
     ``"tiles"`` only those :func:`tiles_take` names, at any row count.
+    The kernel has no backward: under autograd, inputs that require
+    grad raise (on any device) rather than give an output that silently
+    carries no gradient — evaluate under ``torch.no_grad()``.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "lut_attention_cuda has no backward: its inputs require grad; "
+            "train through the exact softmax (train_logits) and run the "
+            "LUT policies under torch.no_grad()")
     mode = mode_of(method, fused_requant)
     qmax = tables.precision.qmax
     b, h, lq, dh = q.shape

@@ -60,6 +60,13 @@ default on ``--device cuda``) needs one card a rank; ``gloo`` (the
 default on ``--device cpu``) runs every rank on the one device, a card
 shared by all ranks included — a check of the path, not a speed-up.
 
+``--ckpt-dir`` serves the weights of the newest checkpoint there
+(``launch/train.py``'s, or the JAX package's: the on-disk format is
+shared): its ``.params/…`` leaves are restored over the random init,
+cast to the serving dtype (``convert.cast_params``) and the launcher
+prints ``restored step N``; with ``--tp`` every rank restores the whole
+tree and ``--shard-params`` then cuts it, as it cuts the init.
+
 ``--paged-backend`` selects the paged attention of BOTH phases (decode
 steps and prefill chunks): ``auto`` launches the CUDA kernels on the card
 and the plain versions on the CPU, ``cuda`` forces the kernels (raises on
@@ -81,6 +88,8 @@ LUT-attention kernel (``auto`` | ``cuda`` | ``naive``).
       --arch deepseek-moe-16b --batch 4 --prompt-len 64 --new-tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch jamba-v0.1-52b --scale-down 64,4,128 --layers 1 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \\
+      --scale-down 64,4,128 --layers 1 --device cpu --ckpt-dir /tmp/ckpt
 """
 
 from __future__ import annotations
@@ -92,6 +101,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCHS, RunConfig, get_arch
 from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.core.policies import SoftmaxPolicy
@@ -99,6 +109,7 @@ from repro_torch.kernels.lut_attention.ops import (
     resolve_attention_backend, resolve_paged_backend,
     resolve_paged_prefill_backend)
 from repro_torch.models import build_model
+from repro_torch.models.convert import cast_params
 from repro_torch.models.model_zoo import resolve_device
 from repro_torch.models.transformer import paged_supported
 from repro_torch.runtime.engine import (EngineConfig, PipelinedEngine,
@@ -107,6 +118,7 @@ from repro_torch.runtime.paged_cache import KV_DTYPES, PagedCacheConfig
 from repro_torch.runtime.partitioning import check_shardable
 from repro_torch.runtime.serve_loop import generate
 from repro_torch.runtime.server import AsyncServingServer, ServerSaturatedError
+from repro_torch.runtime.train_loop import TrainState
 
 
 async def serve_waves(eng, waves, max_queue, backpressure):
@@ -209,17 +221,20 @@ def main(argv=None) -> None:
                     help="--tp > 1: the collectives' backend (default nccl "
                          "on --device cuda, gloo on --device cpu); nccl "
                          "needs one card a rank, gloo shares one device")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the weights of the newest checkpoint in "
+                         "this directory (either package's)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     if args.shard_params and args.tp <= 1:
         ap.error("--shard-params requires --tp > 1 (there is no mesh to "
                  "shard the weights over)")
     if args.shard_params:
-        check_shardable(_arch(args))
+        check_shardable(arch_from_args(args))
     if args.dist_backend is None:
         args.dist_backend = "nccl" if args.device == "cuda" else "gloo"
     if args.tp > 1:
-        arch = _arch(args)
+        arch = arch_from_args(args)
         if args.engine == "lockstep" or not paged_supported(arch):
             # never report single-device lockstep numbers as a --tp run
             ap.error("--tp > 1 requires the continuous engine "
@@ -231,7 +246,7 @@ def main(argv=None) -> None:
     _serve(ap, args)
 
 
-def _arch(args):
+def arch_from_args(args):
     """The served arch: ``--arch`` cut to ``--layers`` (and to
     ``--scale-down``'s widths)."""
     arch = get_arch(args.arch)
@@ -242,6 +257,22 @@ def _arch(args):
     return arch.with_layers(args.layers) if args.layers else arch
 
 
+def restore_params(directory, params, device, mesh=None):
+    """The ``.params/…`` leaves of the newest checkpoint in ``directory``
+    in the tree of ``params`` (random weights when there is none, as in
+    the JAX launcher), cast to the serving dtype on the card; prints
+    ``restored step N`` (rank 0 only under a mesh)."""
+    restored = CheckpointManager(directory).restore_latest(
+        TrainState(params=params, opt=None, ef=None))
+    if restored is None:
+        return params
+    state, step = restored
+    if mesh is None or mesh.rank == 0:
+        print(f"restored step {step}")
+    return (cast_params(state.params, torch.bfloat16)
+            if device.type == "cuda" else state.params)
+
+
 def _serve_rank(mesh, args) -> None:
     """One rank of ``--tp``: rank 0 serves and prints, the others follow."""
     _serve(argparse.ArgumentParser(), args, mesh)
@@ -249,7 +280,7 @@ def _serve_rank(mesh, args) -> None:
 
 def _serve(ap, args, mesh=None) -> None:
     device = resolve_device(mesh.device if mesh is not None else args.device)
-    arch = _arch(args)
+    arch = arch_from_args(args)
     model = build_model(arch)
     policy = (SoftmaxPolicy(impl=args.softmax, precision=args.precision)
               if args.softmax != "exact" else SoftmaxPolicy())
@@ -262,6 +293,8 @@ def _serve(ap, args, mesh=None) -> None:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen, device, dtype=torch.bfloat16
                         if device.type == "cuda" else None)
+    if args.ckpt_dir:
+        params = restore_params(args.ckpt_dir, params, device, mesh)
     rng = np.random.default_rng(args.seed)
     engine = args.engine
     if engine != "lockstep" and not paged_supported(arch):

@@ -9,6 +9,8 @@ on their leading axis, and an encoder-decoder's ``encoder`` /
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -83,3 +85,56 @@ def pool_from_jax(pool, device="cuda") -> dict[str, torch.Tensor]:
             if name not in out or out[name].dtype != torch.float32:
                 raise ValueError(f"an int8 pool needs float32 {name}")
     return out
+
+
+def _children(tree):
+    """``(path part, child)`` of a tree node in the JAX package's
+    flattening order and path spelling: a dict's keys sorted, a list's
+    or tuple's indices, a dataclass's fields as ``.name``; None for a
+    leaf.  A None child is a node with no leaves, as in JAX."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [(str(i), v) for i, v in enumerate(tree)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [(f".{f.name}", getattr(tree, f.name))
+                for f in dataclasses.fields(tree)]
+    return None
+
+
+def tree_flatten(tree, prefix: str = ""):
+    """``[(path, leaf)]`` of a tree of dicts, lists, tuples and
+    dataclasses, in ``jax.tree_util.tree_flatten_with_path``'s order,
+    with the JAX checkpoint's path strings (``.params/embed/table``,
+    ``.opt/.m/periods/0/ffn/w_down``)."""
+    if tree is None:
+        return []
+    kids = _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    out = []
+    for part, child in kids:
+        out += tree_flatten(child, f"{prefix}/{part}" if prefix else part)
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` whose leaves are taken in
+    :func:`tree_flatten` order from the iterable ``leaves``."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return dataclasses.replace(node, **{
+                f.name: build(getattr(node, f.name))
+                for f in dataclasses.fields(node)})
+        return next(it)
+
+    return build(like)

@@ -15,7 +15,9 @@ the dense kernel), the decoder's cached self-attention does (the
 faithful per-element σ).  The self-caches are the port's in-place
 :class:`layers.AttnCache`; as in the JAX package they hold K/V in the
 run dtype (``run.kv_dtype`` applies to the decoder-only archs).
-Training (``train_logits``) is not ported.
+``train_logits`` runs both stacks with no cache under the exact
+softmax, each block under ``transformer.remat`` when ``run.remat``, as
+the JAX package's ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
@@ -25,10 +27,10 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig, RunConfig
-from repro_torch.core.policies import SoftmaxPolicy
+from repro_torch.core.policies import EXACT, SoftmaxPolicy
 from repro_torch.models import layers as L
 from repro_torch.models.device import resolve_device
-from repro_torch.models.transformer import run_dtype
+from repro_torch.models.transformer import remat, run_dtype
 
 Tensor = torch.Tensor
 Params = dict[str, Any]
@@ -96,34 +98,50 @@ def _attn_kwargs(cfg: ArchConfig, run: RunConfig, policy: SoftmaxPolicy):
 
 
 def encode(params: Params, frames: Tensor, cfg: ArchConfig, run: RunConfig,
-           policy: SoftmaxPolicy) -> Tensor:
-    """Stub frame embeddings (B, L_enc, D) → encoder states."""
+           policy: SoftmaxPolicy, train: bool = False) -> Tensor:
+    """Stub frame embeddings (B, L_enc, D) → encoder states; ``train``
+    puts each block under :func:`remat` when ``run.remat``."""
     x = frames + sinusoidal_positions(frames.shape[1], cfg.d_model,
                                       device=frames.device).to(frames.dtype)
     kw = _attn_kwargs(cfg, run, policy)
-    for blk in params["encoder"]:
+
+    def block(blk, x):
         h = L.apply_norm(blk["norm1"], x, cfg.norm_eps)
         x = x + L.apply_attention(blk["self_attn"], h, causal=False, **kw)
         h = L.apply_norm(blk["norm_mlp"], x, cfg.norm_eps)
-        x = x + L.apply_mlp(blk["mlp"], h)
+        return x + L.apply_mlp(blk["mlp"], h)
+
+    if train and run.remat:
+        block = remat(block)
+    for blk in params["encoder"]:
+        x = block(blk, x)
     return L.apply_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
 def _decoder_pass(params: Params, x: Tensor, cfg: ArchConfig,
                   run: RunConfig, policy: SoftmaxPolicy, caches,
-                  cross_kvs) -> Tensor:
-    """Every decoder block: cached causal self-attention, cross-attention
-    to the cached encoder K/V, MLP.  The caches advance in place."""
+                  cross_kvs, enc: Tensor | None = None) -> Tensor:
+    """Every decoder block: causal self-attention (cached, the caches
+    advancing in place), cross-attention to the cached encoder K/V, MLP.
+    Training passes no caches or K/V (``None`` each) but the encoder
+    states ``enc``, and puts each block under :func:`remat` when
+    ``run.remat``."""
     kw = _attn_kwargs(cfg, run, policy)
-    for blk, cache, cross_kv in zip(params["decoder"], caches, cross_kvs):
+
+    def block(blk, x, cache, cross_kv, enc):
         h = L.apply_norm(blk["norm1"], x, cfg.norm_eps)
         x = x + L.apply_attention(blk["self_attn"], h, causal=True,
                                   cache=cache, **kw)
         h = L.apply_norm(blk["norm2"], x, cfg.norm_eps)
-        x = x + L.apply_attention(blk["cross_attn"], h,
+        x = x + L.apply_attention(blk["cross_attn"], h, kv_x=enc,
                                   precomputed_kv=cross_kv, **kw)
         h = L.apply_norm(blk["norm_mlp"], x, cfg.norm_eps)
-        x = x + L.apply_mlp(blk["mlp"], h)
+        return x + L.apply_mlp(blk["mlp"], h)
+
+    if enc is not None and run.remat:
+        block = remat(block)
+    for blk, cache, cross_kv in zip(params["decoder"], caches, cross_kvs):
+        x = block(blk, x, cache, cross_kv, enc)
     return x
 
 
@@ -137,6 +155,21 @@ def _embed_dec(params: Params, tokens: Tensor, cfg: ArchConfig, dtype,
 def _logits(params: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
     x = L.apply_norm(params["dec_norm"], x, cfg.norm_eps)
     return L.apply_lm_head(params["head"], x)
+
+
+def train_logits(params: Params, tokens: Tensor, cfg: ArchConfig,
+                 run: RunConfig, encoder_input: Tensor, collector=None):
+    """(B, S) tokens and stub frames (B, L_enc, D) → ``(logits (B, S, V)
+    f32, {})`` under the exact softmax, no cache.  ``collector`` is
+    accepted and unused, as in the JAX package."""
+    dtype = run_dtype(run)
+    enc = encode(params, encoder_input.to(dtype), cfg, run, EXACT,
+                 train=True)
+    x = _embed_dec(params, tokens, cfg, dtype)
+    n = len(params["decoder"])
+    x = _decoder_pass(params, x, cfg, run, EXACT, [None] * n, [None] * n,
+                      enc)
+    return _logits(params, x, cfg), {}
 
 
 def prefill(params: Params, tokens: Tensor, cfg: ArchConfig, run: RunConfig,

@@ -61,6 +61,7 @@ from repro_torch.kernels.lut_attention.ops import (lut_attention,
                                                    lut_attention_paged_decode,
                                                    lut_attention_paged_prefill,
                                                    paged_mesh_regime)
+from repro_torch.kernels.lut_attention.ref import _logits as attention_logits
 from repro_torch.runtime import partitioning as PT
 
 Tensor = torch.Tensor
@@ -420,8 +421,8 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
                     policy: SoftmaxPolicy = EXACT, backend: str = "auto",
                     cache=None, paged_backend: str = "auto",
                     kv_dtype: str = "f32", kv_x: Tensor | None = None,
-                    precomputed_kv: tuple[Tensor, Tensor] | None = None
-                    ) -> Tensor:
+                    precomputed_kv: tuple[Tensor, Tensor] | None = None,
+                    collector=None) -> Tensor:
     """Self- or cross-attention of ``x`` (B, L, D) with the policy's
     softmax; returns (B, L, D).
 
@@ -441,6 +442,13 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
     pool's rounding (``fake_quant_rows``), the lockstep view of the
     engine's int8 pool; paged caches carry real scales instead and
     ignore it.
+
+    ``collector`` (``core.calibration.SumCollector``) is the Σe^x
+    calibration tap: it is offered the f32 pre-softmax logits of the
+    first query head of the first sequence against its KV head — after
+    the cache write, so against the cache's keys — at scale
+    ``head_dim ** -0.5``, causal as asked: the slice the JAX package
+    takes.  Without one nothing is computed.
     """
     is_cross = kv_x is not None or precomputed_kv is not None
     if isinstance(cache, (PagedAttnCache, PagedPrefillCache)):
@@ -477,20 +485,24 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
         cache.v[:, :, cache.length:end] = v.to(cache.v.dtype)
         cache.length = end
         k, v, kv_len = cache.k, cache.v, end
-        mesh = PT.active_mesh()
-        tp = PT.mesh_model_tp(mesh)
-        if (l == 1 and tp > 1 and n_kv_heads % tp and k.shape[2] % tp == 0
-                and policy.impl in ("exact", "rexp")):
-            # single-token step against a cache whose KV heads do not
-            # split: this rank attends its length shard, and only
-            # (B, H, 1) partials cross (sharded_decode)
-            from repro_torch.kernels.lut_attention.sharded_decode import (
-                lut_decode_sharded)
-            n = k.shape[2] // tp
-            shard = slice(mesh.rank * n, (mesh.rank + 1) * n)
-            out = lut_decode_sharded(q, k[:, :, shard], v[:, :, shard],
-                                     policy, kv_len=kv_len, mesh=mesh)
-            return _out_projection(p, x, out, b, l)
+    if collector is not None:
+        collector.offer(attention_logits(q[:1, :1].float(),
+                                         k[:1, :1].float(),
+                                         head_dim ** -0.5, causal))
+    mesh = PT.active_mesh()
+    tp = PT.mesh_model_tp(mesh)
+    if (cache is not None and l == 1 and tp > 1 and n_kv_heads % tp
+            and k.shape[2] % tp == 0 and policy.impl in ("exact", "rexp")):
+        # single-token step against a cache whose KV heads do not
+        # split: this rank attends its length shard, and only
+        # (B, H, 1) partials cross (sharded_decode)
+        from repro_torch.kernels.lut_attention.sharded_decode import (
+            lut_decode_sharded)
+        n = k.shape[2] // tp
+        shard = slice(mesh.rank * n, (mesh.rank + 1) * n)
+        out = lut_decode_sharded(q, k[:, :, shard], v[:, :, shard],
+                                 policy, kv_len=kv_len, mesh=mesh)
+        return _out_projection(p, x, out, b, l)
     out = lut_attention(q, k, v, policy, causal=causal and not is_cross,
                         kv_len=kv_len, backend=backend)
     return _out_projection(p, x, out, b, l)

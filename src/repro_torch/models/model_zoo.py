@@ -44,16 +44,32 @@ class Model:
             return params if dtype is None else cast_params(params, dtype)
         return TF.init_params(self.cfg, generator, device, dtype)
 
+    def train_logits(self, params, tokens, run: RunConfig,
+                     encoder_input=None, collector=None):
+        """The training forward of (B, S) ``tokens`` (an encoder-decoder's
+        with its frames ``encoder_input``): ``(logits (B, S, V) f32,
+        aux)`` under the exact softmax, differentiable."""
+        if self.is_encdec:
+            return ED.train_logits(params, tokens, self.cfg, run,
+                                   encoder_input, collector=collector)
+        return TF.train_logits(params, tokens, self.cfg, run,
+                               collector=collector)
+
     def prefill(self, params, tokens, run: RunConfig, max_len: int,
-                encoder_input=None, logits: str = "all"):
+                encoder_input=None, logits: str = "all", collector=None):
         """Lockstep prefill of (B, S) ``tokens`` into fresh contiguous
         caches of ``max_len`` positions: ``(logits, state)``.  An
-        encoder-decoder first encodes ``encoder_input`` (B, L_enc, D)."""
+        encoder-decoder first encodes ``encoder_input`` (B, L_enc, D).
+        ``collector`` taps a decoder's attention logits (Σe^x
+        calibration); the encoder-decoder takes none."""
         if self.is_encdec:
+            if collector is not None:
+                raise ValueError("the Σe^x collector taps the decoder-only "
+                                 "path's prefill")
             return ED.prefill(params, tokens, self.cfg, run, max_len,
                               encoder_input, logits=logits)
         return TF.prefill(params, tokens, self.cfg, run, max_len,
-                          logits=logits)
+                          logits=logits, collector=collector)
 
     def decode_step(self, params, token, state, run: RunConfig):
         """One lockstep decode step: ``(logits (B, 1, V), state)``."""

@@ -1,8 +1,7 @@
 """Mixture-of-Experts FFN: top-k routing with per-group expert capacity.
 
-The counterpart of the JAX package's ``models/moe.py`` for serving (the
-load-balance loss, a training term, is not computed).  It serves the
-MoE decoders of ``configs``: DeepSeek-MoE-16B (64 routed experts of
+The counterpart of the JAX package's ``models/moe.py``.  It serves and
+trains the MoE decoders of ``configs``: DeepSeek-MoE-16B (64 routed experts of
 width 1408, top-6, plus 2 shared experts) and Granite-MoE-3B (40
 experts of width 512, top-8).
 
@@ -32,6 +31,13 @@ stacked expert weights (plain matmuls, as the JAX package leaves them to
 XLA), and gathers each assignment's row back.  Every shape follows from
 ``(T, E, K, C)``: no host sync, no data-dependent shape, so a dispatch
 of the pipelined engine never waits on the device.
+
+With ``return_aux`` :func:`apply_moe` also returns the training terms
+of the JAX package: the Switch load-balance loss ``E · Σ_e f_e · P_e``
+and the router entropy.  Under autograd the gradient reaches the router
+through the gate weights and those terms only, as through the JAX
+package's combine tensor: the expert choices, slots and drops are
+integers, and the dispatch copies rows.
 """
 
 from __future__ import annotations
@@ -106,6 +112,32 @@ def assign_slots(experts: Tensor, n_experts: int, group: int,
     return slots, slots < cap
 
 
+def router_probs(p: Params, xt: Tensor,
+                 router_policy: SoftmaxPolicy) -> Tensor:
+    """(T, E) f32 router probabilities of the (T, D) tokens: the policy's
+    softmax over f32 logits."""
+    logits = xt.float() @ p["router"].float()
+    return make_softmax_fn(router_policy)(logits, axis=-1)
+
+
+def aux_losses(probs: Tensor, experts: Tensor, n_experts: int,
+               group: int) -> dict[str, Tensor]:
+    """The JAX package's training terms: ``load_balance_loss`` =
+    E · Σ_e f_e · P_e, f_e the share of top-k assignments to expert e and
+    P_e its mean router probability, and ``router_entropy``.  As there,
+    f_e counts the tail group's padding rows, which the JAX package pads
+    with expert 0 for all k."""
+    t, top_k = experts.shape
+    t_pad = -(-t // group) * group
+    counts = F.one_hot(experts, n_experts).sum(dim=(0, 1)).float()
+    counts[0] += (t_pad - t) * top_k
+    ce = counts / t_pad
+    me = probs.mean(0)
+    return {"load_balance_loss": n_experts * torch.sum(me * ce),
+            "router_entropy": -torch.mean(
+                torch.sum(probs * torch.log(probs + 1e-9), dim=-1))}
+
+
 def route(p: Params, xt: Tensor, *, n_experts: int, top_k: int,
           capacity_factor: float, router_policy: SoftmaxPolicy,
           group_size: int):
@@ -114,8 +146,7 @@ def route(p: Params, xt: Tensor, *, n_experts: int, top_k: int,
     weights, the expert indices, each assignment's slot in its expert's
     buffer of its group, and whether it fits the capacity ``cap`` —
     and the group size ``g``."""
-    logits = xt.float() @ p["router"].float()               # (T, E)
-    probs = make_softmax_fn(router_policy)(logits, axis=-1)
+    probs = router_probs(p, xt, router_policy)
     gates, experts = top_k_experts(probs, top_k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     g = min(group_size, xt.shape[0])
@@ -127,9 +158,10 @@ def route(p: Params, xt: Tensor, *, n_experts: int, top_k: int,
 def apply_moe(p: Params, x: Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float = 1.25,
               router_policy: SoftmaxPolicy = EXACT,
-              group_size: int = 4096) -> Tensor:
+              group_size: int = 4096, return_aux: bool = False):
     """x (B, S, D) → (B, S, D) in ``x.dtype``: the routed experts' gated
-    sum plus the shared MLP (module docstring)."""
+    sum plus the shared MLP (module docstring); with ``return_aux``,
+    ``(out, aux)`` with :func:`aux_losses`' terms."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
@@ -159,4 +191,8 @@ def apply_moe(p: Params, x: Tensor, *, n_experts: int, top_k: int,
     out = (w.float()[..., None] * y.float()).sum(1).to(x.dtype)
     if "shared" in p:
         out = out + apply_mlp(p["shared"], xt)
-    return out.reshape(b, s, d)
+    out = out.reshape(b, s, d)
+    if not return_aux:
+        return out
+    return out, aux_losses(router_probs(p, xt, router_policy), experts,
+                           n_experts, g)

@@ -13,7 +13,18 @@ or sLSTM (``models/ssm.py``) — and, unless its FFN is ``"none"``
   * ``prefill_chunk_paged`` / ``decode_step_paged`` — the
     continuous-batching engine's steps against the paged pools, for
     decoders of attention mixers only (:func:`check_paged_supported`),
-    as in the JAX package.
+    as in the JAX package;
+  * ``train_logits`` — the full sequence with no cache under the exact
+    softmax, differentiable: the MoE FFNs add their load-balance loss
+    to ``aux``, and ``run.remat`` recomputes each period's activations
+    in the backward (``torch.utils.checkpoint``), as the JAX package's
+    ``jax.checkpoint`` does.  Without a cache every mixer builds its
+    outputs without writing into a tensor autograd saved.
+
+``prefill`` and ``train_logits`` take the Σe^x calibration
+``collector`` (``core/calibration.py``), which every attention layer
+offers its logits (``layers.apply_attention``); a collector turns remat
+off, as in the JAX package.
 
 Under an active tensor-parallel mesh (``partitioning.mesh_scope``) the
 paged steps serve one rank's share: its pools
@@ -36,9 +47,10 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec, RunConfig
-from repro_torch.core.policies import SoftmaxPolicy
+from repro_torch.core.policies import EXACT, SoftmaxPolicy
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -141,7 +153,11 @@ def block_cache(cfg: ArchConfig, spec: LayerSpec, b: int, max_len: int,
 
 
 def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
-                spec: LayerSpec, *, policy: SoftmaxPolicy, cache) -> Tensor:
+                spec: LayerSpec, *, policy: SoftmaxPolicy, cache,
+                collector=None, return_aux: bool = False):
+    """One layer; returns ``(x, aux)``: ``aux`` holds an MoE FFN's
+    training terms (``moe.aux_losses``) when ``return_aux``, else is
+    empty."""
     h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
     if spec.mixer == "attn":
         mixed = L.apply_attention(
@@ -150,7 +166,8 @@ def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
             norm_eps=cfg.norm_eps,
             rope_theta=cfg.rope_theta if cfg.rope else None, policy=policy,
             backend=run.attention_backend, cache=cache,
-            paged_backend=run.paged_backend, kv_dtype=run.kv_dtype)
+            paged_backend=run.paged_backend, kv_dtype=run.kv_dtype,
+            collector=collector)
     elif spec.mixer == "mamba":
         mixed = SSM.apply_mamba(p["mixer"], h, cache=cache)
     elif spec.mixer == "mlstm":
@@ -161,17 +178,19 @@ def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
                                 cache=cache)
     x = x + mixed
     if spec.ffn == "none":
-        return x
+        return x, {}
     h2 = L.apply_norm(p["norm2"], x, cfg.norm_eps)
     if spec.ffn == "moe":
         m = cfg.moe
-        return x + MOE.apply_moe(
+        y = MOE.apply_moe(
             p["ffn"], h2, n_experts=m.n_experts, top_k=m.top_k,
             capacity_factor=m.capacity_factor,
-            router_policy=run.router_policy)
+            router_policy=run.router_policy, return_aux=return_aux)
+        y, aux = y if return_aux else (y, {})
+        return x + y, aux
     mesh = PT.active_mesh()
     cut = mesh is not None and p["ffn"]["w_down"].shape[0] != cfg.d_ff
-    return x + L.apply_mlp(p["ffn"], h2, row_mesh=mesh if cut else None)
+    return x + L.apply_mlp(p["ffn"], h2, row_mesh=mesh if cut else None), {}
 
 
 def _stack_into(out, tree, i: int):
@@ -260,19 +279,44 @@ def init_paged_pools(cfg: ArchConfig, n_pages: int, page_size: int,
         for _ in cfg.period)
 
 
+def remat(fn):
+    """``fn`` with its activations recomputed in the backward instead of
+    saved (``torch.utils.checkpoint``, non-reentrant): the JAX package's
+    ``jax.checkpoint``."""
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def _apply_stack(params: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
-                 make_cache) -> Tensor:
+                 make_cache, *, policy: SoftmaxPolicy | None = None,
+                 collector=None, train: bool = False):
     """Run every layer, periods outermost as the JAX package's scan does;
     ``make_cache(spec_index, period_index)`` gives a layer's cache (a
-    lockstep cache, or a paged cache over views of its pools), written
-    in place."""
-    for pi in range(cfg.n_periods):
+    lockstep cache, or a paged cache over views of its pools, written in
+    place; None in training).  ``policy`` defaults to the run's.
+    Returns ``x``, or with ``train`` ``(x, load_balance_loss)`` — the
+    MoE blocks' sum, None without one — each period under
+    :func:`remat` when ``run.remat`` and no collector is given."""
+    policy = policy or run.softmax_policy
+
+    def period(x, pi):
+        lb = None
         for si, spec in enumerate(cfg.period):
-            pp = tree_map(lambda a, _, pi=pi: a[pi],
-                          params["periods"][si])
-            x = apply_block(pp, x, cfg, run, spec, policy=run.softmax_policy,
-                            cache=make_cache(si, pi))
-    return x
+            pp = tree_map(lambda a, _: a[pi], params["periods"][si])
+            x, aux = apply_block(pp, x, cfg, run, spec, policy=policy,
+                                 cache=make_cache(si, pi),
+                                 collector=collector, return_aux=train)
+            if "load_balance_loss" in aux:
+                lb = aux["load_balance_loss"] + (0 if lb is None else lb)
+        return x, lb
+
+    if train and run.remat and collector is None:
+        period = remat(period)
+    lb_total = None
+    for pi in range(cfg.n_periods):
+        x, lb = period(x, pi)
+        if lb is not None:
+            lb_total = lb if lb_total is None else lb_total + lb
+    return (x, lb_total) if train else x
 
 
 def _head(params: Params, cfg: ArchConfig, x: Tensor) -> Tensor:
@@ -298,15 +342,29 @@ def _embed(params: Params, tokens: Tensor, cfg: ArchConfig,
                              vocab=cfg.vocab_size)
 
 
+def train_logits(params: Params, tokens: Tensor, cfg: ArchConfig,
+                 run: RunConfig, collector=None):
+    """(B, S) int tokens → ``(logits (B, S, V) f32, aux)`` under the exact
+    softmax, no cache; ``aux["load_balance_loss"]`` is the MoE blocks'
+    sum (0 without one)."""
+    x = _embed(params, tokens, cfg, run)
+    x, lb = _apply_stack(params, x, cfg, run, lambda si, pi: None,
+                         policy=EXACT, collector=collector, train=True)
+    if lb is None:
+        lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, cfg, x), {"load_balance_loss": lb}
+
+
 def prefill(params: Params, tokens: Tensor, cfg: ArchConfig, run: RunConfig,
-            max_len: int, logits: str = "all"):
+            max_len: int, logits: str = "all", collector=None):
     """Fill fresh lockstep caches for the (B, S) prompt; returns
     ``(logits, caches)``.  ``logits='last'`` applies the LM head to the
-    final position only."""
+    final position only; ``collector`` taps every attention's logits."""
     caches = init_caches(cfg, tokens.shape[0], max_len, run_dtype(run),
                          tokens.device)
     x = _embed(params, tokens, cfg, run)
-    x = _apply_stack(params, x, cfg, run, lambda si, pi: caches[pi][si])
+    x = _apply_stack(params, x, cfg, run, lambda si, pi: caches[pi][si],
+                     collector=collector)
     if logits == "last":
         x = x[:, -1:]
     return _head(params, cfg, x), caches

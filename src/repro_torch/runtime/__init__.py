@@ -1,9 +1,10 @@
-"""Serving runtime: host page bookkeeping (``paged_cache``,
+"""Serving and training runtime: host page bookkeeping (``paged_cache``,
 ``prefix_cache``, ``scheduler`` — copies of the JAX package's modules),
 the continuous-batching ``engine`` — the synchronous ``ServingEngine``
 and the ``PipelinedEngine``, which samples on the device and dispatches
 one step ahead — the asyncio streaming ``server`` over either, and the
-lockstep ``serve_loop`` they are held to.
+lockstep ``serve_loop`` they are held to; the ``train_loop`` (train and
+eval steps) and the ``fault_tolerance`` trainer around it.
 
 The names below are exported as the JAX package's ``runtime`` exports
 them.  They load on first use: ``models.transformer`` imports
@@ -26,6 +27,10 @@ _EXPORTS = {
                "PipelinedEngine", "RequestHandle", "ServingEngine"),
     "server": ("AsyncServingServer", "RequestStream",
                "ServerSaturatedError"),
+    "train_loop": ("TrainState", "cross_entropy", "init_train_state",
+                   "make_eval_step", "make_loss_fn", "make_train_step",
+                   "train_state"),
+    "fault_tolerance": ("ResilientTrainer", "TrainerReport"),
 }
 _MODULE_OF = {name: mod for mod, names in _EXPORTS.items() for name in names}
 __all__ = sorted(_MODULE_OF)

@@ -880,6 +880,32 @@ def test_dense_kernel_at_jambas_attention_shape(cuda, impl):
         assert err <= limit, (lq, kv_len, err, limit)
 
 
+@pytest.mark.parametrize("impl", ["rexp", "lut2d"])
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tiles"),
+                                         (torch.float32, "rows")])
+def test_dense_kernel_at_qwen3_eval_shape(cuda, impl, dtype, route):
+    """The eval step's call at Qwen3-32B width (``make_eval_step``: the
+    prefill of a 512-token sequence's 511 inputs into a cache of 511
+    positions): B 4, GQA 8 (64 heads over 8 KV heads of 128), 511 rows
+    over 511 keys at kv_len 511, causal, on normal rows — bf16 on the
+    tile route and f32 on the row route, each as the dispatcher picks
+    it: within one LUT step of the plain version, one launch on its
+    route."""
+    pol = SoftmaxPolicy(impl=impl, precision="uint8")
+    qmax = get_precision("uint8").qmax
+    q, k, v = _dense_problem(511, b=4, h=64, kvh=8, lq=511, lk=511, dh=128,
+                             dtype=dtype, exact=False)
+    assert dense_route(dtype, 128, 511, qmax, impl) == route
+    before = lut_attention_cuda.route_launches[route]
+    out = ops.lut_attention(q, k, v, pol, causal=True, kv_len=511,
+                            backend="cuda")
+    assert lut_attention_cuda.route_launches[route] == before + 1
+    ref = _dense_call(lut_attention_plain, q, k, v, pol, True, 511, False)
+    limit = 2.0 / qmax * float(v.float().abs().max())
+    err = float((out - ref).abs().max())
+    assert err <= limit, (err, limit)
+
+
 def test_dense_long_rows_recompute_path(cuda):
     """Rows past the shared-memory budget recompute q·k in every pass."""
     q, k, v = _dense_problem(22, b=1, h=2, kvh=1, lq=9, lk=12000, dh=64,

@@ -61,6 +61,17 @@ def test_scan_covers_the_tensor_parallel_modules():
             "kernels/lut_attention/sharded_decode.py"} <= scanned
 
 
+def test_scan_covers_the_training_modules():
+    """... and the training side: data, optimizer, checkpoints, the train
+    loop and its fault-tolerant trainer, calibration and the launcher."""
+    scanned = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"data/synthetic.py", "optim/adamw.py", "optim/schedules.py",
+            "optim/grad_compress.py", "checkpoint/ckpt.py",
+            "checkpoint/manager.py", "core/calibration.py",
+            "runtime/train_loop.py", "runtime/fault_tolerance.py",
+            "launch/train.py"} <= scanned
+
+
 def test_package_imports_with_jax_and_repro_blocked():
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
