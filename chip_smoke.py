@@ -255,7 +255,34 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    same slices, with its count, p99.9 and recommended table sizes; the
    dense kernel at the eval's call (B 4, 64 / 8 × 128, 511 × 511,
    causal, bf16 tiles) timed beside its plain version, exact SDPA and
-   its bound.
+   its bound;
+11. the model across ranks (lines ``[ranks]``), each as rank processes
+   sharing the card over gloo (one card: no NCCL), after phase 10:
+   (a) DeepSeek-MoE-16B and Granite-MoE-3B at full width, 6 layers,
+   served at tp 2 ('heads') with ``shard_params`` — each rank holds 32
+   of 64 / 20 of 40 experts, DeepSeek's shared MLP and both models'
+   attention cut — on bf16 pools, the smoke's 8 requests with 16 new
+   tokens, REXP and exact, each rank replaying the tp = 1 sync drive's
+   expert choices (:func:`pinned_routes`; the flips printed): exact
+   first-token logits within 2 % of that drive's, every rank's paged
+   launches equal to it, its expert bytes half of the whole, a decode
+   step's bytes a layer within phase 5c's ``shard_params`` bound (the
+   ``moe`` all-reduce in ``w_down``'s place); tok/s a shared-card gloo
+   figure; (b) Granite-MoE-3B at full width, 2 layers, f32, trained 3
+   steps at lr 1e-4 on a global batch of 4 × 256 on a (data 2, model
+   2) mesh (FSDP over 'data', tensor and expert parallelism over
+   'model') and on one rank from the same seeded init, the ranks
+   replaying the single rank's expert choices: losses within 1e-4
+   relative, step-0 gradients (gathered) within 1e-4 of each leaf's
+   largest entry, the global norm within 1e-5; each rank's resident
+   parameter and moment bytes, a step's collective bytes by site and
+   the step seconds printed; the state saved whole (rank 0 writes),
+   restored on one rank and trained 2 more steps: within 3e-4 of the
+   uninterrupted single-rank run but Adam's flips; (c) GPipe over 2
+   stages, each one full-width Granite-MoE layer (``make_stage_fn``),
+   4 microbatches of 2 × 128 tokens: outputs and stage gradients within
+   1e-6 of the largest entry of the sequential run on one rank (bitwise
+   printed).
 
 The whole run's seconds follow the phases.  The line before the last
 is the card's name and power limit, the one before it a JSON summary of
@@ -1794,7 +1821,9 @@ def pinned_routes(record=None, replay=None, flips=None):
     call takes the recorded experts instead of its own top-k — their
     gates from this call's own router probabilities, their slots
     recomputed — and ``flips`` gets, per call, whether each token's own
-    top-k differed.  Top-k routing is discontinuous: under random
+    top-k differed (a data rank of a training mesh replays its rows of
+    the recorded global routing, slotted over the global token groups).
+    Top-k routing is discontinuous: under random
     weights the router's 64 probabilities lie close, and bf16 roundoff
     of the attention output (kernel against plain version) moves tokens
     across ties, each flip swapping an expert; a replayed drive isolates
@@ -1808,13 +1837,18 @@ def pinned_routes(record=None, replay=None, flips=None):
             record.append(out[1])
         if replay is None:
             return out
-        experts, cap, g = next(calls), out[4], out[5]
+        experts, cap, g = next(calls).to(xt.device), out[4], out[5]
+        data = MOE._data_mesh()
+        if data is not None:      # a data rank's rows of a global routing
+            t = xt.shape[0]
+            experts = experts[data.data_rank * t:(data.data_rank + 1) * t]
         flips.append((experts != out[1]).any(-1))
         logits = xt.float() @ p["router"].float()
         probs = LUT.make_softmax_fn(kw["router_policy"])(logits, axis=-1)
         gates = torch.gather(probs, -1, experts)
         gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-        slots, kept = MOE.assign_slots(experts, kw["n_experts"], g, cap)
+        slots, kept = MOE.assign_slots(experts, kw["n_experts"], g, cap,
+                                       data)
         return gates, experts, slots, kept, cap, g
 
     MOE.route = pinned
@@ -3644,6 +3678,523 @@ def phase_train(card):
                 train=numbers)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the model across ranks
+# ---------------------------------------------------------------------------
+
+#: expert-parallel serving: new tokens a request, the drives' policies
+R_NEW_TOKENS = 16
+R_POLICIES = (MAIN_POLICY, "exact")
+#: the sharded train step: Granite-MoE-3B at full width, 2 layers, f32,
+#: a (data 2, model 2) mesh, global batch 4 × 256, lr 1e-4, 3 steps, then
+#: a save, a restore on one rank and 2 more steps
+R_TRAIN_LAYERS, R_BATCH, R_SEQ, R_STEPS, R_MORE, R_LR = 2, 4, 256, 3, 2, 1e-4
+R_MESH = {"data": 2, "model": 2}
+R_LOSS_TOL, R_GRAD_TOL, R_NORM_TOL, R_RESUME_TOL = 1e-4, 1e-4, 1e-5, 3e-4
+#: GPipe: 2 stages, each one full-width Granite-MoE layer, 4
+#: microbatches of 2 × 128 tokens
+R_STAGES, R_MICRO, R_MB, R_MB_SEQ, R_PIPE_TOL = 2, 4, 2, 128, 1e-6
+#: the sites of a decode step's collectives that run once a layer under
+#: shard_params on an MoE decoder: the cut attention's and the experts'
+R_LAYER_SITES = LAYER_SITES + ("moe",)
+
+
+def _expert_bytes(params) -> int:
+    """Bytes of the routed experts' stacked weights of a tree."""
+    return sum(x.nbytes for path, x in tree_flatten(params)
+               if path.split("/")[-2] == "ffn"
+               and path.rsplit("/", 1)[-1] in ("w_gate", "w_up", "w_down"))
+
+
+def _init_bf16(arch, device):
+    model = build_model(arch)
+    gen = torch.Generator(device=device).manual_seed(0)
+    return model, model.init(gen, device, dtype=torch.bfloat16)
+
+
+def ep_reference(model, params, requests, policy, device, routes):
+    """The tp = 1 sync drive of phase 11a: tokens, first-token logits,
+    top-2 margins and paged launches, the expert choices of every
+    routing call recorded into ``routes``."""
+    run = RunConfig(dtype="bfloat16", softmax_policy=POLICIES[policy],
+                    paged_backend="auto")
+    eng = ServingEngine(model, params, run, engine_config(), device=device)
+    firsts, margins = {}, {}
+    sample = eng._sample
+
+    def recording(seq, row):
+        top2 = np.sort(row)[-2:]
+        margins[seq.request.id, len(seq.generated)] = float(top2[1] - top2[0])
+        if not seq.generated:
+            firsts[seq.request.id] = row.copy()
+        return sample(seq, row)
+
+    eng._sample = recording
+    for rid, (prompt, n_new) in enumerate(requests):
+        eng.add_request(prompt, n_new, seed=rid)
+    _sync(device)
+    _zero_launches()
+    t0 = time.perf_counter()
+    with pinned_routes(record=routes):
+        results = eng.run()
+    _sync(device)
+    return dict(tokens={r: res.tokens.tolist() for r, res in results.items()},
+                firsts=firsts, margins=margins, launches=_paged_launches(),
+                wall=time.perf_counter() - t0, n_tokens=eng.stats.tokens)
+
+
+def ep_rank(mesh, arch, requests, routes):
+    """One rank of phase 11a: the seeded bf16 weights (drawn one rank at
+    a time), cut by ``shard_params`` (this rank's half of the experts,
+    its columns of the shared MLP and its heads), then a sync drive a
+    policy replaying the tp = 1 drive's expert choices; rank 0 serves,
+    the other follows.  Returns (rank 0) per policy its tokens,
+    first-token logits, and every rank's paged launches, decode bytes a
+    layer, collective sites, expert bytes, flipped routings and wall
+    seconds."""
+    from repro_torch.runtime import partitioning as PT
+    params = None
+    for r in range(mesh.tp):
+        if r == mesh.rank:
+            model, whole = _init_bf16(arch, mesh.device)
+            params = PT.shard_params(whole, arch, mesh)
+            del whole
+            _sync(mesh.device)
+            if torch.device(mesh.device).type == "cuda":
+                torch.cuda.empty_cache()
+        torch.distributed.barrier(group=mesh.group)
+    out = {}
+    for policy in R_POLICIES:
+        run = RunConfig(dtype="bfloat16", softmax_policy=POLICIES[policy],
+                        paged_backend="auto")
+        cfg = dataclasses.replace(engine_config(), mesh=mesh,
+                                  shard_params=True)
+        eng = ServingEngine(model, params, run, cfg, device=mesh.device)
+        firsts = {}
+        if mesh.rank == 0:
+            sample = eng._sample
+
+            def recording(seq, row, sample=sample):
+                if not seq.generated:
+                    firsts[seq.request.id] = row.copy()
+                return sample(seq, row)
+            eng._sample = recording
+        per_layer, sites = [], set()
+        decode = eng._op_decode
+
+        def watched(*a, decode=decode, **kw):
+            mesh.log.records.clear()
+            got = decode(*a, **kw)
+            sites.update((r.site, r.kind, r.shape)
+                         for r in mesh.log.records)
+            per_layer.append(mesh.log.nbytes(*R_LAYER_SITES)
+                             / model.cfg.n_layers)
+            return got
+        eng._op_decode = watched
+        flips = []
+        _sync(mesh.device)
+        _zero_launches()
+        mesh.log.clear()
+        t0 = time.perf_counter()
+        results = None
+        with pinned_routes(replay=[r.to(mesh.device) for r in
+                                   routes[policy]], flips=flips):
+            if mesh.rank == 0:
+                for rid, (prompt, n_new) in enumerate(requests):
+                    eng.add_request(prompt, n_new, seed=rid)
+                try:
+                    results = eng.run()
+                finally:
+                    eng.close()
+            else:
+                eng.follow()
+        _sync(mesh.device)
+        flipped = torch.cat(flips)
+        mine = dict(launches=_paged_launches(),
+                    wall=time.perf_counter() - t0,
+                    decode_bytes=max(per_layer), sites=sorted(sites),
+                    experts=_expert_bytes(eng.params),
+                    flips=(int(flipped.sum()), flipped.numel()))
+        ranks = [None] * mesh.tp
+        torch.distributed.all_gather_object(ranks, mine, group=mesh.group)
+        if mesh.rank == 0:
+            out[policy] = dict(
+                regime=eng.regime, ranks=ranks, firsts=firsts,
+                n_tokens=eng.stats.tokens,
+                tokens={r: res.tokens.tolist()
+                        for r, res in results.items()})
+        del eng
+    return out if mesh.rank == 0 else None
+
+
+def phase_ranks_serving(card, device="cuda", archs=None, layers=MOE_LAYERS):
+    """Phase 11a: DeepSeek-MoE-16B and Granite-MoE-3B at full width,
+    ``layers`` layers, served at tp 2 ('heads') with ``shard_params``:
+    each rank holds half the experts (32 of 64, 20 of 40), DeepSeek's
+    shared MLP and both models' attention cut, on bf16 pools, the
+    smoke's 8 requests with 16 new tokens, REXP and exact, each rank
+    replaying the tp = 1 drive's expert choices."""
+    from repro_torch.launch.mesh import start_ranks
+    out = {}
+    for name, arch in (archs or {n: ARCHS[n] for n in MOE_SHAPES}).items():
+        arch = arch.with_layers(layers)
+        t0 = time.perf_counter()
+        model, params = _init_bf16(arch, device)
+        reqs = [(p, R_NEW_TOKENS) for p, _ in make_requests(arch.vocab_size)]
+        routes, refs = {}, {}
+        for policy in R_POLICIES:
+            routes[policy] = []
+            refs[policy] = ep_reference(model, params, reqs, policy, device,
+                                        routes[policy])
+            routes[policy] = [r.cpu() for r in routes[policy]]
+        whole_experts = _expert_bytes(params)
+        del model, params
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        got = start_ranks(ep_rank, 2, backend="gloo", device=device,
+                          args=(arch, reqs, routes), threads=0).join()
+        for policy in R_POLICIES:
+            ref, g = refs[policy], got[policy]
+            label = f"{name} tp 2 {policy} shard_params ({g['regime']!r})"
+            if g["regime"] != "heads":
+                raise AssertionError(f"{label}: not the 'heads' regime")
+            worst = max(float(np.abs(row - ref["firsts"][rid]).max()
+                              / np.abs(ref["firsts"][rid]).max())
+                        for rid, row in g["firsts"].items())
+            if policy == "exact" and not worst <= 0.02:
+                raise AssertionError(f"{label}: first-token logits differ by "
+                                     f"{worst:.3g} > 0.02 of the largest")
+            want = {k: ref["launches"][k] for k in ("paged_decode",
+                                                    "paged_prefill")}
+            for rank, mine in enumerate(g["ranks"]):
+                if mine["launches"] != ref["launches"]:
+                    raise AssertionError(f"{label}: rank {rank} launched "
+                                         f"{mine['launches']}, tp = 1 "
+                                         f"{ref['launches']}")
+                if mine["experts"] * 2 != whole_experts:
+                    raise AssertionError(f"{label}: rank {rank} holds "
+                                         f"{mine['experts']} B of experts, "
+                                         f"not half of {whole_experts}")
+            b, h, d = N_SLOTS, arch.n_heads, arch.resolved_head_dim
+            budget = 2 * b * h * (d + 2) * 4 + 2 * b * arch.d_model * 4
+            wire = max(m["decode_bytes"] for m in g["ranks"])
+            if not wire <= budget:
+                raise AssertionError(f"{label}: a decode step moved "
+                                     f"{wire:.0f} B a layer > {budget} B")
+            share, first = tp_agreement(ref, g)
+            parting = ("no parting" if first is None else
+                       f"first parting: request {first[0]} decision "
+                       f"{first[1]}, tp = 1 top-2 margin {first[2]:.4g}")
+            flips = [m["flips"] for m in g["ranks"]]
+            wall = max(m["wall"] for m in g["ranks"])
+            print(f"[ranks] {label}: first-token logits max|Δ|/max|logit| "
+                  f"{worst:.4g} ({'held within 0.02' if policy == 'exact' else 'printed'}); "
+                  f"greedy tokens equal to tp = 1 {share:.1%} ({parting}); "
+                  f"flipped routings replayed (rank: flipped of token "
+                  f"routings) {flips}; paged launches a rank "
+                  f"{[{k: m['launches'][k] for k in want} for m in g['ranks']]}"
+                  f" (tp = 1: {want}); experts a rank "
+                  f"{[m['experts'] for m in g['ranks']]} B of "
+                  f"{whole_experts}; decode wire {wire:.0f} B a layer "
+                  f"(budget {budget}); {g['n_tokens'] / wall:.1f} tok/s — a "
+                  f"shared-card gloo figure, not a speed — {card}")
+            out[name, policy] = dict(logits=worst, wire=wire, budget=budget,
+                                     agree=share, flips=flips)
+        for site in sorted({s for m in got[R_POLICIES[-1]]["ranks"]
+                            for s in m["sites"]}):
+            print(f"[ranks]   {name} decode collective on the wire: {site}")
+        print(f"[ranks] {name}: phase 11a {time.perf_counter() - t0:.1f}s "
+              f"(inits, tp = 1 drives, rank start-up included) — {card}")
+    return out
+
+
+def _train_arch(arch=None):
+    arch = arch or ARCHS["granite-moe-3b-a800m"]
+    return arch.with_layers(R_TRAIN_LAYERS)
+
+
+def _train_batches(arch):
+    ds = SyntheticDataset(DataConfig(arch.vocab_size, R_SEQ, R_BATCH,
+                                     seed=11))
+    return [ds.batch(i) for i in range(R_STEPS + R_MORE)]
+
+
+def _train_init(arch, device):
+    model = build_model(arch)
+    gen = torch.Generator(device=device).manual_seed(0)
+    run = RunConfig(dtype="float32", learning_rate=R_LR)
+    return model, run, TL.train_state(model.init(gen, device), run)
+
+
+def train_rank(mesh, arch, batches, routes, out_dir):
+    """One rank of phase 11b: the seeded f32 init, cut to this rank's
+    shard; the step-0 gradients (gathered whole; rank 0 saves them to
+    ``out_dir``) and ``R_STEPS`` sharded steps, each replaying the
+    single-rank run's expert choices; then the gathered state saved
+    through ``CheckpointManager`` (rank 0 writes).  Returns (rank 0) the
+    losses, norms, each step's seconds, every rank's resident bytes and
+    flipped routings, and a step's collective bytes by site."""
+    model, run, whole = _train_init(arch, mesh.device)
+    step = TL.make_train_step(model, run, mesh=mesh)
+    layout = step.layout
+    state = TL.shard_train_state(whole, layout)
+    del whole
+    batches = [{"tokens": torch.from_numpy(b).to(mesh.device)}
+               for b in batches]
+    flips = []
+    it = iter(routes)
+    with pinned_routes(replay=[r.to(mesh.device) for r in next(it)],
+                       flips=flips):
+        loss0, grads = TL.make_grad_fn(model, run, mesh)(state.params,
+                                                         batches[0])
+    grads = layout.gather(grads)
+    if mesh.world_rank == 0:
+        torch.save({p: g.cpu() for p, g in tree_flatten(grads)},
+                   os.path.join(out_dir, "grads0.pt"))
+    del grads
+    losses, norms, secs = [], [], []
+    by_site = None
+    for i in range(R_STEPS):
+        mesh.log.clear()
+        _sync(mesh.device)
+        t0 = time.perf_counter()
+        with pinned_routes(replay=[r.to(mesh.device) for r in next(it)],
+                           flips=flips):
+            state, m = step(state, batches[i])
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        _sync(mesh.device)
+        secs.append(time.perf_counter() - t0)
+        by_site = by_site or mesh.log.by_site()
+
+    def nbytes(tree):
+        return sum(x.nbytes for _, x in tree_flatten(tree))
+    flipped = torch.cat(flips)
+    mine = dict(params=nbytes(state.params), m=nbytes(state.opt.m),
+                v=nbytes(state.opt.v),
+                flips=(int(flipped.sum()), flipped.numel()))
+    ranks = [None] * (mesh.tp * mesh.data)
+    torch.distributed.all_gather_object(ranks, mine)
+    final = TL.gather_train_state(state, layout)
+    CheckpointManager(out_dir).save(final, step=R_STEPS, mesh=mesh)
+    return dict(loss0=float(loss0), losses=losses, norms=norms, secs=secs,
+                ranks=ranks, by_site=by_site)
+
+
+def phase_ranks_train(card, device="cuda", arch=None):
+    """Phase 11b: Granite-MoE-3B at full width, 2 layers, f32: a
+    single-rank run on this device and the sharded step on a (data 2,
+    model 2) mesh of 4 ranks sharing it over gloo, from one seeded init;
+    then the sharded run's checkpoint restored on one rank for 2 more
+    steps against the uninterrupted single-rank run."""
+    from repro_torch.launch.mesh import start_ranks
+    t_phase = time.perf_counter()
+    arch = _train_arch(arch)
+    batches = _train_batches(arch)
+    model, run, state = _train_init(arch, device)
+    tb = [{"tokens": torch.from_numpy(b).to(device)} for b in batches]
+    routes = []
+    rec = []
+    with pinned_routes(record=rec):
+        loss0, grads0 = TL.make_grad_fn(model, run)(state.params, tb[0])
+    routes.append([r.cpu() for r in rec])
+    step = TL.make_train_step(model, run)
+    losses, norms, secs = [], [], []
+    for i in range(R_STEPS + R_MORE):
+        rec = []
+        _sync(device)
+        t0 = time.perf_counter()
+        with pinned_routes(record=rec):
+            state, m = step(state, tb[i])
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        _sync(device)
+        secs.append(time.perf_counter() - t0)
+        routes.append([r.cpu() for r in rec])
+    whole_bytes = sum(x.nbytes for _, x in tree_flatten(state.params))
+    out_dir = tempfile.mkdtemp(prefix="smoke_ranks_")
+    try:
+        got = start_ranks(train_rank, backend="gloo", device=device,
+                          axes=R_MESH, threads=0,
+                          args=(arch, batches[:R_STEPS],
+                                routes[:1 + R_STEPS], out_dir)).join()
+        label = (f"granite-moe-3b-a800m x{arch.n_layers} layers f32, mesh "
+                 f"(data {R_MESH['data']}, model {R_MESH['model']})")
+        loss_off = max(abs(a - b) / abs(b) for a, b in zip(
+            [got["loss0"]] + got["losses"], [float(loss0)] + losses))
+        norm_off = abs(got["norms"][0] - norms[0]) / norms[0]
+        grads = torch.load(os.path.join(out_dir, "grads0.pt"))
+        grad_off = max((largest_off(grads[p], g), p)
+                       for p, g in tree_flatten(grads0))
+        if not loss_off <= R_LOSS_TOL:
+            raise AssertionError(f"{label}: losses off by {loss_off:.3g}")
+        if not norm_off <= R_NORM_TOL:
+            raise AssertionError(f"{label}: global norm off by "
+                                 f"{norm_off:.3g}")
+        if not grad_off[0] <= R_GRAD_TOL:
+            raise AssertionError(f"{label}: step-0 gradient {grad_off[1]} "
+                                 f"off by {grad_off[0]:.3g} of its largest")
+        del grads, grads0
+        print(f"[ranks] {label}: {R_STEPS} steps on global batch "
+              f"{R_BATCH} × {R_SEQ}: losses {got['losses']} (single rank "
+              f"{losses[:R_STEPS]}), worst {loss_off:.3g} relative (held "
+              f"within {R_LOSS_TOL}); step-0 gradients worst "
+              f"{grad_off[0]:.3g} of the leaf's largest ({grad_off[1]}; "
+              f"held within {R_GRAD_TOL}); global norm {got['norms'][0]:.6g} "
+              f"vs {norms[0]:.6g} ({norm_off:.3g} relative, held within "
+              f"{R_NORM_TOL}); flipped routings replayed (rank: flipped of "
+              f"token routings) {[r['flips'] for r in got['ranks']]} — "
+              f"{card}")
+        print(f"[ranks] {label}: resident bytes a rank (params, m, v) "
+              f"{[(r['params'], r['m'], r['v']) for r in got['ranks']]} of "
+              f"{whole_bytes} each whole ("
+              f"{max(r['params'] for r in got['ranks']) / whole_bytes:.3f} "
+              f"at most); collective bytes of a step by site (rank 0) "
+              f"{got['by_site']}; step seconds {[round(t, 4) for t in got['secs']]}"
+              f" (gloo over the host, 4 ranks on one card: not a speed; "
+              f"single rank {[round(t, 4) for t in secs[:R_STEPS]]}) — "
+              f"{card}")
+        # restore on one rank, 2 more steps, against the uninterrupted run
+        _, _, like = _train_init(arch, device)
+        restored, at = CheckpointManager(out_dir).restore_latest(like)
+        del like
+        if at != R_STEPS:
+            raise AssertionError(f"restored step {at}, want {R_STEPS}")
+        flips = []
+        for i in range(R_STEPS, R_STEPS + R_MORE):
+            with pinned_routes(replay=[r.to(device) for r in routes[1 + i]],
+                               flips=flips):
+                restored, _ = step(restored, tb[i])
+        worst, adam_flips = params_off(restored.params, state.params,
+                                       R_RESUME_TOL, R_LR, R_MORE,
+                                       f"{label} resumed")
+        flipped = torch.cat(flips)
+        print(f"[ranks] {label}: saved whole at step {R_STEPS} (rank 0 "
+              f"writes), restored on one rank, {R_MORE} more steps: params "
+              f"within {worst:.3g} of each leaf's largest of the "
+              f"uninterrupted single-rank run (held within {R_RESUME_TOL}; "
+              f"{adam_flips} Adam flips; {int(flipped.sum())} of "
+              f"{flipped.numel()} routings replayed flipped) — {card}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"[ranks] phase 11b: {time.perf_counter() - t_phase:.1f}s — "
+          f"{card}")
+    return dict(loss_off=loss_off, grad_off=grad_off[0], norm_off=norm_off,
+                resume=worst)
+
+
+def _pipe_setup(arch, device):
+    from repro_torch.models import transformer as TF
+    from repro_torch.runtime.pipeline import make_stage_fn
+    model = build_model(arch)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init(gen, device)
+    run = RunConfig(dtype="float32")
+    spec = arch.period[0]
+    stage_fn = make_stage_fn(lambda pp, h: TF.apply_block(
+        pp, h, arch, run, spec, policy=POLICIES["exact"], cache=None)[0], 1)
+    gen = torch.Generator(device=device).manual_seed(1)
+    mbs = torch.randn((R_MICRO, R_MB, R_MB_SEQ, arch.d_model),
+                      generator=gen, device=device)
+    return params, stage_fn, mbs
+
+
+def _stage(params, i):
+    """Stage ``i``'s slice of the period stack (a stack of one), requiring
+    grad."""
+    return tree_map(lambda a, _: a[i:i + 1].detach().clone()
+                    .requires_grad_(True), params["periods"][0])
+
+
+def pipe_rank(mesh, arch, out_dir):
+    """One stage of phase 11c: its full-width layer through
+    ``gpipe_forward``; saves the outputs (rank 0) and its gradients of
+    ``Σ out²``, returns its seconds."""
+    from repro_torch.runtime.pipeline import gpipe_forward
+    params, stage_fn, mbs = _pipe_setup(arch, mesh.device)
+    mine = _stage(params, mesh.pipe_rank)
+    del params
+    _sync(mesh.device)
+    t0 = time.perf_counter()
+    out = gpipe_forward(stage_fn, mine, mbs, mesh, axis="pipe")
+    (out ** 2).sum().backward()
+    _sync(mesh.device)
+    wall = time.perf_counter() - t0
+    torch.save({p: x.grad.cpu() for p, x in tree_flatten(mine)},
+               os.path.join(out_dir, f"stage{mesh.pipe_rank}.pt"))
+    if mesh.pipe_rank == 0:
+        torch.save(out.detach().cpu(), os.path.join(out_dir, "out.pt"))
+    return wall
+
+
+def phase_ranks_pipeline(card, device="cuda", arch=None):
+    """Phase 11c: GPipe over 2 stages sharing this device, each stage one
+    full-width Granite-MoE layer, against the sequential run on one
+    rank: outputs and stage gradients within 1e-6 of the largest
+    entry (a stage's arithmetic is the sequential run's)."""
+    from repro_torch.launch.mesh import start_ranks
+    t_phase = time.perf_counter()
+    arch = (arch or ARCHS["granite-moe-3b-a800m"]).with_layers(R_STAGES)
+    out_dir = tempfile.mkdtemp(prefix="smoke_pipe_")
+    try:
+        wall = start_ranks(pipe_rank, backend="gloo", device=device,
+                           axes={"pipe": R_STAGES}, threads=0,
+                           args=(arch, out_dir)).join()
+        params, stage_fn, mbs = _pipe_setup(arch, device)
+        stages = [_stage(params, i) for i in range(R_STAGES)]
+        del params
+        outs = []
+        for j in range(R_MICRO):
+            h = mbs[j]
+            for st in stages:
+                h = stage_fn(st, h)
+            outs.append(h)
+        ref = torch.stack(outs)
+        (ref ** 2).sum().backward()
+        got = torch.load(os.path.join(out_dir, "out.pt"))
+        worst_out = largest_off(got, ref)
+        bitwise = torch.equal(got, ref.detach().cpu())
+        worst_grad = (0.0, "")
+        for i, st in enumerate(stages):
+            g = torch.load(os.path.join(out_dir, f"stage{i}.pt"))
+            for p, x in tree_flatten(st):
+                off = largest_off(g[p], x.grad)
+                bitwise &= torch.equal(g[p], x.grad.cpu())
+                worst_grad = max(worst_grad, (off, f"stage {i} {p}"))
+        if not (worst_out <= R_PIPE_TOL and worst_grad[0] <= R_PIPE_TOL):
+            raise AssertionError(f"GPipe: outputs off by {worst_out:.3g}, "
+                                 f"gradients by {worst_grad}")
+        print(f"[ranks] GPipe {R_STAGES} stages × 1 full-width "
+              f"{arch.name} layer, {R_MICRO} microbatches of {R_MB} × "
+              f"{R_MB_SEQ}: outputs within {worst_out:.3g}, stage gradients "
+              f"within {worst_grad[0]:.3g} of the largest entry of the "
+              f"sequential run (held within {R_PIPE_TOL}; bitwise "
+              f"{bitwise}); forward and backward {wall:.2f}s on rank 0 "
+              f"(gloo, not a speed) — {card}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"[ranks] phase 11c: {time.perf_counter() - t_phase:.1f}s — "
+          f"{card}")
+    return dict(out=worst_out, grad=worst_grad[0], bitwise=bitwise)
+
+
+def phase_ranks(card, device="cuda"):
+    """Phase 11 (lines ``[ranks]``): the model across ranks — expert-
+    parallel serving, the sharded train step with its checkpoint
+    restored on another mesh, and GPipe — each as rank processes sharing
+    this card over gloo (one card: no NCCL)."""
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serving = phase_ranks_serving(card, device)
+    train = phase_ranks_train(card, device)
+    pipe = phase_ranks_pipeline(card, device)
+    print(f"[ranks] phase 11: {time.perf_counter() - t0:.1f}s — {card}")
+    return dict(serving=serving, train=train, pipe=pipe)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3679,6 +4230,7 @@ def main() -> int:
         kernels.update(rows)
         launches.update(counts)
     kernels["lut_attention"]["shapes"]["qwen3-32b-eval"] = phase_train(card)
+    phase_ranks(card)
     summary = {"kernels": [
         dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}.cu",
              replaces=f"src/repro/kernels/{replaces}",

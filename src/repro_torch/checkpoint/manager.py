@@ -7,6 +7,11 @@ next optimizer step overwrites the tensors in place (on the CPU,
 ``t.cpu()`` is ``t`` itself); only the disk writes run on the worker
 thread.  ``wait()`` drains a pending save — call it before shutdown and
 in tests.
+
+A sharded training state is saved whole (``save(..., mesh=)``: rank 0
+writes what the ranks gathered) and restored whole, then cut for the
+mesh it continues on (``train_loop.shard_train_state``): the files do
+not know the mesh, as the JAX package's do not.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import re
 import shutil
 import threading
 from typing import Any
+
+import torch.distributed as dist
 
 from repro_torch.checkpoint.ckpt import (checkpoint_step, host_array,
                                          restore_pytree, save_pytree)
@@ -53,7 +60,19 @@ class CheckpointManager:
 
     # -- save / restore ---------------------------------------------------
 
-    def save(self, tree: Tree, step: int, meta: dict | None = None) -> None:
+    def save(self, tree: Tree, step: int, meta: dict | None = None, *,
+             mesh=None) -> None:
+        """Save ``tree``.  With a ``mesh`` of more than one rank every
+        rank calls this with the same whole tree (a sharded
+        ``TrainState`` reassembled by ``train_loop.gather_train_state``):
+        rank 0 writes it and the others wait at a barrier until the
+        files are there, so the checkpoint restores on any mesh."""
+        if mesh is not None and mesh.tp * mesh.data > 1:
+            if mesh.world_rank == 0:
+                CheckpointManager(self.directory, self.keep_n).save(
+                    tree, step, meta)
+            dist.barrier()
+            return
         host_tree = tree_unflatten(tree, [host_array(p, leaf)
                                           for p, leaf in tree_flatten(tree)])
 

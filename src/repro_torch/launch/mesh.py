@@ -1,12 +1,16 @@
-"""The tensor-parallel serving mesh, and the ranks that run it.
+"""The meshes — serving, training and pipeline — and the ranks that run
+them.
 
-The counterpart of the JAX package's ``launch/mesh.make_serving_mesh``.
-JAX builds a mesh over one process's devices; here a mesh is one rank's
-view of a ``torch.distributed`` process group, so serving at ``tp`` ranks
-starts ``tp`` processes (:func:`start_ranks`), each of which joins the
-group over a ``file://`` store in a directory on the local disk — no
-network — and builds its :class:`~repro_torch.runtime.partitioning.Mesh`
-with :func:`make_serving_mesh`.
+The counterpart of the JAX package's ``launch/mesh.py``
+(``make_serving_mesh``, ``make_host_mesh``).  JAX builds a mesh over one
+process's devices; here a mesh is one rank's view of a
+``torch.distributed`` process group, so a mesh of n ranks starts n
+processes (:func:`start_ranks`), each of which joins the group over a
+``file://`` store in a directory on the local disk — no network — and
+builds its :class:`~repro_torch.runtime.partitioning.Mesh`:
+:func:`make_serving_mesh` (``tp`` ranks over ``'model'``),
+:func:`make_host_mesh` (``('data', 'model')``, training) or
+:func:`make_pipe_mesh` (``('pipe',)``).
 
 The backend is the caller's choice, never a fallback: ``nccl`` needs one
 CUDA device a rank (rank r runs on ``cuda:r``) and raises when the host
@@ -22,6 +26,7 @@ import os
 import pickle
 import tempfile
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -60,43 +65,119 @@ def check_backend(tp: int, backend: str, device) -> None:
 
 def make_serving_mesh(tp: int, *, backend: str, device, rank: int = 0,
                       store: str | None = None) -> Mesh:
-    """Join the ``tp``-rank process group as ``rank`` and return its mesh.
+    """Join the ``tp``-rank process group as ``rank`` and return its mesh
+    (``data = 1``).
 
     ``store`` is the path of the ``file://`` rendezvous file every rank
     names (unused at ``tp == 1``, which needs no group).  Under nccl the
     host plans travel over an extra gloo group; under gloo over the
     default group itself."""
-    check_backend(tp, backend, device)
-    dev = rank_device(backend, device, rank)
-    if tp == 1:
-        return Mesh(tp=1, rank=0, device=dev, backend=backend)
+    return make_host_mesh(1, tp, backend=backend, device=device, rank=rank,
+                          store=store)
+
+
+def _join(world: int, backend: str, rank: int, store: str | None):
     if store is None:
-        raise ValueError("tp > 1 needs the path of a file:// store")
-    if backend == "nccl":
-        torch.cuda.set_device(dev)
+        raise ValueError("a mesh of more than one rank needs the path of "
+                         "a file:// store")
     timeout = datetime.timedelta(seconds=TIMEOUT_S)
     dist.init_process_group(backend, init_method=f"file://{store}",
-                            rank=rank, world_size=tp, timeout=timeout)
-    group = dist.group.WORLD
-    plans = (group if backend == "gloo"
-             else dist.new_group(backend="gloo", timeout=timeout))
-    return Mesh(tp=tp, rank=rank, device=dev, backend=backend, group=group,
-                plan_group=plans)
+                            rank=rank, world_size=world, timeout=timeout)
+    return timeout
 
 
-def _rank_main(rank, fn, tp, backend, device, store_dir, threads, args):
+def _groups(rows: list[list[int]], backend: str, timeout):
+    """One group for each row of world ranks: every rank creates every
+    group, in the same order (``new_group`` is collective), and keeps
+    the one it is in."""
+    if len(rows) == 1:
+        return dist.group.WORLD
+    mine = None
+    for row in rows:
+        g = dist.new_group(row, backend=backend, timeout=timeout)
+        if dist.get_rank() in row:
+            mine = g
+    return mine
+
+
+def make_host_mesh(data: int, model: int, *, backend: str, device,
+                   rank: int = 0, store: str | None = None) -> Mesh:
+    """Join a ``data · model``-rank process group as world ``rank`` and
+    return its ``('data', 'model')`` mesh (the JAX package's
+    ``make_host_mesh``): rank = ``d · model + m``, one group a row of
+    the ``'model'`` axis and one a column of ``'data'``."""
+    world = data * model
+    check_backend(world, backend, device)
+    dev = rank_device(backend, device, rank)
+    d, m = divmod(rank, model)
+    if world == 1:
+        return Mesh(tp=1, rank=0, device=dev, backend=backend)
+    if backend == "nccl":
+        torch.cuda.set_device(dev)
+    timeout = _join(world, backend, rank, store)
+    model_rows = [[i * model + j for j in range(model)] for i in range(data)]
+    data_rows = [[i * model + j for i in range(data)] for j in range(model)]
+    group = _groups(model_rows, backend, timeout) if model > 1 else None
+    data_group = _groups(data_rows, backend, timeout) if data > 1 else None
+    plans = None
+    if data == 1:
+        plans = (group if backend == "gloo"
+                 else dist.new_group(backend="gloo", timeout=timeout))
+    return Mesh(tp=model, rank=m, device=dev, backend=backend, group=group,
+                plan_group=plans, data=data, data_rank=d,
+                data_group=data_group)
+
+
+def make_pipe_mesh(stages: int, *, backend: str, device, rank: int = 0,
+                   store: str | None = None) -> Mesh:
+    """Join a ``stages``-rank process group as ``rank`` and return its
+    ``('pipe',)`` mesh (GPipe, ``runtime/pipeline.py``)."""
+    check_backend(stages, backend, device)
+    dev = rank_device(backend, device, rank)
+    if stages == 1:
+        return Mesh(tp=1, rank=0, device=dev, backend=backend, pipe=1)
+    if backend == "nccl":
+        torch.cuda.set_device(dev)
+    _join(stages, backend, rank, store)
+    return Mesh(tp=1, rank=0, device=dev, backend=backend, pipe=stages,
+                pipe_rank=rank, pipe_group=dist.group.WORLD)
+
+
+def _make_mesh(axes, backend, device, rank, store):
+    if "pipe" in axes:
+        return make_pipe_mesh(axes["pipe"], backend=backend, device=device,
+                              rank=rank, store=store)
+    return make_host_mesh(axes.get("data", 1), axes.get("model", 1),
+                          backend=backend, device=device, rank=rank,
+                          store=store)
+
+
+def _leave() -> None:
+    """A rank's clean exit: every rank meets at a barrier, so none tears
+    its group down while another still talks to it, then the group
+    goes."""
+    if dist.is_initialized():
+        try:
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+
+
+def _rank_main(rank, fn, axes, backend, device, store_dir, threads, args):
     if threads:
         torch.set_num_threads(threads)
-    mesh = make_serving_mesh(tp, backend=backend, device=device, rank=rank,
-                             store=os.path.join(store_dir, "store"))
+    mesh = _make_mesh(axes, backend, device, rank,
+                      os.path.join(store_dir, "store"))
     try:
         out = fn(mesh, *args)
         if rank == 0:
             with open(os.path.join(store_dir, "result.pkl"), "wb") as f:
                 pickle.dump(out, f)
-    finally:
+    except BaseException:
         if dist.is_initialized():
             dist.destroy_process_group()
+        raise
+    _leave()
 
 
 class Ranks:
@@ -114,23 +195,33 @@ class Ranks:
             return pickle.load(f)  # written by rank 0 of this program
 
 
-def start_ranks(fn, tp: int, *, backend: str, device="cuda", args=(),
-                store_dir: str | None = None, threads: int = 1) -> Ranks:
-    """Start ``fn(mesh, *args)`` in ``tp`` spawned processes, one a rank.
+def start_ranks(fn, tp: int | None = None, *, backend: str,
+                device="cuda", args=(), store_dir: str | None = None,
+                threads: int = 1, axes: dict | None = None) -> Ranks:
+    """Start ``fn(mesh, *args)`` in spawned processes, one a rank.
 
-    ``fn`` must be importable (a module-level function) and ``args``
-    picklable.  Rank 0's return value is pickled into ``store_dir`` (a
-    new temporary directory by default, which also holds the ``file://``
-    store) for :meth:`Ranks.join`.  A rank that raises makes ``join``
-    raise and ends the others.  ``threads`` caps each rank's intra-op
+    The mesh is the serving mesh of ``tp`` ranks, or the one ``axes``
+    names: ``{"data": d, "model": m}`` (``make_host_mesh``, ``d · m``
+    ranks) or ``{"pipe": s}`` (``make_pipe_mesh``).  ``fn`` must be
+    importable (a module-level function) and ``args`` picklable.  Rank
+    0's return value is pickled into ``store_dir`` (a new temporary
+    directory by default, which also holds the ``file://`` store) for
+    :meth:`Ranks.join`.  A rank that raises makes ``join`` raise and
+    ends the others; a rank that returns meets the others at a barrier
+    and leaves its group.  ``threads`` caps each rank's intra-op
     threads (0: torch's default)."""
-    check_backend(tp, backend, device)
+    if axes is None:
+        axes = {"data": 1, "model": tp}
+    elif tp is not None:
+        raise ValueError("give tp or axes, not both")
+    world = int(np.prod(list(axes.values())))
+    check_backend(world, backend, device)
     store_dir = store_dir or tempfile.mkdtemp(prefix="tp_store_")
     os.makedirs(store_dir, exist_ok=True)
     context = mp.start_processes(
-        _rank_main, args=(fn, tp, backend, str(device), str(store_dir),
-                          threads, tuple(args)),
-        nprocs=tp, join=False, start_method="spawn")
+        _rank_main, args=(fn, dict(axes), backend, str(device),
+                          str(store_dir), threads, tuple(args)),
+        nprocs=world, join=False, start_method="spawn")
     return Ranks(context, str(store_dir))
 
 

@@ -50,9 +50,11 @@ pipelined engine): the launcher spawns one process a rank
 (``launch/mesh.start_ranks``, a ``file://`` store in a temporary
 directory), the page pools split over the ranks by KV heads when they
 divide N, else by pages, and ``--shard-params`` cuts the weights too
-(not an MoE arch's: expert parallelism is not ported, and it raises
-``NotImplementedError``); rank 0 schedules and prints, the others follow
-its plans.  With replicated weights the tokens are ``--tp 1``'s: a
+(an MoE arch's experts by the 3-D rules: each rank holds ``E / N``
+experts, or every expert's ``d_expert / N`` columns when N does not
+divide the expert count; the routed and shared partial sums meet in one
+all-reduce); rank 0 schedules and prints, the others follow its
+plans.  With replicated weights the tokens are ``--tp 1``'s: a
 'heads' rank's paged kernels plan their split of the keys for the
 model's KV heads, so each head sums as on one device.
 ``--dist-backend`` names the collectives' backend: ``nccl`` (the
@@ -82,6 +84,9 @@ LUT-attention kernel (``auto`` | ``cuda`` | ``naive``).
       --serve --max-queue 2 --backpressure wait
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \\
       --scale-down 64,4,128 --layers 2 --device cpu --tp 2 --shard-params
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-moe-16b --scale-down 64,4,128 --layers 2 --device cpu \
+      --tp 2 --shard-params
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
       --scale-down 64,4,128 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -115,7 +120,6 @@ from repro_torch.models.transformer import paged_supported
 from repro_torch.runtime.engine import (EngineConfig, PipelinedEngine,
                                         ServingEngine)
 from repro_torch.runtime.paged_cache import KV_DTYPES, PagedCacheConfig
-from repro_torch.runtime.partitioning import check_shardable
 from repro_torch.runtime.serve_loop import generate
 from repro_torch.runtime.server import AsyncServingServer, ServerSaturatedError
 from repro_torch.runtime.train_loop import TrainState
@@ -229,8 +233,6 @@ def main(argv=None) -> None:
     if args.shard_params and args.tp <= 1:
         ap.error("--shard-params requires --tp > 1 (there is no mesh to "
                  "shard the weights over)")
-    if args.shard_params:
-        check_shardable(arch_from_args(args))
     if args.dist_backend is None:
         args.dist_backend = "nccl" if args.device == "cuda" else "gloo"
     if args.tp > 1:

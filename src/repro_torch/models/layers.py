@@ -465,7 +465,17 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
     base = cache.length if cache is not None else 0
     positions = (base + torch.arange(l, dtype=torch.int32, device=x.device)
                  )[None, :].expand(b, l)
-    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, qk_norm,
+    mesh = PT.active_mesh()
+    tp = PT.mesh_model_tp(mesh)
+    # weights cut by heads (training under a mesh): this rank's heads,
+    # the input's gradient summed over the ranks, wo's rows reduced
+    row_mesh = mesh if (cache is None and not is_cross and tp > 1 and
+                        p["wq"].shape[-1] != n_heads * head_dim) else None
+    xin, h, kvh = x, n_heads, n_kv_heads
+    if row_mesh is not None:
+        xin = PT.copy_to(x, mesh, site="attn.in")
+        h, kvh = n_heads // tp, n_kv_heads // tp
+    q, k, v = _project_qkv(p, xin, h, kvh, head_dim, qk_norm,
                            norm_eps, rope_theta, positions)
     if precomputed_kv is not None:
         k, v = precomputed_kv
@@ -489,8 +499,6 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
         collector.offer(attention_logits(q[:1, :1].float(),
                                          k[:1, :1].float(),
                                          head_dim ** -0.5, causal))
-    mesh = PT.active_mesh()
-    tp = PT.mesh_model_tp(mesh)
     if (cache is not None and l == 1 and tp > 1 and n_kv_heads % tp
             and k.shape[2] % tp == 0 and policy.impl in ("exact", "rexp")):
         # single-token step against a cache whose KV heads do not
@@ -505,7 +513,7 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
         return _out_projection(p, x, out, b, l)
     out = lut_attention(q, k, v, policy, causal=causal and not is_cross,
                         kv_len=kv_len, backend=backend)
-    return _out_projection(p, x, out, b, l)
+    return _out_projection(p, x, out, b, l, row_mesh)
 
 
 def cross_attention_kv(p: Params, src: Tensor, *, n_kv_heads: int,
@@ -532,7 +540,7 @@ def _out_projection(p: Params, x: Tensor, out: Tensor, b: int, l: int,
     out = out.to(x.dtype).transpose(1, 2).reshape(b, l, -1)
     out = out @ p["wo"].to(x.dtype)
     if row_mesh is not None:
-        out = PT.all_reduce(out, row_mesh, "sum", site="wo")
+        out = PT.reduce_from(out, row_mesh, site="wo")
     if "bo" in p:
         out = out + p["bo"].to(x.dtype)
     return out
@@ -556,7 +564,10 @@ def init_mlp(d_model: int, d_ff: int, generator: torch.Generator, device,
 def apply_mlp(p: Params, x: Tensor, row_mesh=None) -> Tensor:
     """The MLP; ``row_mesh``: the weights are this rank's cut of the
     hidden axis (gate and up by column, down by row), and the partial
-    outputs are summed over the ranks."""
+    outputs are summed over the ranks (``partitioning.copy_to`` /
+    ``reduce_from``: differentiable)."""
+    if row_mesh is not None:
+        x = PT.copy_to(x, row_mesh, site="mlp.in")
     up = x @ p["w_up"].to(x.dtype)
     if "w_gate" in p:
         gate = x @ p["w_gate"].to(x.dtype)
@@ -565,7 +576,7 @@ def apply_mlp(p: Params, x: Tensor, row_mesh=None) -> Tensor:
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
     out = h @ p["w_down"].to(x.dtype)
     if row_mesh is not None:
-        out = PT.all_reduce(out, row_mesh, "sum", site="w_down")
+        out = PT.reduce_from(out, row_mesh, site="w_down")
     return out
 
 
@@ -596,7 +607,7 @@ def apply_embedding(p: Params, tokens: Tensor, dtype,
     rows = table[t.clamp(0, n - 1)].to(dtype)
     rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=dtype,
                                                           device=rows.device))
-    return PT.all_reduce(rows, mesh, "sum", site="embed")
+    return PT.reduce_from(rows, mesh, site="embed")
 
 
 def init_lm_head(d_model: int, vocab: int, generator: torch.Generator,

@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from repro_torch.core.lut_softmax import make_softmax_fn
 from repro_torch.core.policies import EXACT, SoftmaxPolicy
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp
+from repro_torch.runtime import partitioning as PT
 
 Tensor = torch.Tensor
 Params = dict[str, Any]
@@ -93,22 +94,43 @@ def capacity(group: int, n_experts: int, top_k: int,
                min(group, 256))
 
 
-def assign_slots(experts: Tensor, n_experts: int, group: int,
-                 cap: int) -> tuple[Tensor, Tensor]:
+def assign_slots(experts: Tensor, n_experts: int, group: int, cap: int,
+                 mesh=None) -> tuple[Tensor, Tensor]:
     """Each (token, k) assignment's slot in its expert's buffer of its
     group of ``group`` tokens — its rank among the group's earlier
     assignments to that expert in flat ``(token, k)`` order — and whether
     it is kept (slot < ``cap``); both (T, K).  The tail group's padding
     rows come after every real token in flat order, so they take no slot
-    from one: the real rows' slots are those of the padded group."""
+    from one.
+
+    With a ``mesh`` the tokens are a data rank's share of a batch whose
+    rows are cut over ``'data'``: the groups are those of the global
+    token axis, in which this rank's ``T`` tokens start at
+    ``data_rank · T`` (the rank-major order of the JAX package's
+    flattened batch), and a slot counts the assignments that earlier
+    data ranks gave the same (group, expert) too, from one all-gather of
+    the ``(groups, E)`` counts."""
     t, top_k = experts.shape
-    n_groups = -(-t // group)
-    grouped = F.pad(experts, (0, 0, 0, n_groups * group - t)).reshape(
-        n_groups, group * top_k)
-    onehot = F.one_hot(grouped, n_experts)                   # (G, gK, E)
-    before = torch.cumsum(onehot, dim=1) - onehot
-    slots = torch.gather(before, 2, grouped[..., None])[..., 0]
-    slots = slots.reshape(n_groups * group, top_k)[:t]
+    first, dp = (mesh.data_rank * t, mesh.data) if mesh is not None \
+        else (0, 1)
+    n_groups = -(-(t * dp) // group)         # the same on every data rank
+    flat = experts.reshape(-1)
+    gid = ((first + torch.arange(t, device=experts.device)) // group
+           ).repeat_interleave(top_k)
+    onehot = F.one_hot(flat, n_experts)                      # (TK, E)
+    before = (torch.cumsum(onehot, 0) - onehot).gather(
+        1, flat[:, None])[:, 0]
+    counts = torch.zeros(n_groups * n_experts, dtype=torch.int64,
+                         device=experts.device)
+    counts.index_add_(0, gid * n_experts + flat, torch.ones_like(flat))
+    counts = counts.view(n_groups, n_experts)
+    # this rank's assignments in its earlier groups are not the group's
+    slots = before - (torch.cumsum(counts, 0) - counts)[gid, flat]
+    if mesh is not None:
+        every = PT.all_gather(counts[None], mesh, 0, site="moe.slots",
+                              axis="data")
+        slots = slots + every[:mesh.data_rank].sum(0)[gid, flat]
+    slots = slots.view(t, top_k)
     return slots, slots < cap
 
 
@@ -121,16 +143,27 @@ def router_probs(p: Params, xt: Tensor,
 
 
 def aux_losses(probs: Tensor, experts: Tensor, n_experts: int,
-               group: int) -> dict[str, Tensor]:
+               group: int, mesh=None) -> dict[str, Tensor]:
     """The JAX package's training terms: ``load_balance_loss`` =
     E · Σ_e f_e · P_e, f_e the share of top-k assignments to expert e and
     P_e its mean router probability, and ``router_entropy``.  As there,
     f_e counts the tail group's padding rows, which the JAX package pads
-    with expert 0 for all k."""
+    with expert 0 for all k.
+
+    With a ``mesh`` the tokens are a data rank's share of the batch: f_e
+    counts every rank's assignments (a sum over ``'data'``), and P_e is
+    this rank's mean, so the data ranks' mean of the loss — what their
+    summed and averaged gradients differentiate — is the whole batch's
+    loss."""
     t, top_k = experts.shape
-    t_pad = -(-t // group) * group
     counts = F.one_hot(experts, n_experts).sum(dim=(0, 1)).float()
-    counts[0] += (t_pad - t) * top_k
+    t_all = t
+    if mesh is not None:
+        counts = PT.all_reduce(counts, mesh, "sum", site="moe.aux",
+                               axis="data")
+        t_all = t * mesh.data
+    t_pad = -(-t_all // group) * group
+    counts[0] += (t_pad - t_all) * top_k
     ce = counts / t_pad
     me = probs.mean(0)
     return {"load_balance_loss": n_experts * torch.sum(me * ce),
@@ -145,23 +178,88 @@ def route(p: Params, xt: Tensor, *, n_experts: int, top_k: int,
     slots, kept, cap, g)`` — each (T, K): the renormalised f32 gate
     weights, the expert indices, each assignment's slot in its expert's
     buffer of its group, and whether it fits the capacity ``cap`` —
-    and the group size ``g``."""
+    and the group size ``g``.  Under a scope whose batch rows are cut
+    over ``'data'`` the groups are those of the global token axis
+    (:func:`assign_slots`)."""
     probs = router_probs(p, xt, router_policy)
     gates, experts = top_k_experts(probs, top_k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    g = min(group_size, xt.shape[0])
+    mesh = _data_mesh()
+    t_all = xt.shape[0] * (mesh.data if mesh is not None else 1)
+    g = min(group_size, t_all)
     cap = capacity(g, n_experts, top_k, capacity_factor)
-    slots, kept = assign_slots(experts, n_experts, g, cap)
+    slots, kept = assign_slots(experts, n_experts, g, cap, mesh)
     return gates, experts, slots, kept, cap, g
+
+
+def _data_mesh():
+    """The active mesh when the batch's rows are cut over a ``'data'``
+    axis of more than one rank, else None."""
+    scope = PT.active_scope()
+    if scope.tokens and scope.mesh is not None and scope.mesh.data > 1:
+        return scope.mesh
+    return None
+
+
+def _experts_ffn(p: Params, xt: Tensor, gates: Tensor, experts: Tensor,
+                 slots: Tensor, kept: Tensor, cap: int, g: int,
+                 n_experts: int, split) -> Tensor:
+    """The routed experts' gated sum, (T, D) f32, over the experts this
+    rank holds: all of them (``split`` None), ``("experts", lo, hi)`` —
+    the others' assignments weigh 0 — or ``("columns", lo, hi)`` — a
+    slice of every expert's hidden units, a partial sum."""
+    t, d = xt.shape
+    top_k = experts.shape[1]
+    data = _data_mesh()
+    first = data.data_rank * t if data is not None else 0
+    gid = (first + torch.arange(t, device=xt.device)) // g
+    group = (gid - gid[0])[:, None]                              # (T, 1)
+    n_groups = int(-(-(first + t) // g) - first // g)
+    n_local = n_experts
+    if split is not None and split[0] == "experts":
+        lo, hi = split[1:]
+        n_local = hi - lo
+        mine = (experts >= lo) & (experts < hi)
+        kept = kept & mine
+        experts = torch.where(mine, experts - lo, torch.zeros_like(experts))
+    # buffer row of each assignment: (expert, group, slot) with a slot
+    # past the capacity for the dropped ones (a spare row, never read)
+    row = (experts * n_groups + group) * (cap + 1) + torch.where(
+        kept, slots, torch.full_like(slots, cap))
+    buf = xt.new_zeros((n_local * n_groups * (cap + 1), d))
+    buf.index_copy_(0, row.reshape(-1), xt.repeat_interleave(top_k, dim=0))
+    expert_in = buf.view(n_local, n_groups, cap + 1, d)[:, :, :cap]
+    expert_in = expert_in.reshape(n_local, n_groups * cap, d)
+    gate = torch.bmm(expert_in, p["w_gate"].to(xt.dtype))
+    up = torch.bmm(expert_in, p["w_up"].to(xt.dtype))
+    h = F.silu(gate.float()).to(xt.dtype) * up
+    expert_out = torch.bmm(h, p["w_down"].to(xt.dtype))     # (E, G·C, D)
+    # each assignment's output row; a dropped one weighs 0
+    out_row = (experts * n_groups + group) * cap + torch.clamp(
+        slots, 0, cap - 1)
+    y = expert_out.reshape(-1, d)[out_row.reshape(-1)].reshape(t, top_k, d)
+    w = torch.where(kept, gates, torch.zeros_like(gates)).to(xt.dtype)
+    return (w.float()[..., None] * y.float()).sum(1)
 
 
 def apply_moe(p: Params, x: Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float = 1.25,
               router_policy: SoftmaxPolicy = EXACT,
-              group_size: int = 4096, return_aux: bool = False):
+              group_size: int = 4096, return_aux: bool = False,
+              d_expert: int | None = None, n_shared: int = 0):
     """x (B, S, D) → (B, S, D) in ``x.dtype``: the routed experts' gated
     sum plus the shared MLP (module docstring); with ``return_aux``,
-    ``(out, aux)`` with :func:`aux_losses`' terms."""
+    ``(out, aux)`` with :func:`aux_losses`' terms.
+
+    Under a scope whose weights are cut (``partitioning.shard_params``)
+    the experts follow their 3-D rows (``partitioning.expert_split``,
+    from the mesh, ``d_expert`` and the rule) and the shared MLP of
+    ``n_shared`` experts its 2-D rows; the cut parts' f32 partial sums
+    meet in one all-reduce over ``'model'`` (site ``moe``) before the
+    cast to ``x.dtype``.  Routing is computed whole on every rank; the
+    gate weights and the tokens enter the cut experts through
+    ``copy_to``, so the backward sums their partial gradients over the
+    ranks and counts the load-balance term once."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
@@ -169,30 +267,38 @@ def apply_moe(p: Params, x: Tensor, *, n_experts: int, top_k: int,
         p, xt, n_experts=n_experts, top_k=top_k,
         capacity_factor=capacity_factor, router_policy=router_policy,
         group_size=group_size)
-    n_groups = -(-t // g)
-    group = (torch.arange(t, device=x.device) // g)[:, None]   # (T, 1)
-    # buffer row of each assignment: (expert, group, slot) with a slot
-    # past the capacity for the dropped ones (a spare row, never read)
-    row = (experts * n_groups + group) * (cap + 1) + torch.where(
-        kept, slots, torch.full_like(slots, cap))
-    buf = x.new_zeros((n_experts * n_groups * (cap + 1), d))
-    buf.index_copy_(0, row.reshape(-1), xt.repeat_interleave(top_k, dim=0))
-    expert_in = buf.view(n_experts, n_groups, cap + 1, d)[:, :, :cap]
-    expert_in = expert_in.reshape(n_experts, n_groups * cap, d)
-    gate = torch.bmm(expert_in, p["w_gate"].to(x.dtype))
-    up = torch.bmm(expert_in, p["w_up"].to(x.dtype))
-    h = F.silu(gate.float()).to(x.dtype) * up
-    expert_out = torch.bmm(h, p["w_down"].to(x.dtype))       # (E, G·C, D)
-    # each assignment's output row; a dropped one weighs 0
-    out_row = (experts * n_groups + group) * cap + torch.clamp(slots,
-                                                               max=cap - 1)
-    y = expert_out.reshape(-1, d)[out_row.reshape(-1)].reshape(t, top_k, d)
-    w = torch.where(kept, gates, torch.zeros_like(gates)).to(x.dtype)
-    out = (w.float()[..., None] * y.float()).sum(1).to(x.dtype)
-    if "shared" in p:
-        out = out + apply_mlp(p["shared"], xt)
+    scope = PT.active_scope()
+    mesh = scope.mesh if scope.cut and PT.mesh_model_tp(scope.mesh) > 1 \
+        else None
+    if mesh is None:
+        out = _experts_ffn(p, xt, gates, experts, slots, kept, cap, g,
+                           n_experts, None).to(x.dtype)
+        if "shared" in p:
+            out = out + apply_mlp(p["shared"], xt)
+    else:
+        if d_expert is None:
+            raise ValueError("apply_moe on cut weights needs d_expert")
+        split = PT.expert_split(mesh, n_experts, d, d_expert)
+        shared_cut = "shared" in p and PT.divides(mesh, d_expert * n_shared)
+        xin = PT.copy_to(xt, mesh, site="moe.in") \
+            if split is not None or shared_cut else xt
+        partial, whole = [], []
+        routed = _experts_ffn(
+            p, xin if split is not None else xt,
+            PT.copy_to(gates, mesh, site="moe.gates")
+            if split is not None else gates,
+            experts, slots, kept, cap, g, n_experts, split)
+        (partial if split is not None else whole).append(routed)
+        if "shared" in p:
+            shared = apply_mlp(p["shared"], xin if shared_cut else xt)
+            (partial if shared_cut else whole).append(shared.float())
+        out = PT.reduce_from(sum(partial), mesh, site="moe") if partial \
+            else 0
+        for part in whole:
+            out = out + part
+        out = out.to(x.dtype)
     out = out.reshape(b, s, d)
     if not return_aux:
         return out
     return out, aux_losses(router_probs(p, xt, router_policy), experts,
-                           n_experts, g)
+                           n_experts, g, _data_mesh())

@@ -185,7 +185,8 @@ def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
         y = MOE.apply_moe(
             p["ffn"], h2, n_experts=m.n_experts, top_k=m.top_k,
             capacity_factor=m.capacity_factor,
-            router_policy=run.router_policy, return_aux=return_aux)
+            router_policy=run.router_policy, return_aux=return_aux,
+            d_expert=m.d_expert, n_shared=m.n_shared)
         y, aux = y if return_aux else (y, {})
         return x + y, aux
     mesh = PT.active_mesh()
@@ -301,7 +302,7 @@ def _apply_stack(params: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
     def period(x, pi):
         lb = None
         for si, spec in enumerate(cfg.period):
-            pp = tree_map(lambda a, _: a[pi], params["periods"][si])
+            pp = PT.use_leaves(params["periods"][si], f"periods/{si}", pi)
             x, aux = apply_block(pp, x, cfg, run, spec, policy=policy,
                                  cache=make_cache(si, pi),
                                  collector=collector, return_aux=train)
@@ -310,7 +311,7 @@ def _apply_stack(params: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
         return x, lb
 
     if train and run.remat and collector is None:
-        period = remat(period)
+        period = remat(PT.keep_scope(period))
     lb_total = None
     for pi in range(cfg.n_periods):
         x, lb = period(x, pi)
@@ -322,24 +323,30 @@ def _apply_stack(params: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
 def _head(params: Params, cfg: ArchConfig, x: Tensor) -> Tensor:
     """f32 logits; a head (or tied table) cut over the vocabulary under
     an active mesh gives this rank's columns, gathered over the ranks."""
-    x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
+    x = L.apply_norm(PT.use_leaves(params["final_norm"], "final_norm"), x,
+                     cfg.norm_eps)
+    mesh = PT.active_mesh()
     if cfg.tie_embeddings:
-        table = params["embed"]["table"]
-        logits = x.float() @ table.float().T
+        table = PT.use_leaves(params["embed"], "embed")["table"]
         cut = table.shape[0] != cfg.vocab_size
+        if cut:
+            x = PT.copy_to(x, mesh, site="head.in")
+        logits = x.float() @ table.float().T
     else:
-        logits = L.apply_lm_head(params["head"], x)
-        cut = params["head"]["w"].shape[1] != cfg.vocab_size
+        head = PT.use_leaves(params["head"], "head")
+        cut = head["w"].shape[1] != cfg.vocab_size
+        if cut:
+            x = PT.copy_to(x, mesh, site="head.in")
+        logits = L.apply_lm_head(head, x)
     if cut:
-        logits = PT.all_gather(logits, PT.active_mesh(), dim=-1,
-                               site="head")
+        logits = PT.gather_from(logits, mesh, dim=-1, site="head")
     return logits
 
 
 def _embed(params: Params, tokens: Tensor, cfg: ArchConfig,
            run: RunConfig) -> Tensor:
-    return L.apply_embedding(params["embed"], tokens, run_dtype(run),
-                             vocab=cfg.vocab_size)
+    return L.apply_embedding(PT.use_leaves(params["embed"], "embed"), tokens,
+                             run_dtype(run), vocab=cfg.vocab_size)
 
 
 def train_logits(params: Params, tokens: Tensor, cfg: ArchConfig,

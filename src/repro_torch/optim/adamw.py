@@ -62,16 +62,25 @@ def init_adamw(params: Tree) -> AdamWState:
                       m=zeros(), v=zeros())
 
 
-def global_norm(tree: Tree) -> Tensor:
-    """The f32 L2 norm of every leaf of ``tree`` together."""
-    leaves = [g.float() for _, g in tree_flatten(tree)]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
+def global_norm(tree: Tree, reduce=None) -> Tensor:
+    """The f32 L2 norm of every leaf of ``tree`` together.  ``reduce``
+    (``partitioning.Layout.reduce_leaves``) makes it the norm of whole
+    leaves of which ``tree`` holds this rank's cuts: each leaf's squared
+    sum is summed over the axes that leaf is cut on, and only those, so
+    a replicated leaf counts once."""
+    flat = tree_flatten(tree)
+    norms = torch.stack(torch._foreach_norm([g.float() for _, g in flat]))
+    if reduce is None:
+        return torch.linalg.vector_norm(norms)
+    sq = reduce([p for p, _ in flat], norms * norms, "sum")
+    return torch.sqrt(sq.sum())
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float) -> tuple[Tree, Tensor]:
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        reduce=None) -> tuple[Tree, Tensor]:
     """Scale the f32 ``grads`` in place by
     ``min(1, max_norm / max(norm, 1e-9))``; returns them and the norm."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, reduce)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     torch._foreach_mul_([g for _, g in tree_flatten(grads)], scale)
     return grads, norm
@@ -87,12 +96,16 @@ def decay_mask(path: str) -> bool:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree,
-                 state: AdamWState) -> tuple[Tree, AdamWState, dict]:
+                 state: AdamWState, reduce=None
+                 ) -> tuple[Tree, AdamWState, dict]:
     """One AdamW step; returns ``(params, state, stats)`` with ``stats``
     the pre-clip ``grad_norm`` and the step's ``lr`` (f32 tensors).
     ``params``, ``state.m``, ``state.v`` and ``grads`` (f32) are
-    updated in place; the returned state holds the new step."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    updated in place; the returned state holds the new step.  On a
+    rank's shards of a sharded state, ``reduce`` makes the clip norm the
+    whole tree's (:func:`global_norm`); the update itself is
+    element-wise, so it runs on the shards as they are."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, reduce)
     step = state.step + 1
     lr = (cfg.learning_rate(step) if callable(cfg.learning_rate)
           else cfg.learning_rate)

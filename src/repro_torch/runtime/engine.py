@@ -42,7 +42,8 @@ stop.  Each rank's pools hold its share (its KV heads in the
 ``'heads'`` regime, a slab of the pages in ``'pages'``), the scheduler
 interleaves page allocation across the slabs, and with
 ``shard_params`` each rank holds its cut of the weights
-(``partitioning.shard_params``).  The logits are the same on every
+(``partitioning.shard_params``: an MoE's experts by the 3-D rows, its
+``E / tp`` experts or every expert's ``d_expert / tp`` columns).  The logits are the same on every
 rank, so the pipelined engine's on-device sampling gives every rank the
 same token, each into its own last-token buffer.
 """
@@ -377,7 +378,7 @@ class ServingEngine:
             if self._closed:
                 raise RuntimeError("the engine was closed")
             PT.send_plan(self.mesh, (op, plan))
-        with PT.mesh_scope(self.mesh):
+        with PT.mesh_scope(self.mesh, cut=self.config.shard_params):
             return getattr(self, "_op_" + op)(**plan)
 
     def follow(self) -> None:
@@ -389,7 +390,7 @@ class ServingEngine:
             op, plan = PT.recv_plan(self.mesh)
             if op == "stop":
                 return
-            with PT.mesh_scope(self.mesh):
+            with PT.mesh_scope(self.mesh, cut=self.config.shard_params):
                 getattr(self, "_op_" + op)(**plan)
 
     def close(self) -> None:

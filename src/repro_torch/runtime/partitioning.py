@@ -1,38 +1,56 @@
-"""Tensor-parallel serving over ``torch.distributed``: the mesh, the
-placement rules of the page pools and the weights, and the collectives.
+"""Meshes over ``torch.distributed``: the placement rules of the weights,
+the batch and the page pools, and the collectives.
 
-The counterpart of the JAX package's ``runtime/partitioning.py`` for
-serving.  JAX runs a mesh from one controller and lets ``shard_map`` run
-the per-device bodies; here each rank is a process of its own over a
+The counterpart of the JAX package's ``runtime/partitioning.py``.  JAX
+runs a mesh from one controller and lets ``shard_map`` / XLA run the
+per-device programs; here each rank is a process of its own over a
 ``torch.distributed`` process group, and a :class:`Mesh` is one rank's
-view of that group: its rank, the degree ``tp``, its device and the
-backend.  Rank 0 owns the scheduler and sends each device program's host
-plan to the other ranks (:func:`send_plan` / :func:`recv_plan`), so the
-ranks run the same programs in the same order and meet at the same
-collectives.
+view of it: the named axes ``('data', 'model')`` (serving is
+``data = 1``) or ``('pipe',)`` (GPipe), this rank's index on each, and a
+process group per axis.  Ranks are laid out in the JAX package's
+row-major device order, rank = ``d · model + m``.  ``tp``, ``rank`` and
+``group`` are the ``'model'`` axis's view, the one the serving path
+reads.  For serving, rank 0 owns the scheduler and sends each device
+program's host plan to the other ranks (:func:`send_plan` /
+:func:`recv_plan`), so the ranks run the same programs in the same order
+and meet at the same collectives.
 
-Placement (``paged_pool_pspec``, ``param_pspec``), as in the JAX package:
+Placement, as in the JAX package:
 
-* the page pools split their KV-head axis over the ranks when the
-  arch's KV-head count divides ``tp`` (the ``'heads'`` regime), else
-  their physical-page axis (``'pages'``: each rank owns a slab of
-  ``n_pages / tp`` pages, plus one sink page here that takes the writes
-  of pages it does not own — see :func:`local_pool_specs`); an int8
-  pool's scales shard with their pages;
-* under ``shard_params`` the decoder's weights follow the JAX package's
-  tensor-parallel rules (``fsdp=False``): the q/k/v, gate and up
-  projections by output column, ``wo`` and ``w_down`` by input row, the
-  embedding and the LM head over the vocabulary — each only when its
-  dimension divides ``tp``.  In the ``'pages'`` regime the attention
-  projections stay replicated, since their heads cannot split on
-  KV-head boundaries (:func:`shard_params`).
+* :func:`param_pspec` is the JAX package's whole rule table (``_RULES``
+  resolved by ``_resolve``): ``'F'`` slots take ``'data'`` (FSDP, with
+  ``fsdp=True``), ``'M'`` slots ``'model'``, each only where its
+  dimension divides the axis; an MoE's stacked experts take ``'model'``
+  on the expert dim when the expert count divides it, else on each
+  expert's ``d_expert`` (``"EPTP"``); any other matrix takes ``'data'``
+  and ``'model'`` on its last two dims.
+* :func:`shard_pspec` is the cut this port makes of a leaf: the rule's
+  ``'data'`` slots, and its ``'model'`` slots on the leaves whose
+  layers compute on a cut (:data:`TP_LEAVES`; attention only when both
+  head counts divide ``tp`` — the ``'heads'`` regime — else its leaves
+  stay whole).  :func:`shard_params` cuts a tree by it: the serving
+  weights with ``fsdp=False``, the training state with ``fsdp=True``
+  (:class:`Layout`, which also gathers a leaf's ``'data'`` cut just
+  before the leaf is used).
+* :func:`batch_pspec`: a batch's rows over ``'data'`` when it divides.
+* the page pools split their KV-head axis over the ``'model'`` ranks
+  when the arch's KV-head count divides ``tp`` (the ``'heads'``
+  regime), else their physical-page axis (``'pages'``: each rank owns a
+  slab of ``n_pages / tp`` pages, plus one sink page here that takes the
+  writes of pages it does not own — see :func:`local_pool_specs`); an
+  int8 pool's scales shard with their pages.
 
-Every collective of the serving path goes through the helpers below,
-which record each op's site, kind, shape and bytes in the mesh's
-:class:`CollectiveLog` — the port's counterpart of the JAX package's
-check of the collectives in the compiled HLO.  With the ``gloo``
-backend a CUDA tensor is staged through the host explicitly (gloo works
-on host memory); ``nccl`` works on the device tensors.
+Every collective goes through the helpers below, which record each
+op's site, kind, shape and bytes in the mesh's :class:`CollectiveLog` —
+the port's counterpart of the JAX package's check of the collectives in
+the compiled HLO.  Training differentiates through them with the
+autograd operators :func:`copy_to` (identity forward, all-reduce
+backward), :func:`reduce_from` (all-reduce forward, identity backward)
+and :func:`gather_from` (all-gather forward; backward the rank's slice,
+summed over the axis first for a weight gathered over ``'data'``).
+With the ``gloo`` backend a CUDA tensor is staged through the host
+explicitly (gloo works on host memory); ``nccl`` works on the device
+tensors.
 """
 
 from __future__ import annotations
@@ -40,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import pickle
 
 import numpy as np
@@ -92,16 +111,26 @@ class CollectiveLog:
         return sum(r.nbytes for r in self.records
                    if not sites or r.site in sites)
 
+    def by_site(self) -> dict[str, int]:
+        """Bytes by site, in the order the sites first ran."""
+        out: dict[str, int] = {}
+        for r in self.records:
+            out[r.site] = out.get(r.site, 0) + r.nbytes
+        return out
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """One rank's view of a tensor-parallel serving group.
+    """One rank's view of a mesh.
 
-    ``group`` carries the collectives of the model (``backend``:
-    ``nccl`` or ``gloo``); ``plan_group`` is a gloo group for the host
-    plans (the default group itself when ``backend`` is ``gloo``).
-    ``tp == 1`` is a mesh of one rank with no group: nothing is sharded
-    and no collective runs."""
+    ``tp`` / ``rank`` / ``group`` are the ``'model'`` axis: its size,
+    this rank's index on it and the group of ranks that differ only
+    there (``backend``: ``nccl`` or ``gloo``).  ``data`` / ``data_rank``
+    / ``data_group`` are the ``'data'`` axis; ``pipe > 0`` makes a
+    ``('pipe',)`` mesh of that many stages instead (``tp`` and ``data``
+    are then 1).  ``plan_group`` is a gloo group for the serving host
+    plans.  An axis of size 1 has no group: nothing is cut over it and
+    no collective runs."""
 
     tp: int
     rank: int
@@ -110,6 +139,42 @@ class Mesh:
     group: object = None
     plan_group: object = None
     log: CollectiveLog = dataclasses.field(default_factory=CollectiveLog)
+    data: int = 1
+    data_rank: int = 0
+    data_group: object = None
+    pipe: int = 0
+    pipe_rank: int = 0
+    pipe_group: object = None
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return ("pipe",) if self.pipe else ("data", "model")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis sizes by name (the JAX mesh's ``shape``)."""
+        if self.pipe:
+            return {"pipe": self.pipe}
+        return {"data": self.data, "model": self.tp}
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        """This rank's index along ``axis`` (``axis_index``)."""
+        return {"data": self.data_rank, "model": self.rank,
+                "pipe": self.pipe_rank}[axis]
+
+    def group_of(self, axis: str):
+        return {"data": self.data_group, "model": self.group,
+                "pipe": self.pipe_group}[axis]
+
+    @property
+    def world_rank(self) -> int:
+        """Row-major rank: ``d · model + m`` (the pipe index on a pipe
+        mesh)."""
+        return self.pipe_rank if self.pipe else (
+            self.data_rank * self.tp + self.rank)
 
 
 def mesh_model_tp(mesh: Mesh | None) -> int:
@@ -127,31 +192,67 @@ def divides(mesh: Mesh | None, dim: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Active-mesh context (read by the paged attention layers)
+# Active-mesh context (read by the layers)
 # ---------------------------------------------------------------------------
 
-_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("active_mesh",
-                                                         default=None)
+
+@dataclasses.dataclass(frozen=True)
+class Scope:
+    """What the layers read of the mesh they run under: the mesh, whether
+    the weights are this rank's cut (``cut``: ``shard_params``), whether
+    the batch's rows are cut over ``'data'`` (``tokens``: an MoE then
+    routes over the global token groups), and the training
+    :class:`Layout` whose ``'data'`` cuts are gathered before use."""
+
+    mesh: Mesh | None = None
+    cut: bool = False
+    tokens: bool = False
+    layout: "Layout | None" = None
+
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("active_scope",
+                                                         default=Scope())
 
 
 def set_active_mesh(mesh: Mesh | None) -> None:
     """Make ``mesh`` the active mesh of this thread's context."""
-    _ACTIVE.set(mesh)
+    _ACTIVE.set(Scope(mesh))
 
 
 def active_mesh() -> Mesh | None:
+    return _ACTIVE.get().mesh
+
+
+def active_scope() -> Scope:
     return _ACTIVE.get()
 
 
 @contextlib.contextmanager
-def mesh_scope(mesh: Mesh | None):
-    """``mesh`` active inside the block, the previous one restored after
-    (a single-device engine in the same process is unaffected)."""
-    token = _ACTIVE.set(mesh)
+def mesh_scope(mesh: Mesh | None, *, cut: bool = False,
+               tokens: bool = False, layout: "Layout | None" = None):
+    """``mesh`` active inside the block (with :class:`Scope`'s flags),
+    the previous scope restored after (a single-device engine in the
+    same process is unaffected)."""
+    token = _ACTIVE.set(Scope(mesh, cut, tokens, layout))
     try:
         yield mesh
     finally:
         _ACTIVE.reset(token)
+
+
+def keep_scope(fn):
+    """``fn`` that runs under the scope active now, wherever it is called
+    from: a remat's recomputation runs in the backward, on autograd's
+    thread, where the caller's context is not."""
+    scope = active_scope()
+
+    def run(*args):
+        token = _ACTIVE.set(scope)
+        try:
+            return fn(*args)
+        finally:
+            _ACTIVE.reset(token)
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -241,130 +342,248 @@ def page_owner(page: int, slab: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Weight placement
+# Weight placement: the JAX package's rule table
 # ---------------------------------------------------------------------------
 
-#: the JAX package's tensor-parallel rules for the decoder's 2-D weights
-#: (``_RULES`` with ``fsdp=False``: its 'F' slots replicate): the spec
-#: over a leaf's trailing two dims.
-_RULES: tuple[tuple[str, tuple], ...] = (
-    ("embed/table", ("model", None)),
-    ("head/w", (None, "model")),
-    ("wq", (None, "model")),
-    ("wk", (None, "model")),
-    ("wv", (None, "model")),
-    ("wo", ("model", None)),
-    ("w_gate", (None, "model")),
-    ("w_up", (None, "model")),
-    ("w_down", ("model", None)),
-)
-#: the attention leaves, replicated in the 'pages' regime
-ATTENTION_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
-#: projection biases split with their weight's output columns (the JAX
-#: package leaves them to XLA; here a rank adds its own columns' bias)
-_BIAS_OF = {"bq": "wq", "bk": "wk", "bv": "wv"}
+#: (name suffix, trailing ndim) → spec over the trailing dims; 'F' is
+#: the FSDP axis ('data'), 'M' the tensor axis ('model'), "EPTP" the
+#: third slot of an expert weight, which takes 'model' only when the
+#: expert dim could not (the JAX package's ``_RULES``, letter for letter)
+_RULES: list[tuple[str, int, tuple]] = [
+    ("embed/table", 2, ("M", "F")),
+    ("head/w", 2, ("F", "M")),
+    # attention
+    ("wq", 2, ("F", "M")),
+    ("wk", 2, ("F", "M")),
+    ("wv", 2, ("F", "M")),
+    ("wo", 2, ("M", "F")),
+    # dense mlp (2-D)
+    ("w_gate", 2, ("F", "M")),
+    ("w_up", 2, ("F", "M")),
+    ("w_down", 2, ("M", "F")),
+    # moe experts (3-D): EP on the expert dim, else intra-expert TP
+    ("w_gate", 3, ("M", "F", "EPTP")),
+    ("w_up", 3, ("M", "F", "EPTP")),
+    ("w_down", 3, ("M", "EPTP", "F")),
+    ("router", 2, ("F", None)),
+    # mamba
+    ("in_proj", 2, ("F", "M")),
+    ("conv_w", 2, (None, "M")),
+    ("x_proj", 2, ("M", None)),
+    ("dt_proj", 2, (None, "M")),
+    ("a_log", 2, ("M", None)),
+    ("out_proj", 2, ("M", "F")),
+    # xlstm
+    ("up_proj", 2, ("F", "M")),
+    ("down_proj", 2, ("M", "F")),
+    ("w_igate", 2, ("F", None)),
+    ("w_fgate", 2, ("F", None)),
+    ("w_in", 2, ("F", "M")),
+    ("r_z", 3, (None, None, None)),
+    ("r_i", 3, (None, None, None)),
+    ("r_f", 3, (None, None, None)),
+    ("r_o", 3, (None, None, None)),
+]
 
 
-def param_pspec(path: str, shape: tuple[int, ...],
-                mesh: Mesh | None) -> tuple:
-    """Spec of one decoder weight leaf (period-stacked aware), as the JAX
-    package's ``param_pspec(..., fsdp=False)`` gives it for the nine
-    rule leaves: ``'model'`` on the split dim when it divides ``tp``;
-    ``()`` for every other leaf."""
+def _axes(mesh) -> tuple[tuple[str, ...], dict]:
+    if mesh is None:
+        return (), {}
+    return tuple(mesh.axis_names), dict(mesh.shape)
+
+
+def _resolve(sym, dim: int, mesh, used: set[str], ep_possible: bool,
+             fsdp: bool = True) -> str | None:
+    if sym is None:
+        return None
+    if sym == "F" and not fsdp:
+        return None
+    if sym == "EPTP":
+        if ep_possible:
+            return None
+        sym = "M"
+    axis = {"F": "data", "M": "model"}[sym]
+    names, shape = _axes(mesh)
+    if axis not in names or axis in used:
+        return None
+    if dim % shape[axis] != 0:
+        return None
+    used.add(axis)
+    return axis
+
+
+def param_pspec(path: str, shape: tuple[int, ...], mesh,
+                fsdp: bool = False) -> tuple:
+    """Spec of one parameter leaf (period-stacked aware): the JAX
+    package's ``param_pspec(path, shape, mesh, fsdp)`` as a tuple, for
+    any ``mesh`` with ``axis_names`` and ``shape`` (None: no axes).
+    ``fsdp=False`` (the default here: serving) drops the 'F' slots."""
     ndim = len(shape)
-    for suffix, spec in _RULES:
-        if not path.endswith(suffix):
+    names, sizes = _axes(mesh)
+    for suffix, rule_nd, spec in _RULES:
+        if not path.endswith(suffix) and f"/{suffix}/" not in path + "/":
             continue
-        if ndim not in (2, 3):
-            return ()
-        stacked = ndim - 2
-        out = tuple(ax if ax is None or divides(mesh, d) else None
-                    for ax, d in zip(spec, shape[stacked:]))
-        return (None,) * stacked + out
+        stacked = 0
+        if ndim == rule_nd + 1:
+            stacked = 1
+        elif ndim != rule_nd:
+            continue
+        dims = shape[stacked:]
+        ep_possible = (rule_nd == 3 and spec[0] == "M" and "model" in names
+                       and dims[0] % sizes["model"] == 0)
+        used: set[str] = set()
+        out = [_resolve(sym, dim, mesh, used, ep_possible, fsdp)
+               for sym, dim in zip(spec, dims)]
+        return (None,) * stacked + tuple(out)
+    if ndim >= 2:
+        used = set()
+        tail = (_resolve("F", shape[-2], mesh, used, False, fsdp),
+                _resolve("M", shape[-1], mesh, used, False, fsdp))
+        return (None,) * (ndim - 2) + tail
     return ()
 
 
-def _split(x, axis: int, mesh: Mesh):
-    """A copy of this rank's contiguous 1/tp of ``x`` along ``axis`` (its
+def batch_pspec(mesh, batch_size: int) -> tuple:
+    """The JAX package's ``batch_pspec``: a batch's rows over ``'data'``
+    when the axis divides them (``('data',)``), else replicated
+    (``()``)."""
+    names, sizes = _axes(mesh)
+    if ("data" in names and batch_size % sizes["data"] == 0
+            and batch_size >= sizes["data"]):
+        return ("data",)
+    return ()
+
+
+#: the leaves whose layers compute on a 'model' cut: the vocabulary of
+#: the embedding and the head, the projections' heads (and their
+#: biases) and the MLPs' and experts' hidden units or experts
+TP_LEAVES = ("embed/table", "head/w", "wq", "wk", "wv", "wo", "bq", "bk",
+             "bv", "w_gate", "w_up", "w_down")
+#: the attention leaves, whole unless both head counts divide tp
+ATTENTION_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+
+def attention_cut(cfg, mesh) -> bool:
+    """Whether the attention's weights are cut over ``'model'``: only
+    when ``tp > 1`` divides both ``n_heads`` and ``n_kv_heads`` (the
+    paged path's ``'heads'`` regime)."""
+    tp = mesh_model_tp(mesh)
+    return tp > 1 and cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0
+
+
+def shard_pspec(path: str, shape: tuple[int, ...], mesh, cfg,
+                fsdp: bool = False) -> tuple:
+    """The spec this port cuts a leaf by: :func:`param_pspec`'s
+    ``'data'`` slots (with ``fsdp``) and its ``'model'`` slots on
+    :data:`TP_LEAVES` only — on the attention leaves only when
+    :func:`attention_cut`.  A projection bias (1-D a period, which the
+    rules replicate) is cut with its weight's output columns."""
+    spec = param_pspec(path, shape, mesh, fsdp)
+    name = path.rsplit("/", 1)[-1]
+    tp_leaf = any(path.endswith(s) for s in TP_LEAVES)
+    if name in ATTENTION_LEAVES and not attention_cut(cfg, mesh):
+        tp_leaf = False
+    if name in ("bq", "bk", "bv") and tp_leaf:
+        stacked = len(shape) - 1
+        return (None,) * stacked + ("model",)
+    if tp_leaf:
+        return spec
+    return tuple(None if a == "model" else a for a in spec)
+
+
+@functools.lru_cache(maxsize=None)
+def full_shapes(cfg) -> dict[str, tuple[int, ...]]:
+    """Every parameter leaf's whole shape by path, from an init on the
+    meta device (no memory)."""
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import tree_flatten
+    params = build_model(cfg).init(torch.Generator(), "meta")
+    return {p: tuple(x.shape) for p, x in tree_flatten(params)}
+
+
+def local_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple:
+    """A leaf's shape on one rank under ``spec``."""
+    sizes = dict(mesh.shape) if mesh is not None else {}
+    return tuple(d // sizes[a] if a else d
+                 for d, a in zip(shape, spec + (None,) * len(shape)))
+
+
+def _take(x, axis: int, index: int, parts: int):
+    """A copy of part ``index`` of ``parts`` of ``x`` along ``axis`` (its
     own storage, so the whole leaf can be freed)."""
-    n = x.shape[axis] // mesh.tp
-    index = [slice(None)] * x.ndim
-    index[axis] = slice(mesh.rank * n, (mesh.rank + 1) * n)
-    part = x[tuple(index)]
+    n = x.shape[axis] // parts
+    sl = [slice(None)] * x.ndim
+    sl[axis] = slice(index * n, (index + 1) * n)
+    part = x[tuple(sl)]
     return part.clone() if isinstance(part, Tensor) else np.array(part)
 
 
-def _full_dims(cfg) -> dict[str, int]:
-    """The unsplit size of each rule leaf's split dim."""
-    dh = cfg.resolved_head_dim
-    return {"embed/table": cfg.vocab_size, "head/w": cfg.vocab_size,
-            "wq": cfg.n_heads * dh, "wk": cfg.n_kv_heads * dh,
-            "wv": cfg.n_kv_heads * dh, "wo": cfg.n_heads * dh,
-            "w_gate": cfg.d_ff, "w_up": cfg.d_ff, "w_down": cfg.d_ff}
+def cut_leaf(x, spec: tuple, mesh):
+    """This rank's part of the whole leaf ``x`` under ``spec``."""
+    for dim, axis in enumerate(spec):
+        if axis and mesh.size(axis) > 1:
+            x = _take(x, dim, mesh.index(axis), mesh.size(axis))
+    return x
 
 
-def check_shardable(cfg) -> None:
-    """``shard_params`` cuts the dense decoder's 2-D weights; an MoE FFN's
-    3-D expert stacks need expert parallelism (the JAX package's 3-D
-    rules), which is not ported: raises ``NotImplementedError`` rather
-    than cut them with the 2-D rules.  An MoE arch serves under a mesh
-    with replicated weights."""
-    if any(s.ffn == "moe" for s in cfg.period):
-        raise NotImplementedError(
-            f"{cfg.name}: shard_params on an MoE FFN needs expert "
-            f"parallelism, which is not ported yet; serve it with "
-            f"replicated weights")
+def _walk(tree, fn, path=""):
+    if isinstance(tree, dict):
+        return {k: _walk(v, fn, f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(v, fn, f"{path}/{i}")
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
 
 
-def shard_params(params, cfg, mesh: Mesh | None):
-    """Rank ``mesh.rank``'s shard of a decoder parameter tree (numpy
-    arrays or tensors): a cut leaf is a copy of the rank's slice, every
-    other leaf the input leaf itself.
+def shard_params(params, cfg, mesh: Mesh | None, fsdp: bool = False):
+    """Rank ``mesh``'s part of a parameter tree (numpy arrays or
+    tensors) under :func:`shard_pspec`: a cut leaf is a copy of the
+    rank's part, every other leaf the input leaf itself.
 
-    Each rule leaf is cut on its split dim when that dim divides ``tp``;
-    a leaf already cut to ``full / tp`` is kept, so a tree that was
+    A leaf already cut to the rank's shape is kept, so a tree that was
     sharded on the way in (``convert.params_from_jax(..., mesh=)``)
-    passes unchanged.  In the ``'pages'`` regime the attention leaves
-    stay whole.  Norms and ``bo`` are replicated.  An MoE arch raises
-    (:func:`check_shardable`)."""
-    if mesh_model_tp(mesh) <= 1:
+    passes unchanged.  Serving (``fsdp=False``) cuts over ``'model'``
+    only: the MoE's experts by their 3-D rows (a rank's
+    ``E / tp`` experts, or every expert's ``d_expert / tp`` columns), the
+    shared MLP and the dense MLP by the 2-D rows, the attention in the
+    ``'heads'`` regime only; the router, norms and ``bo`` stay whole."""
+    if mesh is None or mesh.tp * mesh.data <= 1:
         return params
-    check_shardable(cfg)
-    full = _full_dims(cfg)
-    heads = _regime(mesh, cfg.n_kv_heads) == "heads"
+    shapes = full_shapes(cfg)
 
     def leaf(path: str, x):
-        name = path.rsplit("/", 1)[-1]
-        if name in ATTENTION_LEAVES and not heads:
+        full = shapes[path]
+        spec = shard_pspec(path, full, mesh, cfg, fsdp)
+        mine = local_shape(full, spec, mesh)
+        if tuple(x.shape) == mine:
             return x
-        if name in _BIAS_OF:
-            rule, axis = _BIAS_OF[name], x.ndim - 1
-        else:
-            spec = param_pspec(path, tuple(x.shape), mesh)
-            if "model" not in spec:
-                return x
-            rule = next(s for s, _ in _RULES if path.endswith(s))
-            axis = spec.index("model")
-        n = full[rule]
-        if n % mesh.tp:
-            return x
-        if x.shape[axis] == n // mesh.tp:
-            return x
-        if x.shape[axis] != n:
-            raise ValueError(f"{path}: dim {axis} of {tuple(x.shape)} is "
-                             f"neither {n} nor {n // mesh.tp}")
-        return _split(x, axis, mesh)
+        if tuple(x.shape) != full:
+            raise ValueError(f"{path}: {tuple(x.shape)} is neither the "
+                             f"whole {full} nor this rank's {mine}")
+        return cut_leaf(x, spec, mesh)
 
-    def walk(tree, path):
-        if isinstance(tree, dict):
-            return {k: walk(v, f"{path}/{k}" if path else k)
-                    for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(walk(v, f"{path}/{i}")
-                              for i, v in enumerate(tree))
-        return leaf(path, tree)
+    return _walk(params, leaf)
 
-    return walk(params, "")
+
+def expert_split(mesh: Mesh | None, n_experts: int, d_model: int,
+                 d_expert: int) -> tuple[str, int, int] | None:
+    """How the 3-D expert rows cut an MoE's experts on this rank:
+    ``("experts", lo, hi)`` — the experts ``[lo, hi)`` whole — or
+    ``("columns", lo, hi)`` — every expert's ``d_expert`` columns
+    ``[lo, hi)`` (``"EPTP"``) — or None (whole)."""
+    spec = param_pspec("ffn/w_gate", (1, n_experts, d_model, d_expert),
+                       mesh)[1:]
+    tp = mesh_model_tp(mesh)
+    if tp <= 1:
+        return None
+    if spec[0] == "model":
+        n = n_experts // tp
+        return "experts", mesh.rank * n, (mesh.rank + 1) * n
+    if spec[2] == "model":
+        n = d_expert // tp
+        return "columns", mesh.rank * n, (mesh.rank + 1) * n
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -382,22 +601,25 @@ def _staged(x: Tensor, mesh: Mesh) -> Tensor:
     return x.contiguous()
 
 
-def all_reduce(x: Tensor, mesh: Mesh, op: str = "sum",
-               site: str = "") -> Tensor:
-    """The element-wise ``op`` (``sum`` | ``max``) of ``x`` over the
-    ranks, on ``x``'s device; the input is not kept."""
+def all_reduce(x: Tensor, mesh: Mesh, op: str = "sum", site: str = "",
+               axis: str = "model") -> Tensor:
+    """The element-wise ``op`` (``sum`` | ``max``) of ``x`` over
+    ``axis``'s ranks, on ``x``'s device; the input is not kept."""
     buf = _staged(x, mesh)
-    dist.all_reduce(buf, op=_REDUCE_OPS[op], group=mesh.group)
+    if buf is x:
+        buf = x.clone()
+    dist.all_reduce(buf, op=_REDUCE_OPS[op], group=mesh.group_of(axis))
     mesh.log.add(site, f"all_reduce_{op}", buf)
     return buf.to(x.device, non_blocking=True)
 
 
-def all_gather(x: Tensor, mesh: Mesh, dim: int, site: str = "") -> Tensor:
-    """Every rank's ``x`` concatenated along ``dim`` in rank order, on
-    ``x``'s device."""
+def all_gather(x: Tensor, mesh: Mesh, dim: int, site: str = "",
+               axis: str = "model") -> Tensor:
+    """Every ``axis`` rank's ``x`` concatenated along ``dim`` in rank
+    order, on ``x``'s device."""
     buf = _staged(x, mesh)
-    parts = [torch.empty_like(buf) for _ in range(mesh.tp)]
-    dist.all_gather(parts, buf, group=mesh.group)
+    parts = [torch.empty_like(buf) for _ in range(mesh.size(axis))]
+    dist.all_gather(parts, buf, group=mesh.group_of(axis))
     out = torch.cat(parts, dim=dim)
     mesh.log.add(site, "all_gather", out)
     return out.to(x.device, non_blocking=True)
@@ -442,3 +664,170 @@ def recv_plan(mesh: Mesh):
     dist.broadcast(buf, src=0, group=mesh.plan_group)
     mesh.log.plans += 1
     return pickle.loads(np.asarray(buf).tobytes())
+
+
+# ---------------------------------------------------------------------------
+# Collectives that autograd differentiates
+# ---------------------------------------------------------------------------
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the gradient summed over the axis backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, site):
+        ctx.args = (mesh, axis, site)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, site = ctx.args
+        return (all_reduce(g, mesh, "sum", f"{site}.bwd", axis), None, None,
+                None)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """The sum over the axis forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, site):
+        return all_reduce(x, mesh, "sum", site, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """All-gather along ``dim`` forward; backward the rank's slice of the
+    gradient, summed over the axis first when ``sum_grads`` (a weight
+    gathered over 'data': each data rank's loss differs)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, site, sum_grads):
+        ctx.args = (mesh, axis, dim, site, sum_grads, x.shape[dim])
+        return all_gather(x, mesh, dim, site, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, site, sum_grads, n = ctx.args
+        if sum_grads:
+            g = all_reduce(g, mesh, "sum", f"{site}.bwd", axis)
+        i = mesh.index(axis)
+        return (g.narrow(dim, i * n, n).contiguous(), None, None, None, None,
+                None)
+
+
+def copy_to(x: Tensor, mesh: Mesh | None, axis: str = "model",
+            site: str = "") -> Tensor:
+    """``x`` entering computation cut over ``axis`` (a column-parallel
+    projection, a rank's experts): unchanged forward, its gradient
+    summed over the axis backward.  ``x`` itself on an axis of one."""
+    if mesh is None or mesh.size(axis) <= 1:
+        return x
+    return _CopyTo.apply(x, mesh, axis, site)
+
+
+def reduce_from(x: Tensor, mesh: Mesh | None, axis: str = "model",
+                site: str = "") -> Tensor:
+    """The sum over ``axis`` of the ranks' partial ``x`` (a row-parallel
+    projection's output); backward the gradient as it is."""
+    if mesh is None or mesh.size(axis) <= 1:
+        return x
+    return _ReduceFrom.apply(x, mesh, axis, site)
+
+
+def gather_from(x: Tensor, mesh: Mesh | None, dim: int,
+                axis: str = "model", site: str = "",
+                sum_grads: bool = False) -> Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` (vocabulary-cut
+    logits; with ``sum_grads`` a weight's ``'data'`` cut)."""
+    if mesh is None or mesh.size(axis) <= 1:
+        return x
+    return _GatherFrom.apply(x, mesh, axis, dim % x.ndim, site, sum_grads)
+
+
+# ---------------------------------------------------------------------------
+# The training layout: FSDP + tensor / expert parallelism
+# ---------------------------------------------------------------------------
+
+
+class Layout:
+    """Where each leaf of a parameter tree lives on a ``('data',
+    'model')`` mesh: :func:`shard_pspec` with ``fsdp=True``.  A rank
+    holds its cut of every leaf (params, Adam moments, error feedback);
+    the layers gather a leaf's ``'data'`` cut just before they use it
+    (:func:`use_leaves`) and keep its ``'model'`` cut."""
+
+    def __init__(self, cfg, mesh: Mesh):
+        self.cfg, self.mesh = cfg, mesh
+        self.shapes = full_shapes(cfg)
+        self.specs = {p: shard_pspec(p, s, mesh, cfg, fsdp=True)
+                      for p, s in self.shapes.items()}
+
+    def axes(self, path: str) -> tuple[str, ...]:
+        """The axes (of size > 1) leaf ``path`` is cut over."""
+        return tuple(a for a in self.specs[path]
+                     if a and self.mesh.size(a) > 1)
+
+    def cut(self, params):
+        """A rank's part of a whole parameter-shaped tree."""
+        return _walk(params, lambda p, x: cut_leaf(x, self.specs[p],
+                                                   self.mesh))
+
+    def gather(self, params):
+        """Whole leaves of a rank-cut parameter-shaped tree (every rank
+        runs the gathers; no autograd)."""
+        def leaf(path, x):
+            with torch.no_grad():
+                for dim, axis in enumerate(self.specs[path]):
+                    if axis and self.mesh.size(axis) > 1:
+                        x = all_gather(x, self.mesh, dim, site="gather",
+                                       axis=axis)
+            return x
+        return _walk(params, leaf)
+
+    def reduce_leaves(self, paths: list[str], vals: Tensor,
+                      op: str) -> Tensor:
+        """``vals[i]`` (one f32 number a leaf, e.g. a shard's sum of
+        squares) reduced by ``op`` over the axes leaf ``paths[i]`` is cut
+        over, and only those: one collective per set of axes."""
+        out = vals.clone()
+        groups: dict[tuple, list[int]] = {}
+        for i, p in enumerate(paths):
+            groups.setdefault(self.axes(p), []).append(i)
+        for axes, idx in groups.items():
+            sub = out[idx]
+            for axis in axes:
+                sub = all_reduce(sub, self.mesh, op, site="reduce",
+                                 axis=axis)
+            out[idx] = sub
+        return out
+
+    def use(self, path: str, x: Tensor, index: int | None = None) -> Tensor:
+        """Leaf ``path`` as a layer uses it: its ``'data'`` cut gathered
+        (its gradient summed over 'data' and cut again backward), then
+        period ``index`` of a stacked leaf."""
+        spec = self.specs[path]
+        data = self.mesh.size("data") > 1
+        if index is not None:
+            if data and spec[0] == "data":
+                x = gather_from(x, self.mesh, 0, "data", "fsdp", True)
+            x, spec = x[index], spec[1:]
+        if data and "data" in spec:
+            x = gather_from(x, self.mesh, spec.index("data"), "data",
+                            "fsdp", True)
+        return x
+
+
+def use_leaves(tree, prefix: str, index: int | None = None):
+    """The leaves of the subtree at ``prefix`` as the layers use them:
+    period ``index`` of stacked leaves, with the active training
+    layout's ``'data'`` cuts gathered (:meth:`Layout.use`)."""
+    layout = active_scope().layout
+    if layout is None:
+        if index is None:
+            return tree
+        return _walk(tree, lambda p, x: x[index])
+    return _walk(tree, lambda p, x: layout.use(
+        f"{prefix}/{p}" if p else prefix, x, index))

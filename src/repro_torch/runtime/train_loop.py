@@ -22,6 +22,7 @@ tensors that require grad.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -34,6 +35,7 @@ from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_update,
                                      init_adamw)
 from repro_torch.optim.grad_compress import (compress_grads,
                                              init_error_feedback)
+from repro_torch.runtime import partitioning as PT
 
 Tensor = torch.Tensor
 Tree = Any
@@ -99,56 +101,148 @@ def make_loss_fn(model: Model, run: RunConfig):
     return loss_fn
 
 
-def make_train_step(model: Model, run: RunConfig,
-                    opt_cfg: AdamWConfig | None = None):
-    """``train_step(state, batch) → (state, metrics)``; the state's
-    tensors are updated in place.  ``run.microbatch`` = a > 1 splits the
-    batch into a equal row blocks and averages their gradients (f32)
-    and losses."""
-    opt_cfg = opt_cfg or AdamWConfig(learning_rate=run.learning_rate,
-                                     weight_decay=run.weight_decay,
-                                     grad_clip=run.grad_clip)
-    loss_fn = make_loss_fn(model, run)
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.tp * mesh.data > 1
 
-    def train_step(state: TrainState, batch: dict) -> tuple[TrainState,
-                                                            dict]:
+
+def make_grad_fn(model: Model, run: RunConfig, mesh=None):
+    """``grad_fn(params, batch) → (loss, grads)``: the loss of the
+    global ``batch`` and the f32 gradients of ``params`` (a tree shaped
+    like them; ``.grad`` is left empty).  ``run.microbatch`` = a > 1
+    splits the batch into a equal row blocks and averages their
+    gradients and losses.
+
+    With a ``('data', 'model')`` ``mesh`` of more than one rank,
+    ``params`` are this rank's cut (:func:`shard_train_state`) and every
+    rank is given the whole batch: each microbatch's rows are cut over
+    ``'data'`` when the axis divides them (``batch_pspec``), else every
+    data rank runs all of them.  The layers gather each leaf's
+    ``'data'`` cut just before use and compute on its ``'model'`` cut
+    (``partitioning.Layout``); every gradient is summed over ``'data'``
+    — by the gathers' backward for the leaves cut there, by an
+    all-reduce for the others — and divided by the data degree, which is
+    right whether the rows were cut or replicated.  The loss is the data
+    ranks' mean.  ``grad_fn.layout`` is the layout (None without a
+    mesh)."""
+    loss_fn = make_loss_fn(model, run)
+    layout = PT.Layout(model.cfg, mesh) if _sharded(mesh) else None
+    if layout is not None and model.is_encdec:
+        raise NotImplementedError(
+            f"{model.cfg.name}: the sharded train step runs decoders")
+
+    def grad_fn(params, batch) -> tuple[Tensor, Tree]:
         a = run.microbatch
-        leaves = [p for _, p in tree_flatten(state.params)]
-        for p in leaves:
+        flat = tree_flatten(params)
+        for _, p in flat:
             p.grad = None
         rows = batch["tokens"].shape[0]
         if rows % a:
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{a} microbatches")
         n = rows // a
+        dp = mesh.data if layout is not None else 1
+        cut_rows = dp > 1 and PT.batch_pspec(mesh, n) == ("data",)
         loss = None
         for i in range(a):
-            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()
-                  if v is not None}
-            mb_loss, _ = loss_fn(state.params, mb)
-            mb_loss.backward()
+            lo, hi = i * n, (i + 1) * n
+            if cut_rows:
+                m = n // dp
+                lo, hi = lo + mesh.data_rank * m, lo + (mesh.data_rank + 1) * m
+            mb = {k: v[lo:hi] for k, v in batch.items() if v is not None}
+            scope = (PT.mesh_scope(mesh, cut=True, tokens=cut_rows,
+                                   layout=layout)
+                     if layout is not None else contextlib.nullcontext())
+            with scope:            # a remat's recomputation runs in it
+                mb_loss, _ = loss_fn(params, mb)
+                mb_loss.backward()
             mb_loss = mb_loss.detach()
             loss = mb_loss if loss is None else loss + mb_loss
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in leaves]
-        for p in leaves:
+                 for _, p in flat]
+        for _, p in flat:
             p.grad = None
+        if dp > 1:
+            grads = [g if "data" in layout.axes(path) else PT.all_reduce(
+                g, mesh, "sum", site="grads", axis="data")
+                for (path, _), g in zip(flat, grads)]
+            if cut_rows:
+                loss = PT.all_reduce(loss, mesh, "sum", site="loss",
+                                     axis="data")
+                loss = loss / dp
+            torch._foreach_div_(grads, float(dp))
         if a > 1:
             torch._foreach_div_(grads, float(a))
             loss = loss / a
-        grads = tree_unflatten(state.params, grads)
+        return loss, tree_unflatten(params, grads)
 
+    grad_fn.layout = layout
+    return grad_fn
+
+
+def make_train_step(model: Model, run: RunConfig,
+                    opt_cfg: AdamWConfig | None = None, *, mesh=None):
+    """``train_step(state, batch) → (state, metrics)``; the state's
+    tensors are updated in place.  ``run.microbatch`` = a > 1 splits the
+    batch into a equal row blocks and averages their gradients (f32)
+    and losses.
+
+    With a ``mesh`` (``launch.mesh.make_host_mesh``) the state is this
+    rank's shard (:func:`shard_train_state`) and the batch the global
+    one (:func:`make_grad_fn`); the clip norm and the compression's
+    scales are the whole leaves' (``partitioning.Layout.reduce_leaves``)
+    and AdamW moves the shards in place."""
+    opt_cfg = opt_cfg or AdamWConfig(learning_rate=run.learning_rate,
+                                     weight_decay=run.weight_decay,
+                                     grad_clip=run.grad_clip)
+    grad_fn = make_grad_fn(model, run, mesh)
+    reduce = grad_fn.layout.reduce_leaves if grad_fn.layout else None
+
+    def train_step(state: TrainState, batch: dict) -> tuple[TrainState,
+                                                            dict]:
+        loss, grads = grad_fn(state.params, batch)
         metrics = {"loss": loss}
         ef = state.ef
         if run.grad_compression:
-            grads, ef, cstats = compress_grads(grads, state.ef)
+            grads, ef, cstats = compress_grads(grads, state.ef, reduce)
             metrics.update(cstats)
         params, opt, ostats = adamw_update(opt_cfg, state.params, grads,
-                                           state.opt)
+                                           state.opt, reduce)
         metrics.update(ostats)
         return TrainState(params=params, opt=opt, ef=ef), metrics
 
+    train_step.layout = grad_fn.layout
     return train_step
+
+
+def _map_state(state: TrainState, fn) -> TrainState:
+    """``fn`` over the parameter-shaped trees of a state (params, the
+    moments, the error feedback); the step is kept."""
+    return TrainState(
+        params=fn(state.params),
+        opt=AdamWState(step=state.opt.step, m=fn(state.opt.m),
+                       v=fn(state.opt.v)),
+        ef=None if state.ef is None else fn(state.ef))
+
+
+def shard_train_state(state: TrainState, layout) -> TrainState:
+    """This rank's cut of a whole state (``partitioning.Layout.cut``:
+    the FSDP rows over ``'data'``, tensor and expert parallelism over
+    ``'model'``); the cut masters require grad."""
+    with torch.no_grad():
+        out = _map_state(state, layout.cut)
+    for _, p in tree_flatten(out.params):
+        p.requires_grad_(True)
+    return out
+
+
+def gather_train_state(state: TrainState, layout) -> TrainState:
+    """The whole state, on every rank, from each rank's cut (collective:
+    every rank calls it)."""
+    out = _map_state(state, layout.gather)
+    return TrainState(
+        params=tree_unflatten(out.params, [
+            p.detach() for _, p in tree_flatten(out.params)]),
+        opt=out.opt, ef=out.ef)
 
 
 def make_eval_step(model: Model, run: RunConfig):

@@ -72,6 +72,14 @@ def test_scan_covers_the_training_modules():
             "launch/train.py"} <= scanned
 
 
+def test_scan_covers_the_multirank_modules():
+    """... and the model across ranks: the pipeline schedule beside the
+    mesh, the rules and the MoE layer's expert parallelism."""
+    scanned = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"runtime/pipeline.py", "runtime/partitioning.py",
+            "launch/mesh.py", "models/moe.py"} <= scanned
+
+
 def test_package_imports_with_jax_and_repro_blocked():
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)

@@ -18,7 +18,7 @@
   pools; so does the ``PipelinedEngine``; the lockstep ``generate``
   gives the JAX lockstep path's tokens.
 * The parameter tree converts leaf for leaf, ``cast_params`` keeps the
-  router f32, and ``shard_params`` refuses an MoE arch.
+  router f32, and ``shard_params`` cuts an MoE arch's experts.
 """
 
 import dataclasses
@@ -399,15 +399,31 @@ def test_params_from_jax_covers_every_moe_leaf_once(models, arch):
 
 
 def test_shard_params_refuses_an_moe_arch(models):
+    """``shard_params`` (and an engine with ``shard_params``) cuts an MoE
+    arch's experts by the JAX package's 3-D rules: at tp 2 each rank
+    holds 2 of the 4 experts whole, the shared MLP by its columns and
+    rows, the router whole; the parts reassemble the leaves."""
     _, _, tm, tp = models["deepseek-moe-16b"]
-    mesh = PT.Mesh(tp=2, rank=0, device=torch.device("cpu"), backend="gloo")
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        PT.shard_params(tp, tm.cfg, mesh)
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        TEngine(tm, tp, _runs("rexp", "exact")[1], TEngineConfig(
-            mesh=mesh, shard_params=True,
-            cache=TCache(n_pages=8, page_size=4, max_pages_per_seq=4)),
-            device="cpu")
+    cuts = [PT.shard_params(tp, tm.cfg, PT.Mesh(
+        tp=2, rank=r, device=torch.device("cpu"), backend="gloo"))
+        for r in range(2)]
+    whole = tp["periods"][0]["ffn"]
+    for leaf in ("w_gate", "w_up", "w_down"):
+        parts = [c["periods"][0]["ffn"][leaf] for c in cuts]
+        assert parts[0].shape[1] == 2 == whole[leaf].shape[1] // 2
+        assert torch.equal(torch.cat(parts, 1), whole[leaf])
+    for leaf, axis in (("w_gate", 2), ("w_up", 2), ("w_down", 1)):
+        parts = [c["periods"][0]["ffn"]["shared"][leaf] for c in cuts]
+        assert torch.equal(torch.cat(parts, axis), whole["shared"][leaf])
+    assert all(c["periods"][0]["ffn"]["router"] is whole["router"]
+               for c in cuts)
+    mesh = PT.Mesh(tp=2, rank=1, device=torch.device("cpu"), backend="gloo")
+    eng = TEngine(tm, tp, _runs("rexp", "exact")[1], TEngineConfig(
+        mesh=mesh, shard_params=True,
+        cache=TCache(n_pages=8, page_size=4, max_pages_per_seq=4)),
+        device="cpu")
+    assert torch.equal(eng.params["periods"][0]["ffn"]["w_up"],
+                       cuts[1]["periods"][0]["ffn"]["w_up"])
     assert PT.shard_params(tp, tm.cfg, None) is tp
 
 
@@ -446,8 +462,25 @@ def test_launcher_serves_the_moe_archs(capsys, arch, engine):
 
 
 def test_launcher_refuses_shard_params_on_an_moe_arch():
-    from repro_torch.launch import serve as SERVE
+    """``--tp 2 --shard-params`` serves both MoE archs with their experts
+    cut over the ranks and prints ``--tp 1``'s sample tokens."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for arch in ARCH_NAMES:
-        with pytest.raises(NotImplementedError, match="expert parallelism"):
-            SERVE.main(["--arch", arch, "--scale-down", "64,4,128",
-                        "--device", "cpu", "--tp", "2", "--shard-params"])
+        outs = []
+        for extra in ([], ["--tp", "2", "--shard-params"]):
+            out = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                 arch, "--scale-down", "64,4,128", "--layers", "2",
+                 "--device", "cpu", "--batch", "2", "--prompt-len", "12",
+                 "--new-tokens", "5", *extra],
+                env=dict(os.environ, PYTHONPATH=os.path.join(repo, "src")),
+                capture_output=True, text=True, timeout=300)
+            assert out.returncode == 0, out.stderr
+            outs.append(out.stdout)
+        assert "weights cut over the ranks" in outs[1]
+        tokens = [[ln for ln in o.splitlines()
+                   if ln.startswith("sample token")] for o in outs]
+        assert tokens[0] and tokens[1] == tokens[0], arch

@@ -339,9 +339,10 @@ def test_shard_params_cuts_and_reassembles(kvh, heads):
         name = JPT.path_str(path)
         parts = [dict(jax.tree_util.tree_flatten_with_path(c)[0])[path]
                  for c in cuts]
-        spec = PT.param_pspec(name, leaf.shape, _mesh(TP))
-        whole = "model" not in spec or (
-            pages and name.rsplit("/", 1)[-1] in PT.ATTENTION_LEAVES)
+        spec = PT.shard_pspec(name, leaf.shape, _mesh(TP), arch)
+        whole = "model" not in spec
+        if pages and name.rsplit("/", 1)[-1] in PT.ATTENTION_LEAVES:
+            assert whole, name
         if whole:
             assert all(p is leaf or np.array_equal(p, leaf) for p in parts)
             continue
