@@ -113,7 +113,7 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    2048, 16 / 16 heads of 128, 64 routed experts of 1408 plus 2 shared,
    top-6, vocab 102 400; 16.9B parameters in 28 layers) and
    Granite-MoE-3B (d_model 1536, 24 / 8 heads of 64, 40 experts of 512,
-   top-8, tied embeddings; 32 layers) at full width, depth cut to 6
+   top-8, tied embeddings; 32 layers) at full width, depth cut to 4
    layers (``MOE_LAYERS``), seeded random bf16 weights drawn and cast
    block by block, router f32 and exact, through the paged engines on
    the smoke's 8 requests
@@ -258,7 +258,7 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    its bound;
 11. the model across ranks (lines ``[ranks]``), each as rank processes
    sharing the card over gloo (one card: no NCCL), after phase 10:
-   (a) DeepSeek-MoE-16B and Granite-MoE-3B at full width, 6 layers,
+   (a) DeepSeek-MoE-16B and Granite-MoE-3B at full width, 4 layers,
    served at tp 2 ('heads') with ``shard_params`` — each rank holds 32
    of 64 / 20 of 40 experts, DeepSeek's shared MLP and both models'
    attention cut — on bf16 pools, the smoke's 8 requests with 16 new
@@ -282,7 +282,26 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    stages, each one full-width Granite-MoE layer (``make_stage_fn``),
    4 microbatches of 2 × 128 tokens: outputs and stage gradients within
    1e-6 of the largest entry of the sequential run on one rank (bitwise
-   printed).
+   printed);
+12. the reference's cells (lines ``[cells]``, after phase 11): (a) the
+   dry run (``launch/cells.py``: one rank's step traced on meta tensors
+   over a ``fake`` process group) of Qwen3-32B × ``decode_32k`` and
+   Jamba-v0.1-52B × ``long_500k`` at one period on a (data 1, model 1)
+   mesh and at full depth on the 16×16 mesh as rank 0, and of
+   Granite-MoE-3B × ``train_4k`` on the 2×16×16 mesh, each record's line
+   printed; (b) the same two one-period cells built for real on the
+   card (``build_cell(..., probe=True, probe_periods=1,
+   run_overrides={"attention_backend": "auto"})``, seeded bf16 weights,
+   the cache filled with seeded random K/V to ``max_len − 1``
+   positions): one decode step — B 128 over a 32 768-position cache of
+   8 KV heads (the dense kernel's split route), and B 1 over 524 288
+   positions (GQA 4) — its dense call within one LUT step of the plain
+   version (the largest integer Σ printed; past 2^24 also the gap to
+   the plain version with Σ in f64), the dense launches equal to the
+   attention layers, ``FlopCounterMode``'s count of the real step equal
+   to the trace's, the step's peak memory within 10 % of the trace's
+   estimate, and the kernel's time at both shapes (L2 flushed, median of
+   20) beside its bytes bound, its plain version and exact SDPA.
 
 The whole run's seconds follow the phases.  The line before the last
 is the card's name and power limit, the one before it a JSON summary of
@@ -294,7 +313,7 @@ paged kernels their rows at the MoE widths under ``shapes``, with the
 launches of that model's REXP bf16 drive, and the dense one its rows at
 Jamba's two shapes, with the Jamba REXP drive's launches, and at the
 Qwen3-32B eval's, with the REXP eval's launches and the full-width
-step's numbers under ``train``); the last
+step's numbers under ``train``, and at phase 12's two cells'); the last
 line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1769,8 +1788,9 @@ def phase_tp(model, params, requests, card):
 #: depth of the MoE drives, at full width: the port's Python launches
 #: take ~3.5 ms a layer and step, so a full-depth DeepSeek drive (28
 #: layers) took 22 s, and at 8 layers the phase still took 145 s (this
-#: script on an H100 80GB HBM3, 700 W); 6 layers keep it near 110 s
-MOE_LAYERS = 6
+#: script on an H100 80GB HBM3, 700 W); 6 layers kept it near 110 s, and
+#: 4 make room for phase 12 within the run's time limit
+MOE_LAYERS = 4
 
 
 def setup_moe(name):
@@ -1839,9 +1859,9 @@ def pinned_routes(record=None, replay=None, flips=None):
             return out
         experts, cap, g = next(calls).to(xt.device), out[4], out[5]
         data = MOE._data_mesh()
-        if data is not None:      # a data rank's rows of a global routing
-            t = xt.shape[0]
-            experts = experts[data.data_rank * t:(data.data_rank + 1) * t]
+        if data is not None:      # a rank's rows of a global routing
+            t, i = xt.shape[0], data[0].index(data[1])
+            experts = experts[i * t:(i + 1) * t]
         flips.append((experts != out[1]).any(-1))
         logits = xt.float() @ p["router"].float()
         probs = LUT.make_softmax_fn(kw["router_policy"])(logits, axis=-1)
@@ -4179,6 +4199,260 @@ def phase_ranks_pipeline(card, device="cuda", arch=None):
     return dict(out=worst_out, grad=worst_grad[0], bitwise=bitwise)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the reference's cells — the dry run and two cells on the card
+# ---------------------------------------------------------------------------
+
+#: the cells phase 12 builds for real, at one period
+C_CELLS = (("qwen3-32b", "decode_32k"), ("jamba-v0.1-52b", "long_500k"))
+C_PROBE = dict(probe=True, probe_periods=1,
+               run_overrides={"attention_backend": "auto"})
+#: the step's measured peak against the trace's estimate
+C_MEM_TOL = 0.10
+
+
+def dry_records(card):
+    """Phase 12a: the dry-run records of the two cells at full depth on
+    the 16×16 mesh and of Granite × train_4k on the 2×16×16 mesh, as
+    ``launch/dryrun.py`` prints them."""
+    from repro_torch.launch.dryrun import line, run_cell
+    for arch, shape, multi_pod in (*((a, s, False) for a, s in C_CELLS),
+                                   ("granite-moe-3b-a800m", "train_4k",
+                                    True)):
+        rec = run_cell(arch, shape, multi_pod)
+        print(f"[cells] {line(rec)} — {card}")
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run of {arch} × {shape}: "
+                                 f"{rec.get('traceback')}")
+
+
+def cell_trace(arch, shape):
+    """Phase 12a on the (data 1, model 1) mesh: the one-period cell and
+    its trace (its FLOPs and peak are what 12b holds the card to)."""
+    from repro_torch.launch import cells as CELLS
+    from repro_torch.launch.mesh import make_fake_mesh
+    cell = CELLS.build_cell(arch, shape, make_fake_mesh(1, 1), **C_PROBE)
+    tr = CELLS.trace_cell(cell)
+    print(f"[cells] dry run {arch} × {shape} one period on (data 1, model "
+          f"1): {tr.flops:.6e} FLOPs, arguments "
+          f"{tr.argument_bytes / 2**30:.3f} GiB, peak "
+          f"{tr.peak_bytes / 2**30:.3f} GiB + workspaces "
+          f"{(tr.live_bytes - tr.peak_bytes) / 2**20:.0f} MiB, "
+          f"collectives {tr.collectives or 'none'}, trace "
+          f"{tr.seconds:.2f}s")
+    return cell, tr
+
+
+def _real_cell_args(cell):
+    """Seeded bf16 weights (drawn and cast block by block), the cache
+    (and recurrent states) filled with seeded random values to
+    ``max_len − 1`` positions, and the rank's tokens, on the card."""
+    from repro_torch.launch.cells import _at_length
+    from repro_torch.runtime import partitioning as PT
+    model, run, shape = cell.model, cell.run, cell.shape
+    b, s = shape.global_batch, shape.seq_len
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    params = model.init(gen, "cuda", dtype=torch.bfloat16)
+
+    def fill(x, name, recurrent):
+        return torch.randn(x.shape, generator=gen, dtype=x.dtype,
+                           device="cuda")
+
+    state = _at_length(PT.map_cache(model.decode_state_struct(b, s, run),
+                                    fill), s - 1)
+    token = torch.randint(0, model.cfg.vocab_size, (b, 1), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    return params, token, state
+
+
+#: batch rows a plain-version call of phase 12 takes at once (the plain
+#: version repeats K in f32 for every query head: Qwen3's whole decode
+#: call would need 128 GiB)
+C_PLAIN_ROWS = 8
+
+
+def plain_rows(q, k, v, policy, kw):
+    """The plain version of a dense call, C_PLAIN_ROWS batch rows at a
+    time (each row's attention is its own), concatenated."""
+    return torch.cat([
+        ops.lut_attention(q[i:i + C_PLAIN_ROWS], k[i:i + C_PLAIN_ROWS],
+                          v[i:i + C_PLAIN_ROWS], policy,
+                          **{**kw, "backend": "naive"})
+        for i in range(0, q.shape[0], C_PLAIN_ROWS)])
+
+
+def sdpa_gqa_ms(q, k, v):
+    """Exact attention by one library call on the same inputs, every key
+    visible (a decode step at the cache's last position): the query
+    heads share their KV head's rows (``enable_gqa``), nothing
+    repeated."""
+    return device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, enable_gqa=True))
+
+
+def sigma_f64_gap(out, q, k, v, kv_len, pol):
+    """The largest integer Σ of a REXP faithful dense call, and — where it
+    passes 2^24, past which the plain version's f32 Σ is not exact — the
+    gap max|out − ref| to the plain version with Σ summed in f64 (and
+    σ·V carried in f64) over the first ``C_PLAIN_ROWS`` batch rows; None
+    below."""
+    tables = ops._tables_for(pol)
+
+    def numerators(i):
+        r = slice(i, i + C_PLAIN_ROWS)
+        s = REF._logits(q[r], k[r], q.shape[-1] ** -0.5, True, kv_len)
+        return LUT.rexp_exp_int(s, tables, axis=-1,
+                                index_mode=pol.index_mode)
+
+    smax = max(float(numerators(i).double().sum(-1).max())
+               for i in range(0, q.shape[0], C_PLAIN_ROWS))
+    if smax < 2**24:
+        return None, smax
+    e = numerators(0)
+    ssum = e.double().sum(-1, keepdim=True)
+    inv = LUT.inv_scale(tables.precision.qmax)
+    ja = LUT._bin_index(ssum * inv, pol.index_mode, 0,
+                        len(tables.lut_alpha) - 1)
+    alpha = torch.as_tensor(tables.lut_alpha, dtype=torch.int64,
+                            device=q.device)[ja]
+    sigma = torch.round((e.long() * alpha).double() * inv) * inv
+    b, h, lq, lk = sigma.shape
+    kvh = k.shape[1]
+    ref = torch.matmul(sigma.view(b, kvh, h // kvh * lq, lk),
+                       v[:b].double())
+    return (float((out[:b].double() - ref.view(b, h, lq, -1)).abs().max()),
+            smax)
+
+
+def cell_tensors(*trees):
+    from repro_torch.launch.cells import _tensors
+    return _tensors(trees)
+
+
+def real_cell(cell, tr, card):
+    """Phase 12b for one cell: its step (built on the (data 1, model 1)
+    mesh, where a rank's step is the single-card step) once on the card
+    on seeded weights and cache, held to the plain version, the trace's
+    FLOPs and its memory estimate; the dense call timed.  Returns the
+    kernel's row for the summary."""
+    from torch.utils.flop_counter import FlopCounterMode
+    t0 = time.perf_counter()
+    arch, shape = cell.arch.name, cell.shape.name
+    cfg, pol = cell.arch, cell.run.softmax_policy
+    qmax = get_precision(pol.precision).qmax
+    params, token, state = _real_cell_args(cell)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    calls = []
+
+    def recorded(q, k, v, policy, **kw):
+        out = ops.lut_attention(q, k, v, policy, **kw)
+        calls.append((q, k, v, policy, kw, out))
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() - sum(
+        x.untyped_storage().nbytes() for x in cell_tensors(params, token,
+                                                           state))
+    torch.cuda.reset_peak_memory_stats()
+    _zero_dense()
+    LAYERS.lut_attention = recorded
+    try:
+        with FlopCounterMode(display=False) as fc:
+            logits, _ = cell.fn(params, token, state)
+        torch.cuda.synchronize()
+    finally:
+        LAYERS.lut_attention = ops.lut_attention
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = sum(lut_attention_cuda.launches.values())
+    n_attn = cfg.n_periods * sum(sp.mixer == "attn" for sp in cfg.period)
+    if launches != n_attn or len(calls) != n_attn:
+        raise AssertionError(f"{arch}: {launches} dense launches, "
+                             f"{len(calls)} calls; {n_attn} attention "
+                             f"layers")
+    if not bool(torch.isfinite(logits).all()) or tuple(logits.shape) != (
+            cell.shape.global_batch, 1, cfg.vocab_size):
+        raise AssertionError(f"{arch}: logits {tuple(logits.shape)} not "
+                             f"finite")
+    flops = int(fc.get_total_flops())
+    if flops != tr.flops:
+        raise AssertionError(f"{arch}: the step counted {flops} FLOPs, the "
+                             f"trace {tr.flops}")
+    off = abs(peak - tr.live_bytes) / tr.live_bytes
+    print(f"[cells] {arch} × {shape} one period on the card: setup "
+          f"{t_setup:.1f}s; {base / 2**20:.0f} MiB held before the cell "
+          f"(not counted); {launches} dense launch(es) "
+          f"{dict(lut_attention_cuda.route_launches)}; FLOPs {flops:.6e} "
+          f"(trace {tr.flops:.6e}); peak {peak / 2**30:.3f} GiB against the "
+          f"trace's {tr.live_bytes / 2**30:.3f} GiB ({off:.2%} off, held "
+          f"within {C_MEM_TOL:.0%}) — {card}")
+    if not off <= C_MEM_TOL:
+        raise AssertionError(f"{arch}: peak {peak} vs estimate "
+                             f"{tr.live_bytes}")
+    q, k, v, policy, kw, out = calls[0]
+    ref = plain_rows(q, k, v, policy, kw)
+    err = float((out - ref).abs().max())
+    limit = 2.0 / qmax * float(v.float().abs().max())
+    gap, smax = sigma_f64_gap(out, q, k, v, kw.get("kv_len"), policy)
+    extra = (f"; Σ past 2^24: the kernel within {gap:.3g} of the plain "
+             f"version with Σ in f64" if gap is not None else "")
+    b, h, lq, dh = q.shape
+    kvh, lk = k.shape[1], k.shape[2]
+    kv_len = kw.get("kv_len")
+    route = dense_route(q.dtype, dh, lq, qmax, "rexp")
+    print(f"[cells] {arch} dense call q {tuple(q.shape)} k "
+          f"{tuple(k.shape)} kv_len {kv_len} {route}: max|err| {err:.3g} "
+          f"(one LUT step {limit:.3g}); largest integer Σ {smax:.0f}"
+          f"{extra}")
+    if not err <= limit:
+        raise AssertionError(f"{arch}: dense call off its plain version by "
+                             f"{err} > {limit}")
+    del logits, ref, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    b_ms, b_by = dense_bound(b, h, kvh, lq, lk, dh, q.dtype,
+                             dense_pairs(lq, lk, True, kv_len))
+    row = dict(route=route, launches=launches, max_abs_err=err,
+               ms=device_ms(lambda: ops.lut_attention(q, k, v, policy,
+                                                      **kw)),
+               plain_ms=device_ms(lambda: plain_rows(q, k, v, policy, kw)),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               sdpa_ms=sdpa_gqa_ms(q, k, v),
+               sigma_max=smax, sigma_f64_gap=gap, flops=flops, peak=peak,
+               estimate=tr.live_bytes)
+    print(f"[time] lut_attention rexp bf16 {arch} × {shape} B={b} "
+          f"H={h}/{kvh} Lq={lq} Lk={lk} kv_len={kv_len} Dh={dh} {route}: "
+          f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms "
+          f"({C_PLAIN_ROWS} rows a call), exact SDPA (GQA) "
+          f"{row['sdpa_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"{b_ms / row['ms']:.1%} of bound — {card}")
+    if kv_len != lk or lq != 1:
+        raise AssertionError(f"{arch}: the SDPA yardstick assumes every "
+                             f"key visible, got kv_len {kv_len} of {lk}")
+    del q, k, v, out, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_cells(card):
+    """Phase 12 (lines ``[cells]``): the dry run of the reference's cells
+    and two of them on the card (module docstring).  Returns the dense
+    kernel's rows at the two cells' shapes."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    print(f"[cells] {card}")
+    traces = [cell_trace(*cell) for cell in C_CELLS]
+    dry_records(card)
+    print(f"[cells] phase 12a: {time.perf_counter() - t0:.1f}s")
+    rows = {f"{cell.arch.name}-{cell.shape.name}": real_cell(cell, tr, card)
+            for cell, tr in traces}
+    print(f"[cells] phase 12: {time.perf_counter() - t0:.1f}s — {card}")
+    return rows
+
+
 def phase_ranks(card, device="cuda"):
     """Phase 11 (lines ``[ranks]``): the model across ranks — expert-
     parallel serving, the sharded train step with its checkpoint
@@ -4231,6 +4505,7 @@ def main() -> int:
         launches.update(counts)
     kernels["lut_attention"]["shapes"]["qwen3-32b-eval"] = phase_train(card)
     phase_ranks(card)
+    kernels["lut_attention"]["shapes"].update(phase_cells(card))
     summary = {"kernels": [
         dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}.cu",
              replaces=f"src/repro/kernels/{replaces}",

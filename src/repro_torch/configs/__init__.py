@@ -10,7 +10,9 @@
   Whisper-small encoder-decoder, which the lockstep path runs — the
   paged engines refuse them, as the JAX package's do."""
 
-from repro_torch.configs.base import ArchConfig, LayerSpec, MoESpec, RunConfig
+from repro_torch.configs.base import (SHAPES, ArchConfig, LayerSpec, MoESpec,
+                                      RunConfig, ShapeConfig,
+                                      shape_applicable)
 
 from repro_torch.configs import (
     chameleon_34b,
@@ -41,5 +43,5 @@ def get_arch(name: str) -> ArchConfig:
             f"unknown arch {name!r}; available: {sorted(ARCHS)}") from None
 
 
-__all__ = ["ArchConfig", "LayerSpec", "MoESpec", "RunConfig", "ARCHS",
-           "get_arch"]
+__all__ = ["ArchConfig", "LayerSpec", "MoESpec", "RunConfig", "ShapeConfig",
+           "ARCHS", "SHAPES", "get_arch", "shape_applicable"]

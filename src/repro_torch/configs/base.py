@@ -4,8 +4,9 @@ An :class:`ArchConfig` fully determines a model; the layer stack is
 described as a repeating *period* of :class:`LayerSpec`s (homogeneous
 dense models have a period of 1; Jamba has a period of 8 with one
 attention layer; xLSTM alternates mLSTM/sLSTM).  A copy of the JAX
-package's ``configs/base.py`` without its shape registry, so a config
-converts one to one.
+package's ``configs/base.py``, so a config converts one to one; its
+shape registry (:data:`SHAPES`, the four cell shapes of
+``launch/cells.py``) too.
 """
 
 from __future__ import annotations
@@ -149,6 +150,36 @@ class ArchConfig:
         return total
 
 
+# ---------------------------------------------------------------------------
+# Shape registry (the cells)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: Literal["train", "prefill", "decode"]
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether a cell runs, with the skip reason: ``long_500k`` only for
+    the sub-quadratic archs (SSM / hybrid)."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, ("full-attention arch: 500k-context decode requires "
+                       "sub-quadratic sequence mixing (run for SSM/hybrid only)")
+    return True, ""
+
+
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Runtime knobs independent of architecture identity.
@@ -157,7 +188,7 @@ class RunConfig:
     its scan: the port walks the periods in a Python loop and runs the
     recurrent mixers as step loops, so ``scan_layers``, ``ssm_chunk`` and
     ``probe_unroll`` have no counterpart (nor ``q_chunk`` / ``k_chunk``,
-    which ``lut_attention`` takes directly, or ``shard_kv_seq``).
+    which ``lut_attention`` takes directly).
     """
     dtype: str = "bfloat16"                        # activations and the
                                                    # KV pool on the card
@@ -184,3 +215,6 @@ class RunConfig:
     label_smoothing: float = 0.0
     moe_aux_weight: float = 0.01
     grad_compression: bool = False                 # int8 + error feedback
+    shard_kv_seq: bool = False                     # the KV length over
+                                                   # 'data' too (long
+                                                   # context, batch 1)

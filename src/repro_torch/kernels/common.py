@@ -21,6 +21,7 @@ import functools
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core.lut_builder import Lut2DTables, RexpTables
 from repro_torch.core.lut_softmax import _bin_index, inv_scale
@@ -83,6 +84,14 @@ def policy_kernel_tables(method: str, tables):
 KERNEL_METHODS = {"exact": 0, "rexp": 1, "lut2d": 2}
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FLOAT_DTYPES = {**KERNEL_DTYPES, torch.float16: 2}
+
+
+def shapes_only(t: Tensor) -> bool:
+    """Whether ``t`` carries shapes only — a fake tensor
+    (``FakeTensorMode``, the dry run's) or one on the meta device — so a
+    kernel's wrapper gives an output of the kernel's shape and dtype and
+    runs nothing: no plain version, no build, no launch."""
+    return t.is_meta or is_fake(t)
 
 
 @functools.lru_cache(maxsize=64)

@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import FLOAT_DTYPES
+from repro_torch.kernels.common import FLOAT_DTYPES, shapes_only
 from repro_torch.kernels.flash_attention import ref as _ref
 
 Tensor = torch.Tensor
@@ -125,6 +125,10 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
         raise ValueError(f"the tile route takes bfloat16 or float16 with "
                          f"D ≤ {TILE_MAX_D}, a multiple of 8; got "
                          f"{q.dtype}, D={d}")
+    if shapes_only(q):
+        f32 = dict(dtype=torch.float32, device=q.device)
+        return (torch.empty(q.shape, **f32), torch.empty(q.shape[:3], **f32),
+                torch.empty(q.shape[:3], **f32))
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      kv_len=kv_len)

@@ -29,15 +29,24 @@ k, v (B, KVH, Lk, D) with the REXP or 2D-LUT softmax; the output is f32.
 ``"rexp_fused"`` (REXP's α form), ``"rexp"`` (faithful per-element σ)
 and ``"lut2d"``; ``lut_attention_cuda.route_launches`` counts them per
 route.
+
+The launch is the custom operator ``repro_torch::lut_attention_dense``
+(``torch.library.custom_op``), so a fake or meta tensor (the dry run's
+``FakeTensorMode``, ``launch/cells.py``) gets an output of the kernel's
+shape and dtype from its fake implementation — no build, no library, no
+launch, no plain version — and ``FlopCounterMode`` counts the kernel's
+:func:`dense_flops` on fake and real tensors alike.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.lut_builder import Lut2DTables, RexpTables
 from repro_torch.kernels import build
-from repro_torch.kernels.common import KERNEL_DTYPES, kernel_tables
+from repro_torch.kernels.common import (KERNEL_DTYPES, kernel_tables,
+                                        shapes_only)
 from repro_torch.kernels.lut_attention import ref as _ref
 
 Tensor = torch.Tensor
@@ -108,11 +117,51 @@ def lut_attention_plain(q: Tensor, k: Tensor, v: Tensor,
                                   fused_requant=fused_requant, kv_len=kv_len)
 
 
+def dense_flops(q_shape, k_shape) -> int:
+    """The dense kernel's FLOPs: QKᵀ and σ·V over every key of the call,
+    ``4 · B · H · Lq · Lk · Dh`` — the count before the causal and
+    ``kv_len`` masks (the kernel's tiles walk the masked keys' blocks
+    too, up to its block edges)."""
+    b, h, lq, dh = q_shape
+    return 4 * b * h * lq * k_shape[2] * dh
+
+
+@torch.library.custom_op("repro_torch::lut_attention_dense", mutates_args=())
+def _dense_op(q: Tensor, k: Tensor, v: Tensor, main: Tensor, aux: Tensor,
+              ints: list[int], floats: list[float], kv: int, causal: bool,
+              fused: bool, route: int, scale: float) -> Tensor:
+    """One launch of ``csrc/lut_attention.cu`` on CUDA tensors."""
+    b, h, lq, dh = q.shape
+    out = torch.empty((b, h, lq, dh), dtype=torch.float32, device=q.device)
+    err = build.load("lut_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), main.data_ptr(),
+        aux.data_ptr(), out.data_ptr(), KERNEL_DTYPES[q.dtype], b, h,
+        k.shape[1], lq, k.shape[2], dh, kv, int(causal), int(fused), route,
+        *ints, scale, *floats,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lut_attention kernel launch failed "
+                           f"({ROUTES[route]} route): CUDA error {err}")
+    return out
+
+
+@_dense_op.register_fake
+def _dense_fake(q, k, v, main, aux, ints, floats, kv, causal, fused, route,
+                scale):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.lut_attention_dense)
+def _dense_flop_formula(q_shape, k_shape, *args, out_shape=None, **kwargs):
+    return dense_flops(q_shape, k_shape)
+
+
 def check_kernel_inputs(q: Tensor, k: Tensor, v: Tensor,
                         kv_len: Tensor | int | None) -> int:
     """Validate what the kernel takes; returns ``kv_len`` as an int (Lk
     when None).  Raises on anything the kernel does not take instead of
-    launching on it."""
+    launching on it (a tensor of shapes only has no storage to
+    align)."""
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"the dense LUT kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -123,7 +172,7 @@ def check_kernel_inputs(q: Tensor, k: Tensor, v: Tensor,
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; the "
                              f"kernel takes {q.dtype} on {q.device}")
-        if t.data_ptr() % 16:
+        if not shapes_only(t) and t.data_ptr() % 16:
             raise ValueError(f"the kernel reads {name} 16 bytes at a time: "
                              f"its storage must be 16-byte aligned")
     b, h, lq, dh = q.shape
@@ -163,7 +212,9 @@ def lut_attention_cuda(q: Tensor, k: Tensor, v: Tensor,
     ``"tiles"`` only those :func:`tiles_take` names, at any row count.
     The kernel has no backward: under autograd, inputs that require
     grad raise (on any device) rather than give an output that silently
-    carries no gradient — evaluate under ``torch.no_grad()``.
+    carries no gradient — evaluate under ``torch.no_grad()``.  Fake and
+    meta tensors (:func:`shapes_only`) get the output's shape from the
+    operator's fake implementation, and no launch is counted.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
@@ -183,27 +234,24 @@ def lut_attention_cuda(q: Tensor, k: Tensor, v: Tensor,
                          f"{TILE_MAX_DH} (a multiple of 8) and qmax ≤ "
                          f"{TILE_MAX_QMAX}; got {q.dtype}, Dh={dh}, "
                          f"qmax={qmax}")
-    if not q.is_cuda:
+    fake = shapes_only(q)
+    if not q.is_cuda and not fake:
         return _ref.lut_attention_ref(q, k, v, method=method, tables=tables,
                                       scale=scale, causal=causal,
                                       index_mode=index_mode,
                                       fused_requant=fused_requant,
                                       kv_len=kv_len)
     kv = check_kernel_inputs(q, k, v, kv_len)
-    kvh, lk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else dh ** -0.5
+    if fake:
+        none = q.new_empty((0,), dtype=torch.int32)
+        return _dense_op(q, k, v, none, none, [0] * 5, [0.0] * 4, kv,
+                         causal, mode == "rexp_fused", ROUTES.index(route),
+                         scale)
     main, aux, ints, floats = kernel_tables(method, tables, index_mode,
                                             q.device)
-    out = torch.empty((b, h, lq, dh), dtype=torch.float32, device=q.device)
-    scale = scale if scale is not None else dh ** -0.5
-    err = build.load("lut_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), main.data_ptr(),
-        aux.data_ptr(), out.data_ptr(), KERNEL_DTYPES[q.dtype], b, h, kvh,
-        lq, lk, dh, kv, int(causal), int(mode == "rexp_fused"),
-        ROUTES.index(route), *ints, scale, *floats,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lut_attention kernel launch failed ({route} "
-                           f"route): CUDA error {err}")
+    out = _dense_op(q, k, v, main, aux, list(ints), list(floats), kv, causal,
+                    mode == "rexp_fused", ROUTES.index(route), scale)
     lut_attention_cuda.launches[mode] += 1
     lut_attention_cuda.route_launches[route] += 1
     return out

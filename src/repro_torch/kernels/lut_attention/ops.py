@@ -54,6 +54,11 @@ rank passes is its own share, ``partitioning.local_pool_specs``):
 its ``'pages'`` partials in plain JAX too, and no CUDA kernel returns
 them yet).
 
+Tensors of shapes only (fake or meta: ``kernels.common.shapes_only``,
+the dry run's) take the CUDA column of both matrices, whatever device
+they name: the kernels' fake implementations give their outputs'
+shapes, so a trace follows the card's path and nothing runs.
+
 There is no fallback in either matrix: on CUDA tensors ``auto`` and
 ``cuda`` launch the hand-written kernel (``csrc/paged_decode.cu`` /
 ``csrc/paged_prefill.cu`` / ``csrc/lut_attention.cu``) or raise — a
@@ -86,6 +91,7 @@ from repro_torch.core import lut_builder
 from repro_torch.core import lut_softmax as _core
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.core.quantization import dequantize_rows
+from repro_torch.kernels.common import shapes_only
 from repro_torch.kernels.lut_attention import ref as _ref
 from repro_torch.kernels.lut_attention.lut_attention import lut_attention_cuda
 
@@ -341,6 +347,12 @@ def lut_attention_blocked(q: Tensor, k: Tensor, v: Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _device_of(q: Tensor):
+    """The device a dispatch reads: ``"cuda"`` for tensors of shapes
+    only (the module docstring), else the tensor's own."""
+    return "cuda" if shapes_only(q) else q.device
+
+
 def resolve_attention_backend(backend: str = "auto",
                               device: torch.device | str = "cuda") -> str:
     """The dense matrix of the module docstring, in code: returns
@@ -376,7 +388,7 @@ def lut_attention(q: Tensor, k: Tensor, v: Tensor, policy: SoftmaxPolicy,
     in the JAX package.  Dispatches per the module docstring's matrix;
     ``q_chunk`` / ``k_chunk`` size the ``blocked`` path's tiles.
     """
-    route = resolve_attention_backend(backend, q.device)
+    route = resolve_attention_backend(backend, _device_of(q))
     if route == "blocked":
         return lut_attention_blocked(q, k, v, policy, causal=causal,
                                      scale=scale, kv_len=kv_len,
@@ -554,7 +566,7 @@ def lut_attention_paged_decode(
                    max_kv_len=max_kv_len, **kw)
     if out is not None:
         return out
-    if resolve_paged_backend(backend, q.device) == "cuda":
+    if resolve_paged_backend(backend, _device_of(q)) == "cuda":
         return paged_decode.paged_decode_attention(
             *args, **kw, max_kv_len=max_kv_len, plan_kv_heads=plan_kv_heads)
     return paged_decode.paged_decode_plain(*args, **kw)
@@ -593,7 +605,7 @@ def lut_attention_paged_prefill(
                    max_kv_len=max_kv_len, **kw)
     if out is not None:
         return out
-    if resolve_paged_prefill_backend(backend, q.device) == "cuda":
+    if resolve_paged_prefill_backend(backend, _device_of(q)) == "cuda":
         return paged_prefill.paged_prefill_attention(
             *args, **kw, max_kv_len=max_kv_len, plan_kv_heads=plan_kv_heads)
     return paged_prefill.paged_prefill_plain(*args, **kw)

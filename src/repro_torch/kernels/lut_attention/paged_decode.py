@@ -34,7 +34,8 @@ import torch
 
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.kernels import build
-from repro_torch.kernels.common import KERNEL_DTYPES, kernel_tables
+from repro_torch.kernels.common import (KERNEL_DTYPES, kernel_tables,
+                                        shapes_only)
 from repro_torch.kernels.lut_attention import ops
 
 Tensor = torch.Tensor
@@ -184,6 +185,8 @@ def paged_decode_attention(
     if lq != 1:
         raise ValueError(f"paged decode takes single-token queries, got "
                          f"Lq={lq}")
+    if shapes_only(q):
+        return torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if not q.is_cuda:
         return paged_decode_plain(q, k_pages, v_pages, block_tables,
                                   kv_lens, policy, scale=scale,

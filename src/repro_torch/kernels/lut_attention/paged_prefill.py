@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.core.policies import SoftmaxPolicy
 from repro_torch.kernels import build
-from repro_torch.kernels.common import KERNEL_DTYPES
+from repro_torch.kernels.common import KERNEL_DTYPES, shapes_only
 from repro_torch.kernels.lut_attention import ops
 from repro_torch.kernels.lut_attention.paged_decode import (
     _kernel_tables, aligned, check_kernel_inputs, max_len_arg,
@@ -75,6 +75,8 @@ def paged_prefill_attention(
     counts the launches on f32/bf16 pools, ``int8_launches`` those on
     int8 pools.
     """
+    if shapes_only(q):
+        return torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if not q.is_cuda:
         return paged_prefill_plain(q, k_pages, v_pages, block_tables,
                                    q_start, kv_lens, policy, scale=scale,

@@ -33,11 +33,15 @@ Tensor = torch.Tensor
 
 def lut_decode_sharded(q: Tensor, k: Tensor, v: Tensor,
                        policy: SoftmaxPolicy, *, kv_len, mesh: PT.Mesh,
-                       scale: float | None = None) -> Tensor:
+                       scale: float | None = None, start: int | None = None,
+                       axes: tuple[str, ...] = ("model",)) -> Tensor:
     """q (B, H, 1, D) — every rank's the same; k, v (B, KVH, L/tp, D) —
-    this rank's length shard, its first position ``rank · L/tp``;
-    ``kv_len`` the valid key count (int or 0-d tensor).  Returns
-    (B, H, 1, D) f32, the same on every rank."""
+    this rank's length shard, its first position ``start`` (default
+    ``rank · L/tp``); ``kv_len`` the valid key count (int or 0-d
+    tensor).  The partials are reduced over ``axes`` (the mesh axes the
+    length is cut over: ``'model'``, and ``'data'`` too for a
+    ``shard_kv_seq`` cache).  Returns (B, H, 1, D) f32, the same on
+    every rank of those axes."""
     if policy.impl not in ("exact", "rexp"):
         raise ValueError(f"length-sharded decode serves exact and rexp, not "
                          f"{policy.impl!r}")
@@ -46,21 +50,24 @@ def lut_decode_sharded(q: Tensor, k: Tensor, v: Tensor,
     g = h // kvh
     scale = scale if scale is not None else d ** -0.5
     dev = q.device
-    ki = mesh.rank * l_shard + torch.arange(l_shard, device=dev)
+    if start is None:
+        start = mesh.rank * l_shard
+    ki = start + torch.arange(l_shard, device=dev)
     valid = ki < torch.as_tensor(kv_len, device=dev)
     qg = q.reshape(b, kvh, g, lq, d).float()
     s = torch.einsum("bngqd,bnkd->bngqk", qg, k.float()) * scale
     s = torch.where(valid, s, torch.full_like(s, float("-inf")))
-    m = PT.all_reduce(torch.amax(s, dim=-1), mesh, "max", site="decode_max")
+    m = PT.all_reduce(torch.amax(s, dim=-1), mesh, "max", site="decode_max",
+                      axis=axes)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     finite = torch.isfinite(s)
     if policy.impl == "exact":
         p = torch.where(finite, torch.exp(s - m_safe[..., None]),
                         torch.zeros_like(s))
         lsum = PT.all_reduce(torch.sum(p, dim=-1), mesh, "sum",
-                             site="decode_sum")
+                             site="decode_sum", axis=axes)
         u = PT.all_reduce(torch.einsum("bngqk,bnkd->bngqd", p, v.float()),
-                          mesh, "sum", site="decode_u")
+                          mesh, "sum", site="decode_u", axis=axes)
         out = u / torch.clamp(lsum, min=1e-30)[..., None]
         return out.reshape(b, h, lq, d)
     tables = lut_builder.build_rexp_tables(policy.precision,
@@ -75,9 +82,9 @@ def lut_decode_sharded(q: Tensor, k: Tensor, v: Tensor,
     e = torch.where(finite, lut_re[bins],
                     torch.zeros((), dtype=torch.int32, device=dev)).float()
     ssum = PT.all_reduce(torch.sum(e, dim=-1), mesh, "sum",
-                         site="decode_sum")
+                         site="decode_sum", axis=axes)
     u = PT.all_reduce(torch.einsum("bngqk,bnkd->bngqd", e, v.float()), mesh,
-                      "sum", site="decode_u")
+                      "sum", site="decode_u", axis=axes)
     inv = inv_scale(tables.precision.qmax)
     ja = _bin_index(ssum * inv, policy.index_mode, 0, lut_a.shape[0] - 1)
     alpha = lut_a[ja].float()

@@ -45,7 +45,8 @@ import torch
 from repro_torch.core import lut_softmax as _core
 from repro_torch.core.lut_builder import Lut2DTables, RexpTables
 from repro_torch.kernels import build
-from repro_torch.kernels.common import FLOAT_DTYPES, kernel_tables
+from repro_torch.kernels.common import (FLOAT_DTYPES, kernel_tables,
+                                        shapes_only)
 
 Tensor = torch.Tensor
 
@@ -209,6 +210,8 @@ def rexp_softmax_cuda(x: Tensor, tables: RexpTables,
     """REXP row softmax over the last axis of ``x``; f32 of ``x``'s shape.
     CUDA tensors launch the kernel (or raise); CPU tensors run
     :func:`rexp_softmax_plain`."""
+    if shapes_only(x):
+        return torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if not x.is_cuda:
         return rexp_softmax_plain(x, tables, index_mode)
     if x.numel() == 0:
@@ -223,6 +226,8 @@ def lut2d_softmax_cuda(x: Tensor, tables: Lut2DTables,
     """2D-LUT row softmax over the last axis of ``x``; f32 of ``x``'s
     shape.  CUDA tensors launch the kernel (or raise); CPU tensors run
     :func:`lut2d_softmax_plain`."""
+    if shapes_only(x):
+        return torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if not x.is_cuda:
         return lut2d_softmax_plain(x, tables, index_mode)
     if x.numel() == 0:

@@ -2,15 +2,25 @@
 them.
 
 The counterpart of the JAX package's ``launch/mesh.py``
-(``make_serving_mesh``, ``make_host_mesh``).  JAX builds a mesh over one
+(``make_serving_mesh``, ``make_host_mesh``, ``make_production_mesh``).  JAX builds a mesh over one
 process's devices; here a mesh is one rank's view of a
 ``torch.distributed`` process group, so a mesh of n ranks starts n
 processes (:func:`start_ranks`), each of which joins the group over a
 ``file://`` store in a directory on the local disk — no network — and
 builds its :class:`~repro_torch.runtime.partitioning.Mesh`:
 :func:`make_serving_mesh` (``tp`` ranks over ``'model'``),
-:func:`make_host_mesh` (``('data', 'model')``, training) or
-:func:`make_pipe_mesh` (``('pipe',)``).
+:func:`make_host_mesh` (``('data', 'model')``, training, or
+``('pod', 'data', 'model')``) or :func:`make_pipe_mesh` (``('pipe',)``).
+
+:func:`make_production_mesh` is the JAX package's 16×16 ``('data',
+'model')`` or 2×16×16 ``('pod', 'data', 'model')`` mesh as one rank's
+view, for the dry run (``launch/dryrun.py``): the port has no cluster,
+so it joins a world of 256 or 512 ranks in this one process over the
+``fake`` backend of ``torch.distributed``
+(``torch.testing._internal.distributed.fake_pg``), whose collectives
+give tensors of the right shape and move nothing.  Only the dry run
+takes that backend: :func:`make_serving_mesh`, :func:`make_host_mesh`
+and :func:`start_ranks` refuse it.
 
 The backend is the caller's choice, never a fallback: ``nccl`` needs one
 CUDA device a rank (rank r runs on ``cuda:r``) and raises when the host
@@ -47,7 +57,11 @@ def rank_device(backend: str, device, rank: int) -> torch.device:
 
 
 def check_backend(tp: int, backend: str, device) -> None:
-    """Raise unless ``backend`` can run ``tp`` ranks on ``device``."""
+    """Raise unless ``backend`` can run ``tp`` ranks on ``device`` (the
+    ``fake`` backend runs no rank: :func:`make_production_mesh` only)."""
+    if backend == "fake":
+        raise ValueError("the fake backend is the dry run's "
+                         "(make_production_mesh); it runs no rank")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}: expected one of "
                          f"{BACKENDS}")
@@ -77,6 +91,13 @@ def make_serving_mesh(tp: int, *, backend: str, device, rank: int = 0,
 
 
 def _join(world: int, backend: str, rank: int, store: str | None):
+    if backend == "fake":
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                world_size=world)
+        return datetime.timedelta(seconds=TIMEOUT_S)
     if store is None:
         raise ValueError("a mesh of more than one rank needs the path of "
                          "a file:// store")
@@ -101,31 +122,52 @@ def _groups(rows: list[list[int]], backend: str, timeout):
 
 
 def make_host_mesh(data: int, model: int, *, backend: str, device,
-                   rank: int = 0, store: str | None = None) -> Mesh:
+                   rank: int = 0, store: str | None = None,
+                   pod: int = 0) -> Mesh:
     """Join a ``data · model``-rank process group as world ``rank`` and
     return its ``('data', 'model')`` mesh (the JAX package's
     ``make_host_mesh``): rank = ``d · model + m``, one group a row of
-    the ``'model'`` axis and one a column of ``'data'``."""
-    world = data * model
-    check_backend(world, backend, device)
-    dev = rank_device(backend, device, rank)
-    d, m = divmod(rank, model)
+    the ``'model'`` axis and one a column of ``'data'``.  ``pod > 0``
+    puts a ``'pod'`` axis of that many pods before them (``pod · data ·
+    model`` ranks, rank = ``(p · data + d) · model + m``, one group a
+    line of each axis)."""
+    check_backend(max(pod, 1) * data * model, backend, device)
+    return _host_mesh(data, model, backend, device, rank, store, pod)
+
+
+def _host_mesh(data, model, backend, device, rank, store, pod) -> Mesh:
+    pods = max(pod, 1)
+    world = pods * data * model
+    dev = (torch.device(device) if backend == "fake"
+           else rank_device(backend, device, rank))
+    p, rest = divmod(rank, data * model)
+    d, m = divmod(rest, model)
     if world == 1:
-        return Mesh(tp=1, rank=0, device=dev, backend=backend)
+        return Mesh(tp=1, rank=0, device=dev, backend=backend, pod=pod)
     if backend == "nccl":
         torch.cuda.set_device(dev)
     timeout = _join(world, backend, rank, store)
-    model_rows = [[i * model + j for j in range(model)] for i in range(data)]
-    data_rows = [[i * model + j for i in range(data)] for j in range(model)]
+
+    def world_rank(i, j, k):
+        return (i * data + j) * model + k
+
+    model_rows = [[world_rank(i, j, k) for k in range(model)]
+                  for i in range(pods) for j in range(data)]
+    data_rows = [[world_rank(i, j, k) for j in range(data)]
+                 for i in range(pods) for k in range(model)]
+    pod_rows = [[world_rank(i, j, k) for i in range(pods)]
+                for j in range(data) for k in range(model)]
     group = _groups(model_rows, backend, timeout) if model > 1 else None
     data_group = _groups(data_rows, backend, timeout) if data > 1 else None
+    pod_group = _groups(pod_rows, backend, timeout) if pods > 1 else None
     plans = None
-    if data == 1:
+    if data == 1 and pods == 1:
         plans = (group if backend == "gloo"
                  else dist.new_group(backend="gloo", timeout=timeout))
     return Mesh(tp=model, rank=m, device=dev, backend=backend, group=group,
                 plan_group=plans, data=data, data_rank=d,
-                data_group=data_group)
+                data_group=data_group, pod=pod, pod_rank=p,
+                pod_group=pod_group)
 
 
 def make_pipe_mesh(stages: int, *, backend: str, device, rank: int = 0,
@@ -143,13 +185,32 @@ def make_pipe_mesh(stages: int, *, backend: str, device, rank: int = 0,
                 pipe_rank=rank, pipe_group=dist.group.WORLD)
 
 
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0,
+                         device="meta") -> Mesh:
+    """The JAX package's production mesh as world ``rank``'s view: 16×16
+    ``('data', 'model')`` (256 ranks) or, ``multi_pod``, 2×16×16
+    ``('pod', 'data', 'model')`` (512), over the ``fake`` backend (a
+    process group of this process alone: any group it held is
+    destroyed first).  ``device`` is where the dry run's tensors lie:
+    the meta device, so nothing is allocated (``launch/cells.py``)."""
+    pod, data, model = (2, 16, 16) if multi_pod else (0, 16, 16)
+    return make_fake_mesh(data, model, pod=pod, rank=rank, device=device)
+
+
+def make_fake_mesh(data: int, model: int, *, pod: int = 0, rank: int = 0,
+                   device="meta") -> Mesh:
+    """A ``(pod,) data × model`` mesh as world ``rank``'s view over the
+    ``fake`` backend (see :func:`make_production_mesh`)."""
+    return _host_mesh(data, model, "fake", device, rank, None, pod)
+
+
 def _make_mesh(axes, backend, device, rank, store):
     if "pipe" in axes:
         return make_pipe_mesh(axes["pipe"], backend=backend, device=device,
                               rank=rank, store=store)
     return make_host_mesh(axes.get("data", 1), axes.get("model", 1),
                           backend=backend, device=device, rank=rank,
-                          store=store)
+                          store=store, pod=axes.get("pod", 0))
 
 
 def _leave() -> None:
@@ -202,7 +263,8 @@ def start_ranks(fn, tp: int | None = None, *, backend: str,
 
     The mesh is the serving mesh of ``tp`` ranks, or the one ``axes``
     names: ``{"data": d, "model": m}`` (``make_host_mesh``, ``d · m``
-    ranks) or ``{"pipe": s}`` (``make_pipe_mesh``).  ``fn`` must be
+    ranks; with ``"pod": p`` first, ``p · d · m``) or ``{"pipe": s}``
+    (``make_pipe_mesh``).  ``fn`` must be
     importable (a module-level function) and ``args`` picklable.  Rank
     0's return value is pickled into ``store_dir`` (a new temporary
     directory by default, which also holds the ``file://`` store) for

@@ -18,6 +18,13 @@ run dtype (``run.kv_dtype`` applies to the decoder-only archs).
 ``train_logits`` runs both stacks with no cache under the exact
 softmax, each block under ``transformer.remat`` when ``run.remat``, as
 the JAX package's ``jax.checkpoint`` does.
+
+Under a mesh (a training step's or a serving step's scope) the leaves
+are a rank's cut, as the decoder-only path's are: every block gathers
+its ``'data'`` cuts just before use (``partitioning.use_leaves``), an
+attention cut by heads computes the rank's heads (its cross K/V too)
+and an MLP cut by hidden units sums over ``'model'``; the serving
+self-caches are the rank's cut (``partitioning.cache_specs``).
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.policies import EXACT, SoftmaxPolicy
 from repro_torch.models import layers as L
 from repro_torch.models.device import resolve_device
-from repro_torch.models.transformer import remat, run_dtype
+from repro_torch.models.transformer import remat, run_dtype, serving_mesh
+from repro_torch.runtime import partitioning as PT
 
 Tensor = torch.Tensor
 Params = dict[str, Any]
@@ -105,17 +113,24 @@ def encode(params: Params, frames: Tensor, cfg: ArchConfig, run: RunConfig,
                                       device=frames.device).to(frames.dtype)
     kw = _attn_kwargs(cfg, run, policy)
 
-    def block(blk, x):
+    def block(blk, x, i):
+        blk = PT.use_leaves(blk, f"encoder/{i}")
         h = L.apply_norm(blk["norm1"], x, cfg.norm_eps)
         x = x + L.apply_attention(blk["self_attn"], h, causal=False, **kw)
         h = L.apply_norm(blk["norm_mlp"], x, cfg.norm_eps)
-        return x + L.apply_mlp(blk["mlp"], h)
+        return x + _mlp(blk["mlp"], h, cfg)
 
     if train and run.remat:
-        block = remat(block)
-    for blk in params["encoder"]:
-        x = block(blk, x)
-    return L.apply_norm(params["enc_norm"], x, cfg.norm_eps)
+        block = remat(PT.keep_scope(block))
+    for i, blk in enumerate(params["encoder"]):
+        x = block(blk, x, i)
+    return L.apply_norm(PT.use_leaves(params["enc_norm"], "enc_norm"), x,
+                        cfg.norm_eps)
+
+
+def _mlp(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
+    """The MLP, summed over ``'model'`` when its hidden units are cut."""
+    return L.apply_mlp(p, x, row_mesh=L.mlp_row_mesh(p, cfg.d_ff))
 
 
 def _decoder_pass(params: Params, x: Tensor, cfg: ArchConfig,
@@ -128,7 +143,8 @@ def _decoder_pass(params: Params, x: Tensor, cfg: ArchConfig,
     ``run.remat``."""
     kw = _attn_kwargs(cfg, run, policy)
 
-    def block(blk, x, cache, cross_kv, enc):
+    def block(blk, x, cache, cross_kv, enc, i):
+        blk = PT.use_leaves(blk, f"decoder/{i}")
         h = L.apply_norm(blk["norm1"], x, cfg.norm_eps)
         x = x + L.apply_attention(blk["self_attn"], h, causal=True,
                                   cache=cache, **kw)
@@ -136,25 +152,35 @@ def _decoder_pass(params: Params, x: Tensor, cfg: ArchConfig,
         x = x + L.apply_attention(blk["cross_attn"], h, kv_x=enc,
                                   precomputed_kv=cross_kv, **kw)
         h = L.apply_norm(blk["norm_mlp"], x, cfg.norm_eps)
-        return x + L.apply_mlp(blk["mlp"], h)
+        return x + _mlp(blk["mlp"], h, cfg)
 
     if enc is not None and run.remat:
-        block = remat(block)
-    for blk, cache, cross_kv in zip(params["decoder"], caches, cross_kvs):
-        x = block(blk, x, cache, cross_kv, enc)
+        block = remat(PT.keep_scope(block))
+    for i, (blk, cache, cross_kv) in enumerate(zip(params["decoder"], caches,
+                                                  cross_kvs)):
+        x = block(blk, x, cache, cross_kv, enc, i)
     return x
 
 
 def _embed_dec(params: Params, tokens: Tensor, cfg: ArchConfig, dtype,
                offset: int = 0) -> Tensor:
-    x = L.apply_embedding(params["embed"], tokens, dtype)
+    x = L.apply_embedding(PT.use_leaves(params["embed"], "embed"), tokens,
+                          dtype, vocab=cfg.vocab_size)
     return x + sinusoidal_positions(tokens.shape[1], cfg.d_model, offset,
                                     device=tokens.device).to(dtype)
 
 
 def _logits(params: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
-    x = L.apply_norm(params["dec_norm"], x, cfg.norm_eps)
-    return L.apply_lm_head(params["head"], x)
+    """f32 logits; a head cut over the vocabulary gives this rank's
+    columns, gathered over ``'model'``."""
+    x = L.apply_norm(PT.use_leaves(params["dec_norm"], "dec_norm"), x,
+                     cfg.norm_eps)
+    head = PT.use_leaves(params["head"], "head")
+    if head["w"].shape[1] == cfg.vocab_size:
+        return L.apply_lm_head(head, x)
+    mesh = PT.active_mesh()
+    logits = L.apply_lm_head(head, PT.copy_to(x, mesh, site="head.in"))
+    return PT.gather_from(logits, mesh, dim=-1, site="head")
 
 
 def train_logits(params: Params, tokens: Tensor, cfg: ArchConfig,
@@ -182,18 +208,36 @@ def prefill(params: Params, tokens: Tensor, cfg: ArchConfig, run: RunConfig,
     dtype = run_dtype(run)
     policy = run.softmax_policy
     enc = encode(params, encoder_input.to(dtype), cfg, run, policy)
-    cross_kvs = [L.cross_attention_kv(blk["cross_attn"], enc,
-                                      n_kv_heads=cfg.n_kv_heads,
-                                      head_dim=cfg.resolved_head_dim)
-                 for blk in params["decoder"]]
-    caches = [L.AttnCache.zeros(tokens.shape[0], cfg.n_kv_heads, max_len,
-                                cfg.resolved_head_dim, dtype, tokens.device)
-              for _ in params["decoder"]]
+    dh = cfg.resolved_head_dim
+    cross_kvs = []
+    for i, blk in enumerate(params["decoder"]):
+        attn = PT.use_leaves(blk["cross_attn"], f"decoder/{i}/cross_attn")
+        cross_kvs.append(L.cross_attention_kv(
+            attn, enc, n_kv_heads=attn["wk"].shape[-1] // dh, head_dim=dh))
+    caches = init_caches(cfg, tokens.shape[0], max_len, dtype, tokens.device,
+                         run.shard_kv_seq)
     x = _embed_dec(params, tokens, cfg, dtype)
     x = _decoder_pass(params, x, cfg, run, policy, caches, cross_kvs)
     if logits == "last":
         x = x[:, -1:]
     return _logits(params, x, cfg), (caches, cross_kvs)
+
+
+def init_caches(cfg: ArchConfig, b: int, max_len: int, dtype, device,
+                shard_kv_seq: bool = False):
+    """The decoder's zeroed self-caches for ``b`` rows, one a block;
+    under a serving scope the rank's cut (``b`` its rows)."""
+    mesh, rows = serving_mesh()
+
+    def whole(dev):
+        return [L.AttnCache.zeros(b * rows, cfg.n_kv_heads, max_len,
+                                  cfg.resolved_head_dim, dtype, dev)
+                for _ in range(cfg.n_layers)]
+
+    if mesh is None:
+        return whole(device)
+    return PT.local_caches(lambda: whole("meta"), mesh, b * rows,
+                           cfg.n_kv_heads, shard_kv_seq, device)
 
 
 def decode_step(params: Params, token: Tensor, state, cfg: ArchConfig,

@@ -39,6 +39,16 @@ single-token lockstep step against an :class:`AttnCache` whose KV heads
 do not divide ``tp`` takes the length-sharded decode
 (``sharded_decode.lut_decode_sharded``), as in the JAX package.
 
+Lockstep serving on a mesh (``serve_loop.make_prefill_step`` /
+``make_decode_step`` with a ``mesh``) holds a rank's cut of each cache,
+as ``partitioning.cache_specs`` places it: its rows, and its KV heads
+when the weights are cut by heads; else its shard of the length
+(:attr:`AttnCache.seq_axes`).  A prefill into a length shard computes
+K/V for every position, attends to them and writes only its own
+positions; a decode step writes the token's K/V on the rank that owns
+its position and attends through ``lut_decode_sharded`` on each rank's
+shard, the partials reduced over the length's axes.
+
 An int8 page pool (``kv_dtype="int8"``) quantizes K/V at scatter time
 with ``core.quantization.quantize_rows``, one f32 scale per token × KV
 head; the lockstep path's contiguous cache instead fake-quantizes the
@@ -163,11 +173,17 @@ def init_attention(d_model: int, n_heads: int, n_kv_heads: int,
 @dataclasses.dataclass
 class AttnCache:
     """Pre-allocated contiguous KV cache of the lockstep path; ``length``
-    is the write cursor shared by the whole batch (advanced in place)."""
+    is the write cursor shared by the whole batch (advanced in place).
 
-    k: Tensor    # (B, KVH, max_len, Dh)
+    ``seq_axes`` names the mesh axes the length is cut over (``()``:
+    the cache holds every position): the cache then holds the positions
+    ``[i · n, (i + 1) · n)`` of the ``max_len`` — ``n`` its own length,
+    ``i`` the rank's row-major index over those axes."""
+
+    k: Tensor    # (B, KVH, max_len, Dh), or its length shard
     v: Tensor
     length: int = 0
+    seq_axes: tuple[str, ...] = ()
 
     @staticmethod
     def zeros(b: int, kvh: int, max_len: int, dh: int, dtype,
@@ -467,9 +483,10 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
                  )[None, :].expand(b, l)
     mesh = PT.active_mesh()
     tp = PT.mesh_model_tp(mesh)
-    # weights cut by heads (training under a mesh): this rank's heads,
-    # the input's gradient summed over the ranks, wo's rows reduced
-    row_mesh = mesh if (cache is None and not is_cross and tp > 1 and
+    # weights cut by heads (training or serving under a mesh): this
+    # rank's heads, the input's gradient summed over the ranks, wo's rows
+    # reduced
+    row_mesh = mesh if (tp > 1 and
                         p["wq"].shape[-1] != n_heads * head_dim) else None
     xin, h, kvh = x, n_heads, n_kv_heads
     if row_mesh is not None:
@@ -480,9 +497,16 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
     if precomputed_kv is not None:
         k, v = precomputed_kv
     elif kv_x is not None:
-        k, v = cross_attention_kv(p, kv_x, n_kv_heads=n_kv_heads,
-                                  head_dim=head_dim)
+        src = PT.copy_to(kv_x, mesh, site="attn.src") if row_mesh else kv_x
+        k, v = cross_attention_kv(p, src, n_kv_heads=kvh, head_dim=head_dim)
     kv_len = None
+    if cache is not None and cache.seq_axes:
+        if kv_dtype == "int8":
+            k = fake_quant_rows(k).to(k.dtype)
+            v = fake_quant_rows(v).to(v.dtype)
+        out = _length_shard_attention(q, k, v, cache, mesh, policy, causal,
+                                      backend)
+        return _out_projection(p, x, out, b, l, row_mesh)
     if cache is not None:
         if kv_dtype == "int8":
             k = fake_quant_rows(k).to(k.dtype)
@@ -514,6 +538,54 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
     out = lut_attention(q, k, v, policy, causal=causal and not is_cross,
                         kv_len=kv_len, backend=backend)
     return _out_projection(p, x, out, b, l, row_mesh)
+
+
+def _length_shard_attention(q: Tensor, k: Tensor, v: Tensor,
+                            cache: AttnCache, mesh, policy: SoftmaxPolicy,
+                            causal: bool, backend: str) -> Tensor:
+    """Attention of L new tokens' q, k, v against a cache that holds this
+    rank's shard of the length (``cache.seq_axes``): the new K/V go into
+    the positions the shard owns, then
+
+    * a fresh prefill (the cache was empty) attends to the new K/V
+      themselves — every position, on every rank, as without a mesh;
+    * a decode step under the exact or REXP policy whose length is cut
+      over ``'model'`` (the KV heads do not divide it) attends through
+      ``sharded_decode.lut_decode_sharded`` on the rank's shard, the
+      partials reduced over ``seq_axes`` (the JAX package's route, taken
+      under the same condition);
+    * anything else (2D-LUT decode, a length cut over ``'data'`` alone,
+      a prompt after cached tokens) gathers the shards over ``seq_axes``
+      and attends to the whole cache, as the JAX package's SPMD program
+      does."""
+    axes = cache.seq_axes
+    n = cache.k.shape[2]
+    lo = mesh.index(axes) * n
+    base, l = cache.length, q.shape[2]
+    end = base + l
+    if end > n * mesh.size(axes):
+        raise ValueError(f"cache of {n * mesh.size(axes)} positions cannot "
+                         f"take {l} more after {base}")
+    a, z = max(base, lo), min(end, lo + n)
+    if a < z:
+        cache.k[:, :, a - lo:z - lo] = k[:, :, a - base:z - base].to(
+            cache.k.dtype)
+        cache.v[:, :, a - lo:z - lo] = v[:, :, a - base:z - base].to(
+            cache.v.dtype)
+    cache.length = end
+    if base == 0:
+        return lut_attention(q, k.to(cache.k.dtype), v.to(cache.v.dtype),
+                             policy, causal=causal, kv_len=end,
+                             backend=backend)
+    if l == 1 and policy.impl in ("exact", "rexp") and "model" in axes:
+        from repro_torch.kernels.lut_attention.sharded_decode import (
+            lut_decode_sharded)
+        return lut_decode_sharded(q, cache.k, cache.v, policy, kv_len=end,
+                                  mesh=mesh, start=lo, axes=axes)
+    kw = PT.all_gather(cache.k, mesh, 2, site="kv_gather", axis=axes)
+    vw = PT.all_gather(cache.v, mesh, 2, site="kv_gather", axis=axes)
+    return lut_attention(q, kw, vw, policy, causal=causal, kv_len=end,
+                         backend=backend)
 
 
 def cross_attention_kv(p: Params, src: Tensor, *, n_kv_heads: int,
@@ -559,6 +631,14 @@ def init_mlp(d_model: int, d_ff: int, generator: torch.Generator, device,
     if gated:
         p["w_gate"] = dense_init((d_model, d_ff), generator, device)
     return p
+
+
+def mlp_row_mesh(p: Params, d_ff: int):
+    """The active mesh when the MLP ``p``'s hidden units are this rank's
+    cut (``w_down`` holds fewer than ``d_ff`` rows), else None."""
+    mesh = PT.active_mesh()
+    return mesh if mesh is not None and p["w_down"].shape[0] != d_ff \
+        else None
 
 
 def apply_mlp(p: Params, x: Tensor, row_mesh=None) -> Tensor:

@@ -10,9 +10,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.models import encdec as ED
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
 from repro_torch.models.convert import cast_params
 from repro_torch.models.device import resolve_device
+from repro_torch.runtime import partitioning as PT
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +78,36 @@ class Model:
         if self.is_encdec:
             return ED.decode_step(params, token, state, self.cfg, run)
         return TF.decode_step(params, token, state, self.cfg, run)
+
+    def decode_state_struct(self, b: int, max_len: int, run: RunConfig,
+                            mesh=None):
+        """The serving state of ``b`` rows and ``max_len`` positions on
+        the meta device — shapes and dtypes, nothing allocated (the JAX
+        package's ``ShapeDtypeStruct`` tree): ``init_caches``' tree for a
+        decoder, ``(self caches, cross K/V pairs)`` for an
+        encoder-decoder.  With a ``mesh`` each leaf has this rank's
+        shape under ``partitioning.cache_specs`` (``b`` stays the global
+        batch), and a cache whose length is cut names its axes."""
+        cfg = self.cfg
+        dtype = TF.run_dtype(run)
+        dh = cfg.resolved_head_dim
+        if self.is_encdec:
+            caches = [L.AttnCache.zeros(b, cfg.n_kv_heads, max_len, dh,
+                                        dtype, "meta")
+                      for _ in range(cfg.n_layers)]
+            cross = [tuple(torch.empty((b, cfg.n_kv_heads, cfg.encoder_seq,
+                                        dh), dtype=dtype, device="meta")
+                           for _ in range(2))
+                     for _ in range(cfg.n_layers)]
+            whole = (caches, cross)
+        else:
+            whole = TF.init_caches(cfg, b, max_len, dtype, "meta")
+        if mesh is None:
+            return whole
+        return PT.local_state(
+            whole, mesh, b, cfg.n_kv_heads, run.shard_kv_seq,
+            lambda x, shape, spec: torch.empty(shape, dtype=x.dtype,
+                                               device="meta"))
 
     def check_paged(self, what: str) -> None:
         """Raise ``NotImplementedError`` unless the paged path serves this

@@ -103,16 +103,18 @@ def assign_slots(experts: Tensor, n_experts: int, group: int, cap: int,
     rows come after every real token in flat order, so they take no slot
     from one.
 
-    With a ``mesh`` the tokens are a data rank's share of a batch whose
-    rows are cut over ``'data'``: the groups are those of the global
-    token axis, in which this rank's ``T`` tokens start at
-    ``data_rank · T`` (the rank-major order of the JAX package's
-    flattened batch), and a slot counts the assignments that earlier
-    data ranks gave the same (group, expert) too, from one all-gather of
-    the ``(groups, E)`` counts."""
+    With a ``mesh`` — ``(mesh, axes)``, the axes the batch's rows are
+    cut over — the tokens are a rank's share of the batch: the groups
+    are those of the global token axis, in which this rank's ``T``
+    tokens start at ``i · T``, ``i`` its row-major index over the axes
+    (the rank-major order of the JAX package's flattened batch), and a
+    slot counts the assignments that earlier ranks gave the same
+    (group, expert) too, from one all-gather of the ``(groups, E)``
+    counts."""
     t, top_k = experts.shape
-    first, dp = (mesh.data_rank * t, mesh.data) if mesh is not None \
-        else (0, 1)
+    mesh, axes = mesh if mesh is not None else (None, ())
+    first, dp = ((mesh.index(axes) * t, mesh.size(axes)) if mesh is not None
+                 else (0, 1))
     n_groups = -(-(t * dp) // group)         # the same on every data rank
     flat = experts.reshape(-1)
     gid = ((first + torch.arange(t, device=experts.device)) // group
@@ -128,8 +130,8 @@ def assign_slots(experts: Tensor, n_experts: int, group: int, cap: int,
     slots = before - (torch.cumsum(counts, 0) - counts)[gid, flat]
     if mesh is not None:
         every = PT.all_gather(counts[None], mesh, 0, site="moe.slots",
-                              axis="data")
-        slots = slots + every[:mesh.data_rank].sum(0)[gid, flat]
+                              axis=axes)
+        slots = slots + every[:mesh.index(axes)].sum(0)[gid, flat]
     slots = slots.view(t, top_k)
     return slots, slots < cap
 
@@ -150,18 +152,19 @@ def aux_losses(probs: Tensor, experts: Tensor, n_experts: int,
     f_e counts the tail group's padding rows, which the JAX package pads
     with expert 0 for all k.
 
-    With a ``mesh`` the tokens are a data rank's share of the batch: f_e
-    counts every rank's assignments (a sum over ``'data'``), and P_e is
-    this rank's mean, so the data ranks' mean of the loss — what their
-    summed and averaged gradients differentiate — is the whole batch's
-    loss."""
+    With a ``mesh`` — ``(mesh, axes)`` as for :func:`assign_slots` — the
+    tokens are a rank's share of the batch: f_e counts every rank's
+    assignments (a sum over the axes), and P_e is this rank's mean, so
+    the ranks' mean of the loss — what their summed and averaged
+    gradients differentiate — is the whole batch's loss."""
     t, top_k = experts.shape
     counts = F.one_hot(experts, n_experts).sum(dim=(0, 1)).float()
     t_all = t
     if mesh is not None:
+        mesh, axes = mesh
         counts = PT.all_reduce(counts, mesh, "sum", site="moe.aux",
-                               axis="data")
-        t_all = t * mesh.data
+                               axis=axes)
+        t_all = t * mesh.size(axes)
     t_pad = -(-t_all // group) * group
     counts[0] += (t_pad - t_all) * top_k
     ce = counts / t_pad
@@ -179,13 +182,13 @@ def route(p: Params, xt: Tensor, *, n_experts: int, top_k: int,
     weights, the expert indices, each assignment's slot in its expert's
     buffer of its group, and whether it fits the capacity ``cap`` —
     and the group size ``g``.  Under a scope whose batch rows are cut
-    over ``'data'`` the groups are those of the global token axis
+    over the batch axes the groups are those of the global token axis
     (:func:`assign_slots`)."""
     probs = router_probs(p, xt, router_policy)
     gates, experts = top_k_experts(probs, top_k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     mesh = _data_mesh()
-    t_all = xt.shape[0] * (mesh.data if mesh is not None else 1)
+    t_all = xt.shape[0] * (mesh[0].size(mesh[1]) if mesh is not None else 1)
     g = min(group_size, t_all)
     cap = capacity(g, n_experts, top_k, capacity_factor)
     slots, kept = assign_slots(experts, n_experts, g, cap, mesh)
@@ -193,11 +196,11 @@ def route(p: Params, xt: Tensor, *, n_experts: int, top_k: int,
 
 
 def _data_mesh():
-    """The active mesh when the batch's rows are cut over a ``'data'``
-    axis of more than one rank, else None."""
+    """``(mesh, axes)`` when the active scope cuts the batch's rows over
+    ``axes`` (the batch axes of more than one rank), else None."""
     scope = PT.active_scope()
-    if scope.tokens and scope.mesh is not None and scope.mesh.data > 1:
-        return scope.mesh
+    if scope.tokens and scope.mesh is not None:
+        return scope.mesh, scope.tokens
     return None
 
 
@@ -211,7 +214,7 @@ def _experts_ffn(p: Params, xt: Tensor, gates: Tensor, experts: Tensor,
     t, d = xt.shape
     top_k = experts.shape[1]
     data = _data_mesh()
-    first = data.data_rank * t if data is not None else 0
+    first = data[0].index(data[1]) * t if data is not None else 0
     gid = (first + torch.arange(t, device=xt.device)) // g
     group = (gid - gid[0])[:, None]                              # (T, 1)
     n_groups = int(-(-(first + t) // g) - first // g)

@@ -189,9 +189,8 @@ def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
             d_expert=m.d_expert, n_shared=m.n_shared)
         y, aux = y if return_aux else (y, {})
         return x + y, aux
-    mesh = PT.active_mesh()
-    cut = mesh is not None and p["ffn"]["w_down"].shape[0] != cfg.d_ff
-    return x + L.apply_mlp(p["ffn"], h2, row_mesh=mesh if cut else None), {}
+    return x + L.apply_mlp(p["ffn"], h2,
+                           row_mesh=L.mlp_row_mesh(p["ffn"], cfg.d_ff)), {}
 
 
 def _stack_into(out, tree, i: int):
@@ -246,12 +245,29 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return p if dtype is None else cast_params(p, dtype)
 
 
-def init_caches(cfg: ArchConfig, b: int, max_len: int, dtype, device):
+def init_caches(cfg: ArchConfig, b: int, max_len: int, dtype, device,
+                mesh=None, shard_kv_seq: bool = False):
     """Lockstep caches: ``caches[period][spec]``, one zeroed cache per
-    layer (:func:`block_cache`)."""
+    layer (:func:`block_cache`).  With a ``mesh``, ``b`` is the global
+    batch and each cache this rank's cut (``partitioning.cache_specs``:
+    its rows, its KV heads or its shard of the length)."""
     check_supported(cfg)
+    if mesh is not None:
+        return PT.local_caches(
+            lambda: init_caches(cfg, b, max_len, dtype, "meta"), mesh, b,
+            cfg.n_kv_heads, shard_kv_seq, device)
     return [[block_cache(cfg, spec, b, max_len, dtype, device)
              for spec in cfg.period] for _ in range(cfg.n_periods)]
+
+
+def serving_mesh():
+    """``(mesh, global rows factor)`` of the active serving scope (a
+    scope with cut weights): the mesh, and how many ranks share the
+    batch's rows; ``(None, 1)`` without one."""
+    scope = PT.active_scope()
+    if scope.mesh is None or not scope.cut:
+        return None, 1
+    return scope.mesh, scope.mesh.size(scope.tokens)
 
 
 def init_paged_pools(cfg: ArchConfig, n_pages: int, page_size: int,
@@ -367,8 +383,10 @@ def prefill(params: Params, tokens: Tensor, cfg: ArchConfig, run: RunConfig,
     """Fill fresh lockstep caches for the (B, S) prompt; returns
     ``(logits, caches)``.  ``logits='last'`` applies the LM head to the
     final position only; ``collector`` taps every attention's logits."""
-    caches = init_caches(cfg, tokens.shape[0], max_len, run_dtype(run),
-                         tokens.device)
+    mesh, rows = serving_mesh()
+    caches = init_caches(cfg, tokens.shape[0] * rows, max_len,
+                         run_dtype(run), tokens.device, mesh=mesh,
+                         shard_kv_seq=run.shard_kv_seq)
     x = _embed(params, tokens, cfg, run)
     x = _apply_stack(params, x, cfg, run, lambda si, pi: caches[pi][si],
                      collector=collector)

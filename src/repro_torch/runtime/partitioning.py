@@ -6,9 +6,10 @@ runs a mesh from one controller and lets ``shard_map`` / XLA run the
 per-device programs; here each rank is a process of its own over a
 ``torch.distributed`` process group, and a :class:`Mesh` is one rank's
 view of it: the named axes ``('data', 'model')`` (serving is
-``data = 1``) or ``('pipe',)`` (GPipe), this rank's index on each, and a
+``data = 1``), ``('pod', 'data', 'model')`` (the two-pod production
+mesh) or ``('pipe',)`` (GPipe), this rank's index on each, and a
 process group per axis.  Ranks are laid out in the JAX package's
-row-major device order, rank = ``d · model + m``.  ``tp``, ``rank`` and
+row-major device order, rank = ``(p · data + d) · model + m``.  ``tp``, ``rank`` and
 ``group`` are the ``'model'`` axis's view, the one the serving path
 reads.  For serving, rank 0 owns the scheduler and sends each device
 program's host plan to the other ranks (:func:`send_plan` /
@@ -32,7 +33,12 @@ Placement, as in the JAX package:
   weights with ``fsdp=False``, the training state with ``fsdp=True``
   (:class:`Layout`, which also gathers a leaf's ``'data'`` cut just
   before the leaf is used).
-* :func:`batch_pspec`: a batch's rows over ``'data'`` when it divides.
+* :func:`batch_pspec`: a batch's rows over ``('pod', 'data')`` when
+  both divide it, else over ``'data'`` when it does, else replicated.
+* :func:`cache_pspec` / :func:`cache_specs`: a lockstep cache's rows
+  as the batch's, its KV heads over ``'model'`` when they divide it,
+  else its length (and under ``shard_kv_seq`` its length over
+  ``'data'`` too).
 * the page pools split their KV-head axis over the ``'model'`` ranks
   when the arch's KV-head count divides ``tp`` (the ``'heads'``
   regime), else their physical-page axis (``'pages'``: each rank owns a
@@ -67,7 +73,10 @@ import torch.distributed as dist
 
 Tensor = torch.Tensor
 
-BACKENDS = ("nccl", "gloo")
+#: ``fake`` (``torch.testing._internal.distributed.fake_pg``) is the dry
+#: run's: a world of 256 or 512 ranks in one process, whose collectives
+#: give tensors of the right shape and move nothing
+BACKENDS = ("nccl", "gloo", "fake")
 
 
 # ---------------------------------------------------------------------------
@@ -125,12 +134,13 @@ class Mesh:
 
     ``tp`` / ``rank`` / ``group`` are the ``'model'`` axis: its size,
     this rank's index on it and the group of ranks that differ only
-    there (``backend``: ``nccl`` or ``gloo``).  ``data`` / ``data_rank``
-    / ``data_group`` are the ``'data'`` axis; ``pipe > 0`` makes a
-    ``('pipe',)`` mesh of that many stages instead (``tp`` and ``data``
-    are then 1).  ``plan_group`` is a gloo group for the serving host
-    plans.  An axis of size 1 has no group: nothing is cut over it and
-    no collective runs."""
+    there (``backend``: ``nccl``, ``gloo`` or ``fake``).  ``data`` /
+    ``data_rank`` / ``data_group`` are the ``'data'`` axis; ``pod > 0``
+    adds a ``'pod'`` axis of that many pods before it (``pod_rank`` /
+    ``pod_group``); ``pipe > 0`` makes a ``('pipe',)`` mesh of that many
+    stages instead (``tp`` and ``data`` are then 1).  ``plan_group`` is
+    a gloo group for the serving host plans.  An axis of size 1 has no
+    group: nothing is cut over it and no collective runs."""
 
     tp: int
     rank: int
@@ -145,36 +155,55 @@ class Mesh:
     pipe: int = 0
     pipe_rank: int = 0
     pipe_group: object = None
+    pod: int = 0
+    pod_rank: int = 0
+    pod_group: object = None
 
     @property
     def axis_names(self) -> tuple[str, ...]:
-        return ("pipe",) if self.pipe else ("data", "model")
+        if self.pipe:
+            return ("pipe",)
+        return ("pod", "data", "model") if self.pod else ("data", "model")
 
     @property
     def shape(self) -> dict[str, int]:
         """Axis sizes by name (the JAX mesh's ``shape``)."""
         if self.pipe:
             return {"pipe": self.pipe}
-        return {"data": self.data, "model": self.tp}
+        pods = {"pod": self.pod} if self.pod else {}
+        return {**pods, "data": self.data, "model": self.tp}
 
-    def size(self, axis: str) -> int:
+    def size(self, axis: str | tuple[str, ...]) -> int:
+        """The size of ``axis``, or the product of several."""
+        if isinstance(axis, tuple):
+            return int(np.prod([self.size(a) for a in axis]))
         return self.shape.get(axis, 1)
 
-    def index(self, axis: str) -> int:
-        """This rank's index along ``axis`` (``axis_index``)."""
+    def index(self, axis: str | tuple[str, ...]) -> int:
+        """This rank's index along ``axis`` (``axis_index``); along
+        several axes, the row-major index over them (the first major)."""
+        if isinstance(axis, tuple):
+            i = 0
+            for a in axis:
+                i = i * self.size(a) + self.index(a)
+            return i
         return {"data": self.data_rank, "model": self.rank,
-                "pipe": self.pipe_rank}[axis]
+                "pipe": self.pipe_rank, "pod": self.pod_rank}[axis]
 
     def group_of(self, axis: str):
         return {"data": self.data_group, "model": self.group,
-                "pipe": self.pipe_group}[axis]
+                "pipe": self.pipe_group, "pod": self.pod_group}[axis]
+
+    @property
+    def world(self) -> int:
+        """The number of ranks."""
+        return self.size(self.axis_names)
 
     @property
     def world_rank(self) -> int:
-        """Row-major rank: ``d · model + m`` (the pipe index on a pipe
-        mesh)."""
-        return self.pipe_rank if self.pipe else (
-            self.data_rank * self.tp + self.rank)
+        """Row-major rank: ``(p · data + d) · model + m`` (the pipe index
+        on a pipe mesh)."""
+        return self.index(self.axis_names)
 
 
 def mesh_model_tp(mesh: Mesh | None) -> int:
@@ -199,14 +228,15 @@ def divides(mesh: Mesh | None, dim: int) -> bool:
 @dataclasses.dataclass(frozen=True)
 class Scope:
     """What the layers read of the mesh they run under: the mesh, whether
-    the weights are this rank's cut (``cut``: ``shard_params``), whether
-    the batch's rows are cut over ``'data'`` (``tokens``: an MoE then
-    routes over the global token groups), and the training
-    :class:`Layout` whose ``'data'`` cuts are gathered before use."""
+    the weights are this rank's cut (``cut``: ``shard_params``), the
+    axes the batch's rows are cut over (``tokens``, :func:`row_axes`: an
+    MoE then routes over the global token groups; ``()`` when the rows
+    are whole), and the :class:`Layout` whose ``'data'`` cuts are
+    gathered before use."""
 
     mesh: Mesh | None = None
     cut: bool = False
-    tokens: bool = False
+    tokens: tuple[str, ...] = ()
     layout: "Layout | None" = None
 
 
@@ -229,11 +259,12 @@ def active_scope() -> Scope:
 
 @contextlib.contextmanager
 def mesh_scope(mesh: Mesh | None, *, cut: bool = False,
-               tokens: bool = False, layout: "Layout | None" = None):
+               tokens: tuple[str, ...] = (),
+               layout: "Layout | None" = None):
     """``mesh`` active inside the block (with :class:`Scope`'s flags),
     the previous scope restored after (a single-device engine in the
     same process is unaffected)."""
-    token = _ACTIVE.set(Scope(mesh, cut, tokens, layout))
+    token = _ACTIVE.set(Scope(mesh, cut, tuple(tokens), layout))
     try:
         yield mesh
     finally:
@@ -443,15 +474,78 @@ def param_pspec(path: str, shape: tuple[int, ...], mesh,
     return ()
 
 
+def batch_axes(mesh) -> tuple[str, ...]:
+    """The mesh's batch axes: ``'pod'`` and ``'data'``, those it has."""
+    names, _ = _axes(mesh)
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def _entry(axes: tuple[str, ...]):
+    """A spec entry: one axis by its name, several as a tuple."""
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The axes of a spec entry (None, a name or a tuple of names)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
 def batch_pspec(mesh, batch_size: int) -> tuple:
-    """The JAX package's ``batch_pspec``: a batch's rows over ``'data'``
-    when the axis divides them (``('data',)``), else replicated
-    (``()``)."""
+    """The JAX package's ``batch_pspec``: a batch's rows over every batch
+    axis when their product divides them (``(('pod', 'data'),)``, or
+    ``('data',)`` on a mesh without pods), else over ``'data'`` alone
+    when it divides them (``('data',)``), else replicated (``()``)."""
     names, sizes = _axes(mesh)
+    axes = batch_axes(mesh)
+    size = int(np.prod([sizes[a] for a in axes])) if axes else 1
+    if axes and batch_size % size == 0 and batch_size >= size:
+        return (_entry(axes),)
     if ("data" in names and batch_size % sizes["data"] == 0
             and batch_size >= sizes["data"]):
         return ("data",)
     return ()
+
+
+def row_axes(mesh, batch_size: int) -> tuple[str, ...]:
+    """The axes of more than one rank that :func:`batch_pspec` cuts a
+    batch of ``batch_size`` rows over (``()``: every rank has them
+    all)."""
+    if mesh is None:
+        return ()
+    spec = batch_pspec(mesh, batch_size)
+    return tuple(a for a in entry_axes(spec[0] if spec else None)
+                 if mesh.size(a) > 1)
+
+
+def row_range(mesh, batch_size: int) -> tuple[int, int]:
+    """``[lo, hi)``: this rank's rows of a batch of ``batch_size``."""
+    axes = row_axes(mesh, batch_size)
+    n = batch_size // (mesh.size(axes) if axes else 1)
+    i = mesh.index(axes) if axes else 0
+    return i * n, (i + 1) * n
+
+
+def cache_pspec(mesh, batch_size: int, n_kv_heads: int,
+                shard_kv_seq: bool = False) -> tuple:
+    """The JAX package's ``cache_pspec``: the spec of a (B, KVH, L, Dh)
+    lockstep cache.  The rows as :func:`batch_pspec`; the KV heads over
+    ``'model'`` when they divide it, else the length over ``'model'``;
+    with ``shard_kv_seq`` (long context, batch 1) the length over
+    ``'data'`` too, when the rows do not take it."""
+    names, sizes = _axes(mesh)
+    bspec = batch_pspec(mesh, batch_size)
+    b_axes = bspec[0] if bspec else None
+    kv_axis = ("model" if "model" in names
+               and n_kv_heads % sizes["model"] == 0 else None)
+    seq_axes: list[str] = []
+    if kv_axis is None and "model" in names:
+        seq_axes.append("model")
+    if (shard_kv_seq and "data" in names
+            and "data" not in entry_axes(b_axes)):
+        seq_axes.append("data")
+    return (b_axes, kv_axis, tuple(seq_axes) if seq_axes else None, None)
 
 
 #: the leaves whose layers compute on a 'model' cut: the vocabulary of
@@ -471,41 +565,180 @@ def attention_cut(cfg, mesh) -> bool:
     return tp > 1 and cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0
 
 
+def _recurrent_leaf(path: str, cfg) -> bool:
+    """Whether ``path`` is a leaf of a recurrent mixer (Mamba, mLSTM,
+    sLSTM: ``periods/<i>/mixer/…`` of a non-attention layer), which the
+    port computes whole on every rank."""
+    parts = path.split("/")
+    return (len(parts) > 2 and parts[0] == "periods" and parts[2] == "mixer"
+            and cfg.period[int(parts[1])].mixer != "attn")
+
+
 def shard_pspec(path: str, shape: tuple[int, ...], mesh, cfg,
                 fsdp: bool = False) -> tuple:
     """The spec this port cuts a leaf by: :func:`param_pspec`'s
     ``'data'`` slots (with ``fsdp``) and its ``'model'`` slots on
     :data:`TP_LEAVES` only — on the attention leaves only when
-    :func:`attention_cut`.  A projection bias (1-D a period, which the
-    rules replicate) is cut with its weight's output columns."""
+    :func:`attention_cut`, and never on a recurrent mixer's (an mLSTM's
+    ``wq`` / ``wk`` / ``wv``, which the rules cut as attention's).  A
+    projection bias (1-D a period, which the rules replicate) is cut with
+    its weight's output columns (a stacked one keeps the rules'
+    ``'data'`` cut of its period axis)."""
     spec = param_pspec(path, shape, mesh, fsdp)
     name = path.rsplit("/", 1)[-1]
     tp_leaf = any(path.endswith(s) for s in TP_LEAVES)
     if name in ATTENTION_LEAVES and not attention_cut(cfg, mesh):
         tp_leaf = False
+    if _recurrent_leaf(path, cfg):
+        tp_leaf = False           # an mLSTM's wq / wk / wv: whole
     if name in ("bq", "bk", "bv") and tp_leaf:
-        stacked = len(shape) - 1
-        return (None,) * stacked + ("model",)
+        lead = spec[:len(shape) - 1] if len(spec) == len(shape) else (
+            (None,) * (len(shape) - 1))
+        return tuple(lead) + ("model",)
     if tp_leaf:
         return spec
     return tuple(None if a == "model" else a for a in spec)
+
+
+def map_cache(state, fn):
+    """``state`` (a serving state: lists and tuples of caches — dataclasses
+    of tensors — or of tensors) with every tensor leaf ``x`` replaced by
+    ``fn(x, name, recurrent)``: ``name`` the leaf's field name (its index
+    in a tuple), ``recurrent`` whether it is a recurrent mixer's state
+    (``models/ssm.py``).  Other fields (a cache's ``length``) are kept."""
+    from repro_torch.models import ssm
+    return _map_cache(state, "", fn, (ssm.MambaCache, ssm.MLSTMCache,
+                                      ssm.SLSTMCache))
+
+
+def _map_cache(node, name, fn, recurrent_types):
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        rec = isinstance(node, recurrent_types)
+        return dataclasses.replace(node, **{
+            f.name: fn(getattr(node, f.name), f.name, rec)
+            for f in dataclasses.fields(node)
+            if isinstance(getattr(node, f.name), Tensor)})
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map_cache(v, str(i), fn, recurrent_types)
+                          for i, v in enumerate(node))
+    if isinstance(node, Tensor):
+        return fn(node, name, False)
+    return node
+
+
+def _cache_spec_fn(mesh, batch_size: int, n_kv_heads: int,
+                   shard_kv_seq: bool, stacked: bool):
+    names, sizes = _axes(mesh)
+    kv = cache_pspec(mesh, batch_size, n_kv_heads, shard_kv_seq)
+    bspec = batch_pspec(mesh, batch_size)
+    b_axes = bspec[0] if bspec else None
+    pre = (None,) if stacked else ()
+    off = len(pre)
+
+    def spec(x, name, recurrent):
+        nd = x.dim()
+        if nd == 4 + off and name in ("k", "v"):
+            return pre + kv
+        if nd >= 2 + off:
+            x_axis = ("model" if not recurrent and "model" in names
+                      and x.shape[off + 1] % sizes["model"] == 0 else None)
+            return pre + (b_axes, x_axis) + (None,) * (nd - off - 2)
+        return (None,) * nd
+
+    return spec
+
+
+def cache_specs(state, mesh, batch_size: int, n_kv_heads: int,
+                shard_kv_seq: bool = False, stacked: bool = False):
+    """The spec of every tensor leaf of a whole serving ``state``
+    (:func:`map_cache`'s tree, each leaf replaced by its spec): the JAX
+    package's ``make_cache_shardings``.
+
+    * attention K/V ``(B, KVH, L, Dh)`` (fields ``k`` / ``v``):
+      :func:`cache_pspec`;
+    * any other leaf of two or more dims — an encoder-decoder's cross
+      K/V ``(B, KVH, L_enc, Dh)``, a recurrent state ``(B, X, …)`` — its
+      rows as the batch's and its channel ``X`` over ``'model'`` where it
+      divides.  **Except a recurrent state:** the port cuts no Mamba,
+      mLSTM or sLSTM weight over ``'model'`` (:func:`shard_pspec`), so a
+      rank computes every channel of its rows and holds its state whole
+      over ``'model'`` where the JAX package cuts it (Jamba's Mamba ``h``
+      ``(B, 8192, 16)`` at ``'model'`` 16): a rank holds ``'model'``
+      times the JAX package's bytes of that leaf;
+    * smaller leaves whole.
+
+    ``stacked``: the leaves carry a leading period axis, as the JAX
+    package's decoder caches do (the port's are per layer)."""
+    return map_cache(state, _cache_spec_fn(mesh, batch_size, n_kv_heads,
+                                           shard_kv_seq, stacked))
+
+
+def local_state(state, mesh, batch_size: int, n_kv_heads: int,
+                shard_kv_seq: bool, make):
+    """The port's (unstacked) ``state`` with its leaves at this rank's
+    shapes under :func:`cache_specs`: ``make(x, shape, spec)`` gives each
+    new leaf — an empty or zeroed tensor of the shape — and a cache whose
+    length is cut names its axes (``AttnCache.seq_axes``)."""
+    fn = _cache_spec_fn(mesh, batch_size, n_kv_heads, shard_kv_seq, False)
+
+    def leaf(x, name, rec):
+        sp = fn(x, name, rec)
+        return make(x, local_shape(tuple(x.shape), sp, mesh), sp)
+
+    seq = entry_axes(cache_pspec(mesh, batch_size, n_kv_heads,
+                                 shard_kv_seq)[2])
+    seq = tuple(a for a in seq if mesh.size(a) > 1)
+    return _mark_seq_axes(map_cache(state, leaf), seq)
+
+
+def _mark_seq_axes(state, seq: tuple[str, ...]):
+    """``state`` with every attention cache's ``seq_axes`` set to
+    ``seq``."""
+    if hasattr(state, "seq_axes"):
+        return dataclasses.replace(state, seq_axes=seq)
+    if isinstance(state, (list, tuple)):
+        return type(state)(_mark_seq_axes(x, seq) for x in state)
+    return state
+
+
+def local_caches(build, mesh, batch_size: int, n_kv_heads: int,
+                 shard_kv_seq: bool, device):
+    """This rank's zeroed cut of a whole serving state of ``batch_size``
+    rows: :func:`local_state`'s leaves on ``device``.  ``build()`` gives
+    the whole state's template on the meta device; it runs with the
+    active dispatch modes (a dry run's counters) disabled, as it is a
+    description of shapes, not memory a step uses."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        whole = build()
+    return local_state(
+        whole, mesh, batch_size, n_kv_heads, shard_kv_seq,
+        lambda x, shape, sp: torch.zeros(shape, dtype=x.dtype,
+                                         device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def meta_params(cfg):
+    """The whole parameter tree on the meta device (no memory)."""
+    from repro_torch.models import build_model
+    return build_model(cfg).init(torch.Generator(), "meta")
 
 
 @functools.lru_cache(maxsize=None)
 def full_shapes(cfg) -> dict[str, tuple[int, ...]]:
     """Every parameter leaf's whole shape by path, from an init on the
     meta device (no memory)."""
-    from repro_torch.models import build_model
     from repro_torch.models.convert import tree_flatten
-    params = build_model(cfg).init(torch.Generator(), "meta")
-    return {p: tuple(x.shape) for p, x in tree_flatten(params)}
+    return {p: tuple(x.shape) for p, x in tree_flatten(meta_params(cfg))}
 
 
 def local_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple:
-    """A leaf's shape on one rank under ``spec``."""
+    """A leaf's shape on one rank under ``spec`` (an entry may name
+    several axes)."""
     sizes = dict(mesh.shape) if mesh is not None else {}
-    return tuple(d // sizes[a] if a else d
-                 for d, a in zip(shape, spec + (None,) * len(shape)))
+    return tuple(
+        d // int(np.prod([sizes.get(a, 1) for a in entry_axes(e)]))
+        for d, e in zip(shape, tuple(spec) + (None,) * len(shape)))
 
 
 def _take(x, axis: int, index: int, parts: int):
@@ -520,9 +753,10 @@ def _take(x, axis: int, index: int, parts: int):
 
 def cut_leaf(x, spec: tuple, mesh):
     """This rank's part of the whole leaf ``x`` under ``spec``."""
-    for dim, axis in enumerate(spec):
-        if axis and mesh.size(axis) > 1:
-            x = _take(x, dim, mesh.index(axis), mesh.size(axis))
+    for dim, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if axes and mesh.size(axes) > 1:
+            x = _take(x, dim, mesh.index(axes), mesh.size(axes))
     return x
 
 
@@ -548,7 +782,7 @@ def shard_params(params, cfg, mesh: Mesh | None, fsdp: bool = False):
     ``E / tp`` experts, or every expert's ``d_expert / tp`` columns), the
     shared MLP and the dense MLP by the 2-D rows, the attention in the
     ``'heads'`` regime only; the router, norms and ``bo`` stay whole."""
-    if mesh is None or mesh.tp * mesh.data <= 1:
+    if mesh is None or mesh.world <= 1:
         return params
     shapes = full_shapes(cfg)
 
@@ -602,9 +836,15 @@ def _staged(x: Tensor, mesh: Mesh) -> Tensor:
 
 
 def all_reduce(x: Tensor, mesh: Mesh, op: str = "sum", site: str = "",
-               axis: str = "model") -> Tensor:
+               axis: str | tuple[str, ...] = "model") -> Tensor:
     """The element-wise ``op`` (``sum`` | ``max``) of ``x`` over
-    ``axis``'s ranks, on ``x``'s device; the input is not kept."""
+    ``axis``'s ranks (over several axes, one after the other), on
+    ``x``'s device; the input is not kept."""
+    if isinstance(axis, tuple):
+        for a in axis:
+            if mesh.size(a) > 1:
+                x = all_reduce(x, mesh, op, site, a)
+        return x
     buf = _staged(x, mesh)
     if buf is x:
         buf = x.clone()
@@ -613,14 +853,32 @@ def all_reduce(x: Tensor, mesh: Mesh, op: str = "sum", site: str = "",
     return buf.to(x.device, non_blocking=True)
 
 
+#: one output tensor for every rank's part (``all_gather_into_tensor``
+#: in PyTorch releases before ``all_gather_single`` took its name)
+_gather_single = (getattr(dist, "all_gather_single", None)
+                  or dist.all_gather_into_tensor)
+
+
 def all_gather(x: Tensor, mesh: Mesh, dim: int, site: str = "",
-               axis: str = "model") -> Tensor:
+               axis: str | tuple[str, ...] = "model") -> Tensor:
     """Every ``axis`` rank's ``x`` concatenated along ``dim`` in rank
-    order, on ``x``'s device."""
+    order, on ``x``'s device; over several axes, in their row-major
+    order (the last axis gathered first)."""
+    if isinstance(axis, tuple):
+        for a in reversed(axis):
+            if mesh.size(a) > 1:
+                x = all_gather(x, mesh, dim, site, a)
+        return x
     buf = _staged(x, mesh)
-    parts = [torch.empty_like(buf) for _ in range(mesh.size(axis))]
-    dist.all_gather(parts, buf, group=mesh.group_of(axis))
-    out = torch.cat(parts, dim=dim)
+    n = mesh.size(axis)
+    if mesh.backend == "gloo":
+        parts = [torch.empty_like(buf) for _ in range(n)]
+        dist.all_gather(parts, buf, group=mesh.group_of(axis))
+        out = torch.cat(parts, dim=dim)
+    else:
+        stacked = buf.new_empty((n,) + tuple(buf.shape))
+        _gather_single(stacked, buf, group=mesh.group_of(axis))
+        out = stacked.movedim(0, dim).flatten(dim, dim + 1)
     mesh.log.add(site, "all_gather", out)
     return out.to(x.device, non_blocking=True)
 

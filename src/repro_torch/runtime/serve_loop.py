@@ -28,28 +28,77 @@ streams are not JAX's threefry streams either.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.models.model_zoo import Model
+from repro_torch.runtime import partitioning as PT
 
 Tensor = torch.Tensor
 
 
-def make_prefill_step(model: Model, run: RunConfig, max_len: int):
+def serving_layout(model: Model, mesh):
+    """The serving weights' layout on ``mesh``: the training layout
+    (``shard_pspec`` with ``fsdp=True``: FSDP over ``'data'``, tensor
+    and expert parallelism over ``'model'``, each ``'data'`` cut
+    gathered just before use), as the JAX package's cells cut them;
+    ``Layout.cut`` gives a rank's weights from whole ones."""
+    return PT.Layout(model.cfg, mesh)
+
+
+def _serving_scope(model: Model, mesh, batch: int | None):
+    """The context a serving step runs in on ``mesh``: a function giving
+    a fresh one each call — no autograd, and on a mesh of more than one
+    rank the rank's weights under :func:`serving_layout` with the
+    ``batch`` rows cut as ``batch_pspec`` cuts them."""
+    if mesh is None or mesh.world <= 1:
+        return torch.no_grad
+    if batch is None:
+        raise ValueError("a serving step on a mesh needs the global batch")
+    layout = serving_layout(model, mesh)
+    rows = PT.row_axes(mesh, batch)
+
+    @contextlib.contextmanager
+    def scope():
+        with torch.no_grad(), PT.mesh_scope(mesh, cut=True, tokens=rows,
+                                            layout=layout):
+            yield
+    return scope
+
+
+def make_prefill_step(model: Model, run: RunConfig, max_len: int, *,
+                      mesh=None, batch: int | None = None):
     """``(params, tokens, encoder_input=None) → (last-position logits
-    (B, 1, V), state)``."""
+    (B, 1, V), state)``.
+
+    With a ``mesh`` of more than one rank (the JAX package's serving
+    cell under its active mesh): ``params`` are the rank's cut
+    (:func:`serving_layout`), ``tokens`` and ``encoder_input`` the
+    rank's rows of a global batch of ``batch`` rows
+    (``partitioning.row_range``), and the state the rank's cut of the
+    caches (``partitioning.cache_specs``)."""
+    scope = _serving_scope(model, mesh, batch)
+
     def prefill_step(params, tokens, encoder_input=None):
-        return model.prefill(params, tokens, run, max_len,
-                             encoder_input=encoder_input, logits="last")
+        with scope():
+            return model.prefill(params, tokens, run, max_len,
+                                 encoder_input=encoder_input, logits="last")
     return prefill_step
 
 
-def make_decode_step(model: Model, run: RunConfig):
-    """``(params, token (B, 1), caches) → (logits (B, 1, V), caches)``."""
+def make_decode_step(model: Model, run: RunConfig, *, mesh=None,
+                     batch: int | None = None):
+    """``(params, token (B, 1), caches) → (logits (B, 1, V), caches)``;
+    with a ``mesh``, each a rank's share as for
+    :func:`make_prefill_step`."""
+    scope = _serving_scope(model, mesh, batch)
+
     def decode_step(params, token, state):
-        return model.decode_step(params, token, state, run)
+        with scope():
+            return model.decode_step(params, token, state, run)
     return decode_step
 
 

@@ -102,7 +102,7 @@ def make_loss_fn(model: Model, run: RunConfig):
 
 
 def _sharded(mesh) -> bool:
-    return mesh is not None and mesh.tp * mesh.data > 1
+    return mesh is not None and mesh.world > 1
 
 
 def make_grad_fn(model: Model, run: RunConfig, mesh=None):
@@ -112,23 +112,21 @@ def make_grad_fn(model: Model, run: RunConfig, mesh=None):
     splits the batch into a equal row blocks and averages their
     gradients and losses.
 
-    With a ``('data', 'model')`` ``mesh`` of more than one rank,
-    ``params`` are this rank's cut (:func:`shard_train_state`) and every
-    rank is given the whole batch: each microbatch's rows are cut over
-    ``'data'`` when the axis divides them (``batch_pspec``), else every
-    data rank runs all of them.  The layers gather each leaf's
-    ``'data'`` cut just before use and compute on its ``'model'`` cut
-    (``partitioning.Layout``); every gradient is summed over ``'data'``
-    — by the gathers' backward for the leaves cut there, by an
-    all-reduce for the others — and divided by the data degree, which is
-    right whether the rows were cut or replicated.  The loss is the data
-    ranks' mean.  ``grad_fn.layout`` is the layout (None without a
-    mesh)."""
+    With a ``('data', 'model')`` or ``('pod', 'data', 'model')``
+    ``mesh`` of more than one rank, ``params`` are this rank's cut
+    (:func:`shard_train_state`) and every rank is given the whole batch:
+    each microbatch's rows are cut over the batch axes as
+    ``batch_pspec`` cuts them (both, ``'data'`` alone, or none).  The
+    layers gather each leaf's ``'data'`` cut just before use and compute
+    on its ``'model'`` cut (``partitioning.Layout``); every gradient is
+    summed over the batch axes — over ``'data'`` by the gathers'
+    backward for the leaves cut there, by all-reduces otherwise — and
+    divided by their degree, which is right whether the rows were cut or
+    replicated.  The loss is the mean over the ranks the rows were cut
+    over.  An encoder-decoder's encoder takes the same treatment as its
+    decoder.  ``grad_fn.layout`` is the layout (None without a mesh)."""
     loss_fn = make_loss_fn(model, run)
     layout = PT.Layout(model.cfg, mesh) if _sharded(mesh) else None
-    if layout is not None and model.is_encdec:
-        raise NotImplementedError(
-            f"{model.cfg.name}: the sharded train step runs decoders")
 
     def grad_fn(params, batch) -> tuple[Tensor, Tree]:
         a = run.microbatch
@@ -140,14 +138,15 @@ def make_grad_fn(model: Model, run: RunConfig, mesh=None):
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{a} microbatches")
         n = rows // a
-        dp = mesh.data if layout is not None else 1
-        cut_rows = dp > 1 and PT.batch_pspec(mesh, n) == ("data",)
+        batch_axes = PT.batch_axes(mesh) if layout is not None else ()
+        dp = mesh.size(batch_axes) if layout is not None else 1
+        cut_rows = PT.row_axes(mesh, n) if layout is not None else ()
         loss = None
         for i in range(a):
             lo, hi = i * n, (i + 1) * n
             if cut_rows:
-                m = n // dp
-                lo, hi = lo + mesh.data_rank * m, lo + (mesh.data_rank + 1) * m
+                r0, r1 = PT.row_range(mesh, n)
+                lo, hi = lo + r0, lo + r1
             mb = {k: v[lo:hi] for k, v in batch.items() if v is not None}
             scope = (PT.mesh_scope(mesh, cut=True, tokens=cut_rows,
                                    layout=layout)
@@ -162,13 +161,15 @@ def make_grad_fn(model: Model, run: RunConfig, mesh=None):
         for _, p in flat:
             p.grad = None
         if dp > 1:
-            grads = [g if "data" in layout.axes(path) else PT.all_reduce(
-                g, mesh, "sum", site="grads", axis="data")
+            # a leaf cut over 'data' had its gradient summed there by its
+            # gather's backward; every other sum over the batch axes runs
+            # here
+            grads = [PT.all_reduce(g, mesh, "sum", site="grads", axis=tuple(
+                ax for ax in batch_axes
+                if not (ax == "data" and "data" in layout.axes(path))))
                 for (path, _), g in zip(flat, grads)]
-            if cut_rows:
-                loss = PT.all_reduce(loss, mesh, "sum", site="loss",
-                                     axis="data")
-                loss = loss / dp
+            loss = PT.all_reduce(loss, mesh, "sum", site="loss",
+                                 axis=cut_rows) / mesh.size(cut_rows)
             torch._foreach_div_(grads, float(dp))
         if a > 1:
             torch._foreach_div_(grads, float(a))

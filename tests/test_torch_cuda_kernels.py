@@ -828,6 +828,39 @@ def test_dense_split_route_on_an_empty_cache(cuda, dtype):
                 assert not out.any(), (pol, fused, causal)
 
 
+def test_dense_op_on_real_and_fake_cuda_tensors(cuda):
+    """In one process: the dense operator on real CUDA tensors launches
+    the kernel (one launch counted, ``FlopCounterMode`` counting its
+    FLOPs) and matches the plain version; on fake CUDA tensors
+    (``FakeTensorMode``) it gives the kernel's shape and dtype, counts the
+    same FLOPs and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    pol = SoftmaxPolicy(impl="rexp", precision="uint8")
+    q, k, v = _dense_problem(41, b=2, h=8, kvh=2, lq=1, lk=300, dh=128,
+                             dtype=torch.bfloat16)
+    before = sum(lut_attention_cuda.launches.values())
+    with FlopCounterMode(display=False) as fc:
+        out = ops.lut_attention(q, k, v, pol, causal=True, kv_len=250)
+    torch.cuda.synchronize()
+    assert sum(lut_attention_cuda.launches.values()) == before + 1
+    flops = 4 * 2 * 8 * 1 * 300 * 128
+    assert fc.get_total_flops() == flops
+    ref = ops.lut_attention(q, k, v, pol, causal=True, kv_len=250,
+                            backend="naive")
+    assert float((out - ref).abs().max()) <= 2.0 / 255 * float(
+        v.float().abs().max())
+    with FakeTensorMode() as mode:
+        fq, fk, fv = (mode.from_tensor(t) for t in (q, k, v))
+        with FlopCounterMode(display=False) as fc:
+            fout = ops.lut_attention(fq, fk, fv, pol, causal=True,
+                                     kv_len=250)
+    assert fout.device.type == "cuda" and fout.dtype == torch.float32
+    assert tuple(fout.shape) == tuple(out.shape)
+    assert fc.get_total_flops() == flops
+    assert sum(lut_attention_cuda.launches.values()) == before + 1
+
+
 @pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_dense_split_plans_fit_a_cta(cuda, arch):
     """Every config's attention widths on the split route, f32 and bf16,

@@ -122,3 +122,13 @@ def test_scan_covers_the_recurrent_modules():
     scanned = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
     assert {"models/ssm.py", "configs/jamba_v0_1_52b.py",
             "configs/xlstm_125m.py"} <= scanned
+
+
+def test_scan_covers_the_cell_and_dry_run_modules():
+    """... and the reference's cells and dry run, with the modules they
+    drive: the shape registry, the mesh factories and the fake
+    tensors' kernel operators."""
+    scanned = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"launch/cells.py", "launch/dryrun.py", "configs/base.py",
+            "launch/mesh.py", "kernels/common.py",
+            "runtime/serve_loop.py"} <= scanned
