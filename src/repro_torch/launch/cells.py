@@ -37,10 +37,9 @@ periods, the plain attention, no microbatching.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
-
 import time
 import weakref
+from typing import Any, Callable
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode

@@ -25,7 +25,6 @@ registry, the 40-point grid and its ``long_500k`` gating, ``make_run``,
 """
 
 import jax
-import numpy as np
 import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as P

@@ -32,7 +32,6 @@ decoder) is held to the JAX package's single-device step as
 1e-5 relative, every gradient within 1e-4 of its leaf's largest entry.
 """
 
-import dataclasses
 import os
 import pickle
 import subprocess
