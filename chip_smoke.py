@@ -173,6 +173,9 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    (the route threshold); the few-row calls (Whisper's decode steps,
    Qwen3-32B's lockstep decode) timed on the split and row routes beside
    their plain version, exact SDPA on the same inputs and their bound;
+   at Qwen3-32B's lockstep decode the host µs a call of the wrapper
+   (a direct launch), of the bare launch and of the launch through the
+   custom operator that fake tensors take (``[host]`` lines);
    then the encoder call at B=4 timed on the tile and row routes (L2
    flushed, median of 20) beside its plain version and exact SDPA, with
    its bound (the busiest of the tensor
@@ -297,11 +300,19 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    8 KV heads (the dense kernel's split route), and B 1 over 524 288
    positions (GQA 4) — its dense call within one LUT step of the plain
    version (the largest integer Σ printed; past 2^24 also the gap to
-   the plain version with Σ in f64), the dense launches equal to the
-   attention layers, ``FlopCounterMode``'s count of the real step equal
-   to the trace's, the step's peak memory within 10 % of the trace's
-   estimate, and the kernel's time at both shapes (L2 flushed, median of
-   20) beside its bytes bound, its plain version and exact SDPA.
+   the plain version with Σ in f64; faithful REXP gives σ = 0 on every
+   key of these random caches, so the call's output is zero, and the
+   share of all-zero rows is printed), the dense launches equal to the
+   attention layers, ``FlopCounterMode``'s count of the real step plus
+   ``dense_flops`` for each direct launch equal to the trace's, the
+   step's peak memory within 10 % of the trace's estimate, and the
+   kernel's time at both shapes (L2 flushed, median of 20) beside its
+   bytes bound, its plain version and exact SDPA; then the same call on
+   the same cache with four keys a KV head planted to dominate the
+   logits (output not zero) under faithful REXP, fused REXP and 2D-LUT,
+   each within one LUT step of the plain version, whose largest |value|
+   must reach 8 steps; and the card's capacity against the dry run's
+   ``fits_hbm_80g`` limit.
 
 The whole run's seconds follow the phases.  The line before the last
 is the card's name and power limit, the one before it a JSON summary of
@@ -359,9 +370,10 @@ from repro_torch.kernels.lut_softmax.lut_softmax import (  # noqa: E402
     rexp_softmax_plain)
 from repro_torch.kernels.lut_attention import ops  # noqa: E402
 from repro_torch.kernels.lut_attention import ref as REF  # noqa: E402
+from repro_torch.kernels.lut_attention import lut_attention as DENSE  # noqa: E402,E501
 from repro_torch.kernels.lut_attention.lut_attention import (  # noqa: E402
-    MIN_TILE_ROWS, MODES, ROUTES, dense_route, lut_attention_cuda,
-    lut_attention_plain)
+    MIN_TILE_ROWS, MODES, ROUTES, dense_flops, dense_route,
+    lut_attention_cuda, lut_attention_plain)
 from repro_torch.kernels.lut_attention.paged_decode import (  # noqa: E402
     paged_decode_attention, paged_decode_plain)
 from repro_torch.kernels.lut_attention.paged_prefill import (  # noqa: E402
@@ -2409,6 +2421,39 @@ def dense_bound_f32_logits(b, h, kvh, lq, lk, dh, dtype, pairs):
     return max(t_bytes, max(n / peak for peak, n in per_unit.items()) * 1e3)
 
 
+def dense_host_us(q, k, v, kv_len):
+    """Host µs a dense decode call (:func:`host_us`) three ways: the
+    wrapper, whose launch on real tensors is a direct library call (the
+    main path's); the bare launch (``_launch``); and the same launch
+    through the custom operator ``repro_torch::lut_attention_dense``
+    (the dispatcher's path, which fake tensors take).  The wrapper
+    through the operator costs about wrapper − launch + operator."""
+    pol, _ = DENSE_MODES["rexp"]
+    main, aux, ints, floats = kernel_tables(pol.impl, ops._tables_for(pol),
+                                            pol.index_mode, q.device)
+    tail = (kv_len, True, False, ROUTES.index("split"), q.shape[-1] ** -0.5)
+    cases = {
+        "wrapper": lambda: dense_call(lut_attention_cuda, "rexp", q, k, v,
+                                      True, kv_len),
+        "launch": lambda: DENSE._launch(q, k, v, main, aux, ints, floats,
+                                        *tail),
+        "operator": lambda: DENSE._dense_op(q, k, v, main, aux, list(ints),
+                                            list(floats), *tail)}
+    out = {}
+    for name, fn in cases.items():
+        med, lo, hi = out[name] = host_us(fn)
+        print(f"[host] lut_attention rexp {name} B={q.shape[0]} "
+              f"H={q.shape[1]}/{k.shape[1]} Lk={k.shape[2]} kv_len={kv_len}:"
+              f" {med:.2f} us of host time a call (median of 30 rounds of "
+              f"100 calls, rounds {lo:.2f}–{hi:.2f})")
+    print(f"[host] lut_attention: the custom operator adds "
+          f"{out['operator'][0] - out['launch'][0]:.2f} us to a launch "
+          f"(the wrapper through it: about "
+          f"{out['wrapper'][0] - out['launch'][0] + out['operator'][0]:.2f}"
+          f" us against its {out['wrapper'][0]:.2f})")
+    return {name: med for name, (med, _, _) in out.items()}
+
+
 def phase_dense_kernel():
     """Phase 6: the dense kernel against its plain version at the main
     path's shapes, every mode, f32 and bf16, exact-logit (2e-6) and
@@ -2517,6 +2562,8 @@ def phase_dense_kernel():
               f"{row['plain_ms']:.4f} ms, exact SDPA {row['sdpa_ms']:.4f} "
               f"ms, bound {b_ms:.4f} ms ({b_by}), "
               f"{b_ms / row['split']:.1%} of bound on split")
+        if name == "qwen3 lockstep decode":
+            row["host_us"] = dense_host_us(q, k, v, kv_len)
 
     # The encoder call on the tile and row routes (the split route serves
     # few-row calls only).
@@ -4209,6 +4256,15 @@ C_PROBE = dict(probe=True, probe_periods=1,
                run_overrides={"attention_backend": "auto"})
 #: the step's measured peak against the trace's estimate
 C_MEM_TOL = 0.10
+#: the peaked check: keys planted in every (sequence, KV head) of the
+#: cell's cache, each at this share of the planted logit
+C_PEAK_SHARES = (1.0, 0.98, 0.95, 0.9)
+#: how far the planted logit lies above the random keys' (in their
+#: standard deviations, then in logit units)
+C_PEAK_SIGMAS, C_PEAK_ABOVE = 6.0, 16.0
+#: the largest |value| of the plain output a peaked check must reach, in
+#: LUT steps (its limit): a kernel that dropped σ·V would be that far off
+C_PEAK_MIN_STEPS = 8
 
 
 def dry_records(card):
@@ -4324,6 +4380,69 @@ def sigma_f64_gap(out, q, k, v, kv_len, pol):
             smax)
 
 
+def plant_peaks(q, k, kv_len, gen):
+    """Plant ``len(C_PEAK_SHARES)`` keys in every (sequence, KV head) of
+    ``k``, in place, at seeded positions below ``kv_len``: each along the
+    group's mean query direction u, scaled so that every query head's
+    logit at the first planted key lies ``C_PEAK_ABOVE`` above
+    ``C_PEAK_SIGMAS`` standard deviations of its logits at the random
+    keys (σ = scale · |q_h|: k's rows are N(0, 1)).  Every other key's
+    REXP numerator then rounds to 0, Σ/qmax is at most the planted keys'
+    count — inside LUT_α, whose last bin's α is 0 — and the output mixes
+    the planted keys' V by nonzero weights under every policy."""
+    b, h, _, dh = q.shape
+    kvh = k.shape[1]
+    scale = dh ** -0.5
+    qg = q[:, :, 0].float().view(b, kvh, h // kvh, dh)
+    qn = qg.norm(dim=-1)
+    u = (qg / qn[..., None]).sum(2)
+    u = u / u.norm(dim=-1, keepdim=True)
+    proj = (qg * u[:, :, None]).sum(-1)
+    if not bool((proj > 0).all()):
+        raise AssertionError("a query head points away from its group's "
+                             "mean direction")
+    t = ((C_PEAK_SIGMAS * scale * qn + C_PEAK_ABOVE)
+         / (scale * proj)).amax(-1)
+    n = len(C_PEAK_SHARES)
+    pos = torch.stack([torch.randperm(kv_len, generator=gen,
+                                      device=k.device)[:n]
+                       for _ in range(b * kvh)]).view(b, kvh, n)
+    shares = torch.tensor(C_PEAK_SHARES, device=k.device)
+    rows = t[..., None, None] * shares[:, None] * u[:, :, None]
+    k[torch.arange(b, device=k.device)[:, None, None],
+      torch.arange(kvh, device=k.device)[None, :, None], pos] = rows.to(
+        k.dtype)
+
+
+def peaked_checks(arch, q, k, v, policy, kw, limit):
+    """The dense kernel at the cell's shape on inputs whose output is not
+    zero (:func:`plant_peaks`): faithful REXP (the call's mode), REXP's
+    fused α form (no ``kv_len``: every key is valid) and 2D-LUT, each
+    within one LUT step of the plain version, whose largest |value| must
+    reach ``C_PEAK_MIN_STEPS`` steps.  Returns ``{mode: (max|err|,
+    max|ref|)}``."""
+    plant_peaks(q, k, kw["kv_len"], torch.Generator(
+        device="cuda").manual_seed(25))
+    res = {}
+    for mode, pol, kv_len in (("rexp", policy, kw["kv_len"]),
+                              ("rexp_fused", policy, None),
+                              ("lut2d", POLICIES["lut2d-uint8"],
+                               kw["kv_len"])):
+        kwm = {**kw, "kv_len": kv_len}
+        out = ops.lut_attention(q, k, v, pol, **kwm)
+        ref = plain_rows(q, k, v, pol, kwm)
+        err, top = float((out - ref).abs().max()), float(ref.abs().max())
+        res[mode] = (err, top)
+        print(f"[cells] {arch} dense call, planted keys, {mode}: max|err| "
+              f"{err:.3g} (one LUT step {limit:.3g}), max|ref| {top:.3g} "
+              f"(at least {C_PEAK_MIN_STEPS} steps)")
+        if not (err <= limit and top >= C_PEAK_MIN_STEPS * limit):
+            raise AssertionError(f"{arch} planted {mode}: max|err| {err}, "
+                                 f"max|ref| {top}, limit {limit}")
+        del out, ref
+    return res
+
+
 def cell_tensors(*trees):
     from repro_torch.launch.cells import _tensors
     return _tensors(trees)
@@ -4375,7 +4494,11 @@ def real_cell(cell, tr, card):
             cell.shape.global_batch, 1, cfg.vocab_size):
         raise AssertionError(f"{arch}: logits {tuple(logits.shape)} not "
                              f"finite")
-    flops = int(fc.get_total_flops())
+    # the dense launches are direct library calls, which FlopCounterMode
+    # does not see: their dense_flops are added, as the fake trace's
+    # operator counts them
+    attn_flops = sum(dense_flops(c[0].shape, c[1].shape) for c in calls)
+    flops = int(fc.get_total_flops()) + attn_flops
     if flops != tr.flops:
         raise AssertionError(f"{arch}: the step counted {flops} FLOPs, the "
                              f"trace {tr.flops}")
@@ -4384,7 +4507,8 @@ def real_cell(cell, tr, card):
           f"{t_setup:.1f}s; {base / 2**20:.0f} MiB held before the cell "
           f"(not counted); {launches} dense launch(es) "
           f"{dict(lut_attention_cuda.route_launches)}; FLOPs {flops:.6e} "
-          f"(trace {tr.flops:.6e}); peak {peak / 2**30:.3f} GiB against the "
+          f"(dense_flops {attn_flops:.6e} of them; trace {tr.flops:.6e}); "
+          f"peak {peak / 2**30:.3f} GiB against the "
           f"trace's {tr.live_bytes / 2**30:.3f} GiB ({off:.2%} off, held "
           f"within {C_MEM_TOL:.0%}) — {card}")
     if not off <= C_MEM_TOL:
@@ -4393,6 +4517,8 @@ def real_cell(cell, tr, card):
     q, k, v, policy, kw, out = calls[0]
     ref = plain_rows(q, k, v, policy, kw)
     err = float((out - ref).abs().max())
+    top = float(ref.abs().max())
+    zero_rows = float((ref.abs().amax(-1) == 0).float().mean())
     limit = 2.0 / qmax * float(v.float().abs().max())
     gap, smax = sigma_f64_gap(out, q, k, v, kw.get("kv_len"), policy)
     extra = (f"; Σ past 2^24: the kernel within {gap:.3g} of the plain "
@@ -4403,8 +4529,9 @@ def real_cell(cell, tr, card):
     route = dense_route(q.dtype, dh, lq, qmax, "rexp")
     print(f"[cells] {arch} dense call q {tuple(q.shape)} k "
           f"{tuple(k.shape)} kv_len {kv_len} {route}: max|err| {err:.3g} "
-          f"(one LUT step {limit:.3g}); largest integer Σ {smax:.0f}"
-          f"{extra}")
+          f"(one LUT step {limit:.3g}), max|ref| {top:.3g}, all-zero rows "
+          f"{zero_rows:.2%} (σ = 0 where Σ/qmax reaches LUT_α's last bin, "
+          f"α 0); largest integer Σ {smax:.0f}{extra}")
     if not err <= limit:
         raise AssertionError(f"{arch}: dense call off its plain version by "
                              f"{err} > {limit}")
@@ -4430,6 +4557,7 @@ def real_cell(cell, tr, card):
     if kv_len != lk or lq != 1:
         raise AssertionError(f"{arch}: the SDPA yardstick assumes every "
                              f"key visible, got kv_len {kv_len} of {lk}")
+    row["peaked"] = peaked_checks(arch, q, k, v, policy, kw, limit)
     del q, k, v, out, calls
     gc.collect()
     torch.cuda.empty_cache()
@@ -4444,6 +4572,13 @@ def phase_cells(card):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     print(f"[cells] {card}")
+    from repro_torch.launch.dryrun import HBM_PER_CARD
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[cells] the card's capacity {total} B ({total / 2**30:.4f} "
+          f"GiB); the dry run's fits_hbm_80g limit {HBM_PER_CARD} B")
+    if total < HBM_PER_CARD:
+        raise AssertionError("the dry run's fits_hbm_80g limit exceeds the "
+                             "card's capacity")
     traces = [cell_trace(*cell) for cell in C_CELLS]
     dry_records(card)
     print(f"[cells] phase 12a: {time.perf_counter() - t0:.1f}s")

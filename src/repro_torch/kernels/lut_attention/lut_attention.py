@@ -30,12 +30,16 @@ k, v (B, KVH, Lk, D) with the REXP or 2D-LUT softmax; the output is f32.
 and ``"lut2d"``; ``lut_attention_cuda.route_launches`` counts them per
 route.
 
-The launch is the custom operator ``repro_torch::lut_attention_dense``
-(``torch.library.custom_op``), so a fake or meta tensor (the dry run's
-``FakeTensorMode``, ``launch/cells.py``) gets an output of the kernel's
-shape and dtype from its fake implementation — no build, no library, no
-launch, no plain version — and ``FlopCounterMode`` counts the kernel's
-:func:`dense_flops` on fake and real tensors alike.
+On real CUDA tensors the wrapper calls the library directly
+(:func:`_launch`, no dispatcher: a decode step's host time is the main
+path's bottleneck).  A fake or meta tensor (the dry run's
+``FakeTensorMode``, ``launch/cells.py``) goes through the custom
+operator ``repro_torch::lut_attention_dense`` (``torch.library.
+custom_op``) instead: its fake implementation gives an output of the
+kernel's shape and dtype — no build, no library, no launch, no plain
+version — and ``FlopCounterMode`` counts the kernel's :func:`dense_flops`
+for it.  ``FlopCounterMode`` does not see a real launch; a caller that
+counts a real step adds :func:`dense_flops` for each launch.
 """
 
 from __future__ import annotations
@@ -126,10 +130,9 @@ def dense_flops(q_shape, k_shape) -> int:
     return 4 * b * h * lq * k_shape[2] * dh
 
 
-@torch.library.custom_op("repro_torch::lut_attention_dense", mutates_args=())
-def _dense_op(q: Tensor, k: Tensor, v: Tensor, main: Tensor, aux: Tensor,
-              ints: list[int], floats: list[float], kv: int, causal: bool,
-              fused: bool, route: int, scale: float) -> Tensor:
+def _launch(q: Tensor, k: Tensor, v: Tensor, main: Tensor, aux: Tensor,
+            ints, floats, kv: int, causal: bool, fused: bool, route: int,
+            scale: float) -> Tensor:
     """One launch of ``csrc/lut_attention.cu`` on CUDA tensors."""
     b, h, lq, dh = q.shape
     out = torch.empty((b, h, lq, dh), dtype=torch.float32, device=q.device)
@@ -143,6 +146,15 @@ def _dense_op(q: Tensor, k: Tensor, v: Tensor, main: Tensor, aux: Tensor,
         raise RuntimeError(f"lut_attention kernel launch failed "
                            f"({ROUTES[route]} route): CUDA error {err}")
     return out
+
+
+@torch.library.custom_op("repro_torch::lut_attention_dense", mutates_args=())
+def _dense_op(q: Tensor, k: Tensor, v: Tensor, main: Tensor, aux: Tensor,
+              ints: list[int], floats: list[float], kv: int, causal: bool,
+              fused: bool, route: int, scale: float) -> Tensor:
+    """:func:`_launch` as an operator, for fake and meta tensors."""
+    return _launch(q, k, v, main, aux, ints, floats, kv, causal, fused,
+                   route, scale)
 
 
 @_dense_op.register_fake
@@ -250,8 +262,8 @@ def lut_attention_cuda(q: Tensor, k: Tensor, v: Tensor,
                          scale)
     main, aux, ints, floats = kernel_tables(method, tables, index_mode,
                                             q.device)
-    out = _dense_op(q, k, v, main, aux, list(ints), list(floats), kv, causal,
-                    mode == "rexp_fused", ROUTES.index(route), scale)
+    out = _launch(q, k, v, main, aux, ints, floats, kv, causal,
+                  mode == "rexp_fused", ROUTES.index(route), scale)
     lut_attention_cuda.launches[mode] += 1
     lut_attention_cuda.route_launches[route] += 1
     return out

@@ -13,7 +13,8 @@ Each record: ``status`` (``ok``, ``skipped`` — ``configs.
 shape_applicable`` — or ``error`` with its traceback), ``seconds`` (the
 trace), ``memory`` (a rank's argument, output, peak and live bytes —
 live = peak + ``cells.WORKSPACE_BYTES`` — and ``fits_hbm_80g``: live ≤
-80 GiB, an H100 80GB HBM3's memory), ``cost.flops`` (the rank's FLOPs,
+:data:`HBM_PER_CARD`, the capacity torch reports on an H100 80GB HBM3),
+``cost.flops`` (the rank's FLOPs,
 ``FlopCounterMode``), ``collectives`` (the rank's count and bytes, in
 all and by site and kind), ``params`` and ``params_active``.
 
@@ -21,6 +22,11 @@ Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-32b --shape decode_32k
   python -m repro_torch.launch.dryrun --all --both-meshes [--out DIR]
       [--jobs N]
+
+The flags are the reference's, and ``--jobs``: the reference has no
+such flag.  It traces that many cells at once, one process each; the
+recurrent archs' training and prefill traces take hours (one process
+runs the sweep in about 15 h, seven in about 2.8 h).
 """
 
 from __future__ import annotations
@@ -32,7 +38,10 @@ import subprocess
 import time
 import traceback
 
-HBM_PER_CARD = 80 * 2**30   # an H100 80GB HBM3
+#: the bytes a rank may hold: the total capacity torch reports for an
+#: H100 80GB HBM3 (``torch.cuda.get_device_properties(0).total_memory``:
+#: 79.18 GiB; the 80 GB of its name are not all the allocator's)
+HBM_PER_CARD = 85_017_493_504
 
 
 def run_cell(arch_name: str, shape_name: str, multi_pod: bool) -> dict:

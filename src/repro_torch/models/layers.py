@@ -34,10 +34,7 @@ projections cut by output column give the rank's heads and ``wo`` cut
 by input row ends in an all-reduce of ``(B, L, d_model)``; in the
 ``'pages'`` regime the attention weights are never cut — its heads do
 not split on KV-head boundaries — and only the MLP, the embedding and
-the LM head shard (a memory layout; the function is the same).  A
-single-token lockstep step against an :class:`AttnCache` whose KV heads
-do not divide ``tp`` takes the length-sharded decode
-(``sharded_decode.lut_decode_sharded``), as in the JAX package.
+the LM head shard (a memory layout; the function is the same).
 
 Lockstep serving on a mesh (``serve_loop.make_prefill_step`` /
 ``make_decode_step`` with a ``mesh``) holds a rank's cut of each cache,
@@ -523,18 +520,6 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
         collector.offer(attention_logits(q[:1, :1].float(),
                                          k[:1, :1].float(),
                                          head_dim ** -0.5, causal))
-    if (cache is not None and l == 1 and tp > 1 and n_kv_heads % tp
-            and k.shape[2] % tp == 0 and policy.impl in ("exact", "rexp")):
-        # single-token step against a cache whose KV heads do not
-        # split: this rank attends its length shard, and only
-        # (B, H, 1) partials cross (sharded_decode)
-        from repro_torch.kernels.lut_attention.sharded_decode import (
-            lut_decode_sharded)
-        n = k.shape[2] // tp
-        shard = slice(mesh.rank * n, (mesh.rank + 1) * n)
-        out = lut_decode_sharded(q, k[:, :, shard], v[:, :, shard],
-                                 policy, kv_len=kv_len, mesh=mesh)
-        return _out_projection(p, x, out, b, l)
     out = lut_attention(q, k, v, policy, causal=causal and not is_cross,
                         kv_len=kv_len, backend=backend)
     return _out_projection(p, x, out, b, l, row_mesh)

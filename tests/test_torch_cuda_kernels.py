@@ -829,11 +829,12 @@ def test_dense_split_route_on_an_empty_cache(cuda, dtype):
 
 
 def test_dense_op_on_real_and_fake_cuda_tensors(cuda):
-    """In one process: the dense operator on real CUDA tensors launches
-    the kernel (one launch counted, ``FlopCounterMode`` counting its
-    FLOPs) and matches the plain version; on fake CUDA tensors
-    (``FakeTensorMode``) it gives the kernel's shape and dtype, counts the
-    same FLOPs and launches nothing."""
+    """In one process: the dense wrapper on real CUDA tensors launches
+    the kernel directly (one launch counted; no dispatcher, so
+    ``FlopCounterMode`` sees nothing) and matches the plain version; on
+    fake CUDA tensors (``FakeTensorMode``) the operator gives the
+    kernel's shape and dtype, counts its ``dense_flops`` and launches
+    nothing."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
     pol = SoftmaxPolicy(impl="rexp", precision="uint8")
@@ -844,8 +845,8 @@ def test_dense_op_on_real_and_fake_cuda_tensors(cuda):
         out = ops.lut_attention(q, k, v, pol, causal=True, kv_len=250)
     torch.cuda.synchronize()
     assert sum(lut_attention_cuda.launches.values()) == before + 1
+    assert fc.get_total_flops() == 0
     flops = 4 * 2 * 8 * 1 * 300 * 128
-    assert fc.get_total_flops() == flops
     ref = ops.lut_attention(q, k, v, pol, causal=True, kv_len=250,
                             backend="naive")
     assert float((out - ref).abs().max()) <= 2.0 / 255 * float(

@@ -317,10 +317,10 @@ def test_sharded_decode_matches_jax(runs, impl):
 
 @pytest.mark.parametrize("impl", ["exact", "rexp"])
 def test_lockstep_attention_takes_the_sharded_decode(runs, impl):
-    """A one-token step of ``layers.apply_attention`` against an
-    ``AttnCache`` under the mesh (KVH does not divide tp) runs the
-    length-sharded decode — its three partial rounds on the wire — and
-    returns its output."""
+    """A one-token step of ``layers.apply_attention`` under the mesh
+    against an ``AttnCache`` that holds the rank's shard of the length
+    (KVH does not divide tp) runs the length-sharded decode — its three
+    partial rounds on the wire — and returns its output."""
     _, decode, _ = runs
     res = decode[impl]
     assert res["sites"] == ["decode_max", "decode_sum", "decode_u"]

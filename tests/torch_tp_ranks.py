@@ -227,8 +227,10 @@ def decode_problems(mesh, problems):
     """Length-sharded lockstep decode: each problem (q, k, v (B, KVH, L,
     D), kv_len, impl) through ``lut_decode_sharded`` on this rank's
     length shard, and once more through ``layers.apply_attention`` on an
-    ``AttnCache`` under the mesh (the hook that takes it) — rank 0
-    returns both outputs and the hook's collective sites."""
+    ``AttnCache`` that holds this rank's length shard (``seq_axes``
+    ``('model',)``, as ``partitioning.cache_specs`` cuts a cache whose KV
+    heads do not divide the mesh) under the mesh — rank 0 returns both
+    outputs and the hook's collective sites."""
     outs = []
     for p in problems:
         pol = policy_of(p["impl"])
@@ -244,8 +246,10 @@ def decode_problems(mesh, problems):
         eye = torch.eye(h * d)
         prm = {"wq": eye, "wk": eye[:, :kvh * d], "wv": eye[:, :kvh * d],
                "wo": eye}
-        cache = L.AttnCache(k=k.clone(), v=v.clone(),
-                            length=int(p["kv_len"]) - 1)
+        cache = L.AttnCache(k=k[:, :, shard].clone(),
+                            v=v[:, :, shard].clone(),
+                            length=int(p["kv_len"]) - 1,
+                            seq_axes=("model",))
         x = q.transpose(1, 2).reshape(b, 1, h * d)
         mesh.log.records.clear()
         with PT.mesh_scope(mesh):
@@ -253,8 +257,7 @@ def decode_problems(mesh, problems):
                                   head_dim=d, rope_theta=None, policy=pol,
                                   cache=cache, backend="naive")
         sites = sorted({r.site for r in mesh.log.records})
-        direct = lut_decode_sharded(q, cache.k[:, :, shard],
-                                    cache.v[:, :, shard], pol,
+        direct = lut_decode_sharded(q, cache.k, cache.v, pol,
                                     kv_len=int(p["kv_len"]), mesh=mesh)
         outs.append(dict(out=out.numpy(), hook=y.numpy(),
                          direct=direct.transpose(1, 2).reshape(b, 1, -1)
