@@ -285,7 +285,17 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    stages, each one full-width Granite-MoE layer (``make_stage_fn``),
    4 microbatches of 2 × 128 tokens: outputs and stage gradients within
    1e-6 of the largest entry of the sequential run on one rank (bitwise
-   printed);
+   printed); (d) Jamba-v0.1-52B at full width, one period (13.3B
+   parameters, f32), lockstep on a (data 1, model 2) mesh with every
+   leaf stored as the JAX package's ``param_pspec(fsdp=True)`` cuts it
+   — channel-parallel Mamba with its state ``h`` cut, the norm scales
+   gathered before use, the experts and heads cut — each rank drawing
+   the seeded init block by block and keeping its cut: 4 prompts of 64
+   tokens and 8 new tokens, REXP and exact, the ranks replaying a
+   single-rank drive's expert choices: exact first-token logits within
+   2 % of that drive's, each rank's resident parameter bytes and Mamba
+   ``h`` bytes equal to the JAX package's shard shapes', the collective
+   bytes by site printed;
 12. the reference's cells (lines ``[cells]``, after phase 11): (a) the
    dry run (``launch/cells.py``: one rank's step traced on meta tensors
    over a ``fake`` process group) of Qwen3-32B × ``decode_32k`` and
@@ -312,7 +322,11 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    logits (output not zero) under faithful REXP, fused REXP and 2D-LUT,
    each within one LUT step of the plain version, whose largest |value|
    must reach 8 steps; and the card's capacity against the dry run's
-   ``fits_hbm_80g`` limit.
+   ``fits_hbm_80g`` limit;
+13. the examples (lines ``[examples]``, after phase 12): the four
+   ``examples/*_torch.py``' ``main(device="cuda")`` in this process,
+   each one's printed lines and kernel launches; quickstart's figures
+   equal to its CPU run's, the others run to their end.
 
 The whole run's seconds follow the phases.  The line before the last
 is the card's name and power limit, the one before it a JSON summary of
@@ -4588,11 +4602,176 @@ def phase_cells(card):
     return rows
 
 
+#: phase 11d: Jamba-v0.1-52B at full width, one period, lockstep on a
+#: (data 1, model 2) mesh against one rank: 4 prompts of 64 tokens, 8 new
+#: tokens (the first from the prefill), REXP and exact.  In f32: in bf16
+#: the two computations' own roundoff (the row partials rounded before
+#: their sum, cuBLAS's orders) moves 138 of the experts' top-2 choices
+#: and the exact first-token logits by 2.76 % (PR 26's first card run),
+#: which would hide a fault of the cut's arithmetic
+J_MESH = {"data": 1, "model": 2}
+J_RANK_BATCH, J_RANK_PROMPT, J_RANK_NEW = 4, 64, 8
+J_DTYPE = "float32"
+
+
+def jamba_drive(model, params, prompt, policy, mesh=None):
+    """The lockstep prefill of ``prompt`` and ``J_RANK_NEW − 1`` greedy
+    decode steps under ``policy`` (on ``mesh``: the rank's cut of the
+    weights and the state, every row on every rank): the first-token
+    logits (f32, on the host), the tokens and the last state."""
+    from repro_torch.runtime.serve_loop import make_decode_step
+    run = RunConfig(dtype=J_DTYPE, softmax_policy=POLICIES[policy])
+    kw = dict(mesh=mesh, batch=prompt.shape[0]) if mesh is not None else {}
+    prefill = make_prefill_step(model, run, J_RANK_PROMPT + J_RANK_NEW,
+                                **kw)
+    decode = make_decode_step(model, run, **kw)
+    logits, state = prefill(params, prompt)
+    first = logits[:, -1].float().cpu()
+    toks = [logits[:, -1:].argmax(-1).to(torch.int32)]
+    for _ in range(J_RANK_NEW - 1):
+        logits, state = decode(params, toks[-1], state)
+        toks.append(logits[:, -1:].argmax(-1).to(torch.int32))
+    return first, torch.cat(toks, 1).cpu(), state
+
+
+def reference_bytes(arch, mesh, params) -> int:
+    """Bytes of every parameter leaf at the JAX package's shard shape on
+    this rank (``param_pspec(path, shape, mesh, fsdp=True)``), in the
+    dtype the rank holds it in."""
+    from repro_torch.runtime import partitioning as PT
+    held = dict(tree_flatten(params))
+    return sum(int(np.prod(PT.local_shape(shape, PT.param_pspec(
+        path, shape, mesh, fsdp=True), mesh))) * held[path].element_size()
+        for path, shape in PT.full_shapes(arch).items())
+
+
+def jamba_rank(mesh, arch, prompt, routes):
+    """One rank of phase 11d: the seeded f32 init cut block by block to
+    the serving layout (``Model.init(..., layout=)``: no more than one
+    block whole; one rank at a time), then the lockstep drives of
+    :func:`jamba_drive` on every row, replaying the single rank's expert
+    choices.  Returns
+    (rank 0) per policy the first-token logits and tokens, and every
+    rank's resident parameter bytes beside the JAX package's shard
+    shapes', its Mamba ``h`` bytes beside theirs, its collective bytes
+    by site and its seconds."""
+    from repro_torch.runtime.serve_loop import serving_layout
+    model = build_model(arch)
+    t0 = time.perf_counter()
+    for r in range(mesh.world):
+        if r == mesh.world_rank:
+            params = model.init(
+                torch.Generator(device=mesh.device).manual_seed(5),
+                mesh.device, layout=serving_layout(model, mesh))
+            _sync(mesh.device)
+            if torch.device(mesh.device).type == "cuda":
+                torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    mine = dict(init=time.perf_counter() - t0,
+                params=sum(x.nbytes for _, x in tree_flatten(params)),
+                params_want=reference_bytes(arch, mesh, params))
+    n_mamba = sum(s.mixer == "mamba" for s in arch.period) * arch.n_periods
+    b, di = prompt.shape[0], SSM.EXPAND * arch.d_model
+    mine["h_want"] = n_mamba * b * (di // mesh.tp) * SSM.D_STATE * 4
+    out = {}
+    for policy in R_POLICIES:
+        flips = []
+        mesh.log.clear()
+        t0 = time.perf_counter()
+        with pinned_routes(replay=[r.to(mesh.device)
+                                   for r in routes[policy]], flips=flips):
+            first, toks, state = jamba_drive(
+                model, params, prompt.to(mesh.device), policy, mesh)
+        _sync(mesh.device)
+        mine[policy] = dict(secs=time.perf_counter() - t0,
+                            by_site=mesh.log.by_site(),
+                            flips=int(torch.cat(flips).sum()))
+        mine["h"] = sum(leaf.nbytes for name, leaf in state_leaves(state)
+                        if name.endswith(" h"))
+        out[policy] = dict(first=first, tokens=toks)
+        del state
+    ranks = [None] * mesh.world
+    torch.distributed.all_gather_object(ranks, mine)
+    return dict(out, ranks=ranks) if mesh.world_rank == 0 else None
+
+
+def phase_ranks_jamba(card, device="cuda", arch=None):
+    """Phase 11d: Jamba-v0.1-52B at full width, one period (13.3B
+    parameters, f32), lockstep on a (data 1, model 2) mesh of 2 ranks
+    sharing the card over gloo — channel-parallel Mamba with its state
+    ``h`` cut, the norm scales stored cut and gathered before use, the
+    experts cut, the heads cut — against a single-rank drive of the same
+    seeded init and prompts, the ranks replaying its expert choices:
+    exact first-token logits within 2 %, each rank's resident parameter
+    and ``h`` bytes equal to the JAX package's shard shapes', the
+    collective bytes by site printed."""
+    from repro_torch.launch.mesh import start_ranks
+    t_phase = time.perf_counter()
+    arch = (arch or ARCHS["jamba-v0.1-52b"]).with_layers(1)
+    model = build_model(arch)
+    params = model.init(torch.Generator(device=device).manual_seed(5),
+                        device)
+    rng = np.random.default_rng(5)
+    prompt = torch.as_tensor(rng.integers(0, arch.vocab_size, size=(
+        J_RANK_BATCH, J_RANK_PROMPT)), dtype=torch.int32, device=device)
+    refs, routes = {}, {}
+    for policy in R_POLICIES:
+        rec = []
+        with pinned_routes(record=rec):
+            refs[policy] = jamba_drive(model, params, prompt, policy)[:2]
+        routes[policy] = [r.cpu() for r in rec]
+    del model, params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    got = start_ranks(jamba_rank, backend="gloo", device=device,
+                      axes=J_MESH, threads=0,
+                      args=(arch, prompt.cpu(), routes)).join()
+    label = (f"{arch.name} x{arch.n_layers} layers f32 lockstep, mesh "
+             f"(data {J_MESH['data']}, model {J_MESH['model']})")
+    for rank, mine in enumerate(got["ranks"]):
+        if mine["params"] != mine["params_want"]:
+            raise AssertionError(f"{label}: rank {rank} holds "
+                                 f"{mine['params']} B of parameters, the "
+                                 f"JAX package's shards {mine['params_want']}")
+        if mine["h"] != mine["h_want"]:
+            raise AssertionError(f"{label}: rank {rank} holds {mine['h']} B "
+                                 f"of Mamba h, the JAX package's shards "
+                                 f"{mine['h_want']}")
+    for policy in R_POLICIES:
+        (first, toks), g = refs[policy], got[policy]
+        worst = float((g["first"] - first).abs().max() / first.abs().max())
+        if policy == "exact" and not worst <= 0.02:
+            raise AssertionError(f"{label} {policy}: first-token logits "
+                                 f"differ by {worst:.3g} > 0.02 of the "
+                                 f"largest")
+        agree = float((g["tokens"] == toks).float().mean())
+        print(f"[ranks] {label} {policy}: first-token logits max|Δ|/max|"
+              f"logit| {worst:.4g} against one rank "
+              f"({'held within 0.02' if policy == 'exact' else 'printed'}); "
+              f"greedy tokens equal {agree:.1%}; flipped routings replayed "
+              f"(rank: flipped) {[m[policy]['flips'] for m in got['ranks']]}"
+              f"; collective bytes of the drive by site (rank 0) "
+              f"{got['ranks'][0][policy]['by_site']}; drive seconds "
+              f"{[round(m[policy]['secs'], 2) for m in got['ranks']]} (gloo "
+              f"over the host, 2 ranks on one card: not a speed) — {card}")
+    print(f"[ranks] {label}: resident parameter bytes a rank "
+          f"{[m['params'] for m in got['ranks']]} (the JAX package's shard "
+          f"shapes: {[m['params_want'] for m in got['ranks']]}); Mamba h "
+          f"bytes a rank {[m['h'] for m in got['ranks']]} (theirs "
+          f"{[m['h_want'] for m in got['ranks']]}); init seconds a rank "
+          f"{[round(m['init'], 1) for m in got['ranks']]} — {card}")
+    print(f"[ranks] phase 11d: {time.perf_counter() - t_phase:.1f}s — "
+          f"{card}")
+    return got
+
+
 def phase_ranks(card, device="cuda"):
     """Phase 11 (lines ``[ranks]``): the model across ranks — expert-
     parallel serving, the sharded train step with its checkpoint
-    restored on another mesh, and GPipe — each as rank processes sharing
-    this card over gloo (one card: no NCCL)."""
+    restored on another mesh, GPipe, and Jamba's lockstep serving on
+    the reference's cut — each as rank processes sharing this card over
+    gloo (one card: no NCCL)."""
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -4600,8 +4779,75 @@ def phase_ranks(card, device="cuda"):
     serving = phase_ranks_serving(card, device)
     train = phase_ranks_train(card, device)
     pipe = phase_ranks_pipeline(card, device)
+    jamba = phase_ranks_jamba(card, device)
     print(f"[ranks] phase 11: {time.perf_counter() - t0:.1f}s — {card}")
-    return dict(serving=serving, train=train, pipe=pipe)
+    return dict(serving=serving, train=train, pipe=pipe, jamba=jamba)
+
+
+#: phase 13: the torch examples, in the order of ROADMAP's queue
+EXAMPLES = ("quickstart", "calibrate_luts", "serve_lut_softmax",
+            "train_resilient")
+
+
+def load_example(name: str):
+    """``examples/<name>_torch.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(card, device="cuda"):
+    """Phase 13 (lines ``[examples]``): each torch example's
+    ``main(device="cuda")`` in this process, its printed lines and the
+    kernels it launched; quickstart's figures must equal its CPU run's,
+    the others run to their end."""
+    import contextlib
+    import io
+    t_phase = time.perf_counter()
+    for name in EXAMPLES:
+        mod = load_example(name)
+        before = _all_launches()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            figures = mod.main(device=device)
+        _sync(device)
+        secs = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            if line.strip():
+                print(f"[examples] {name}: {line}")
+        if name == "quickstart":
+            with contextlib.redirect_stdout(io.StringIO()):
+                cpu = mod.main(device="cpu")
+            if figures != cpu:
+                raise AssertionError(f"quickstart on the card {figures} is "
+                                     f"not its CPU run's {cpu}")
+            print(f"[examples] quickstart: the card's figures equal the "
+                  f"CPU run's {cpu}")
+        after = _all_launches()
+        ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        print(f"[examples] {name}: {secs:.1f}s, kernel launches {ran} — "
+              f"{card}")
+    print(f"[examples] phase 13: {time.perf_counter() - t_phase:.1f}s — "
+          f"{card}")
+
+
+def _all_launches() -> dict:
+    """Every kernel wrapper's launch count, by kernel (and by mode)."""
+    out = dict(paged_decode=paged_decode_attention.launches,
+               paged_prefill=paged_prefill_attention.launches,
+               paged_decode_int8=paged_decode_attention.int8_launches,
+               paged_prefill_int8=paged_prefill_attention.int8_launches,
+               lut_softmax_rexp=rexp_softmax_cuda.launches,
+               lut_softmax_lut2d=lut2d_softmax_cuda.launches)
+    out.update({f"lut_attention_{m}": n
+                for m, n in lut_attention_cuda.launches.items()})
+    out.update({f"flash_attention_{r}": n
+                for r, n in flash_attention_cuda.launches.items()})
+    return out
 
 
 def main() -> int:
@@ -4641,6 +4887,7 @@ def main() -> int:
     kernels["lut_attention"]["shapes"]["qwen3-32b-eval"] = phase_train(card)
     phase_ranks(card)
     kernels["lut_attention"]["shapes"].update(phase_cells(card))
+    phase_examples(card)
     summary = {"kernels": [
         dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}.cu",
              replaces=f"src/repro/kernels/{replaces}",

@@ -117,7 +117,7 @@ def make_run(arch: ArchConfig, shape: ShapeConfig, *, probe: bool = False,
 def _rank_params(model: Model, mesh, dtype: torch.dtype, device,
                  requires_grad: bool = False):
     """The parameter tree at this rank's shapes under the serving and
-    training layout (``shard_pspec`` with ``fsdp=True``), as empty
+    training layout (``param_pspec`` with ``fsdp=True``), as empty
     tensors of ``dtype`` on ``device``."""
     layout = PT.Layout(model.cfg, mesh)
     meta = PT.meta_params(model.cfg)

@@ -21,12 +21,15 @@ all and by site and kind), ``params`` and ``params_active``.
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-32b --shape decode_32k
   python -m repro_torch.launch.dryrun --all --both-meshes [--out DIR]
-      [--jobs N]
+      [--jobs N] [--slow-args-only]
 
-The flags are the reference's, and ``--jobs``: the reference has no
-such flag.  It traces that many cells at once, one process each; the
-recurrent archs' training and prefill traces take hours (one process
-runs the sweep in about 15 h, seven in about 2.8 h).
+The flags are the reference's, and ``--jobs`` and ``--slow-args-only``:
+the reference has neither.  ``--jobs`` traces that many cells at once,
+one process each; the recurrent archs' training and prefill traces take
+hours (one process runs the sweep in about 15 h, seven in about 2.8 h).
+``--slow-args-only`` builds those cells without tracing them: their
+records (status ``args``) hold a rank's argument bytes, from the specs,
+and nothing the trace measures.
 """
 
 from __future__ import annotations
@@ -44,8 +47,16 @@ import traceback
 HBM_PER_CARD = 85_017_493_504
 
 
-def run_cell(arch_name: str, shape_name: str, multi_pod: bool) -> dict:
-    """One cell on one production mesh, as rank 0: its record."""
+def slow_trace(arch, shape) -> bool:
+    """Whether the cell's trace takes hours: a recurrent arch's training
+    or prefill step (4 096 or 32 768 Python steps a layer)."""
+    return arch.sub_quadratic and shape.kind != "decode"
+
+
+def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
+             trace: bool = True) -> dict:
+    """One cell on one production mesh, as rank 0: its record (without
+    ``trace``, a rank's argument bytes only, status ``args``)."""
     from repro_torch.configs import SHAPES, get_arch, shape_applicable
     from repro_torch.launch.cells import build_cell, trace_cell
     from repro_torch.launch.mesh import make_production_mesh
@@ -61,6 +72,11 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool) -> dict:
     t0 = time.time()
     try:
         cell = build_cell(arch_name, shape_name, mesh)
+        if not trace:
+            rec.update(status="args", seconds=round(time.time() - t0, 1),
+                       memory={"argument_bytes": argument_bytes(cell)},
+                       params=cell.arch.param_count())
+            return rec
         tr = trace_cell(cell)
         total = {"count": sum(c["count"] for c in tr.collectives.values()),
                  "bytes": sum(c["bytes"] for c in tr.collectives.values())}
@@ -84,9 +100,20 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool) -> dict:
     return rec
 
 
+def argument_bytes(cell) -> int:
+    """A rank's bytes of the cell's arguments (weights, optimizer state,
+    caches, batch), from their shapes."""
+    from repro_torch.launch.cells import _nbytes, _tensors
+    return _nbytes(_tensors(cell.args))
+
+
 def line(rec: dict) -> str:
-    """The record's ``[OK]`` / ``[SKIP]`` / ``[ERR]`` line."""
+    """The record's ``[OK]`` / ``[ARGS]`` / ``[SKIP]`` / ``[ERR]`` line."""
     tag = f"{rec['arch']} × {rec['shape']} × {rec['mesh']}"
+    if rec["status"] == "args":
+        return (f"[ARGS] {tag}: arguments "
+                f"{rec['memory']['argument_bytes'] / 2**30:.2f} GiB/rank "
+                f"(not traced)")
     if rec["status"] == "ok":
         mem = rec["memory"]
         return (f"[OK]   {tag}: trace {rec['seconds']}s, live "
@@ -130,6 +157,9 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=None, help="directory for per-cell json")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells traced at once, one process each")
+    ap.add_argument("--slow-args-only", action="store_true",
+                    help="record only a rank's argument bytes of the "
+                         "cells whose traces take hours")
     args = ap.parse_args(argv)
     if not args.all and (args.arch is None or args.shape is None):
         ap.error("give --arch and --shape, or --all")
@@ -140,13 +170,15 @@ def main(argv=None) -> None:
     cells = ([(a, s) for a in sorted(ARCHS) for s in SHAPES]
              if args.all else [(args.arch, args.shape)])
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
-    jobs = [(a, s, mp) for a, s in cells for mp in meshes]
+    jobs = [(a, s, mp, not (args.slow_args_only
+                            and slow_trace(ARCHS[a], SHAPES[s])))
+            for a, s in cells for mp in meshes]
     t0 = time.time()
     if args.jobs > 1:
         # the recurrent archs' training and prefill cells trace 4 096 or
         # 32 768 Python steps a layer: start them first
-        jobs.sort(key=lambda j: not (ARCHS[j[0]].sub_quadratic
-                                     and SHAPES[j[1]].kind != "decode"))
+        jobs.sort(key=lambda j: not (j[3] and slow_trace(ARCHS[j[0]],
+                                                         SHAPES[j[1]])))
         import multiprocessing as mp
         with mp.get_context("spawn").Pool(args.jobs,
                                           maxtasksperchild=1) as pool:

@@ -130,7 +130,7 @@ def encode(params: Params, frames: Tensor, cfg: ArchConfig, run: RunConfig,
 
 def _mlp(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
     """The MLP, summed over ``'model'`` when its hidden units are cut."""
-    return L.apply_mlp(p, x, row_mesh=L.mlp_row_mesh(p, cfg.d_ff))
+    return L.apply_mlp(p, x, row_mesh=PT.active_scope().model_mesh(cfg.d_ff))
 
 
 def _decoder_pass(params: Params, x: Tensor, cfg: ArchConfig,
@@ -176,9 +176,9 @@ def _logits(params: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
     x = L.apply_norm(PT.use_leaves(params["dec_norm"], "dec_norm"), x,
                      cfg.norm_eps)
     head = PT.use_leaves(params["head"], "head")
-    if head["w"].shape[1] == cfg.vocab_size:
+    mesh = PT.active_scope().model_mesh(cfg.vocab_size)
+    if mesh is None:
         return L.apply_lm_head(head, x)
-    mesh = PT.active_mesh()
     logits = L.apply_lm_head(head, PT.copy_to(x, mesh, site="head.in"))
     return PT.gather_from(logits, mesh, dim=-1, site="head")
 
@@ -208,12 +208,13 @@ def prefill(params: Params, tokens: Tensor, cfg: ArchConfig, run: RunConfig,
     dtype = run_dtype(run)
     policy = run.softmax_policy
     enc = encode(params, encoder_input.to(dtype), cfg, run, policy)
-    dh = cfg.resolved_head_dim
+    heads = PT.active_scope().model_mesh(cfg.n_heads, cfg.n_kv_heads)
+    kvh = cfg.n_kv_heads // (heads.tp if heads is not None else 1)
     cross_kvs = []
     for i, blk in enumerate(params["decoder"]):
         attn = PT.use_leaves(blk["cross_attn"], f"decoder/{i}/cross_attn")
         cross_kvs.append(L.cross_attention_kv(
-            attn, enc, n_kv_heads=attn["wk"].shape[-1] // dh, head_dim=dh))
+            attn, enc, n_kv_heads=kvh, head_dim=cfg.resolved_head_dim))
     caches = init_caches(cfg, tokens.shape[0], max_len, dtype, tokens.device,
                          run.shard_kv_seq)
     x = _embed_dec(params, tokens, cfg, dtype)

@@ -28,13 +28,15 @@ the serving engine enters around its steps) the paged steps attend
 through the mesh rows of the paged dispatch (``ops.paged_mesh_regime``):
 in the ``'heads'`` regime each rank scatters and attends its own KV
 heads; in the ``'pages'`` regime each rank writes only the pages of its
-slab (``sharded_paged.scatter_chunk_sharded``).  Weights cut by
-``partitioning.shard_params`` are recognised by their shapes: q/k/v
-projections cut by output column give the rank's heads and ``wo`` cut
-by input row ends in an all-reduce of ``(B, L, d_model)``; in the
-``'pages'`` regime the attention weights are never cut — its heads do
-not split on KV-head boundaries — and only the MLP, the embedding and
-the LM head shard (a memory layout; the function is the same).
+slab (``sharded_paged.scatter_chunk_sharded``).  Whether a layer's
+weights are the rank's cut is the scope's answer
+(``partitioning.Scope.model_mesh``, the rule ``shard_pspec`` cuts by),
+never their shapes: q/k/v projections cut by output column give the
+rank's heads and ``wo`` cut by input row ends in an all-reduce of
+``(B, L, d_model)``; where the heads do not split on KV-head
+boundaries (the ``'pages'`` regime) the attention computes whole and
+only the MLP, the embedding and the LM head shard (a memory layout; the
+function is the same).
 
 Lockstep serving on a mesh (``serve_loop.make_prefill_step`` /
 ``make_decode_step`` with a ``mesh``) holds a rank's cut of each cache,
@@ -310,8 +312,8 @@ def _local_qkv(p: Params, x: Tensor, positions: Tensor, *, n_heads: int,
     regime = paged_mesh_regime(mesh, n_kv_heads)
     if regime is None:
         mesh = None
-    split = (regime == "heads"
-             and p["wq"].shape[-1] != n_heads * head_dim)
+    split = (regime == "heads" and PT.active_scope().model_mesh(
+        n_heads, n_kv_heads) is not None)
     tp = PT.mesh_model_tp(mesh)
     h, kvh = ((n_heads // tp, n_kv_heads // tp) if split
               else (n_heads, n_kv_heads))
@@ -479,16 +481,14 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
     positions = (base + torch.arange(l, dtype=torch.int32, device=x.device)
                  )[None, :].expand(b, l)
     mesh = PT.active_mesh()
-    tp = PT.mesh_model_tp(mesh)
     # weights cut by heads (training or serving under a mesh): this
     # rank's heads, the input's gradient summed over the ranks, wo's rows
     # reduced
-    row_mesh = mesh if (tp > 1 and
-                        p["wq"].shape[-1] != n_heads * head_dim) else None
+    row_mesh = PT.active_scope().model_mesh(n_heads, n_kv_heads)
     xin, h, kvh = x, n_heads, n_kv_heads
     if row_mesh is not None:
         xin = PT.copy_to(x, mesh, site="attn.in")
-        h, kvh = n_heads // tp, n_kv_heads // tp
+        h, kvh = n_heads // mesh.tp, n_kv_heads // mesh.tp
     q, k, v = _project_qkv(p, xin, h, kvh, head_dim, qk_norm,
                            norm_eps, rope_theta, positions)
     if precomputed_kv is not None:
@@ -618,14 +618,6 @@ def init_mlp(d_model: int, d_ff: int, generator: torch.Generator, device,
     return p
 
 
-def mlp_row_mesh(p: Params, d_ff: int):
-    """The active mesh when the MLP ``p``'s hidden units are this rank's
-    cut (``w_down`` holds fewer than ``d_ff`` rows), else None."""
-    mesh = PT.active_mesh()
-    return mesh if mesh is not None and p["w_down"].shape[0] != d_ff \
-        else None
-
-
 def apply_mlp(p: Params, x: Tensor, row_mesh=None) -> Tensor:
     """The MLP; ``row_mesh``: the weights are this rank's cut of the
     hidden axis (gate and up by column, down by row), and the partial
@@ -658,13 +650,13 @@ def init_embedding(vocab: int, d_model: int, generator: torch.Generator,
 
 def apply_embedding(p: Params, tokens: Tensor, dtype,
                     vocab: int | None = None) -> Tensor:
-    """Rows of the table for ``tokens``.  Under an active mesh a table
-    cut to ``vocab / tp`` rows (``shard_params``) looks up the tokens in
-    this rank's range, zeros the rest, and sums over the ranks — exactly
-    one rank contributes each row."""
+    """Rows of the table for ``tokens``.  Under a scope whose table is
+    cut to ``vocab / tp`` rows each rank looks up the tokens in its
+    range, zeros the rest, and the ranks sum — exactly one rank
+    contributes each row."""
     table = p["table"]
-    mesh = PT.active_mesh()
-    if vocab is None or mesh is None or table.shape[0] == vocab:
+    mesh = PT.active_scope().model_mesh(vocab) if vocab else None
+    if mesh is None:
         return table[tokens.long()].to(dtype)
     n = table.shape[0]
     t = tokens.long() - mesh.rank * n

@@ -35,16 +35,19 @@ class Model:
     is_encdec: bool = False
 
     def init(self, generator: torch.Generator, device="cuda",
-             dtype: torch.dtype | None = None):
+             dtype: torch.dtype | None = None, layout=None):
         """Random f32 parameters drawn from ``generator`` (which must
         live on ``device``), cast to ``dtype`` as ``convert.cast_params``
         casts when it is given (a decoder casts block by block, so its
-        f32 weights never exist whole)."""
+        f32 weights never exist whole); with a ``layout``
+        (``partitioning.Layout``) the rank's cut of them (a decoder cuts
+        block by block)."""
         device = resolve_device(device)
         if self.is_encdec:
             params = ED.init_params(self.cfg, generator, device)
-            return params if dtype is None else cast_params(params, dtype)
-        return TF.init_params(self.cfg, generator, device, dtype)
+            params = params if dtype is None else cast_params(params, dtype)
+            return params if layout is None else layout.cut(params)
+        return TF.init_params(self.cfg, generator, device, dtype, layout)
 
     def train_logits(self, params, tokens, run: RunConfig,
                      encoder_input=None, collector=None):

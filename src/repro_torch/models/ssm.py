@@ -27,6 +27,20 @@ package's at any chunk size up to roundoff.  As there, the decay and
 drive, the gates and the state updates run in f32 from f32 masters, the
 depthwise conv sums in the activation dtype and every projection casts
 its weight to the activation dtype.
+
+Under a scope whose weights are a rank's cut (``partitioning.Layout``:
+training, lockstep serving on a mesh) Mamba is channel-parallel when
+``'model'`` divides its channels: a rank computes its ``DI / tp``
+channels end to end — ``in_proj``'s ``x`` and ``z`` columns, the conv,
+``dt_proj``, ``a_log``, ``d_skip`` and the state ``h`` (B, DI / tp, N) —
+and the row partials of ``x_proj`` (the per-token Δ, B, C) and of
+``out_proj`` are summed over ``'model'``.  The conv tail, which the JAX
+package's cache holds whole, stays whole on every rank: the new inputs'
+channels are gathered into it.  The mLSTM and sLSTM compute every
+channel (their weights gathered just before use); a state the cache
+holds cut over ``'model'`` (its heads, or a conv tail's taps, where
+``'model'`` divides them) is gathered before the step and the rank's
+part written back after it.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.runtime import partitioning as PT
 
 Tensor = torch.Tensor
 Params = dict[str, Any]
@@ -102,11 +117,16 @@ def init_mamba(d_model: int, generator: torch.Generator, device) -> Params:
     }
 
 
-def _mamba_ssm_inputs(p: Params, xc: Tensor):
+def _mamba_ssm_inputs(p: Params, xc: Tensor, mesh=None):
     """Per-token SSM tensors from the post-conv activations xc (B, S, DI):
-    ``delta`` (B, S, DI), ``bmat`` and ``cmat`` (B, S, N), all f32."""
+    ``delta`` (B, S, DI), ``bmat`` and ``cmat`` (B, S, N), all f32.  With
+    a ``mesh`` xc holds the rank's channels, ``x_proj`` its rows: the
+    partial products are summed over ``'model'``, and as each rank's
+    channels read the sum, its gradient is summed there too."""
     dt_rank = p["dt_proj"].shape[0]
-    proj = (xc @ p["x_proj"].to(xc.dtype)).float()
+    proj = PT.reduce_from((xc @ p["x_proj"].to(xc.dtype)).float(), mesh,
+                          site="x_proj")
+    proj = PT.copy_to(proj, mesh, site="x_proj")
     dt, bmat, cmat = torch.split(proj, [dt_rank, D_STATE, D_STATE], dim=-1)
     delta = F.softplus(dt @ p["dt_proj"].float() + p["dt_bias"].float())
     return delta, bmat, cmat
@@ -123,28 +143,52 @@ def _causal_depthwise_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     return out + b.to(x.dtype)
 
 
+def _held(t: Tensor, whole: int, mesh) -> Tensor:
+    """A state leaf with its dim 1 whole: ``t`` itself, or gathered over
+    ``'model'`` when the cache holds the rank's cut of ``whole``."""
+    if mesh is None or t.shape[1] == whole:
+        return t
+    return PT.all_gather(t, mesh, 1, site="state_gather")
+
+
+def _put(dst: Tensor, src: Tensor, mesh) -> None:
+    """Write the whole-in-dim-1 state ``src`` into the cache leaf
+    ``dst``: all of it, or the rank's part where ``dst`` holds a cut."""
+    if dst.shape[1] != src.shape[1]:
+        n = dst.shape[1]
+        src = src[:, mesh.rank * n:(mesh.rank + 1) * n]
+    dst.copy_(src)
+
+
 def apply_mamba(p: Params, x: Tensor, *,
                 cache: MambaCache | None = None) -> Tensor:
     """Mamba block of x (B, S, D) → (B, S, D) in ``x.dtype``; the modes of
-    the module docstring, ``cache`` updated in place."""
+    the module docstring, ``cache`` updated in place; channel-parallel
+    under a scope that cuts the channels (module docstring)."""
     b, s, d = x.shape
     d_inner = EXPAND * d
-    xz = x @ p["in_proj"].to(x.dtype)
-    xr, z = torch.split(xz, d_inner, dim=-1)
+    mesh = PT.active_scope().model_mesh(d_inner)
+    di = d_inner // (mesh.tp if mesh is not None else 1)
+    lo = mesh.rank * di if mesh is not None else 0
+    xin = PT.copy_to(x, mesh, site="mamba.in")
+    xz = xin @ p["in_proj"].to(x.dtype)
+    xr, z = torch.split(xz, di, dim=-1)
+    conv = (_held(cache.conv, D_CONV - 1, PT.active_mesh())
+            if cache is not None else None)
     if cache is not None and s == 1:
         # decode: the conv over the cached tail and the new token, as the
         # JAX package's einsum — exact products, an f32 sum, one cast
-        conv_buf = torch.cat([cache.conv, xr], dim=1)           # (B, K, DI)
+        conv_buf = torch.cat([conv[..., lo:lo + di], xr], dim=1)
         xc = (conv_buf.float() * p["conv_w"].to(x.dtype).float()).sum(
             1, keepdim=True).to(x.dtype) + p["conv_b"].to(x.dtype)
     else:
         xc = _causal_depthwise_conv(xr, p["conv_w"], p["conv_b"])
     xc = F.silu(xc.float()).to(x.dtype)
-    delta, bmat, cmat = _mamba_ssm_inputs(p, xc)
+    delta, bmat, cmat = _mamba_ssm_inputs(p, xc, mesh)
     x32 = xc.float()
     a = -torch.exp(p["a_log"].float())                           # (DI, N)
     h = (cache.h if cache is not None else
-         torch.zeros((b, d_inner, D_STATE), dtype=torch.float32,
+         torch.zeros((b, di, D_STATE), dtype=torch.float32,
                      device=x.device))
     ys = []
     for t in range(s):
@@ -155,10 +199,18 @@ def apply_mamba(p: Params, x: Tensor, *,
         ys.append(torch.einsum("bdn,bn->bd", h, cmat[:, t]))
     if cache is not None:
         cache.h.copy_(h)
-        cache.conv.copy_(torch.cat([cache.conv, xr], dim=1)[:, 1 - D_CONV:])
+        tail = xr[:, 1 - D_CONV:]
+        if mesh is not None:      # the tail's every channel, on every rank
+            tail = PT.all_gather(tail, mesh, 2, site="conv_tail")
+        _put(cache.conv, torch.cat([conv, tail], dim=1)[:, 1 - D_CONV:],
+             PT.active_mesh())
     y = torch.stack(ys, dim=1) + p["d_skip"].float() * x32
     out = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    return out @ p["out_proj"].to(x.dtype)
+    out = out @ p["out_proj"].to(x.dtype)
+    if mesh is None:
+        return out
+    # the partial sums meet in f32 and round once, as the whole product
+    return PT.reduce_from(out.float(), mesh, site="mamba.out").to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +295,8 @@ def apply_mlstm(p: Params, x: Tensor, *, n_heads: int,
     fg = xm32 @ p["w_fgate"].float() + p["fgate_bias"].float()
     state = cache if cache is not None else MLSTMCache.zeros(
         b, d, n_heads, x.device)
-    c, n, m = state.c, state.n, state.m
+    mesh = PT.active_mesh()
+    c, n, m = (_held(t, n_heads, mesh) for t in (state.c, state.n, state.m))
     hs = []
     for t in range(s):
         c, n, m, h = _mlstm_cell(c, n, m, q[:, t], k[:, t], v[:, t],
@@ -251,7 +304,7 @@ def apply_mlstm(p: Params, x: Tensor, *, n_heads: int,
         hs.append(h)
     if cache is not None:
         for name, t in (("c", c), ("n", n), ("m", m)):
-            getattr(cache, name).copy_(t)
+            _put(getattr(cache, name), t, mesh)
     h = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
     out = h * F.silu(z.float()).to(x.dtype)
     return out @ p["down_proj"].to(x.dtype)
@@ -328,7 +381,9 @@ def apply_slstm(p: Params, x: Tensor, *, n_heads: int,
     fx = fx + p["fgate_bias"].float().reshape(n_heads, dh)
     state = cache if cache is not None else SLSTMCache.zeros(
         b, d, n_heads, x.device)
-    c, n, h, m = state.c, state.n, state.h, state.m
+    mesh = PT.active_mesh()
+    c, n, h, m = (_held(t, n_heads, mesh)
+                  for t in (state.c, state.n, state.h, state.m))
     hs = []
     for t in range(s):
         c, n, h, m = _slstm_cell(p, c, n, h, m, zx[:, t], ix[:, t],
@@ -336,6 +391,6 @@ def apply_slstm(p: Params, x: Tensor, *, n_heads: int,
         hs.append(h)
     if cache is not None:
         for name, t in (("c", c), ("n", n), ("h", h), ("m", m)):
-            getattr(cache, name).copy_(t)
+            _put(getattr(cache, name), t, mesh)
     out = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
     return out @ p["out_proj"].to(x.dtype)

@@ -190,7 +190,7 @@ def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
         y, aux = y if return_aux else (y, {})
         return x + y, aux
     return x + L.apply_mlp(p["ffn"], h2,
-                           row_mesh=L.mlp_row_mesh(p["ffn"], cfg.d_ff)), {}
+                           row_mesh=PT.active_scope().model_mesh(cfg.d_ff)), {}
 
 
 def _stack_into(out, tree, i: int):
@@ -208,7 +208,8 @@ def _stack_into(out, tree, i: int):
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device="cuda", dtype: torch.dtype | None = None) -> Params:
+                device="cuda", dtype: torch.dtype | None = None,
+                layout=None) -> Params:
     """Random f32 parameters in the JAX package's tree layout, drawn from
     ``generator`` (torch's own stream: not the JAX package's numbers), on
     the card unless ``device="cpu"``.
@@ -217,32 +218,47 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     it is drawn and written into the periods-stacked leaves, so the f32
     model never exists whole: the result equals ``cast_params`` of the
     f32 init, at the memory of the cast model plus one f32 block (a
-    16.9B-parameter MoE decoder fits the card in bf16, not in f32)."""
+    16.9B-parameter MoE decoder fits the card in bf16, not in f32).
+    With a ``layout`` (``partitioning.Layout``) each block is cut to the
+    rank's part as soon as it is drawn, so the result equals
+    ``layout.cut`` of the whole init while no more than one block of the
+    model exists whole."""
     check_supported(cfg)
     device = resolve_device(device)
     periods = []
-    for spec in cfg.period:
+    for si, spec in enumerate(cfg.period):
         stacked = None
         for i in range(cfg.n_periods):
             block = init_block(cfg, spec, generator, device)
             if dtype is not None:
                 block = cast_params(block, dtype)
+            if layout is not None:
+                block = PT._walk(block, lambda p, x: layout.cut_leaf(
+                    f"periods/{si}/{p}", x, one_period=True))
             if stacked is None:
                 stacked = tree_map(lambda a, _: a.new_empty(
                     (cfg.n_periods,) + tuple(a.shape)), block)
             _stack_into(stacked, block, i)
             del block
+        if layout is not None:
+            stacked = PT._walk(stacked, lambda p, x: PT.cut_leaf(
+                x, layout.specs[f"periods/{si}/{p}"][:1], layout.mesh))
         periods.append(stacked)
+
+    def cut(name, tree):
+        tree = tree if dtype is None else cast_params(tree, dtype)
+        return tree if layout is None else PT._walk(
+            tree, lambda p, x: layout.cut_leaf(f"{name}/{p}", x))
     p = {
-        "embed": L.init_embedding(cfg.vocab_size, cfg.d_model, generator,
-                                  device),
+        "embed": cut("embed", L.init_embedding(cfg.vocab_size, cfg.d_model,
+                                               generator, device)),
         "periods": periods,
-        "final_norm": L.init_norm(cfg.d_model, device),
+        "final_norm": cut("final_norm", L.init_norm(cfg.d_model, device)),
     }
     if not cfg.tie_embeddings:
-        p["head"] = L.init_lm_head(cfg.d_model, cfg.vocab_size, generator,
-                                   device)
-    return p if dtype is None else cast_params(p, dtype)
+        p["head"] = cut("head", L.init_lm_head(cfg.d_model, cfg.vocab_size,
+                                               generator, device))
+    return p
 
 
 def init_caches(cfg: ArchConfig, b: int, max_len: int, dtype, device,
@@ -341,20 +357,15 @@ def _head(params: Params, cfg: ArchConfig, x: Tensor) -> Tensor:
     an active mesh gives this rank's columns, gathered over the ranks."""
     x = L.apply_norm(PT.use_leaves(params["final_norm"], "final_norm"), x,
                      cfg.norm_eps)
-    mesh = PT.active_mesh()
+    mesh = PT.active_scope().model_mesh(cfg.vocab_size)
+    if mesh is not None:
+        x = PT.copy_to(x, mesh, site="head.in")
     if cfg.tie_embeddings:
         table = PT.use_leaves(params["embed"], "embed")["table"]
-        cut = table.shape[0] != cfg.vocab_size
-        if cut:
-            x = PT.copy_to(x, mesh, site="head.in")
         logits = x.float() @ table.float().T
     else:
-        head = PT.use_leaves(params["head"], "head")
-        cut = head["w"].shape[1] != cfg.vocab_size
-        if cut:
-            x = PT.copy_to(x, mesh, site="head.in")
-        logits = L.apply_lm_head(head, x)
-    if cut:
+        logits = L.apply_lm_head(PT.use_leaves(params["head"], "head"), x)
+    if mesh is not None:
         logits = PT.gather_from(logits, mesh, dim=-1, site="head")
     return logits
 

@@ -25,20 +25,27 @@ Placement, as in the JAX package:
   on the expert dim when the expert count divides it, else on each
   expert's ``d_expert`` (``"EPTP"``); any other matrix takes ``'data'``
   and ``'model'`` on its last two dims.
-* :func:`shard_pspec` is the cut this port makes of a leaf: the rule's
-  ``'data'`` slots, and its ``'model'`` slots on the leaves whose
-  layers compute on a cut (:data:`TP_LEAVES`; attention only when both
-  head counts divide ``tp`` — the ``'heads'`` regime — else its leaves
-  stay whole).  :func:`shard_params` cuts a tree by it: the serving
-  weights with ``fsdp=False``, the training state with ``fsdp=True``
-  (:class:`Layout`, which also gathers a leaf's ``'data'`` cut just
-  before the leaf is used).
+* :func:`shard_pspec` is the cut a layer computes on: the rule's
+  ``'model'`` slots on the leaves whose layers compute on a cut
+  (:data:`TP_LEAVES`; attention only when both head counts divide
+  ``tp`` — the ``'heads'`` regime; Mamba when ``tp`` divides its
+  channels), plus the rule's ``'data'`` slots with ``fsdp``.  The paged
+  engines' :func:`shard_params` cuts the serving weights by it
+  (``fsdp=False``).
+* :class:`Layout` (training, lockstep serving on a mesh, the cells)
+  stores every leaf as :func:`param_pspec` cuts it with ``fsdp=True``,
+  no exception, and gathers just before use every axis the storage
+  cuts and the layer's compute does not (:meth:`Layout.use`).  A Mamba
+  ``in_proj``'s columns are stored interleaved so that the rule's
+  contiguous cut gives each rank its ``x`` and its ``z`` channels
+  (:func:`in_proj_order`).
 * :func:`batch_pspec`: a batch's rows over ``('pod', 'data')`` when
   both divide it, else over ``'data'`` when it does, else replicated.
 * :func:`cache_pspec` / :func:`cache_specs`: a lockstep cache's rows
   as the batch's, its KV heads over ``'model'`` when they divide it,
   else its length (and under ``shard_kv_seq`` its length over
-  ``'data'`` too).
+  ``'data'`` too); a recurrent state's channels over ``'model'`` where
+  they divide it.
 * the page pools split their KV-head axis over the ``'model'`` ranks
   when the arch's KV-head count divides ``tp`` (the ``'heads'``
   regime), else their physical-page axis (``'pages'``: each rank owns a
@@ -238,6 +245,16 @@ class Scope:
     cut: bool = False
     tokens: tuple[str, ...] = ()
     layout: "Layout | None" = None
+
+    def model_mesh(self, *dims: int) -> Mesh | None:
+        """The mesh when the weights are a rank's cut (``cut``) and
+        ``'model'`` (of more than one rank) divides every one of
+        ``dims`` — a layer whose ``'model'`` dims these are (heads, hidden
+        units, vocabulary, channels) then computes on its cut of them, as
+        :func:`shard_pspec` says — else None."""
+        if self.cut and all(divides(self.mesh, d) for d in dims):
+            return self.mesh
+        return None
 
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("active_scope",
@@ -548,56 +565,89 @@ def cache_pspec(mesh, batch_size: int, n_kv_heads: int,
     return (b_axes, kv_axis, tuple(seq_axes) if seq_axes else None, None)
 
 
-#: the leaves whose layers compute on a 'model' cut: the vocabulary of
-#: the embedding and the head, the projections' heads (and their
-#: biases) and the MLPs' and experts' hidden units or experts
-TP_LEAVES = ("embed/table", "head/w", "wq", "wk", "wv", "wo", "bq", "bk",
-             "bv", "w_gate", "w_up", "w_down")
-#: the attention leaves, whole unless both head counts divide tp
+#: the leaves whose layers compute on a 'model' cut wherever the rule
+#: makes one: the vocabulary of the embedding and the head, the MLPs'
+#: and experts' hidden units or experts
+TP_LEAVES = ("embed/table", "head/w", "w_gate", "w_up", "w_down")
+#: the attention leaves, computed on a cut only when both head counts
+#: divide tp
 ATTENTION_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
-def attention_cut(cfg, mesh) -> bool:
-    """Whether the attention's weights are cut over ``'model'``: only
-    when ``tp > 1`` divides both ``n_heads`` and ``n_kv_heads`` (the
-    paged path's ``'heads'`` regime)."""
-    tp = mesh_model_tp(mesh)
-    return tp > 1 and cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0
+def heads_cut(mesh, n_heads: int, n_kv_heads: int) -> bool:
+    """Whether an attention computes on its ``'model'`` rank's heads:
+    only when ``tp > 1`` divides both head counts (the paged path's
+    ``'heads'`` regime)."""
+    return divides(mesh, n_heads) and divides(mesh, n_kv_heads)
 
 
-def _recurrent_leaf(path: str, cfg) -> bool:
-    """Whether ``path`` is a leaf of a recurrent mixer (Mamba, mLSTM,
-    sLSTM: ``periods/<i>/mixer/…`` of a non-attention layer), which the
-    port computes whole on every rank."""
+def _mixer(path: str, cfg) -> str:
+    """The mixer leaf ``path`` belongs to: a decoder block's
+    (``periods/<i>/mixer/…``: ``attn``, ``mamba``, ``mlstm``, ``slstm``),
+    ``attn`` for an encoder-decoder's self- and cross-attention, else
+    ``''``."""
     parts = path.split("/")
-    return (len(parts) > 2 and parts[0] == "periods" and parts[2] == "mixer"
-            and cfg.period[int(parts[1])].mixer != "attn")
+    if len(parts) > 2 and parts[0] == "periods" and parts[2] == "mixer":
+        return cfg.period[int(parts[1])].mixer
+    if "self_attn" in parts or "cross_attn" in parts:
+        return "attn"
+    return ""
+
+
+def mamba_channels(cfg) -> int:
+    """A Mamba mixer's channel count ``DI`` (``ssm.EXPAND · d_model``)."""
+    from repro_torch.models.ssm import EXPAND
+    return EXPAND * cfg.d_model
 
 
 def shard_pspec(path: str, shape: tuple[int, ...], mesh, cfg,
                 fsdp: bool = False) -> tuple:
-    """The spec this port cuts a leaf by: :func:`param_pspec`'s
-    ``'data'`` slots (with ``fsdp``) and its ``'model'`` slots on
-    :data:`TP_LEAVES` only — on the attention leaves only when
-    :func:`attention_cut`, and never on a recurrent mixer's (an mLSTM's
-    ``wq`` / ``wk`` / ``wv``, which the rules cut as attention's).  A
-    projection bias (1-D a period, which the rules replicate) is cut with
-    its weight's output columns (a stacked one keeps the rules'
-    ``'data'`` cut of its period axis)."""
+    """The cut a layer computes leaf ``path`` on: :func:`param_pspec`'s
+    ``'model'`` slots on :data:`TP_LEAVES`, on the attention leaves when
+    :func:`heads_cut`, and on every Mamba leaf when ``tp`` divides its
+    channels (``ssm.apply_mamba`` is then channel-parallel) — never on
+    an mLSTM's or sLSTM's, which compute whole (an mLSTM's ``wq`` /
+    ``wk`` / ``wv`` are not attention's) — with the rule's ``'data'``
+    slots when ``fsdp``.  A projection bias (whole where the rule sees
+    a vector) is cut with its weight's output columns."""
     spec = param_pspec(path, shape, mesh, fsdp)
     name = path.rsplit("/", 1)[-1]
-    tp_leaf = any(path.endswith(s) for s in TP_LEAVES)
-    if name in ATTENTION_LEAVES and not attention_cut(cfg, mesh):
-        tp_leaf = False
-    if _recurrent_leaf(path, cfg):
-        tp_leaf = False           # an mLSTM's wq / wk / wv: whole
-    if name in ("bq", "bk", "bv") and tp_leaf:
+    mixer = _mixer(path, cfg)
+    if mixer == "attn" and name in ATTENTION_LEAVES:
+        cut = heads_cut(mesh, cfg.n_heads, cfg.n_kv_heads)
+    elif mixer == "mamba":
+        cut = divides(mesh, mamba_channels(cfg))
+    else:
+        cut = not mixer and any(path.endswith(s) for s in TP_LEAVES)
+    if cut and name in ("bq", "bk", "bv"):
         lead = spec[:len(shape) - 1] if len(spec) == len(shape) else (
             (None,) * (len(shape) - 1))
         return tuple(lead) + ("model",)
-    if tp_leaf:
+    if cut:
         return spec
     return tuple(None if a == "model" else a for a in spec)
+
+
+def in_proj_order(path: str, x, mesh, cfg, inverse: bool = False):
+    """A Mamba ``in_proj`` ``(…, D, 2·DI)`` (columns ``[x | z]``) with its
+    columns in the order whose contiguous ``'model'`` cut gives rank
+    ``r`` its channels of both halves, ``[x_r | z_r]`` — the shape the
+    rule gives a rank, where the rule's own cut would give ranks below
+    ``tp / 2`` only ``x`` columns; ``inverse`` puts them back.  Any other
+    leaf, or a mesh that does not cut Mamba's channels, passes as it
+    is."""
+    if (not path.endswith("mixer/in_proj") or _mixer(path, cfg) != "mamba"
+            or not divides(mesh, mamba_channels(cfg))):
+        return x
+    di, tp = mamba_channels(cfg), mesh_model_tp(mesh)
+    c = di // tp
+    order = np.concatenate([np.r_[r * c:(r + 1) * c, di + r * c:
+                                  di + (r + 1) * c] for r in range(tp)])
+    if inverse:
+        order = np.argsort(order)
+    if isinstance(x, Tensor):
+        return x[..., torch.as_tensor(order, device=x.device)]
+    return np.asarray(x)[..., order]
 
 
 def map_cache(state, fn):
@@ -640,7 +690,7 @@ def _cache_spec_fn(mesh, batch_size: int, n_kv_heads: int,
         if nd == 4 + off and name in ("k", "v"):
             return pre + kv
         if nd >= 2 + off:
-            x_axis = ("model" if not recurrent and "model" in names
+            x_axis = ("model" if "model" in names
                       and x.shape[off + 1] % sizes["model"] == 0 else None)
             return pre + (b_axes, x_axis) + (None,) * (nd - off - 2)
         return (None,) * nd
@@ -659,12 +709,12 @@ def cache_specs(state, mesh, batch_size: int, n_kv_heads: int,
     * any other leaf of two or more dims — an encoder-decoder's cross
       K/V ``(B, KVH, L_enc, Dh)``, a recurrent state ``(B, X, …)`` — its
       rows as the batch's and its channel ``X`` over ``'model'`` where it
-      divides.  **Except a recurrent state:** the port cuts no Mamba,
-      mLSTM or sLSTM weight over ``'model'`` (:func:`shard_pspec`), so a
-      rank computes every channel of its rows and holds its state whole
-      over ``'model'`` where the JAX package cuts it (Jamba's Mamba ``h``
-      ``(B, 8192, 16)`` at ``'model'`` 16): a rank holds ``'model'``
-      times the JAX package's bytes of that leaf;
+      divides: Mamba's ``h`` ``(B, DI, N)`` by the channels the rank
+      computes (``ssm.apply_mamba``); its conv tail ``(B, D_CONV − 1,
+      DI)``, an mLSTM's or an sLSTM's state ``(B, H, …)`` by taps or
+      heads where ``'model'`` divides them, gathered before the step
+      and cut again after it (``ssm``: those mixers compute every
+      channel);
     * smaller leaves whole.
 
     ``stacked``: the leaves carry a leading period axis, as the JAX
@@ -781,7 +831,8 @@ def shard_params(params, cfg, mesh: Mesh | None, fsdp: bool = False):
     only: the MoE's experts by their 3-D rows (a rank's
     ``E / tp`` experts, or every expert's ``d_expert / tp`` columns), the
     shared MLP and the dense MLP by the 2-D rows, the attention in the
-    ``'heads'`` regime only; the router, norms and ``bo`` stay whole."""
+    ``'heads'`` regime only; the router, norms and ``bo`` stay whole
+    (the paged engines'; :class:`Layout` stores the rule's cut)."""
     if mesh is None or mesh.world <= 1:
         return params
     shapes = full_shapes(cfg)
@@ -795,7 +846,7 @@ def shard_params(params, cfg, mesh: Mesh | None, fsdp: bool = False):
         if tuple(x.shape) != full:
             raise ValueError(f"{path}: {tuple(x.shape)} is neither the "
                              f"whole {full} nor this rank's {mine}")
-        return cut_leaf(x, spec, mesh)
+        return cut_leaf(in_proj_order(path, x, mesh, cfg), spec, mesh)
 
     return _walk(params, leaf)
 
@@ -1012,26 +1063,43 @@ def gather_from(x: Tensor, mesh: Mesh | None, dim: int,
 
 class Layout:
     """Where each leaf of a parameter tree lives on a ``('data',
-    'model')`` mesh: :func:`shard_pspec` with ``fsdp=True``.  A rank
-    holds its cut of every leaf (params, Adam moments, error feedback);
-    the layers gather a leaf's ``'data'`` cut just before they use it
-    (:func:`use_leaves`) and keep its ``'model'`` cut."""
+    'model')`` (or ``('pod', 'data', 'model')``) mesh, and what the
+    layers compute on.
+
+    ``specs`` is the storage, the JAX package's
+    ``param_pspec(path, shape, mesh, fsdp=True)`` with no exception: a
+    rank holds that cut of every leaf (params, Adam moments, error
+    feedback), a Mamba ``in_proj`` in :func:`in_proj_order`.  ``compute``
+    is the cut the layer works on (:func:`shard_pspec`'s ``'model'``
+    slots).  :meth:`use` gathers, just before the leaf is used, its
+    ``'data'`` cut and every ``'model'`` cut the layer does not compute
+    on (site ``tp_gather``), and cuts a leaf stored whole where the
+    layer computes on a cut (a Whisper attention's 1-D biases)."""
 
     def __init__(self, cfg, mesh: Mesh):
         self.cfg, self.mesh = cfg, mesh
         self.shapes = full_shapes(cfg)
-        self.specs = {p: shard_pspec(p, s, mesh, cfg, fsdp=True)
+        self.specs = {p: _padded(param_pspec(p, s, mesh, fsdp=True), s)
                       for p, s in self.shapes.items()}
+        self.compute = {p: _padded(shard_pspec(p, s, mesh, cfg), s)
+                        for p, s in self.shapes.items()}
 
     def axes(self, path: str) -> tuple[str, ...]:
-        """The axes (of size > 1) leaf ``path`` is cut over."""
+        """The axes (of size > 1) leaf ``path`` is stored cut over."""
         return tuple(a for a in self.specs[path]
                      if a and self.mesh.size(a) > 1)
 
     def cut(self, params):
         """A rank's part of a whole parameter-shaped tree."""
-        return _walk(params, lambda p, x: cut_leaf(x, self.specs[p],
-                                                   self.mesh))
+        return _walk(params, self.cut_leaf)
+
+    def cut_leaf(self, path: str, x, one_period: bool = False):
+        """A rank's part of the whole leaf ``path``; ``one_period``: ``x``
+        is one period of a stacked leaf, cut on its other dims (its
+        period axis is cut once the periods are stacked)."""
+        spec = self.specs[path][1:] if one_period else self.specs[path]
+        return cut_leaf(in_proj_order(path, x, self.mesh, self.cfg), spec,
+                        self.mesh)
 
     def gather(self, params):
         """Whole leaves of a rank-cut parameter-shaped tree (every rank
@@ -1042,7 +1110,8 @@ class Layout:
                     if axis and self.mesh.size(axis) > 1:
                         x = all_gather(x, self.mesh, dim, site="gather",
                                        axis=axis)
-            return x
+                return in_proj_order(path, x, self.mesh, self.cfg,
+                                     inverse=True)
         return _walk(params, leaf)
 
     def reduce_leaves(self, paths: list[str], vals: Tensor,
@@ -1064,18 +1133,38 @@ class Layout:
 
     def use(self, path: str, x: Tensor, index: int | None = None) -> Tensor:
         """Leaf ``path`` as a layer uses it: its ``'data'`` cut gathered
-        (its gradient summed over 'data' and cut again backward), then
-        period ``index`` of a stacked leaf."""
-        spec = self.specs[path]
-        data = self.mesh.size("data") > 1
+        (its gradient summed over 'data' and cut again backward), period
+        ``index`` of a stacked leaf, then each ``'model'`` cut the layer
+        does not compute on gathered — every ``'model'`` rank computes
+        the same whole product on the same rows, so the backward takes
+        the rank's part of the gradient without a sum — and a leaf
+        stored whole cut where the layer computes on a cut (its
+        gradient summed over 'model' backward)."""
+        mesh = self.mesh
+        spec, comp = self.specs[path], self.compute[path]
+        data = mesh.size("data") > 1
         if index is not None:
             if data and spec[0] == "data":
-                x = gather_from(x, self.mesh, 0, "data", "fsdp", True)
-            x, spec = x[index], spec[1:]
+                x = gather_from(x, mesh, 0, "data", "fsdp", True)
+            x, spec, comp = x[index], spec[1:], comp[1:]
         if data and "data" in spec:
-            x = gather_from(x, self.mesh, spec.index("data"), "data",
-                            "fsdp", True)
+            x = gather_from(x, mesh, spec.index("data"), "data", "fsdp",
+                            True)
+        if mesh.tp <= 1:
+            return x
+        for dim, (stored, used) in enumerate(zip(spec, comp)):
+            if stored == "model" and used is None:
+                x = gather_from(x, mesh, dim, "model", "tp_gather")
+            elif used == "model" and stored is None:
+                n = x.shape[dim] // mesh.tp
+                x = copy_to(x, mesh, site="tp_cut").narrow(
+                    dim, mesh.rank * n, n)
         return x
+
+
+def _padded(spec: tuple, shape: tuple) -> tuple:
+    """``spec`` with a None for every dim it does not name."""
+    return tuple(spec) + (None,) * (len(shape) - len(spec))
 
 
 def use_leaves(tree, prefix: str, index: int | None = None):

@@ -42,10 +42,11 @@ Tensor = torch.Tensor
 
 def serving_layout(model: Model, mesh):
     """The serving weights' layout on ``mesh``: the training layout
-    (``shard_pspec`` with ``fsdp=True``: FSDP over ``'data'``, tensor
-    and expert parallelism over ``'model'``, each ``'data'`` cut
-    gathered just before use), as the JAX package's cells cut them;
-    ``Layout.cut`` gives a rank's weights from whole ones."""
+    (stored as ``param_pspec`` with ``fsdp=True`` cuts them, as the JAX
+    package's cells do: FSDP over ``'data'``, tensor and expert
+    parallelism over ``'model'``; each cut the layer does not compute on
+    gathered just before use); ``Layout.cut`` gives a rank's weights
+    from whole ones."""
     return PT.Layout(model.cfg, mesh)
 
 

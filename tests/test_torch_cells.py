@@ -10,10 +10,8 @@ registry, the 40-point grid and its ``long_500k`` gating, ``make_run``,
   leaf of every arch (``make_param_shardings(fsdp=True)``) and every
   leaf of ``decode_state_struct`` at ``decode_32k`` and, where it runs,
   ``long_500k`` (``make_cache_shardings``) has on rank 0 the shape
-  ``NamedSharding(mesh, spec).shard_shape(whole)`` gives — except the
-  leaves :data:`PARAM_WHOLE_OVER_MODEL` and :data:`CACHE_WHOLE_OVER_MODEL`
-  name, which the port holds whole over ``'model'`` where the JAX
-  package cuts them (and which hold exactly that shape);
+  ``NamedSharding(mesh, spec).shard_shape(whole)`` gives, with no
+  exception;
 * the dry run: ``build_cell`` + ``trace_cell`` at full size on a fake
   ``(pod 2, data 2, model 2)`` mesh for Granite-MoE × ``train_4k`` and
   xLSTM × ``decode_32k`` (FLOPs, collectives, no kernel built), and the
@@ -25,9 +23,10 @@ registry, the 40-point grid and its ``long_500k`` gating, ``make_run``,
 """
 
 import jax
+import numpy as np
 import pytest
 import torch
-from jax.sharding import NamedSharding, PartitionSpec as P
+from jax.sharding import PartitionSpec as P
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -52,37 +51,6 @@ from repro_torch.models import build_model
 from repro_torch.runtime import partitioning as PT
 
 torch.set_num_threads(1)
-
-_ATTN = {"mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo"}
-_NORMS = {"norm1/scale", "norm2/scale"}
-#: parameter leaves (the last two parts of their paths) the port holds
-#: whole over 'model' where the JAX package's rules cut them: stacked
-#: per-period vectors (norm scales, biases), which its fallback rule cuts
-#: as matrices; attention projections whose KV heads do not divide
-#: 'model' 16 (the port cuts attention by whole heads only); the
-#: recurrent mixers' weights (the port computes Mamba, mLSTM and sLSTM
-#: whole on every rank)
-PARAM_WHOLE_OVER_MODEL = {
-    "chameleon-34b": _ATTN | _NORMS | {"q_norm/scale", "k_norm/scale"},
-    "codeqwen1.5-7b": _NORMS | {"mixer/bo"},
-    "deepseek-moe-16b": _NORMS,
-    "granite-moe-3b-a800m": _ATTN | _NORMS,
-    "internlm2-20b": _ATTN | _NORMS,
-    "jamba-v0.1-52b": _ATTN | _NORMS | {
-        "mixer/a_log", "mixer/conv_b", "mixer/conv_w", "mixer/d_skip",
-        "mixer/dt_bias", "mixer/dt_proj", "mixer/in_proj",
-        "mixer/out_proj", "mixer/x_proj"},
-    "mistral-large-123b": _ATTN | _NORMS,
-    "qwen3-32b": _ATTN | _NORMS | {"q_norm/scale", "k_norm/scale"},
-    "whisper-small": {f"{a}/{w}" for a in ("self_attn", "cross_attn")
-                      for w in ("wq", "wk", "wv", "wo")},
-    "xlstm-125m": {"mixer/down_proj", "mixer/fgate_bias", "mixer/out_proj",
-                   "mixer/up_proj", "mixer/w_in", "mixer/wq", "mixer/wk",
-                   "mixer/wv", "norm1/scale"},
-}
-#: serving-state leaves the port holds whole over 'model': Jamba's Mamba
-#: state ``h`` (B, 8192, 16), whose channels the JAX package cuts
-CACHE_WHOLE_OVER_MODEL = {("jamba-v0.1-52b", "h")}
 
 MESH_SHAPES = {False: ((16, 16), ("data", "model")),
                True: ((2, 16, 16), ("pod", "data", "model"))}
@@ -234,23 +202,12 @@ def _jleaves(tree):
     return {JPT.path_str(p): x for p, x in flat}
 
 
-def _suffix(path):
-    return "/".join(path.split("/")[-2:])
-
-
-def _model_dropped(spec):
-    return tuple(None if e == "model" else
-                 (tuple(a for a in e if a != "model") or None
-                  if isinstance(e, tuple) else e) for e in spec)
-
-
 @pytest.mark.parametrize("multi_pod", [False, True],
                          ids=["16x16", "2x16x16"])
 def test_every_leaf_is_cut_as_the_jax_package_cuts_it(multi_pod):
     shape, axes = MESH_SHAPES[multi_pod]
     jmesh = make_abstract_mesh(shape, axes)
     mesh = make_production_mesh(multi_pod=multi_pod)
-    param_diffs, cache_diffs = set(), set()
     for name in sorted(ARCHS):
         jmodel, model = jax_build(JARCHS[name]), build_model(ARCHS[name])
         jparams = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
@@ -260,11 +217,7 @@ def test_every_leaf_is_cut_as_the_jax_package_cuts_it(multi_pod):
             whole = tuple(leaf.shape)
             want = tuple(jsh[path].shard_shape(whole))
             got = PT.local_shape(whole, layout.specs[path], mesh)
-            if got != want:
-                param_diffs.add((name, _suffix(path)))
-                kept = NamedSharding(jmesh, P(*_model_dropped(
-                    jsh[path].spec))).shard_shape(whole)
-                assert got == tuple(kept), (name, path, got, kept)
+            assert got == want, (name, path, got, want)
         for shape_name in ("decode_32k", "long_500k"):
             if not shape_applicable(ARCHS[name], SHAPES[shape_name])[0]:
                 continue
@@ -285,17 +238,11 @@ def test_every_leaf_is_cut_as_the_jax_package_cuts_it(multi_pod):
                 if leaf.ndim == 0 or path.endswith("length"):
                     continue
                 want = tuple(jcs[path].shard_shape(leaf.shape))
-                whole = NamedSharding(jmesh, P(*_model_dropped(
-                    jcs[path].spec))).shard_shape(leaf.shape)
                 if not jmodel.is_encdec:       # the JAX package stacks
-                    want, whole = want[1:], tuple(whole[1:])
+                    want = want[1:]
                 leaf_name = path.rsplit("/", 1)[-1]
-                if want not in got[leaf_name]:
-                    cache_diffs.add((name, leaf_name))
-                    assert tuple(whole) in got[leaf_name], (name, path)
-    listed = {(a, p) for a, ps in PARAM_WHOLE_OVER_MODEL.items() for p in ps}
-    assert param_diffs == listed, (param_diffs - listed, listed - param_diffs)
-    assert cache_diffs == CACHE_WHOLE_OVER_MODEL
+                assert want in got[leaf_name], (name, path, want,
+                                                got[leaf_name])
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +286,27 @@ def test_dryrun_record_and_line(no_build):
     assert rec["params"] == ARCHS["xlstm-125m"].param_count()
     skip = run_cell("qwen3-32b", "long_500k", False)
     assert skip["status"] == "skipped" and "sub-quadratic" in skip["reason"]
+
+
+def test_dryrun_args_only_record(no_build):
+    """``--slow-args-only``: a recurrent arch's training cell is built,
+    not traced; its record holds a rank's argument bytes — the f32
+    masters and both moments at the JAX package's shard shapes, and the
+    batch — and its line says so."""
+    from repro_torch.launch.dryrun import line, slow_trace
+    arch = ARCHS["jamba-v0.1-52b"]
+    assert slow_trace(arch, SHAPES["train_4k"])
+    assert not slow_trace(arch, SHAPES["decode_32k"])
+    assert not slow_trace(ARCHS["qwen3-32b"], SHAPES["train_4k"])
+    rec = run_cell("jamba-v0.1-52b", "train_4k", False, trace=False)
+    assert rec["status"] == "args", rec.get("traceback")
+    mesh = make_production_mesh()
+    layout = PT.Layout(arch, mesh)
+    masters = sum(4 * int(np.prod(PT.local_shape(s, layout.specs[p], mesh)))
+                  for p, s in layout.shapes.items())
+    batch = 4 * 256 * 4097
+    assert rec["memory"]["argument_bytes"] == 3 * masters + batch + 4
+    assert line(rec).startswith("[ARGS] jamba-v0.1-52b × train_4k × 16x16")
 
 
 def test_decode_flops_are_the_matmuls_a_rank_runs(no_build):

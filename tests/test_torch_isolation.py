@@ -1,7 +1,8 @@
-"""The port stands alone: no module under ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (an AST
-scan of every import statement), and the whole package imports in a
-process where both are blocked."""
+"""The port stands alone: no module under ``src/repro_torch``, not
+``chip_smoke.py`` and no torch example (``examples/*_torch.py``) imports
+``jax`` or the JAX package ``repro`` (an AST scan of every import
+statement), and the whole package imports in a process where both are
+blocked."""
 
 import ast
 import os
@@ -16,7 +17,9 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + EXAMPLES)
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -132,3 +135,11 @@ def test_scan_covers_the_cell_and_dry_run_modules():
     assert {"launch/cells.py", "launch/dryrun.py", "configs/base.py",
             "launch/mesh.py", "kernels/common.py",
             "runtime/serve_loop.py"} <= scanned
+
+
+def test_scan_covers_the_four_examples():
+    """... and the four torch examples beside the JAX ones."""
+    assert [p.name for p in EXAMPLES] == [
+        "calibrate_luts_torch.py", "quickstart_torch.py",
+        "serve_lut_softmax_torch.py", "train_resilient_torch.py"]
+    assert set(EXAMPLES) <= set(FILES)

@@ -6,8 +6,9 @@ The JAX package serves its cells (``launch/cells.py``) as
 the weights under ``make_param_shardings(fsdp=True)`` and the caches
 under ``make_cache_shardings``.  The port runs one process a rank
 (spawned gloo ranks on the CPU, ``repro_torch.launch.mesh.start_ranks``;
-no network): the weights cut by ``serve_loop.serving_layout`` (FSDP over
-``'data'``, tensor and expert parallelism over ``'model'``), each rank's
+no network): the weights cut by ``serve_loop.serving_layout`` — every
+leaf as the JAX package's ``param_pspec(fsdp=True)`` cuts it, FSDP over
+``'data'``, tensor and expert parallelism over ``'model'`` — each rank's
 rows of the batch, each rank's cut of the caches.  The JAX side runs in a
 subprocess on a forced 4-device CPU mesh, on the same numpy inits and
 prompts:
@@ -15,9 +16,11 @@ prompts:
 * five scaled-down archs at ``(data 2, model 2)``, batch 4, prompt 8,
   caches of 16: Qwen3 with 2 KV heads (they divide ``'model'``: the
   cache's heads are cut), Qwen3 with 1 KV head (they do not: the cache's
-  length is cut and a decode step takes ``sharded_decode``), DeepSeek-MoE
-  (expert parallelism), Jamba (one period: Mamba layers, an MoE, an
-  attention layer of 1 KV head) and Whisper (its cross K/V cut by heads);
+  length is cut and a decode step takes ``sharded_decode``; its 16-wide
+  ``wk`` is stored cut mid-head and gathered before use), DeepSeek-MoE
+  (expert parallelism), Jamba (one period: channel-parallel Mamba layers
+  with their state ``h`` cut, an MoE, an attention layer of 1 KV head)
+  and Whisper (its cross K/V cut by heads);
 * Qwen3 with 1 KV head at ``(data 2, model 1)``, batch 1, under
   ``shard_kv_seq``: the cache's length cut over ``'data'``;
 
@@ -237,8 +240,10 @@ def test_lockstep_on_mesh_matches_jax(runs, case):
 @pytest.mark.parametrize("arch", list(ARCH_SPECS))
 def test_lockstep_cache_is_the_ranks_cut(runs, arch):
     """Each rank holds its rows (2 of 4) and, where the KV heads divide
-    'model', its KV heads — else half the length; Jamba's Mamba state is
-    whole over 'model' (the port cuts no Mamba weight there)."""
+    'model', its KV heads — else half the length; Jamba's Mamba state
+    ``h`` its half of the 128 channels, as the JAX package cuts it (the
+    rank computes those channels), and the conv tail whole (its 3 taps
+    do not divide 'model')."""
     got = runs[0][f"{arch}/exact"]["cache_shapes"]
     kvh = LR.arch_of(ARCH_SPECS[arch]).n_kv_heads
     dh = 64 // 4
@@ -246,7 +251,20 @@ def test_lockstep_cache_is_the_ranks_cut(runs, arch):
             else (2, kvh, MAX_LEN // 2, dh))
     assert attn in got, got
     if arch == "jamba":
-        assert (2, 128, 16) in got and (2, 3, 128) in got, got
+        assert (2, 64, 16) in got and (2, 3, 128) in got, got
+        assert (2, 128, 16) not in got, got
+
+
+def test_reference_cut_gathers_before_use(runs):
+    """Leaves stored cut where the layer computes whole are gathered just
+    before use (site ``tp_gather``: Qwen3's mid-head ``wk`` with 1 KV
+    head, the stacked norm scales); Jamba's Mamba layers are
+    channel-parallel — the ``x_proj`` and ``out_proj`` row partials
+    summed over 'model', the conv tail's new channels gathered."""
+    port = runs[0]
+    assert "tp_gather" in port["qwen3-kv1/exact"]["sites"]
+    assert {"tp_gather", "x_proj", "mamba.out", "conv_tail"} <= set(
+        port["jamba/exact"]["sites"])
 
 
 def test_length_cut_decode_takes_the_sharded_decode(runs):

@@ -20,6 +20,12 @@ runs here, on one device, on the same numpy init and batches:
   group's 288 and drop other assignments: the port must route over the
   global token groups;
 * with int8 gradient compression, and with 2 microbatches;
+* every leaf stored as the JAX package cuts it where the layer computes
+  whole (:data:`CUT_CASES`: Qwen3 with one KV head, its ``wk`` cut
+  mid-head; Jamba, channel-parallel Mamba): losses and first-step
+  gradients held as above, 2 steps;
+* ``Layout.gather ∘ cut`` bitwise the identity on every leaf of every
+  arch, through a checkpoint save and restore;
 * Qwen3 scaled down: 3 steps at ``(data 4, model 1)``, a save, a restore
   on ``(data 2, model 1)`` and 2 more steps, against 5 JAX steps; the
   JAX package's ``restore_pytree`` reads the port's save, whose
@@ -61,6 +67,18 @@ CASES = {c["name"]: c for c in [
     dict(BASE, name="grad-compression", grad_compression=True),
     dict(BASE, name="microbatch-2", microbatch=2),
 ]}
+#: the reference's cut where the layer computes whole: Qwen3 with one KV
+#: head (its 16-wide ``wk`` stored cut mid-head at 'model' 2 and
+#: gathered before use, its backward taking the rank's part unsummed),
+#: and Jamba (one period: channel-parallel Mamba, an MoE, attention of
+#: one KV head)
+CUT_CASES = {c["name"]: c for c in [
+    dict(BASE, name="straddled-heads", base="qwen3-32b",
+         scale=dict(SCALE, n_kv_heads=1), steps=2),
+    dict(BASE, name="jamba", base="jamba-v0.1-52b",
+         scale=dict(SCALE, n_periods=1), steps=2),
+]}
+ROUNDTRIP_ARCHS = sorted(JARCHS)
 ELASTIC = dict(name="elastic", base="qwen3-32b",
                scale=dict(d_model=32, n_heads=4, vocab=64, n_periods=1),
                data=(64, 16, 8, 9), steps=5, remat=False)
@@ -121,13 +139,15 @@ def runs(tmp_path_factory):
     """The port's ranks (the (2, 2) cases and the first elastic segment
     at once, then the second segment), with the JAX references computed
     while they run."""
-    inits = {name: _jax_init(spec) for name, spec in CASES.items()}
+    inits = {name: _jax_init(spec)
+             for name, spec in {**CASES, **CUT_CASES}.items()}
     ranks = start_ranks(
         M.train_cases, backend="gloo", device="cpu",
         axes={"data": 2, "model": 2},
-        args=(list(CASES.values()),
+        args=(list(CASES.values()) + list(CUT_CASES.values()),
               {n: c["init"] for n, c in inits.items()},
-              {n: c["batches"] for n, c in inits.items()}),
+              {n: c["batches"] for n, c in inits.items()},
+              (ROUNDTRIP_ARCHS, str(tmp_path_factory.mktemp("roundtrip")))),
         store_dir=str(tmp_path_factory.mktemp("train")))
     ckpt = str(tmp_path_factory.mktemp("ckpt"))
     einit = _jax_init(ELASTIC)
@@ -177,6 +197,45 @@ def test_sharded_first_step_gradients_and_norm(runs, name):
     np.testing.assert_allclose(got["loss0"], ref["losses"][0], rtol=1e-5)
     np.testing.assert_allclose(got["norms"][0], ref["norms"][0], rtol=1e-6)
     assert any(p.endswith("ffn/router") for p in got["grads"])
+
+
+@pytest.mark.parametrize("name", list(CUT_CASES))
+def test_reference_cut_losses_and_first_step_gradients(runs, name):
+    """Every leaf stored as the JAX package cuts it, the leaves a layer
+    computes whole gathered before use: the losses within 1e-5
+    relative and the first-step gradients within 1e-4 of each leaf's
+    largest entry — a gradient summed over the 'model' ranks' whole
+    products would be off by 2× — and the clip norm within 1e-6."""
+    got, ref = runs["port"][name], runs["refs"][name]
+    np.testing.assert_allclose(got["loss0"], ref["losses"][0], rtol=1e-5)
+    assert sorted(got["grads"]) == sorted(ref["grads"])
+    bad = {}
+    for path, w in ref["grads"].items():
+        scale = max(float(np.abs(w).max()), 1e-30)
+        err = float(np.abs(got["grads"][path] - w).max()) / scale
+        if err > 1e-4:
+            bad[path] = err
+    assert not bad, bad
+    np.testing.assert_allclose(got["norms"][0], ref["norms"][0], rtol=1e-6)
+    np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-5)
+    assert {"tp_gather", "tp_gather.bwd"} & set(got["step_bytes"]) == {
+        "tp_gather"}
+    if name == "jamba":
+        assert {"mamba.in.bwd", "x_proj", "x_proj.bwd",
+                "mamba.out"} <= set(got["step_bytes"])
+
+
+@pytest.mark.parametrize("arch", ROUNDTRIP_ARCHS)
+def test_layout_cut_gather_roundtrip_through_a_checkpoint(runs, arch):
+    """On every rank of (data 2, model 2): ``Layout.gather ∘ cut`` is the
+    whole tree bitwise, a checkpoint of it restores to the same cut,
+    every cut leaf has the rule's shape, and a Mamba ``in_proj`` cut
+    holds the rank's ``x`` and ``z`` columns."""
+    reports = runs["port"]["roundtrip"]
+    assert len(reports) == 4
+    for rank, report in enumerate(reports):
+        assert report[arch] == dict(shapes=True, gathered=True, recut=True,
+                                    in_proj=True), (rank, report[arch])
 
 
 def test_global_groups_case_drops_by_the_global_capacity():

@@ -116,13 +116,63 @@ def _resident(state) -> dict:
             "v": nbytes(state.opt.v)}
 
 
-def train_cases(mesh, cases, tree_of, batches_of):
+def roundtrip(mesh, arch_names, ckpt_dir):
+    """For each arch (scaled down, the port's seeded init): the
+    training layout's cut of the whole tree, gathered back and through a
+    checkpoint save (``save(mesh=)``) and restore, then cut again; a
+    Mamba ``in_proj`` cut is the rank's ``x`` and ``z`` columns.  Each
+    rank reports, by arch, whether the gather equals the whole tree
+    bitwise, the second cut the first, every cut leaf the rule's shape,
+    and its ``in_proj`` columns; rank 0 returns every rank's report."""
+    report = {}
+    for name in arch_names:
+        arch = ARCHS[name].scaled_down(d_model=64, n_heads=4, vocab=128,
+                                       n_periods=1)
+        whole = build_model(arch).init(torch.Generator().manual_seed(3),
+                                       "cpu")
+        layout = PT.Layout(arch, mesh)
+        cut = layout.cut(whole)
+        flat_whole, flat_cut = tree_flatten(whole), tree_flatten(cut)
+        shapes = all(tuple(x.shape) == PT.local_shape(
+            tuple(w.shape), layout.specs[p], mesh)
+            for (p, w), (_, x) in zip(flat_whole, flat_cut))
+        back = layout.gather(cut)
+        gathered = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            flat_whole, tree_flatten(back)))
+        mgr = CheckpointManager(f"{ckpt_dir}/{name}")
+        mgr.save(back, step=1, mesh=mesh)
+        restored, _ = mgr.restore_latest(whole)
+        again = layout.cut(restored)
+        recut = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            flat_cut, tree_flatten(again)))
+        in_proj = True
+        for path, x in flat_cut:
+            if path.endswith("mixer/in_proj"):
+                w = dict(flat_whole)[path]
+                di, tp = w.shape[-1] // 2, mesh.tp
+                c, m = di // tp, mesh.rank
+                rows = PT.cut_leaf(w, (None, layout.specs[path][1]), mesh)
+                want = torch.cat([rows[..., m * c:(m + 1) * c],
+                                  rows[..., di + m * c:di + (m + 1) * c]],
+                                 dim=-1)
+                in_proj = in_proj and torch.equal(x, want)
+        report[name] = dict(shapes=shapes, gathered=gathered, recut=recut,
+                            in_proj=in_proj)
+    every = _gather_objects(report)
+    return every if mesh.world_rank == 0 else None
+
+
+def train_cases(mesh, cases, tree_of, batches_of, roundtrip_args=None):
     """Each case: this rank's cut of the seeded init (``tree_of[case]``,
     numpy), the first step's gradients (gathered whole), then ``steps``
     train steps on ``batches_of[case]``; rank 0 returns per case the
     losses, norms, whole gradients, whole final params, every rank's
-    resident bytes and the step's collective bytes by site."""
+    resident bytes and the step's collective bytes by site — and, given
+    ``roundtrip_args``, :func:`roundtrip`'s reports under
+    ``"roundtrip"``."""
     results = {}
+    if roundtrip_args is not None:
+        results["roundtrip"] = roundtrip(mesh, *roundtrip_args)
     for spec in cases:
         name = spec["name"]
         arch = _arch(spec)
