@@ -116,9 +116,10 @@ def encode(params: Params, frames: Tensor, cfg: ArchConfig, run: RunConfig,
     def block(blk, x, i):
         blk = PT.use_leaves(blk, f"encoder/{i}")
         h = L.apply_norm(blk["norm1"], x, cfg.norm_eps)
-        x = x + L.apply_attention(blk["self_attn"], h, causal=False, **kw)
+        x = x + L.apply_attention(blk["self_attn"], h, causal=False,
+                                  path=f"encoder/{i}/self_attn", **kw)
         h = L.apply_norm(blk["norm_mlp"], x, cfg.norm_eps)
-        return x + _mlp(blk["mlp"], h, cfg)
+        return x + _mlp(blk["mlp"], h, f"encoder/{i}/mlp")
 
     if train and run.remat:
         block = remat(PT.keep_scope(block))
@@ -128,9 +129,11 @@ def encode(params: Params, frames: Tensor, cfg: ArchConfig, run: RunConfig,
                         cfg.norm_eps)
 
 
-def _mlp(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
-    """The MLP, summed over ``'model'`` when its hidden units are cut."""
-    return L.apply_mlp(p, x, row_mesh=PT.active_scope().model_mesh(cfg.d_ff))
+def _mlp(p: Params, x: Tensor, path: str) -> Tensor:
+    """The MLP at ``path``, summed over ``'model'`` when the scope
+    computes on its hidden units' cut."""
+    return L.apply_mlp(p, x, row_mesh=PT.active_scope().model_mesh(
+        f"{path}/w_up"))
 
 
 def _decoder_pass(params: Params, x: Tensor, cfg: ArchConfig,
@@ -147,12 +150,14 @@ def _decoder_pass(params: Params, x: Tensor, cfg: ArchConfig,
         blk = PT.use_leaves(blk, f"decoder/{i}")
         h = L.apply_norm(blk["norm1"], x, cfg.norm_eps)
         x = x + L.apply_attention(blk["self_attn"], h, causal=True,
-                                  cache=cache, **kw)
+                                  cache=cache, path=f"decoder/{i}/self_attn",
+                                  **kw)
         h = L.apply_norm(blk["norm2"], x, cfg.norm_eps)
         x = x + L.apply_attention(blk["cross_attn"], h, kv_x=enc,
-                                  precomputed_kv=cross_kv, **kw)
+                                  precomputed_kv=cross_kv,
+                                  path=f"decoder/{i}/cross_attn", **kw)
         h = L.apply_norm(blk["norm_mlp"], x, cfg.norm_eps)
-        return x + _mlp(blk["mlp"], h, cfg)
+        return x + _mlp(blk["mlp"], h, f"decoder/{i}/mlp")
 
     if enc is not None and run.remat:
         block = remat(PT.keep_scope(block))
@@ -165,7 +170,7 @@ def _decoder_pass(params: Params, x: Tensor, cfg: ArchConfig,
 def _embed_dec(params: Params, tokens: Tensor, cfg: ArchConfig, dtype,
                offset: int = 0) -> Tensor:
     x = L.apply_embedding(PT.use_leaves(params["embed"], "embed"), tokens,
-                          dtype, vocab=cfg.vocab_size)
+                          dtype, path="embed")
     return x + sinusoidal_positions(tokens.shape[1], cfg.d_model, offset,
                                     device=tokens.device).to(dtype)
 
@@ -176,7 +181,7 @@ def _logits(params: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
     x = L.apply_norm(PT.use_leaves(params["dec_norm"], "dec_norm"), x,
                      cfg.norm_eps)
     head = PT.use_leaves(params["head"], "head")
-    mesh = PT.active_scope().model_mesh(cfg.vocab_size)
+    mesh = PT.active_scope().model_mesh("head/w")
     if mesh is None:
         return L.apply_lm_head(head, x)
     logits = L.apply_lm_head(head, PT.copy_to(x, mesh, site="head.in"))
@@ -208,11 +213,12 @@ def prefill(params: Params, tokens: Tensor, cfg: ArchConfig, run: RunConfig,
     dtype = run_dtype(run)
     policy = run.softmax_policy
     enc = encode(params, encoder_input.to(dtype), cfg, run, policy)
-    heads = PT.active_scope().model_mesh(cfg.n_heads, cfg.n_kv_heads)
-    kvh = cfg.n_kv_heads // (heads.tp if heads is not None else 1)
     cross_kvs = []
     for i, blk in enumerate(params["decoder"]):
-        attn = PT.use_leaves(blk["cross_attn"], f"decoder/{i}/cross_attn")
+        path = f"decoder/{i}/cross_attn"
+        heads = PT.active_scope().model_mesh(f"{path}/wk")
+        kvh = cfg.n_kv_heads // (heads.tp if heads is not None else 1)
+        attn = PT.use_leaves(blk["cross_attn"], path)
         cross_kvs.append(L.cross_attention_kv(
             attn, enc, n_kv_heads=kvh, head_dim=cfg.resolved_head_dim))
     caches = init_caches(cfg, tokens.shape[0], max_len, dtype, tokens.device,

@@ -29,9 +29,9 @@ through the mesh rows of the paged dispatch (``ops.paged_mesh_regime``):
 in the ``'heads'`` regime each rank scatters and attends its own KV
 heads; in the ``'pages'`` regime each rank writes only the pages of its
 slab (``sharded_paged.scatter_chunk_sharded``).  Whether a layer's
-weights are the rank's cut is the scope's answer
-(``partitioning.Scope.model_mesh``, the rule ``shard_pspec`` cuts by),
-never their shapes: q/k/v projections cut by output column give the
+weights are the rank's cut is the scope's answer for the leaf's path
+(``partitioning.Scope.model_mesh``: the compute spec ``Layout.use`` and
+``shard_params`` cut by), never their shapes: q/k/v projections cut by output column give the
 rank's heads and ``wo`` cut by input row ends in an all-reduce of
 ``(B, L, d_model)``; where the heads do not split on KV-head
 boundaries (the ``'pages'`` regime) the attention computes whole and
@@ -302,18 +302,17 @@ def _scatter(cache, phys: Tensor, offs: Tensor, k: Tensor, v: Tensor,
 
 def _local_qkv(p: Params, x: Tensor, positions: Tensor, *, n_heads: int,
                n_kv_heads: int, head_dim: int, qk_norm: bool,
-               norm_eps: float, rope_theta: float | None):
+               norm_eps: float, rope_theta: float | None, row_mesh):
     """q, k, v of a paged step and how the rank's attention output is
     laid out: ``(q, k, v, mesh, regime, split)``.  k and v hold the KV
     heads this rank's pool stores; ``split`` (the ``'heads'`` regime
-    under cut weights) means q holds this rank's heads only and ``wo``
-    is cut by rows, else q holds every head."""
+    under weights cut by heads, ``row_mesh``) means q holds this rank's
+    heads only and ``wo`` is cut by rows, else q holds every head."""
     mesh = PT.active_mesh()
     regime = paged_mesh_regime(mesh, n_kv_heads)
     if regime is None:
         mesh = None
-    split = (regime == "heads" and PT.active_scope().model_mesh(
-        n_heads, n_kv_heads) is not None)
+    split = regime == "heads" and row_mesh is not None
     tp = PT.mesh_model_tp(mesh)
     h, kvh = ((n_heads // tp, n_kv_heads // tp) if split
               else (n_heads, n_kv_heads))
@@ -329,7 +328,7 @@ def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
                          n_heads: int, n_kv_heads: int, head_dim: int,
                          qk_norm: bool, norm_eps: float,
                          rope_theta: float | None, policy: SoftmaxPolicy,
-                         paged_backend: str) -> Tensor:
+                         paged_backend: str, row_mesh) -> Tensor:
     """One prompt chunk against the paged pool — scatter, then attend.
 
     The chunk's K/V go into the pool pages at positions
@@ -345,7 +344,7 @@ def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
     q, k, v, mesh, regime, split = _local_qkv(
         p, x, positions, n_heads=n_heads, n_kv_heads=n_kv_heads,
         head_dim=head_dim, qk_norm=qk_norm, norm_eps=norm_eps,
-        rope_theta=rope_theta)
+        rope_theta=rope_theta, row_mesh=row_mesh)
     ps = cache.page_size
     mp = cache.block_tables.shape[1]
     pos = positions.long()
@@ -370,7 +369,8 @@ def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
 def _paged_decode(p: Params, x: Tensor, cache: PagedAttnCache, *,
                   n_heads: int, n_kv_heads: int, head_dim: int,
                   qk_norm: bool, norm_eps: float, rope_theta: float | None,
-                  policy: SoftmaxPolicy, paged_backend: str) -> Tensor:
+                  policy: SoftmaxPolicy, paged_backend: str,
+                  row_mesh) -> Tensor:
     """Single-token decode against the paged pool — no contiguous gather.
 
     Writes the token's K/V at ``lengths`` (per slot, in place), then
@@ -382,7 +382,7 @@ def _paged_decode(p: Params, x: Tensor, cache: PagedAttnCache, *,
     q, k, v, mesh, regime, split = _local_qkv(
         p, x, positions, n_heads=n_heads, n_kv_heads=n_kv_heads,
         head_dim=head_dim, qk_norm=qk_norm, norm_eps=norm_eps,
-        rope_theta=rope_theta)
+        rope_theta=rope_theta, row_mesh=row_mesh)
     ps = cache.page_size
     lengths = cache.lengths.long()
     phys = torch.gather(cache.block_tables.long(), 1,
@@ -407,26 +407,28 @@ def apply_paged_attention(p: Params, x: Tensor,
                           qk_norm: bool = False, norm_eps: float = 1e-5,
                           rope_theta: float | None = 10000.0,
                           policy: SoftmaxPolicy,
-                          paged_backend: str = "auto") -> Tensor:
+                          paged_backend: str = "auto",
+                          row_mesh=None) -> Tensor:
     """Self-attention of ``x`` (B, L, D) against a paged cache: a prompt
     chunk (:class:`PagedPrefillCache`) or one decode token
     (:class:`PagedAttnCache`).  Returns (B, L, D); the pool is updated
-    in place."""
+    in place.  ``row_mesh``: the weights are the rank's cut by heads."""
     b, l, _ = x.shape
     kw = dict(n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
               qk_norm=qk_norm, norm_eps=norm_eps, rope_theta=rope_theta,
-              policy=policy, paged_backend=paged_backend)
+              policy=policy, paged_backend=paged_backend,
+              row_mesh=row_mesh)
     if isinstance(cache, PagedPrefillCache):
-        out, row_mesh = _paged_prefill_chunk(p, x, cache, **kw)
+        out, out_mesh = _paged_prefill_chunk(p, x, cache, **kw)
     elif isinstance(cache, PagedAttnCache):
         if l != 1:
             raise ValueError("paged KV cache decodes one token at a time; "
                              "prompts go through chunked paged prefill "
                              "(PagedPrefillCache)")
-        out, row_mesh = _paged_decode(p, x, cache, **kw)
+        out, out_mesh = _paged_decode(p, x, cache, **kw)
     else:
         raise TypeError(f"unsupported cache {type(cache).__name__}")
-    return _out_projection(p, x, out, b, l, row_mesh)
+    return _out_projection(p, x, out, b, l, out_mesh)
 
 
 def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
@@ -437,7 +439,7 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
                     cache=None, paged_backend: str = "auto",
                     kv_dtype: str = "f32", kv_x: Tensor | None = None,
                     precomputed_kv: tuple[Tensor, Tensor] | None = None,
-                    collector=None) -> Tensor:
+                    collector=None, path: str = "") -> Tensor:
     """Self- or cross-attention of ``x`` (B, L, D) with the policy's
     softmax; returns (B, L, D).
 
@@ -464,7 +466,12 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
     the cache write, so against the cache's keys — at scale
     ``head_dim ** -0.5``, causal as asked: the slice the JAX package
     takes.  Without one nothing is computed.
+
+    ``path`` is the attention's place in the parameter tree
+    (``periods/0/mixer``), by which the active scope says whether its
+    weights are the rank's cut by heads (``Scope.model_mesh``).
     """
+    row_mesh = PT.active_scope().model_mesh(f"{path}/wq")
     is_cross = kv_x is not None or precomputed_kv is not None
     if isinstance(cache, (PagedAttnCache, PagedPrefillCache)):
         if is_cross:
@@ -473,7 +480,7 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
             p, x, cache, n_heads=n_heads, n_kv_heads=n_kv_heads,
             head_dim=head_dim, qk_norm=qk_norm, norm_eps=norm_eps,
             rope_theta=rope_theta, policy=policy,
-            paged_backend=paged_backend)
+            paged_backend=paged_backend, row_mesh=row_mesh)
     if cache is not None and not isinstance(cache, AttnCache):
         raise TypeError(f"unsupported cache {type(cache).__name__}")
     b, l, _ = x.shape
@@ -484,7 +491,6 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
     # weights cut by heads (training or serving under a mesh): this
     # rank's heads, the input's gradient summed over the ranks, wo's rows
     # reduced
-    row_mesh = PT.active_scope().model_mesh(n_heads, n_kv_heads)
     xin, h, kvh = x, n_heads, n_kv_heads
     if row_mesh is not None:
         xin = PT.copy_to(x, mesh, site="attn.in")
@@ -649,13 +655,13 @@ def init_embedding(vocab: int, d_model: int, generator: torch.Generator,
 
 
 def apply_embedding(p: Params, tokens: Tensor, dtype,
-                    vocab: int | None = None) -> Tensor:
-    """Rows of the table for ``tokens``.  Under a scope whose table is
-    cut to ``vocab / tp`` rows each rank looks up the tokens in its
-    range, zeros the rest, and the ranks sum — exactly one rank
-    contributes each row."""
+                    path: str = "") -> Tensor:
+    """Rows of the table for ``tokens``.  Under a scope that computes on
+    the table at ``path`` (``embed``) cut to ``vocab / tp`` rows each
+    rank looks up the tokens in its range, zeros the rest, and the ranks
+    sum — exactly one rank contributes each row."""
     table = p["table"]
-    mesh = PT.active_scope().model_mesh(vocab) if vocab else None
+    mesh = PT.active_scope().model_mesh(f"{path}/table")
     if mesh is None:
         return table[tokens.long()].to(dtype)
     n = table.shape[0]

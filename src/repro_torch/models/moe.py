@@ -249,7 +249,8 @@ def apply_moe(p: Params, x: Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float = 1.25,
               router_policy: SoftmaxPolicy = EXACT,
               group_size: int = 4096, return_aux: bool = False,
-              d_expert: int | None = None, n_shared: int = 0):
+              d_expert: int | None = None, n_shared: int = 0,
+              path: str = ""):
     """x (B, S, D) → (B, S, D) in ``x.dtype``: the routed experts' gated
     sum plus the shared MLP (module docstring); with ``return_aux``,
     ``(out, aux)`` with :func:`aux_losses`' terms.
@@ -257,7 +258,9 @@ def apply_moe(p: Params, x: Tensor, *, n_experts: int, top_k: int,
     Under a scope whose weights are cut (``partitioning.shard_params``)
     the experts follow their 3-D rows (``partitioning.expert_split``,
     from the mesh, ``d_expert`` and the rule) and the shared MLP of
-    ``n_shared`` experts its 2-D rows; the cut parts' f32 partial sums
+    ``n_shared`` experts its 2-D rows where the scope computes on their
+    cut (``Scope.model_mesh`` of ``{path}/shared/w_up``, ``path`` the
+    FFN's place in the parameter tree); the cut parts' f32 partial sums
     meet in one all-reduce over ``'model'`` (site ``moe``) before the
     cast to ``x.dtype``.  Routing is computed whole on every rank; the
     gate weights and the tokens enter the cut experts through
@@ -282,7 +285,8 @@ def apply_moe(p: Params, x: Tensor, *, n_experts: int, top_k: int,
         if d_expert is None:
             raise ValueError("apply_moe on cut weights needs d_expert")
         split = PT.expert_split(mesh, n_experts, d, d_expert)
-        shared_cut = "shared" in p and PT.divides(mesh, d_expert * n_shared)
+        shared_cut = ("shared" in p and scope.model_mesh(
+            f"{path}/shared/w_up") is not None)
         xin = PT.copy_to(xt, mesh, site="moe.in") \
             if split is not None or shared_cut else xt
         partial, whole = [], []

@@ -117,15 +117,26 @@ def init_mamba(d_model: int, generator: torch.Generator, device) -> Params:
     }
 
 
+def _row_product(a: Tensor, w: Tensor, mesh, site: str) -> Tensor:
+    """``a @ w`` in ``a.dtype``, the weight cast to it.  With a ``mesh``
+    ``a`` holds the rank's channels and ``w`` their rows: the partial
+    products of the same operands are taken in f32, summed over
+    ``'model'`` in f32 and rounded once, as the whole product is."""
+    w = w.to(a.dtype)
+    if mesh is None:
+        return a @ w
+    return PT.reduce_from(a.float() @ w.float(), mesh, site=site).to(a.dtype)
+
+
 def _mamba_ssm_inputs(p: Params, xc: Tensor, mesh=None):
     """Per-token SSM tensors from the post-conv activations xc (B, S, DI):
     ``delta`` (B, S, DI), ``bmat`` and ``cmat`` (B, S, N), all f32.  With
     a ``mesh`` xc holds the rank's channels, ``x_proj`` its rows: the
-    partial products are summed over ``'model'``, and as each rank's
-    channels read the sum, its gradient is summed there too."""
+    partial products are summed over ``'model'`` (:func:`_row_product`),
+    and as each rank's channels read the sum, its gradient is summed
+    there too."""
     dt_rank = p["dt_proj"].shape[0]
-    proj = PT.reduce_from((xc @ p["x_proj"].to(xc.dtype)).float(), mesh,
-                          site="x_proj")
+    proj = _row_product(xc, p["x_proj"], mesh, "x_proj").float()
     proj = PT.copy_to(proj, mesh, site="x_proj")
     dt, bmat, cmat = torch.split(proj, [dt_rank, D_STATE, D_STATE], dim=-1)
     delta = F.softplus(dt @ p["dt_proj"].float() + p["dt_bias"].float())
@@ -160,14 +171,15 @@ def _put(dst: Tensor, src: Tensor, mesh) -> None:
     dst.copy_(src)
 
 
-def apply_mamba(p: Params, x: Tensor, *,
-                cache: MambaCache | None = None) -> Tensor:
+def apply_mamba(p: Params, x: Tensor, *, cache: MambaCache | None = None,
+                path: str = "") -> Tensor:
     """Mamba block of x (B, S, D) → (B, S, D) in ``x.dtype``; the modes of
     the module docstring, ``cache`` updated in place; channel-parallel
-    under a scope that cuts the channels (module docstring)."""
+    under a scope that computes on the channels' cut of the mixer at
+    ``path`` (``periods/<i>/mixer``; module docstring)."""
     b, s, d = x.shape
     d_inner = EXPAND * d
-    mesh = PT.active_scope().model_mesh(d_inner)
+    mesh = PT.active_scope().model_mesh(f"{path}/in_proj")
     di = d_inner // (mesh.tp if mesh is not None else 1)
     lo = mesh.rank * di if mesh is not None else 0
     xin = PT.copy_to(x, mesh, site="mamba.in")
@@ -206,11 +218,7 @@ def apply_mamba(p: Params, x: Tensor, *,
              PT.active_mesh())
     y = torch.stack(ys, dim=1) + p["d_skip"].float() * x32
     out = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    out = out @ p["out_proj"].to(x.dtype)
-    if mesh is None:
-        return out
-    # the partial sums meet in f32 and round once, as the whole product
-    return PT.reduce_from(out.float(), mesh, site="mamba.out").to(x.dtype)
+    return _row_product(out, p["out_proj"], mesh, "mamba.out")
 
 
 # ---------------------------------------------------------------------------

@@ -154,10 +154,12 @@ def block_cache(cfg: ArchConfig, spec: LayerSpec, b: int, max_len: int,
 
 def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
                 spec: LayerSpec, *, policy: SoftmaxPolicy, cache,
-                collector=None, return_aux: bool = False):
-    """One layer; returns ``(x, aux)``: ``aux`` holds an MoE FFN's
+                collector=None, return_aux: bool = False, path: str = ""):
+    """One layer (``path``: its place in the parameter tree,
+    ``periods/<i>``); returns ``(x, aux)``: ``aux`` holds an MoE FFN's
     training terms (``moe.aux_losses``) when ``return_aux``, else is
     empty."""
+    scope = PT.active_scope()
     h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
     if spec.mixer == "attn":
         mixed = L.apply_attention(
@@ -167,9 +169,10 @@ def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
             rope_theta=cfg.rope_theta if cfg.rope else None, policy=policy,
             backend=run.attention_backend, cache=cache,
             paged_backend=run.paged_backend, kv_dtype=run.kv_dtype,
-            collector=collector)
+            collector=collector, path=f"{path}/mixer")
     elif spec.mixer == "mamba":
-        mixed = SSM.apply_mamba(p["mixer"], h, cache=cache)
+        mixed = SSM.apply_mamba(p["mixer"], h, cache=cache,
+                                path=f"{path}/mixer")
     elif spec.mixer == "mlstm":
         mixed = SSM.apply_mlstm(p["mixer"], h, n_heads=cfg.n_heads,
                                 cache=cache)
@@ -186,11 +189,11 @@ def apply_block(p: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
             p["ffn"], h2, n_experts=m.n_experts, top_k=m.top_k,
             capacity_factor=m.capacity_factor,
             router_policy=run.router_policy, return_aux=return_aux,
-            d_expert=m.d_expert, n_shared=m.n_shared)
+            d_expert=m.d_expert, n_shared=m.n_shared, path=f"{path}/ffn")
         y, aux = y if return_aux else (y, {})
         return x + y, aux
-    return x + L.apply_mlp(p["ffn"], h2,
-                           row_mesh=PT.active_scope().model_mesh(cfg.d_ff)), {}
+    return x + L.apply_mlp(
+        p["ffn"], h2, row_mesh=scope.model_mesh(f"{path}/ffn/w_up")), {}
 
 
 def _stack_into(out, tree, i: int):
@@ -337,7 +340,8 @@ def _apply_stack(params: Params, x: Tensor, cfg: ArchConfig, run: RunConfig,
             pp = PT.use_leaves(params["periods"][si], f"periods/{si}", pi)
             x, aux = apply_block(pp, x, cfg, run, spec, policy=policy,
                                  cache=make_cache(si, pi),
-                                 collector=collector, return_aux=train)
+                                 collector=collector, return_aux=train,
+                                 path=f"periods/{si}")
             if "load_balance_loss" in aux:
                 lb = aux["load_balance_loss"] + (0 if lb is None else lb)
         return x, lb
@@ -357,7 +361,8 @@ def _head(params: Params, cfg: ArchConfig, x: Tensor) -> Tensor:
     an active mesh gives this rank's columns, gathered over the ranks."""
     x = L.apply_norm(PT.use_leaves(params["final_norm"], "final_norm"), x,
                      cfg.norm_eps)
-    mesh = PT.active_scope().model_mesh(cfg.vocab_size)
+    mesh = PT.active_scope().model_mesh(
+        "embed/table" if cfg.tie_embeddings else "head/w")
     if mesh is not None:
         x = PT.copy_to(x, mesh, site="head.in")
     if cfg.tie_embeddings:
@@ -373,7 +378,7 @@ def _head(params: Params, cfg: ArchConfig, x: Tensor) -> Tensor:
 def _embed(params: Params, tokens: Tensor, cfg: ArchConfig,
            run: RunConfig) -> Tensor:
     return L.apply_embedding(PT.use_leaves(params["embed"], "embed"), tokens,
-                             run_dtype(run), vocab=cfg.vocab_size)
+                             run_dtype(run), path="embed")
 
 
 def train_logits(params: Params, tokens: Tensor, cfg: ArchConfig,

@@ -270,8 +270,11 @@ class ServingEngine:
         self.mesh = mesh
         self.tp = PT.mesh_model_tp(mesh)
         self.regime = paged_mesh_regime(mesh, model.cfg.n_kv_heads)
+        # what each layer computes on: the cut of the serving weights
+        self.compute = None
         if config.shard_params:
             params = PT.shard_params(params, model.cfg, mesh)
+            self.compute = PT.compute_specs(model.cfg, mesh)
         self.params = tree_map(lambda t, _: t.to(self.device), params)
         self.run_cfg = run
         self.cache = cache
@@ -378,7 +381,7 @@ class ServingEngine:
             if self._closed:
                 raise RuntimeError("the engine was closed")
             PT.send_plan(self.mesh, (op, plan))
-        with PT.mesh_scope(self.mesh, cut=self.config.shard_params):
+        with PT.mesh_scope(self.mesh, compute=self.compute):
             return getattr(self, "_op_" + op)(**plan)
 
     def follow(self) -> None:
@@ -390,7 +393,7 @@ class ServingEngine:
             op, plan = PT.recv_plan(self.mesh)
             if op == "stop":
                 return
-            with PT.mesh_scope(self.mesh, cut=self.config.shard_params):
+            with PT.mesh_scope(self.mesh, compute=self.compute):
                 getattr(self, "_op_" + op)(**plan)
 
     def close(self) -> None:

@@ -29,9 +29,10 @@ Placement, as in the JAX package:
   ``'model'`` slots on the leaves whose layers compute on a cut
   (:data:`TP_LEAVES`; attention only when both head counts divide
   ``tp`` — the ``'heads'`` regime; Mamba when ``tp`` divides its
-  channels), plus the rule's ``'data'`` slots with ``fsdp``.  The paged
-  engines' :func:`shard_params` cuts the serving weights by it
-  (``fsdp=False``).
+  channels).  The paged engines' :func:`shard_params` cuts the serving
+  weights by it, and the layers ask the active :class:`Scope` whether
+  they compute on a leaf's cut (:meth:`Scope.model_mesh`: the
+  scope's :func:`compute_specs`, a :class:`Layout`'s ``compute``).
 * :class:`Layout` (training, lockstep serving on a mesh, the cells)
   stores every leaf as :func:`param_pspec` cuts it with ``fsdp=True``,
   no exception, and gathers just before use every axis the storage
@@ -234,25 +235,30 @@ def divides(mesh: Mesh | None, dim: int) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class Scope:
-    """What the layers read of the mesh they run under: the mesh, whether
-    the weights are this rank's cut (``cut``: ``shard_params``), the
-    axes the batch's rows are cut over (``tokens``, :func:`row_axes`: an
-    MoE then routes over the global token groups; ``()`` when the rows
-    are whole), and the :class:`Layout` whose ``'data'`` cuts are
-    gathered before use."""
+    """What the layers read of the mesh they run under: the mesh, the
+    cut each leaf's layer computes on (``compute``, path → spec:
+    :func:`compute_specs`; None while the weights are whole), the axes
+    the batch's rows are cut over (``tokens``, :func:`row_axes`: an MoE
+    then routes over the global token groups; ``()`` when the rows are
+    whole), and the :class:`Layout` whose storage cuts are gathered
+    before use."""
 
     mesh: Mesh | None = None
-    cut: bool = False
+    compute: dict | None = None
     tokens: tuple[str, ...] = ()
     layout: "Layout | None" = None
 
-    def model_mesh(self, *dims: int) -> Mesh | None:
-        """The mesh when the weights are a rank's cut (``cut``) and
-        ``'model'`` (of more than one rank) divides every one of
-        ``dims`` — a layer whose ``'model'`` dims these are (heads, hidden
-        units, vocabulary, channels) then computes on its cut of them, as
-        :func:`shard_pspec` says — else None."""
-        if self.cut and all(divides(self.mesh, d) for d in dims):
+    @property
+    def cut(self) -> bool:
+        """Whether the weights are a rank's cut."""
+        return self.compute is not None
+
+    def model_mesh(self, path: str) -> Mesh | None:
+        """The mesh when the layer of leaf ``path`` (its path in the
+        parameter tree, e.g. ``periods/0/mixer/wq``) computes on the
+        leaf's ``'model'`` cut — the scope's compute spec names
+        ``'model'`` on it — else None."""
+        if self.compute is not None and "model" in self.compute[path]:
             return self.mesh
         return None
 
@@ -275,13 +281,16 @@ def active_scope() -> Scope:
 
 
 @contextlib.contextmanager
-def mesh_scope(mesh: Mesh | None, *, cut: bool = False,
+def mesh_scope(mesh: Mesh | None, *, compute: dict | None = None,
                tokens: tuple[str, ...] = (),
                layout: "Layout | None" = None):
-    """``mesh`` active inside the block (with :class:`Scope`'s flags),
-    the previous scope restored after (a single-device engine in the
-    same process is unaffected)."""
-    token = _ACTIVE.set(Scope(mesh, cut, tuple(tokens), layout))
+    """``mesh`` active inside the block (with :class:`Scope`'s fields;
+    ``compute`` defaults to the ``layout``'s), the previous scope
+    restored after (a single-device engine in the same process is
+    unaffected)."""
+    if compute is None and layout is not None:
+        compute = layout.compute
+    token = _ACTIVE.set(Scope(mesh, compute, tuple(tokens), layout))
     try:
         yield mesh
     finally:
@@ -574,13 +583,6 @@ TP_LEAVES = ("embed/table", "head/w", "w_gate", "w_up", "w_down")
 ATTENTION_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
-def heads_cut(mesh, n_heads: int, n_kv_heads: int) -> bool:
-    """Whether an attention computes on its ``'model'`` rank's heads:
-    only when ``tp > 1`` divides both head counts (the paged path's
-    ``'heads'`` regime)."""
-    return divides(mesh, n_heads) and divides(mesh, n_kv_heads)
-
-
 def _mixer(path: str, cfg) -> str:
     """The mixer leaf ``path`` belongs to: a decoder block's
     (``periods/<i>/mixer/…``: ``attn``, ``mamba``, ``mlstm``, ``slstm``),
@@ -600,25 +602,26 @@ def mamba_channels(cfg) -> int:
     return EXPAND * cfg.d_model
 
 
-def shard_pspec(path: str, shape: tuple[int, ...], mesh, cfg,
-                fsdp: bool = False) -> tuple:
-    """The cut a layer computes leaf ``path`` on: :func:`param_pspec`'s
-    ``'model'`` slots on :data:`TP_LEAVES`, on the attention leaves when
-    :func:`heads_cut`, and on every Mamba leaf when ``tp`` divides its
+def shard_pspec(path: str, shape: tuple[int, ...], mesh, cfg) -> tuple:
+    """The cut a layer computes leaf ``path`` on, over ``'model'`` only:
+    :func:`param_pspec`'s ``'model'`` slots on :data:`TP_LEAVES`, on the
+    attention leaves when ``tp > 1`` divides both head counts (the
+    ``'heads'`` regime), and on every Mamba leaf when it divides the
     channels (``ssm.apply_mamba`` is then channel-parallel) — never on
     an mLSTM's or sLSTM's, which compute whole (an mLSTM's ``wq`` /
-    ``wk`` / ``wv`` are not attention's) — with the rule's ``'data'``
-    slots when ``fsdp``.  A projection bias (whole where the rule sees
-    a vector) is cut with its weight's output columns."""
-    spec = param_pspec(path, shape, mesh, fsdp)
+    ``wk`` / ``wv`` are not attention's) — and none at ``tp = 1``.  A
+    projection bias (whole where the rule sees a vector) is cut with its
+    weight's output columns."""
+    spec = param_pspec(path, shape, mesh)
     name = path.rsplit("/", 1)[-1]
     mixer = _mixer(path, cfg)
     if mixer == "attn" and name in ATTENTION_LEAVES:
-        cut = heads_cut(mesh, cfg.n_heads, cfg.n_kv_heads)
+        cut = divides(mesh, cfg.n_heads) and divides(mesh, cfg.n_kv_heads)
     elif mixer == "mamba":
         cut = divides(mesh, mamba_channels(cfg))
     else:
-        cut = not mixer and any(path.endswith(s) for s in TP_LEAVES)
+        cut = (not mixer and mesh_model_tp(mesh) > 1
+               and any(path.endswith(s) for s in TP_LEAVES))
     if cut and name in ("bq", "bk", "bv"):
         lead = spec[:len(shape) - 1] if len(spec) == len(shape) else (
             (None,) * (len(shape) - 1))
@@ -820,14 +823,14 @@ def _walk(tree, fn, path=""):
     return fn(path, tree)
 
 
-def shard_params(params, cfg, mesh: Mesh | None, fsdp: bool = False):
+def shard_params(params, cfg, mesh: Mesh | None):
     """Rank ``mesh``'s part of a parameter tree (numpy arrays or
     tensors) under :func:`shard_pspec`: a cut leaf is a copy of the
     rank's part, every other leaf the input leaf itself.
 
     A leaf already cut to the rank's shape is kept, so a tree that was
     sharded on the way in (``convert.params_from_jax(..., mesh=)``)
-    passes unchanged.  Serving (``fsdp=False``) cuts over ``'model'``
+    passes unchanged.  The paged engines' serving cut, over ``'model'``
     only: the MoE's experts by their 3-D rows (a rank's
     ``E / tp`` experts, or every expert's ``d_expert / tp`` columns), the
     shared MLP and the dense MLP by the 2-D rows, the attention in the
@@ -839,7 +842,7 @@ def shard_params(params, cfg, mesh: Mesh | None, fsdp: bool = False):
 
     def leaf(path: str, x):
         full = shapes[path]
-        spec = shard_pspec(path, full, mesh, cfg, fsdp)
+        spec = shard_pspec(path, full, mesh, cfg)
         mine = local_shape(full, spec, mesh)
         if tuple(x.shape) == mine:
             return x
@@ -1081,8 +1084,7 @@ class Layout:
         self.shapes = full_shapes(cfg)
         self.specs = {p: _padded(param_pspec(p, s, mesh, fsdp=True), s)
                       for p, s in self.shapes.items()}
-        self.compute = {p: _padded(shard_pspec(p, s, mesh, cfg), s)
-                        for p, s in self.shapes.items()}
+        self.compute = compute_specs(cfg, mesh)
 
     def axes(self, path: str) -> tuple[str, ...]:
         """The axes (of size > 1) leaf ``path`` is stored cut over."""
@@ -1165,6 +1167,14 @@ class Layout:
 def _padded(spec: tuple, shape: tuple) -> tuple:
     """``spec`` with a None for every dim it does not name."""
     return tuple(spec) + (None,) * (len(shape) - len(spec))
+
+
+def compute_specs(cfg, mesh) -> dict[str, tuple]:
+    """:func:`shard_pspec` of every leaf of ``cfg``'s parameter tree,
+    by path, a None for every dim it does not name: what each layer
+    computes on (:meth:`Scope.model_mesh`)."""
+    return {p: _padded(shard_pspec(p, s, mesh, cfg), s)
+            for p, s in full_shapes(cfg).items()}
 
 
 def use_leaves(tree, prefix: str, index: int | None = None):

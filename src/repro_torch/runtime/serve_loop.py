@@ -64,7 +64,7 @@ def _serving_scope(model: Model, mesh, batch: int | None):
 
     @contextlib.contextmanager
     def scope():
-        with torch.no_grad(), PT.mesh_scope(mesh, cut=True, tokens=rows,
+        with torch.no_grad(), PT.mesh_scope(mesh, tokens=rows,
                                             layout=layout):
             yield
     return scope

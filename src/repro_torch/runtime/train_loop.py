@@ -148,8 +148,7 @@ def make_grad_fn(model: Model, run: RunConfig, mesh=None):
                 r0, r1 = PT.row_range(mesh, n)
                 lo, hi = lo + r0, lo + r1
             mb = {k: v[lo:hi] for k, v in batch.items() if v is not None}
-            scope = (PT.mesh_scope(mesh, cut=True, tokens=cut_rows,
-                                   layout=layout)
+            scope = (PT.mesh_scope(mesh, tokens=cut_rows, layout=layout)
                      if layout is not None else contextlib.nullcontext())
             with scope:            # a remat's recomputation runs in it
                 mb_loss, _ = loss_fn(params, mb)

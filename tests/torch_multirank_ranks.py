@@ -76,7 +76,8 @@ def eptp_moe(mesh, p_np, x_np, kw):
              "w_up": p["w_up"][:, :, lo:hi].contiguous(),
              "w_down": p["w_down"][:, lo:hi].contiguous()}
     mesh.log.clear()
-    with torch.no_grad(), PT.mesh_scope(mesh, cut=True):
+    # weights cut (an MoE layer reads no leaf's compute spec)
+    with torch.no_grad(), PT.mesh_scope(mesh, compute={}):
         out = apply_moe(local, torch.from_numpy(x_np),
                         n_experts=kw["n_experts"], top_k=kw["top_k"],
                         d_expert=kw["d_expert"])
