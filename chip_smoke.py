@@ -261,8 +261,8 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    its bound;
 11. the model across ranks (lines ``[ranks]``), each as rank processes
    sharing the card over gloo (one card: no NCCL), after phase 10:
-   (a) DeepSeek-MoE-16B and Granite-MoE-3B at full width, 4 layers,
-   served at tp 2 ('heads') with ``shard_params`` — each rank holds 32
+   (a) DeepSeek-MoE-16B and Granite-MoE-3B at full width, 2 layers
+   (``R_SERVE_LAYERS``), served at tp 2 ('heads') with ``shard_params`` — each rank holds 32
    of 64 / 20 of 40 experts, DeepSeek's shared MLP and both models'
    attention cut — on bf16 pools, the smoke's 8 requests with 16 new
    tokens, REXP and exact, each rank replaying the tp = 1 sync drive's
@@ -3765,7 +3765,10 @@ def phase_train(card):
 # Phase 11: the model across ranks
 # ---------------------------------------------------------------------------
 
-#: expert-parallel serving: new tokens a request, the drives' policies
+#: expert-parallel serving: layers (the depth cut below phase 5d's to
+#: keep the smoke in its time), new tokens a request, the drives'
+#: policies
+R_SERVE_LAYERS = 2
 R_NEW_TOKENS = 16
 R_POLICIES = (MAIN_POLICY, "exact")
 #: the sharded train step: Granite-MoE-3B at full width, 2 layers, f32,
@@ -3910,7 +3913,8 @@ def ep_rank(mesh, arch, requests, routes):
     return out if mesh.rank == 0 else None
 
 
-def phase_ranks_serving(card, device="cuda", archs=None, layers=MOE_LAYERS):
+def phase_ranks_serving(card, device="cuda", archs=None,
+                        layers=R_SERVE_LAYERS):
     """Phase 11a: DeepSeek-MoE-16B and Granite-MoE-3B at full width,
     ``layers`` layers, served at tp 2 ('heads') with ``shard_params``:
     each rank holds half the experts (32 of 64, 20 of 40), DeepSeek's
