@@ -106,9 +106,13 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    whole steps); the share of equal greedy tokens with the first parting
    decision's top-2 margin, every rank's paged launches (the tp = 1
    drive's in 'heads', none in 'pages'), and the decode collectives'
-   bytes a layer within 2·B·H·(D+2)·4 (plus 2·B·d_model·4 under
-   ``shard_params``); its tok/s are shared-device gloo figures, not a
-   tensor-parallel speed (lines ``[tp]``);
+   bytes a layer within :func:`decode_wire_budget` (2·B·H·(D+2)·4; under
+   ``shard_params`` plus 2·B·d_model·4, the norm scales the reference's
+   serving spec stores cut, and in 'pages' the gathered q, k, v); under
+   ``shard_params`` every rank's parameter bytes equal to the JAX
+   package's ``param_pspec(fsdp=False)`` shard shapes' and a decode
+   step's ``tp_gather`` bytes printed; its tok/s are shared-device gloo
+   figures, not a tensor-parallel speed (lines ``[tp]``);
 5d. the MoE decoders (lines ``[moe]``) — DeepSeek-MoE-16B (d_model
    2048, 16 / 16 heads of 128, 64 routed experts of 1408 plus 2 shared,
    top-6, vocab 102 400; 16.9B parameters in 28 layers) and
@@ -268,9 +272,11 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    tokens, REXP and exact, each rank replaying the tp = 1 sync drive's
    expert choices (:func:`pinned_routes`; the flips printed): exact
    first-token logits within 2 % of that drive's, every rank's paged
-   launches equal to it, its expert bytes half of the whole, a decode
-   step's bytes a layer within phase 5c's ``shard_params`` bound (the
-   ``moe`` all-reduce in ``w_down``'s place); tok/s a shared-card gloo
+   launches equal to it, its expert bytes half of the whole, its
+   parameter bytes the reference's serving spec's, a decode step's
+   bytes a layer within phase 5c's ``shard_params`` bound (the ``moe``
+   all-reduce in ``w_down``'s place; the norm scales' ``tp_gather``
+   printed); tok/s a shared-card gloo
    figure; (b) Granite-MoE-3B at full width, 2 layers, f32, trained 3
    steps at lr 1e-4 on a global batch of 4 × 256 on a (data 2, model
    2) mesh (FSDP over 'data', tensor and expert parallelism over
@@ -328,7 +334,16 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
 13. the examples (lines ``[examples]``, after phase 12): the four
    ``examples/*_torch.py``' ``main(device="cuda")`` in this process,
    each one's printed lines and kernel launches; quickstart's figures
-   equal to its CPU run's, the others run to their end.
+   equal to its CPU run's, the others run to their end;
+14. the kernel guard on the card (lines ``[guard]``, :func:`phase_guard`):
+   every CUDA library's ``<name>_plan`` equal to the host library's
+   (``csrc/launch_plan.h`` built by the host C++ compiler, the plans the
+   kernel guard reads on a machine without a card) at each of the
+   guard's geometries and the paged sweep's grid; each split-key
+   instance's registers, local bytes and occupancy beside the CTAs a
+   multiprocessor its plan counts on (printed); the single-device step
+   contracts (``repro_torch.analysis.contracts``) on the card, each step
+   under ``set_sync_debug_mode("error")``, each holding.
 
 The whole run's seconds follow the phases.  The line before the last
 is the card's name and power limit, the one before it a JSON summary of
@@ -1551,7 +1566,39 @@ TP_DRIVES = {
 }
 #: sites of the collective log that run once a layer
 LAYER_SITES = ("attn_out", "pages_max", "pages_sum", "pages_pv", "wo",
-               "w_down")
+               "w_down", "tp_gather", "qkv")
+
+
+def decode_wire_budget(cfg, regime, shard, b=N_SLOTS) -> int:
+    """A decode step's wire bytes a layer: the (B, H, 1) max and Σ and
+    (B, H, 1, D) partials, and under ``shard_params`` the ``wo`` and
+    ``w_down`` sums of (B, d_model), the norm scales the reference's
+    serving spec stores cut (2 of d_model, ``q_norm`` and ``k_norm`` of
+    D: site ``tp_gather``) and, in 'pages', the q, k, v activations
+    gathered from the ranks' columns (site ``qkv``), at 4 bytes an
+    element."""
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    budget = 2 * b * h * (d + 2) * 4
+    if shard:
+        budget += 2 * b * cfg.d_model * 4 + (2 * cfg.d_model + 2 * d) * 4
+        if regime == "pages":
+            budget += b * (h + 2 * kvh) * d * 4
+    return budget
+
+
+def serving_spec_bytes(cfg, mesh, params) -> tuple[int, int]:
+    """(bytes a rank holds of ``params``, the bytes of the same leaves at
+    the shapes the JAX package's serving spec ``param_pspec(fsdp=False)``
+    gives a rank of ``mesh``, in the leaves' own types)."""
+    from repro_torch.runtime import partitioning as PT
+    shapes = PT.full_shapes(cfg)
+    have = want = 0
+    for path, x in tree_flatten(params):
+        spec = PT.param_pspec(path, shapes[path], mesh, fsdp=False)
+        have += x.nbytes
+        want += (int(np.prod(PT.local_shape(shapes[path], spec, mesh)))
+                 * x.element_size())
+    return have, want
 
 
 def _sync(device) -> None:
@@ -1637,7 +1684,7 @@ def tp_rank(mesh, arch, drives, requests):
                     firsts[seq.request.id] = row.copy()
                 return sample(seq, row)
             eng._sample = recording
-        per_layer, sites = [], set()
+        per_layer, sites, gathers = [], set(), []
         decode = eng._op_decode
 
         def watched(*a, decode=decode, **kw):
@@ -1647,6 +1694,7 @@ def tp_rank(mesh, arch, drives, requests):
                          for r in mesh.log.records)
             per_layer.append(mesh.log.nbytes(*LAYER_SITES)
                              / model.cfg.n_layers)
+            gathers.append(mesh.log.nbytes("tp_gather"))
             return got
         eng._op_decode = watched
         _sync(mesh.device)
@@ -1668,7 +1716,11 @@ def tp_rank(mesh, arch, drives, requests):
                     wall=time.perf_counter() - t0,
                     decode_bytes=max(per_layer), sites=sorted(sites),
                     plans=mesh.log.plans,
-                    pool_bytes=eng.stats.pool_bytes_per_layer)
+                    pool_bytes=eng.stats.pool_bytes_per_layer,
+                    tp_gather=max(gathers),
+                    spec_bytes=(serving_spec_bytes(model.cfg, mesh,
+                                                   eng.params)
+                                if shard else None))
         ranks = [None] * mesh.tp
         torch.distributed.all_gather_object(ranks, mine, group=mesh.group)
         if mesh.rank == 0:
@@ -1683,6 +1735,21 @@ def tp_rank(mesh, arch, drives, requests):
         if torch.device(mesh.device).type == "cuda":
             torch.cuda.empty_cache()
     return out if mesh.rank == 0 else None
+
+
+def check_spec_bytes(label, ranks) -> str:
+    """Hold every rank's parameter bytes to the reference's serving-spec
+    shard shapes' (``serving_spec_bytes``); the printed clause, with the
+    norm scales' ``tp_gather`` bytes of a decode step."""
+    for rank, mine in enumerate(ranks):
+        have, want = mine["spec_bytes"]
+        if have != want:
+            raise AssertionError(f"{label}: rank {rank} holds {have} B of "
+                                 f"parameters, the reference's serving "
+                                 f"spec {want} B")
+    return (f"parameters a rank {[m['spec_bytes'][0] for m in ranks]} B "
+            f"(the reference's param_pspec(fsdp=False) shapes); tp_gather "
+            f"{max(m['tp_gather'] for m in ranks)} B a decode step; ")
 
 
 def tp_agreement(ref, got):
@@ -1745,13 +1812,12 @@ def check_tp_drive(tp, ref, got, card, cfg):
                 expect.values()):
             raise AssertionError(f"{label}: rank {rank} launched "
                                  f"{mine['launches']}, want {expect}")
-    b, h, d = N_SLOTS, cfg.n_heads, cfg.resolved_head_dim
-    budget = 2 * b * h * (d + 2) * 4 + (2 * b * cfg.d_model * 4
-                                        if got["shard"] else 0)
+    budget = decode_wire_budget(cfg, got["regime"], got["shard"])
     wire = max(m["decode_bytes"] for m in got["ranks"])
     if not wire <= budget:
         raise AssertionError(f"{label}: a decode step moved {wire:.0f} B a "
                              f"layer > {budget} B")
+    spec = check_spec_bytes(label, got["ranks"]) if got["shard"] else ""
     wall = max(m["wall"] for m in got["ranks"])
     print(f"[tp] {label}: {logits}greedy tokens equal to tp = 1 "
           f"{share:.1%}{' (held)' * bitwise} ({parting}); paged launches a "
@@ -1760,7 +1826,7 @@ def check_tp_drive(tp, ref, got, card, cfg):
           f"(tp = 1: {want}); decode wire {wire:.0f} B a layer (budget "
           f"{budget}); {got['ranks'][0]['plans']} plans; KV pool "
           f"{got['ranks'][0]['pool_bytes']} B a layer a rank (tp = 1: "
-          f"{ref['pool_bytes']}); {got['n_tokens'] / wall:.1f} tok/s — a "
+          f"{ref['pool_bytes']}); {spec}{got['n_tokens'] / wall:.1f} tok/s — a "
           f"shared-device gloo figure, not a tensor-parallel speed — "
           f"{card}")
     for site in sorted({s for m in got["ranks"] for s in m["sites"]}):
@@ -3843,7 +3909,7 @@ def ep_rank(mesh, arch, requests, routes):
     for r in range(mesh.tp):
         if r == mesh.rank:
             model, whole = _init_bf16(arch, mesh.device)
-            params = PT.shard_params(whole, arch, mesh)
+            params = PT.Layout(arch, mesh, fsdp=False).cut(whole)
             del whole
             _sync(mesh.device)
             if torch.device(mesh.device).type == "cuda":
@@ -3865,7 +3931,7 @@ def ep_rank(mesh, arch, requests, routes):
                     firsts[seq.request.id] = row.copy()
                 return sample(seq, row)
             eng._sample = recording
-        per_layer, sites = [], set()
+        per_layer, sites, gathers = [], set(), []
         decode = eng._op_decode
 
         def watched(*a, decode=decode, **kw):
@@ -3875,6 +3941,7 @@ def ep_rank(mesh, arch, requests, routes):
                          for r in mesh.log.records)
             per_layer.append(mesh.log.nbytes(*R_LAYER_SITES)
                              / model.cfg.n_layers)
+            gathers.append(mesh.log.nbytes("tp_gather"))
             return got
         eng._op_decode = watched
         flips = []
@@ -3900,7 +3967,10 @@ def ep_rank(mesh, arch, requests, routes):
                     wall=time.perf_counter() - t0,
                     decode_bytes=max(per_layer), sites=sorted(sites),
                     experts=_expert_bytes(eng.params),
-                    flips=(int(flipped.sum()), flipped.numel()))
+                    flips=(int(flipped.sum()), flipped.numel()),
+                    tp_gather=max(gathers),
+                    spec_bytes=serving_spec_bytes(model.cfg, mesh,
+                                                  eng.params))
         ranks = [None] * mesh.tp
         torch.distributed.all_gather_object(ranks, mine, group=mesh.group)
         if mesh.rank == 0:
@@ -3963,12 +4033,12 @@ def phase_ranks_serving(card, device="cuda", archs=None,
                     raise AssertionError(f"{label}: rank {rank} holds "
                                          f"{mine['experts']} B of experts, "
                                          f"not half of {whole_experts}")
-            b, h, d = N_SLOTS, arch.n_heads, arch.resolved_head_dim
-            budget = 2 * b * h * (d + 2) * 4 + 2 * b * arch.d_model * 4
+            budget = decode_wire_budget(arch, g["regime"], True)
             wire = max(m["decode_bytes"] for m in g["ranks"])
             if not wire <= budget:
                 raise AssertionError(f"{label}: a decode step moved "
                                      f"{wire:.0f} B a layer > {budget} B")
+            spec = check_spec_bytes(label, g["ranks"])
             share, first = tp_agreement(ref, g)
             parting = ("no parting" if first is None else
                        f"first parting: request {first[0]} decision "
@@ -3984,7 +4054,7 @@ def phase_ranks_serving(card, device="cuda", archs=None,
                   f" (tp = 1: {want}); experts a rank "
                   f"{[m['experts'] for m in g['ranks']]} B of "
                   f"{whole_experts}; decode wire {wire:.0f} B a layer "
-                  f"(budget {budget}); {g['n_tokens'] / wall:.1f} tok/s — a "
+                  f"(budget {budget}); {spec}{g['n_tokens'] / wall:.1f} tok/s — a "
                   f"shared-card gloo figure, not a speed — {card}")
             out[name, policy] = dict(logits=worst, wire=wire, budget=budget,
                                      agree=share, flips=flips)
@@ -4867,6 +4937,117 @@ def phase_examples(card, device="cuda"):
           f"{card}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the kernel guard's plans on the card, the step contracts
+# ---------------------------------------------------------------------------
+
+#: the split-key body's libraries (their ``<name>_attrs`` report an
+#: instance), and the CTAs a multiprocessor each plan counts on: the
+#: paged plan two for one-row-a-warp CTAs, one for heavier ones; the
+#: dense split route at most kDensePerSm (3) on average
+SPLIT_LIBS = ("paged_decode", "paged_prefill", "lut_attention")
+#: the H100 SXM's multiprocessors (the guard's N_SMS)
+N_SMS_H100 = 132
+
+
+def guard_calls():
+    """Every ``(library, plan ints)`` the kernel guard declares at its
+    geometries (the reference's three and the shapes this script
+    launches), and the paged sweep's grid (``sweep``: B 1–64 × kv_len
+    1–8192, decode and a 16-row chunk, f32 / bf16 / int8 pools, both
+    methods' tables, the engine's ``max_kv_len`` or none)."""
+    from repro_torch.analysis import kernel_guard as KG
+    calls = set()
+    host_plan = build.host_plan
+
+    def recording(name, ins):
+        calls.add((name, tuple(int(x) for x in ins)))
+        return host_plan(name, ins)
+    build.host_plan = recording
+    try:
+        for geom in KG.GEOMETRIES.values():
+            KG.kernel_registry(geom)
+    finally:
+        build.host_plan = host_plan
+    tables = [KG.method_tables(m) for m in ("rexp", "lut2d")]
+    for b in (1, 4, 16, 64):
+        for kv in (1, 64, 512, 2048, 8192):
+            mp = -(-kv // PS)
+            for c, name in ((1, "paged_decode"), (CHUNK, "paged_prefill")):
+                for dt, i8 in ((0, 0), (1, 0), (1, 1)):
+                    for main, ar, ac in tables:
+                        for live in (kv, 0):
+                            calls.add((name, (dt, i8, b, H, KVH, c, DH,
+                                              b * mp + 1, PS, mp, main, ar,
+                                              ac, live, 0, N_SMS_H100)))
+    return sorted(calls)
+
+
+def phase_guard(card):
+    """Phase 14: each CUDA library's ``<name>_plan`` against the host
+    library's (``csrc/launch_plan.h`` built by the host compiler, what
+    the kernel guard reads) at every call of :func:`guard_calls` —
+    ``n_split``, ``rows_per_block``, ``cache_keys``, ``warp_split``,
+    ``stages`` and shared memory, grid, cluster and threads equal — then
+    each split-key instance those plans launch: its registers and local
+    (spill) bytes a thread and the CTAs a multiprocessor holds at its
+    plan's threads and shared memory
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) beside the CTAs
+    the plan counts on; then the single-device step contracts
+    (``analysis.contracts``) on the card, each step under
+    ``set_sync_debug_mode("error")``: each must hold."""
+    from repro_torch.analysis import contracts as CT
+    t0 = time.perf_counter()
+    calls = guard_calls()
+    differ, instances = [], {}
+    for name, ins in calls:
+        mine = build.read_plan(build.load(name, f"{name}_plan"), ins)
+        want = build.host_plan(name, ins)
+        if mine != want:
+            differ.append((name, ins, mine, want))
+            continue
+        split = name in SPLIT_LIBS and (name != "lut_attention"
+                                        or ins[0] == 2)
+        if not split or want is None:
+            continue
+        if name == "lut_attention":
+            dt, i8, dh = ins[1], 0, ins[7]
+            ctas = want["grid_x"] * want["grid_y"] * want["grid_z"]
+            assumed = min(3, -(-ctas // N_SMS_H100))
+        else:
+            dt, i8, dh = ins[0], ins[1], ins[6]
+            assumed = 2 if want["rpt"] == 1 else 1
+        key = (name, ("f32", "bf16")[dt] + "/int8" * i8,
+               "NV 1" if dh <= 128 else "NV 2", f"RPT {want['rpt']}")
+        got = build.read_attrs(build.load(name, f"{name}_attrs"), ins)
+        held = instances.setdefault(key, dict(got, assumed=assumed,
+                                              smem=want["smem"],
+                                              least=got["ctas_per_sm"]))
+        if want["smem"] > held["smem"]:
+            held.update(smem=want["smem"])
+        held["least"] = min(held["least"], got["ctas_per_sm"])
+    if differ:
+        raise AssertionError(f"{len(differ)} of {len(calls)} plans differ "
+                             f"between the CUDA and the host libraries, "
+                             f"e.g. {differ[:3]}")
+    print(f"[guard] {len(calls)} plans (the guard's geometries and the "
+          f"paged sweep's grid): every CUDA library's plan equals the host "
+          f"library's — {card}")
+    for key, a in sorted(instances.items()):
+        print(f"[guard] {' '.join(key)}: {a['registers']} registers, "
+              f"{a['local_bytes']} B local (spill) a thread; "
+              f"{a['least']} CTAs a multiprocessor at the largest plan's "
+              f"{a['smem']} B (the plan counts on {a['assumed']})")
+    results = CT.single_device_contracts("cuda")
+    bad = [(r.spec.name, r.violations) for r in results if r.violations]
+    if bad:
+        raise AssertionError(f"step contracts on the card: {bad}")
+    print(f"[guard] {len(results)} single-device step contracts hold on "
+          f"the card ({', '.join(r.spec.name for r in results)}), each "
+          f"step under set_sync_debug_mode('error')")
+    print(f"[time] phase 14: {time.perf_counter() - t0:.1f}s")
+
+
 def _all_launches() -> dict:
     """Every kernel wrapper's launch count, by kernel (and by mode)."""
     out = dict(paged_decode=paged_decode_attention.launches,
@@ -4920,6 +5101,7 @@ def main() -> int:
     phase_ranks(card)
     kernels["lut_attention"]["shapes"].update(phase_cells(card))
     phase_examples(card)
+    phase_guard(card)
     summary = {"kernels": [
         dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}.cu",
              replaces=f"src/repro/kernels/{replaces}",

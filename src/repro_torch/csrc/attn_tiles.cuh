@@ -55,29 +55,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_plan.h"
+
 namespace tiles {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBM = 64;  // query rows of a block, 16 per warp
-constexpr int kBN = 64;  // keys of a tile
-// Stages of the K / V ring: the copies of the next kStages − 1 tiles are
-// in flight while one is used.
-constexpr int kStages = 2;
-
-// Elements of one shared-memory row of a DH-wide tile: 16 bytes of
-// padding make ldmatrix's eight rows land in eight bank groups.
-template <int DH>
-__host__ __device__ constexpr int stride() {
-  return DH + 8;
-}
-
-// Shared memory of a block: the Q tile and the kStages-stage rings of K
-// and V tiles, all 16-bit (the kernels add their tables after it).
-template <int DH>
-constexpr size_t smem_bytes() {
-  return size_t(kBM + 2 * kStages * kBN) * stride<DH>() * 2;
-}
+// kWarps, kThreads, kBM, kBN, kStages, stride<DH>() and smem_bytes<DH>():
+// launch_plan.h.
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

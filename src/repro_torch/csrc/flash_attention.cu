@@ -64,8 +64,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;
+// kThreads, kBQ and the simt route's Tiles<DMAX>: launch_plan.h.
+using flash::kBQ;
+using flash::kThreads;
+using flash::Tiles;
 
 // The valid keys of one sequence: n = clamp(kv_len, 0, Lk) of them, and
 // the causal offset off = kv_len − Lq that right-aligns the queries to
@@ -77,16 +79,6 @@ __device__ __forceinline__ Valid valid_keys(int kv_len, int Lk, int Lq) {
   kv_len = max(kv_len, 0);
   return {min(kv_len, Lk), kv_len - Lq};
 }
-
-template <int DMAX>
-struct Tiles {
-  static constexpr int BK = DMAX <= 64 ? 64 : 32;
-  static constexpr int QS = DMAX + 1;  // padded row strides: no bank
-  static constexpr int SS = BK + 1;    // conflicts on the column reads
-  static constexpr size_t floats =
-      size_t(kBQ) * QS + size_t(BK) * QS + size_t(BK) * DMAX +
-      size_t(kBQ) * SS + 3 * kBQ;
-};
 
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads)
@@ -477,7 +469,7 @@ cudaError_t dispatch_tiles(const void* q, const void* k, const void* v,
                            int KVH, int Lq, int Lk, int D, int causal,
                            float scale, int kv_len, const int* kv_lens,
                            cudaStream_t s) {
-  if (D <= 64)
+  if (tiles::tile_dh(D) == 64)
     return launch_tiles<T, 64>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D,
                                causal, scale, kv_len, kv_lens, s);
   return launch_tiles<T, 128>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D,
@@ -489,10 +481,11 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
                        void* out, void* m, void* l, int B, int H, int KVH,
                        int Lq, int Lk, int D, int causal, float scale,
                        int kv_len, const int* kv_lens, cudaStream_t s) {
-  if (D <= 64)
+  const int dmax = flash::dmax(D);
+  if (dmax == 64)
     return launch<T, 64>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D, causal,
                          scale, kv_len, kv_lens, s);
-  if (D <= 128)
+  if (dmax == 128)
     return launch<T, 128>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D, causal,
                           scale, kv_len, kv_lens, s);
   return launch<T, 256>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D, causal,
@@ -543,4 +536,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     default:
       return int(cudaErrorInvalidValue);
   }
+}
+
+// The launch plan of a call (csrc/launch_plan.h; the host library
+// csrc/launch_plan.cpp exports the same entry): in = route, B, H, Lq, D;
+// out = plan::kOut int64 fields.
+extern "C" int flash_attention_plan(const int* in, int n_in, long long* out,
+                                    int n_out) {
+  return plan::flash_entry(in, n_in, out, n_out);
 }

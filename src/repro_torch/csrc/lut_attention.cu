@@ -64,9 +64,10 @@
 //   * "rows" — the many-row calls the tile engine does not take (f32,
 //     int16 tables whose numerators bf16 does not hold, Dh > 128): the
 //     row engine of csrc/lut_pipeline.cuh with DenseRows addressing.  One
-//     block per (sequence, query head, tile of kRows query rows; one row
-//     for Lq = 1) runs every pass for its rows; a lane takes a key's dot
-//     with all the tile's rows (queries broadcast from shared memory), so
+//     block per (sequence, query head, tile of lutk::kDenseRows query
+//     rows; one row for Lq = 1) runs every pass for its rows; a lane takes
+//     a key's dot with all the tile's rows (queries broadcast from shared
+//     memory), so
 //     each K row is read once per tile per pass, and the tile's logits
 //     stay in shared memory when they fit, so q·k is computed once.
 //
@@ -82,8 +83,6 @@
 #include "paged_attn.cuh"
 
 namespace {
-
-constexpr int kRows = 8;
 
 template <typename TQ, int DPL, int R, bool kFused>
 __global__ void __launch_bounds__(lutk::kThreads)
@@ -115,11 +114,12 @@ cudaError_t launch(const lutk::Params& p, cudaStream_t stream) {
 template <typename TQ, typename TK, int DPL>
 struct DenseLaunch {
   static cudaError_t run(const lutk::Params& p, cudaStream_t stream) {
-    if (p.C == 1)
+    if (lutk::dense_rows(p.C) == 1)
       return p.fused ? launch<TQ, DPL, 1, true>(p, stream)
                      : launch<TQ, DPL, 1, false>(p, stream);
-    return p.fused ? launch<TQ, DPL, kRows, true>(p, stream)
-                   : launch<TQ, DPL, kRows, false>(p, stream);
+    constexpr int R = lutk::kDenseRows;
+    return p.fused ? launch<TQ, DPL, R, true>(p, stream)
+                   : launch<TQ, DPL, R, false>(p, stream);
   }
 };
 
@@ -270,8 +270,7 @@ __global__ void __launch_bounds__(tiles::kThreads)
 
 template <int DH, bool kFused>
 cudaError_t launch_tiles(const lutk::Params& p, cudaStream_t stream) {
-  const size_t smem = tiles::smem_bytes<DH>() +
-                      4 * (size_t(p.n_main) + size_t(p.aux_rows) * p.aux_cols);
+  const size_t smem = tiles::lut_smem<DH>(p);
   static int reserved = 0;
   auto kernel = lut_attention_tiles_kernel<__nv_bfloat16, DH, kFused>;
   cudaError_t err = lutk::reserve_smem(kernel, smem, reserved);
@@ -282,7 +281,7 @@ cudaError_t launch_tiles(const lutk::Params& p, cudaStream_t stream) {
 }
 
 cudaError_t dispatch_tiles(const lutk::Params& p, cudaStream_t stream) {
-  if (p.Dh <= 64)
+  if (tiles::tile_dh(p.Dh) == 64)
     return p.fused ? launch_tiles<64, true>(p, stream)
                    : launch_tiles<64, false>(p, stream);
   return p.fused ? launch_tiles<128, true>(p, stream)
@@ -322,7 +321,26 @@ extern "C" int lut_attention_launch(
   // the split plan follows the valid length, known here exactly (an
   // empty cache is planned as one key: its rows come out 0)
   if (route == 2)
-    return int(paged::run<paged::DenseKeys, 1, 2>(p, kv_len > 0 ? kv_len : 1,
-                                                  0, dtype, s));
+    return int(paged::run<paged::DenseKeys>(
+        p, paged::kSplitRows, kv_len > 0 ? kv_len : 1, 0, dtype, s));
   return int(lutk::dispatch<DenseLaunch>(p, dtype, s));
+}
+
+// The launch plan of a call (csrc/launch_plan.h; the host library
+// csrc/launch_plan.cpp exports the same entry): in = route, dtype, B, H,
+// KVH, Lq, Lk, Dh, kv_len, fused, n_main, aux_rows, aux_cols, n_sms; out
+// = plan::kOut int64 fields.
+extern "C" int lut_attention_plan(const int* in, int n_in, long long* out,
+                                  int n_out) {
+  return plan::dense_entry(in, n_in, out, n_out);
+}
+
+// The split route's instance a plan's call launches (paged::attrs_entry):
+// in = the `lut_attention_plan` ints (route 2); out = registers, local
+// (spill) bytes a thread, CTAs a multiprocessor holds at the plan's
+// threads and shared memory.
+extern "C" int lut_attention_attrs(const int* in, int n_in, int* out,
+                                   int n_out) {
+  return paged::attrs_entry<paged::DenseKeys>(paged::kSplitRows, in, n_in,
+                                              out, n_out);
 }

@@ -53,17 +53,16 @@
 
 #include <type_traits>
 
+#include "launch_plan.h"
+
 namespace lutk {
 
 enum Method { kExact = 0, kRexp = 1, kLut2d = 2 };
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+// kWarps, kThreads, kCacheSmemBudget and smem_bytes (the rows route's
+// shared memory): launch_plan.h.
 // V rows each warp keeps in flight in pass 3.
 constexpr int kUnroll = 8;
-// Shared memory a block may take with the logits cache; above it every
-// pass recomputes q·k from the pages instead, as the TPU kernel does.
-constexpr size_t kCacheSmemBudget = 96 * 1024;
 
 // The fields the per-element LUT pipeline reads (clamp_bin, e_term,
 // weight): the table sizes, the method, the bin mode and the f32
@@ -92,19 +91,6 @@ struct Params : LutParams {
                               // sequence, causal mask, REXP's fused form
   float scale;
 };
-
-// Shared memory of one block serving R query rows of lut_rows: per-warp
-// row offsets and weight tiles of 32 keys, q rows, per-warp partials, m
-// and Σ, per-warp output partials, the tables, and (when `cached`) the
-// R × (mp·ps) logits/numerators cache.
-inline size_t smem_bytes(const Params& p, int R, bool cached) {
-  size_t floats = size_t(kWarps) * R * 32 + size_t(R) * p.Dh +
-                  size_t(kWarps) * R + 2 * size_t(R) +
-                  size_t(kWarps) * R * p.Dh;
-  if (cached) floats += size_t(R) * p.mp * p.ps;
-  return 8 * size_t(kWarps) * 32 +
-         4 * (floats + size_t(p.n_main) + size_t(p.aux_rows) * p.aux_cols);
-}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

@@ -72,10 +72,11 @@ using lutk::LutParams;
 // row_plan mirrors these, and the warp route's register budget: E
 // elements a lane, in two buckets (48 for Whisper's 1500 columns, 64
 // for 2048); rows of up to 32 · E columns fit bucket E.
-constexpr int kWarpThreads = 256, kWarpBlocks = 2;
-constexpr int kCtaThreads = 512, kCtaBlocks = 2;
-// Shared memory a CTA may take (227 KB).
-constexpr size_t kSmemLimit = 232448;
+using rowsm::kCtaBlocks;
+using rowsm::kCtaThreads;
+using rowsm::kSmemLimit;
+using rowsm::kWarpBlocks;
+using rowsm::kWarpThreads;
 
 // V consecutive elements of a row as raw bits: BYTES = V · sizeof(T).
 template <int BYTES>
@@ -144,9 +145,7 @@ __device__ __forceinline__ void st_stream(float* dst, const float (&w)[V]) {
 // l, so a warp's lookups never conflict; 2D-LUT's 101-entry LUT_exp
 // would conflict up to 4-way), then LUT_α or LUT_σ as they are.  Python's
 // row_plan mirrors the size.
-__host__ __device__ inline size_t table_bytes(const LutParams& p) {
-  return 4 * (32 * size_t(p.n_main) + size_t(p.aux_rows) * p.aux_cols);
-}
+using rowsm::table_bytes;  // launch_plan.h
 
 __device__ __forceinline__ void copy_tables(float* tables, const int* lut_main,
                                             const int* lut_aux,
@@ -233,7 +232,7 @@ __device__ __forceinline__ float row_weight(float e, RowSigma rs,
 // straight into registers when it starts on them.  A 16-bit row holds
 // half the bytes in flight of an f32 one; f32 rows measured no faster
 // with the copy, 2D-LUT's slower.  Python's row_plan mirrors it.
-constexpr int kPrefetchMaxBytes = 2;
+using rowsm::kPrefetchMaxBytes;  // launch_plan.h
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return unsigned(__cvta_generic_to_shared(p));
@@ -256,9 +255,7 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src) {
 
 // Shared memory is laid out in 16-byte units: the tables, then the
 // warp route's per-warp row buffers or the cta route's row buffers.
-__host__ __device__ inline size_t round16(size_t n) {
-  return (n + 15) / 16 * 16;
-}
+using rowsm::round16;  // launch_plan.h
 
 // Route 0: a warp a row, the row in registers.  E elements a lane in
 // NV = E / V vectors; lane l holds vectors l, l + 32, ... of the row.
@@ -404,10 +401,8 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 // Shared memory of the CTA route before its row buffers: two mbarriers,
 // two per-warp reduction arrays, the tables rounded up to 16 bytes.
 // Python's row_plan mirrors it.
-constexpr size_t kCtaHead = 16 + 2 * 32 * 4;
-__host__ __device__ inline size_t cta_fixed_smem(const LutParams& p) {
-  return kCtaHead + round16(table_bytes(p));
-}
+using rowsm::cta_fixed_smem;  // launch_plan.h
+using rowsm::kCtaHead;
 
 __device__ __forceinline__ float block_max(float x, float* red) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -600,20 +595,16 @@ bool plan_fits(const Plan& pl, const void* x, const void* out, int esize,
   if (pl.grid < 1 || pl.threads < 32 || pl.threads % 32 ||
       size_t(pl.smem) > kSmemLimit)
     return false;
+  const size_t least = rowsm::smem_floor(p, pl.route, pl.vec, pl.stages,
+                                         pl.threads, esize, cols);
   if (pl.route == 0)
     return pl.threads <= kWarpThreads && cols <= 32 * pl.per_lane &&
-           size_t(pl.smem) >=
-               round16(table_bytes(p)) +
-                   (esize <= kPrefetchMaxBytes && in_bytes >= 4
-                        ? size_t(pl.threads / 32) *
-                              round16(size_t(cols) * esize)
-                        : 0);
+           size_t(pl.smem) >= least;
   if (pl.route != 1 || pl.threads > kCtaThreads || pl.stages < 0 ||
       pl.stages > 2)
     return false;
   if (pl.stages && in_bytes != 16) return false;
-  return size_t(pl.smem) >=
-         cta_fixed_smem(p) + size_t(pl.stages) * size_t(cols) * esize;
+  return size_t(pl.smem) >= least;
 }
 
 template <int M>
@@ -685,4 +676,13 @@ extern "C" int lut_softmax_lut2d_launch(
                            Plan{route, vec, per_lane, stages, grid, threads,
                                 smem},
                            stream);
+}
+
+// The launch plan's shared-memory floor (csrc/launch_plan.h; the host
+// library csrc/launch_plan.cpp exports the same entry): in = route, vec,
+// stages, threads, esize, cols, n_main, aux_rows, aux_cols; out =
+// plan::kOut int64 fields, kSmem the least the launcher accepts.
+extern "C" int lut_softmax_plan(const int* in, int n_in, long long* out,
+                                int n_out) {
+  return plan::row_entry(in, n_in, out, n_out);
 }

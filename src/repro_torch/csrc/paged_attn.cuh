@@ -87,6 +87,7 @@
 
 #include <algorithm>
 
+#include "launch_plan.h"
 #include "lut_pipeline.cuh"
 
 namespace paged {
@@ -100,77 +101,6 @@ namespace cg = cooperative_groups;
 using lutk::kThreads;
 using lutk::kWarps;
 
-constexpr int kTile = 32;     // keys of a ring tile: one a lane
-constexpr int kStages = 4;    // deepest ring: kStages − 1 tiles in flight
-constexpr int kMaxSplit = 8;  // the portable cluster size
-// Shared memory: the logits cache stops where a CTA would take more than
-// kCacheTarget (two CTAs an SM); no CTA may take more than kSmemLimit.
-constexpr size_t kCacheTarget = 112 * 1024;
-constexpr size_t kSmemLimit = 232448;  // 227 KB, Hopper's most a CTA
-// The dense split route's grid: clusters of at most kDenseMaxSplit CTAs,
-// at most kDensePerSm CTAs a multiprocessor on average, kDenseTarget
-// bytes of shared memory a CTA where it can; and a multiprocessor's
-// shared memory (228 KB) with what the system reserves of it for each
-// CTA (1 KB).
-constexpr int kDenseMaxSplit = 4;
-constexpr int kDensePerSm = 3;
-constexpr size_t kDenseTarget = 64 * 1024;
-constexpr size_t kSmPool = 233472, kCtaReserve = 1024;
-
-// The launch plan (see plan() below), computed on the host from what it
-// knows: the shapes, the block table's width and the caller's bound on
-// the live lengths, never the device's kv_lens.
-struct Split {
-  int n_split;         // CTAs of a cluster, each a range of live pages
-  int rows_per_block;  // query rows (G·C flattened) of one cluster
-  int cache_keys;      // logits cache per row, in keys (0: recompute)
-  int warp_split;      // key slices of a CTA's warps (1: rows only)
-  int stages;          // ring depth, 2 … kStages (stages − 1 in flight)
-};
-
-__host__ __device__ constexpr size_t align16(size_t n) {
-  return (n + 15) & ~size_t(15);
-}
-
-// Byte offsets of a CTA's shared memory: the query rows (as f32), the
-// slot's block-table row, the LUTs, every rank's partial max and Σ of
-// each row (of each warp's entry, with key slices), the warps' weight
-// tiles, the σ·V partials every rank (and slice) sends this CTA for its
-// share of the output, then the ring (stages of warp_split tiles) and the
-// logits cache (the rows a slice holds).
-struct Layout {
-  size_t q, bt, tables, stats, w, part, ring, cache, total, stage;
-  int stride;  // bytes of one ring row
-};
-
-template <typename TQ, typename TK>
-__host__ __device__ inline Layout layout(const lutk::Params& p,
-                                         int rows_pad, const Split& s) {
-  Layout L;
-  const size_t rb = align16(size_t(p.Dh) * sizeof(TK));
-  const int span = s.warp_split * kTile;  // keys of a ring stage
-  L.stride = int((rb / 16) % 2 ? rb : rb + 16);
-  L.stage = size_t(span) * L.stride + (lutk::kQuantized<TK> ? span * 4 : 0);
-  size_t o = 0;
-  L.q = o;
-  o += align16(size_t(rows_pad) * p.Dh * 4);
-  L.bt = o;
-  o += align16(size_t(p.mp) * 4);
-  L.tables = o;
-  o += align16((size_t(p.n_main) + size_t(p.aux_rows) * p.aux_cols) * 4);
-  L.stats = o;
-  o += size_t(2) * kMaxSplit * rows_pad * 4;
-  L.w = o;
-  o += size_t(rows_pad) * kTile * 4;
-  L.part = o;  // ranks × slices × the longest share (slices · rows ≤ 8)
-  o += (size_t(rows_pad) * p.Dh / 4 + size_t(s.warp_split) * kMaxSplit) * 16;
-  L.ring = o;
-  o += s.stages * L.stage;
-  L.cache = o;
-  L.total = o + size_t(rows_pad / s.warp_split) * s.cache_keys * 4;
-  return L;
-}
-
 // Where the keys of a walk live, and what a query row sees.
 //
 // PagedKeys: the slot's pages through its block-table row (in shared
@@ -182,7 +112,7 @@ struct PagedKeys {
     return p.ps;
   }
   static __device__ __forceinline__ int kv_len(const lutk::Params& p, int b) {
-    return max(min(p.kv_lens[b], p.mp * p.ps), 0);
+    return live_keys(p.kv_lens[b], p.mp, p.ps);
   }
   static __device__ __forceinline__ int q0(const lutk::Params& p, int b,
                                            int kv_len) {
@@ -376,12 +306,12 @@ __device__ __forceinline__ void attention_body(const lutk::Params& p,
   const bool active = !Keys::kDense || ks < ws;
   const int span = ws * kTile;  // keys of a ring stage
   const int depth = Keys::kDense ? sp.stages : kStages;
-  const int b = blockIdx.z, kvh = blockIdx.y % p.KVH;
-  const int G = p.H / p.KVH;
-  const int row0 = (blockIdx.y / p.KVH) * sp.rows_per_block;
-  const int nrows = min(sp.rows_per_block, G * p.C - row0);
+  const int b = blockIdx.z, G = p.H / p.KVH;
+  const BlockRows br =
+      block_rows(blockIdx.y, p.KVH, sp.rows_per_block, G * p.C);
+  const int kvh = br.kvh, row0 = br.row0, nrows = br.nrows;
   const bool fused = Keys::kDense && p.fused;  // REXP's α form: dense only
-  const Layout L = layout<TQ, TK>(
+  const Layout L = layout<int(sizeof(TK))>(
       p, kRowsPad, Split{sp.n_split, sp.rows_per_block, sp.cache_keys, ws,
                          depth});
   float* q_s = reinterpret_cast<float*>(smem + L.q);
@@ -418,8 +348,7 @@ __device__ __forceinline__ void attention_body(const lutk::Params& p,
     }
     if constexpr (!Keys::kDense) {
       for (int i = tid; i < p.mp; i += kThreads)
-        bt_s[i] =
-            min(max(p.block_tables[size_t(b) * p.mp + i], 0), p.n_pages - 1);
+        bt_s[i] = clamp_page(p.block_tables[size_t(b) * p.mp + i], p.n_pages);
     }
     for (int i = tid; i < p.n_main; i += kThreads) main_s[i] = p.lut_main[i];
     for (int i = tid; i < p.aux_rows * p.aux_cols; i += kThreads)
@@ -444,8 +373,7 @@ __device__ __forceinline__ void attention_body(const lutk::Params& p,
   const int jmax = max(min(kv_len, q0 + c_last + 1), 0);
   const int unit = Keys::unit(p);
   const int nu = (jmax + unit - 1) / unit;
-  const int u_lo = int(static_cast<long long>(rank) * nu / ns);
-  const int u_hi = int(static_cast<long long>(rank + 1) * nu / ns);
+  const int u_lo = unit_lo(rank, nu, ns), u_hi = unit_lo(rank + 1, nu, ns);
   const int j0 = u_lo * unit, j1 = min(u_hi * unit, jmax);
   const int nkeys = max(j1 - j0, 0), nt = (nkeys + span - 1) / span;
   const bool cached = nkeys <= sp.cache_keys;
@@ -811,207 +739,152 @@ inline cudaError_t multiprocessors(int& n) {
   return cudaSuccess;
 }
 
-// The plan of one call, from what the host knows: the shapes, the
-// longest live length, `live` keys (the caller's bound on kv_lens, or
-// the block table's whole width), and `kvh`, the KV heads the CTAs are
-// counted for (the call's own, or the whole model's when a
-// tensor-parallel rank launches its share of them, so that each head
-// is split, and sums, as in the single-device launch).
-//   * split: doubled from 1 while the doubled grid still holds no more
-//     CTAs than two a multiprocessor for the light one-row-a-warp CTAs,
-//     one for heavier ones (every CTA pays a fixed chain of memory trips
-//     and cluster barriers, so a second wave costs a whole CTA's
-//     latency), or while a CTA's range would not fit the logits cache;
-//     up to a cluster of kMaxSplit, never past the live pages (a CTA
-//     takes whole pages);
-//   * cache: the logits of a CTA's range while the CTA stays within
-//     kCacheTarget bytes, else as many keys as fit there, in whole tiles
-//     (a CTA whose range is longer recomputes q·k in every pass).
-template <typename TQ, typename TK, int RPT>
-Split plan(const lutk::Params& p, int rows_per_block, int blocks, int live,
-           int kvh, int n_sms) {
-  Split s{1, rows_per_block, 0, 1, kStages};
-  auto bytes = [&](int keys) {
-    s.cache_keys = keys;
-    return layout<TQ, TK>(p, kWarps * RPT, s).total;
-  };
-  const int pages = max((live + p.ps - 1) / p.ps, 1);
-  auto range_keys = [&](int ns) { return (pages + ns - 1) / ns * p.ps; };
-  const long long ctas = static_cast<long long>(p.B) * kvh * blocks;
-  const int per_sm = RPT == 1 ? 2 : 1;
-  while (s.n_split < kMaxSplit && 2 * s.n_split <= pages &&
-         (2 * ctas * s.n_split <= static_cast<long long>(per_sm) * n_sms ||
-          bytes(range_keys(s.n_split)) > kCacheTarget))
-    s.n_split *= 2;
-  int keys = range_keys(s.n_split);
-  if (bytes(keys) > kCacheTarget) {
-    const size_t base = bytes(0);
-    keys = base < kCacheTarget
-               ? int((kCacheTarget - base) / (kWarps * RPT * 4)) / kTile * kTile
-               : 0;
-  }
-  s.cache_keys = keys;
-  return s;
-}
-
-// The dense split route's plan.  The host knows the live length exactly
-// (the call's kv_len), so
-//   * split: doubled from 1 while every rank keeps two 32-key tiles or
-//     more and the doubled grid still holds no more than kDensePerSm
-//     CTAs a multiprocessor on average, up to a cluster of
-//     kDenseMaxSplit (on an H100 (700 W) at Whisper's cross-attention
-//     decode step, clusters of 8 took 0.0386–0.0539 ms, of 4
-//     0.0240–0.0423, of 2 0.0259–0.0310: tools/tile_variants.py);
-//   * key slices: the fewest ring stages a rank's range takes with as
-//     many slices as the block's rows leave warps for (8 / rows), then
-//     the fewest slices that still take that few (no warp left idle in
-//     the last stage when it can be helped);
-//   * ring and cache: the whole range's logits where they fit, and the
-//     deepest ring (at most the walk's items, K and V stages of every
-//     pass, and kStages) within kDenseTarget bytes a CTA and the grid's
-//     average share of a multiprocessor (so that it runs in one wave);
-//     past that, fewer slices, then no cache.
-template <typename TQ, typename TK, int RPT>
-Split plan_dense(const lutk::Params& p, int rows_per_block, int blocks,
-                 int live, int kvh, int n_sms) {
-  Split s{1, rows_per_block, 0, 1, 2};
-  const int tiles = max((live + kTile - 1) / kTile, 1);
-  const long long ctas = static_cast<long long>(p.B) * kvh * blocks;
-  while (s.n_split < kDenseMaxSplit && 4 * s.n_split <= tiles &&
-         2 * ctas * s.n_split <= static_cast<long long>(kDensePerSm) * n_sms)
-    s.n_split *= 2;
-  const int range = (tiles + s.n_split - 1) / s.n_split;  // the longest
-  const long long per_sm = (ctas * s.n_split + n_sms - 1) / n_sms;
-  const size_t limit = std::min<size_t>(
-      kDenseTarget, kSmPool / size_t(per_sm) - kCtaReserve);
-  auto bytes = [&](int ws, int depth, bool cache) {
-    s.warp_split = ws;
-    s.stages = depth;
-    s.cache_keys = cache ? range * kTile : 0;
-    return layout<TQ, TK>(p, kWarps * RPT, s).total;
-  };
-  const int ws_max = RPT == 1 ? min(kWarps / rows_per_block, range) : 1;
-  const int steps_min = (range + ws_max - 1) / ws_max;
-  for (int cache = 1; cache >= 0; --cache)
-    for (int ws = (range + steps_min - 1) / steps_min; ws >= 1; --ws) {
-      const int steps = (range + ws - 1) / ws;
-      const int items = (cache ? 2 : p.fused ? 3 : 4) * steps;
-      for (int depth = min(kStages, max(items, 2)); depth >= 2; --depth)
-        if (bytes(ws, depth, cache) <= limit) return s;
-    }
-  bytes(1, 2, false);
-  return s;
-}
-
+// Launch the instance on the plan; with `attrs`, launch nothing and
+// report the instance instead: its registers a thread, its local (spill)
+// bytes a thread, and the CTAs of the plan's threads and shared memory a
+// multiprocessor holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 template <typename TQ, typename TK, int RPT, int NV, typename Keys>
-cudaError_t launch(const lutk::Params& p, int rows_per_block, int live,
-                   int kvh, cudaStream_t stream) {
+cudaError_t launch(const lutk::Params& p, const Launch& pl,
+                   cudaStream_t stream, int* attrs) {
   void (*kernel)(lutk::Params, Split);
   if constexpr (Keys::kDense)
     kernel = lut_attention_split_kernel<TQ, TK, RPT, NV>;
   else
     kernel = paged_attention_kernel<TQ, TK, RPT, NV>;
-  int n_sms = 0;
-  cudaError_t err = multiprocessors(n_sms);
-  if (err != cudaSuccess) return err;
-  const int rows = p.H / p.KVH * p.C;
-  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  const Split sp =
-      Keys::kDense
-          ? plan_dense<TQ, TK, RPT>(p, rows_per_block, blocks, live, kvh,
-                                    n_sms)
-          : plan<TQ, TK, RPT>(p, rows_per_block, blocks, live, kvh, n_sms);
-  const Layout L = layout<TQ, TK>(p, kWarps * RPT, sp);
-  if (L.total > kSmemLimit) return cudaErrorInvalidValue;
   static int reserved = 0;
-  err = lutk::reserve_smem(kernel, L.total, reserved);
+  cudaError_t err = lutk::reserve_smem(kernel, pl.smem, reserved);
   if (err != cudaSuccess) return err;
+  if (attrs) {
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, kernel);
+    if (err != cudaSuccess) return err;
+    attrs[0] = fa.numRegs;
+    attrs[1] = int(fa.localSizeBytes);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &attrs[2], kernel, pl.threads, pl.smem);
+  }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(sp.n_split, blocks * p.KVH, p.B);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = L.total;
+  cfg.gridDim = dim3(pl.grid_x, pl.grid_y, pl.grid_z);
+  cfg.blockDim = dim3(pl.threads);
+  cfg.dynamicSmemBytes = pl.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = sp.n_split;
+  attr[0].val.clusterDim.x = pl.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, p, sp);
+  return cudaLaunchKernelEx(&cfg, kernel, p, pl.split);
 }
 
-// The smallest of the file's row counts RPT (8·RPT rows a block) that
-// holds rows_per_block.
+// The instance of the plan's row count RPT (8·RPT rows a block).
 template <typename TQ, typename TK, typename Keys, int NV, int RPT,
           int... More>
-cudaError_t launch_rows(const lutk::Params& p, int rows_per_block, int live,
-                        int kvh, cudaStream_t stream) {
-  if (rows_per_block <= kWarps * RPT)
-    return launch<TQ, TK, RPT, NV, Keys>(p, rows_per_block, live, kvh,
-                                         stream);
+cudaError_t launch_rows(const lutk::Params& p, const Launch& pl,
+                        cudaStream_t stream, int* attrs) {
+  if (pl.rpt == RPT)
+    return launch<TQ, TK, RPT, NV, Keys>(p, pl, stream, attrs);
   if constexpr (sizeof...(More) > 0)
-    return launch_rows<TQ, TK, Keys, NV, More...>(p, rows_per_block, live,
-                                                  kvh, stream);
+    return launch_rows<TQ, TK, Keys, NV, More...>(p, pl, stream, attrs);
   return cudaErrorInvalidValue;
 }
 
 template <typename TQ, typename TK, typename Keys, int... RPTs>
-cudaError_t launch_dh(const lutk::Params& p, int rows_per_block, int live,
-                      int kvh, cudaStream_t stream) {
+cudaError_t launch_dh(const lutk::Params& p, const Launch& pl,
+                      cudaStream_t stream, int* attrs) {
   if (p.Dh <= 128)
-    return launch_rows<TQ, TK, Keys, 1, RPTs...>(p, rows_per_block, live,
-                                                 kvh, stream);
-  return launch_rows<TQ, TK, Keys, 2, RPTs...>(p, rows_per_block, live, kvh,
-                                               stream);
+    return launch_rows<TQ, TK, Keys, 1, RPTs...>(p, pl, stream, attrs);
+  return launch_rows<TQ, TK, Keys, 2, RPTs...>(p, pl, stream, attrs);
 }
 
-// Check the shapes, then launch the instance for the keys: int8 pages
-// (k_scales set) with f32 (q_dtype 0) or bf16 (1) queries, or pages
-// (Keys = PagedKeys; dense keys: DenseKeys) of the queries' own type, f32
-// (0) or bf16 (1).  The KV head's G·C query rows go in the fewest blocks
-// of at most 8·max(RPTs) rows, evened out; max_kv_len is the caller's
-// bound on the slots' kv_lens (0: none, the block table's whole width) —
-// the split follows it, and a slot past it is still computed in full,
-// only split less well.  plan_kv_heads is the KV-head count the split
-// is planned for (0: the call's own, p.KVH): a tensor-parallel rank that
-// launches its share of a model's KV heads passes the model's count, and
-// each of its heads then runs the single-device launch's split and
-// summation order.
+// Check the shapes, plan the launch (launch_plan.h's launch_plan: the
+// KV head's G·C query rows go in the fewest blocks of at most
+// 8·max(RPTs) rows, evened out, the split and the shared memory follow
+// max_kv_len and plan_kv_heads), then launch the instance for the keys:
+// int8 pages (k_scales set) with f32 (q_dtype 0) or bf16 (1) queries, or
+// pages (Keys = PagedKeys; dense keys: DenseKeys) of the queries' own
+// type, f32 (0) or bf16 (1).  max_kv_len is the caller's bound on the
+// slots' kv_lens (0: none, the block table's whole width) — the split
+// follows it, and a slot past it is still computed in full, only split
+// less well.  plan_kv_heads is the KV-head count the split is planned
+// for (0: the call's own, p.KVH): a tensor-parallel rank that launches
+// its share of a model's KV heads passes the model's count, and each of
+// its heads then runs the single-device launch's split and summation
+// order.  A plan past 227 KB is refused.  With `attrs` the instance is
+// reported, not launched (launch()).
 template <typename Keys, int... RPTs>
-cudaError_t run(const lutk::Params& p, int max_kv_len, int plan_kv_heads,
-                int q_dtype, cudaStream_t stream) {
+cudaError_t run(const lutk::Params& p, Rows<RPTs...> rows, int max_kv_len,
+                int plan_kv_heads, int q_dtype, cudaStream_t stream,
+                int* attrs = nullptr) {
   const bool ok = p.B >= 1 && p.KVH >= 1 && p.H % p.KVH == 0 && p.C >= 1 &&
                   p.Dh >= 8 && p.Dh <= 256 && p.Dh % 8 == 0 && p.ps >= 1 &&
                   p.mp >= 1 && p.n_pages >= 1 && max_kv_len >= 0 &&
                   plan_kv_heads >= 0 &&
                   (p.k_scales == nullptr) == (p.v_scales == nullptr) &&
-                  (!Keys::kDense || p.k_scales == nullptr);
+                  (!Keys::kDense || p.k_scales == nullptr) &&
+                  (q_dtype == 0 || q_dtype == 1);
   if (!ok) return cudaErrorInvalidValue;
-  constexpr int kCap = kWarps * std::max({RPTs...});
-  const int rows = p.H / p.KVH * p.C;
-  const int blocks = (rows + kCap - 1) / kCap;
-  const int rpb = (rows + blocks - 1) / blocks;
-  const int cap = p.mp * p.ps;
-  const int live = max_kv_len > 0 && max_kv_len < cap ? max_kv_len : cap;
-  const int kvh = plan_kv_heads > 0 ? plan_kv_heads : p.KVH;
+  int n_sms = 0;
+  cudaError_t err = multiprocessors(n_sms);
+  if (err != cudaSuccess) return err;
+  const bool int8 = !Keys::kDense && p.k_scales;
+  Launch pl;
+  if (int8)
+    pl = launch_plan<1>(p, Keys::kDense, rows, max_kv_len, plan_kv_heads,
+                        n_sms);
+  else if (q_dtype == 0)
+    pl = launch_plan<4>(p, Keys::kDense, rows, max_kv_len, plan_kv_heads,
+                        n_sms);
+  else
+    pl = launch_plan<2>(p, Keys::kDense, rows, max_kv_len, plan_kv_heads,
+                        n_sms);
+  if (!pl.rpt || pl.smem > kSmemLimit) return cudaErrorInvalidValue;
   if constexpr (!Keys::kDense) {
-    if (p.k_scales) {
+    if (int8) {
       if (q_dtype == 0)
-        return launch_dh<float, int8_t, Keys, RPTs...>(p, rpb, live, kvh,
-                                                       stream);
-      if (q_dtype == 1)
-        return launch_dh<__nv_bfloat16, int8_t, Keys, RPTs...>(p, rpb, live,
-                                                               kvh, stream);
-      return cudaErrorInvalidValue;
+        return launch_dh<float, int8_t, Keys, RPTs...>(p, pl, stream, attrs);
+      return launch_dh<__nv_bfloat16, int8_t, Keys, RPTs...>(p, pl, stream,
+                                                             attrs);
     }
   }
   if (q_dtype == 0)
-    return launch_dh<float, float, Keys, RPTs...>(p, rpb, live, kvh, stream);
-  if (q_dtype == 1)
-    return launch_dh<__nv_bfloat16, __nv_bfloat16, Keys, RPTs...>(
-        p, rpb, live, kvh, stream);
-  return cudaErrorInvalidValue;
+    return launch_dh<float, float, Keys, RPTs...>(p, pl, stream, attrs);
+  return launch_dh<__nv_bfloat16, __nv_bfloat16, Keys, RPTs...>(p, pl,
+                                                                stream, attrs);
+}
+
+// The instance a plan entry's call (plan::kPagedIn ints) would launch,
+// reported (run() with attrs): out = registers, local bytes, CTAs a
+// multiprocessor.  Dense keys take the dense entry's ints (plan::kDenseIn;
+// the split route only).
+template <typename Keys, int... RPTs>
+int attrs_entry(Rows<RPTs...> rows, const int* in, int n_in, int* out,
+                int n_out) {
+  static const float no_scales = 0.f;
+  if (n_out < 3) return int(cudaErrorInvalidValue);
+  if constexpr (Keys::kDense) {
+    if (n_in != plan::kDenseIn || in[0] != 2)
+      return int(cudaErrorInvalidValue);
+    lutk::Params p = lutk::make_params(
+        nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+        nullptr, nullptr, in[2], in[3], in[4], in[7], in[2] * in[4], in[6],
+        1, in[5], in[10], in[11], in[12], lutk::kRexp, 1, 1.f, 1.f, 1.f, 1.f,
+        1.f);
+    p.kv_len = in[8];
+    p.fused = in[9];
+    return int(run<Keys>(p, rows, in[8] > 0 ? in[8] : 1, 0, in[1], nullptr,
+                         out));
+  } else {
+    if (n_in != plan::kPagedIn) return int(cudaErrorInvalidValue);
+    const void* sc = in[1] ? &no_scales : nullptr;
+    lutk::Params p = lutk::make_params(
+        nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+        nullptr, nullptr, in[2], in[3], in[4], in[6], in[7], in[8], in[9],
+        in[5], in[10], in[11], in[12], lutk::kRexp, 1, 1.f, 1.f, 1.f, 1.f,
+        1.f, sc, sc);
+    return int(run<Keys>(p, rows, in[13], in[14], in[0], nullptr, out));
+  }
 }
 
 }  // namespace

@@ -36,8 +36,8 @@ extern "C" int paged_decode_launch(
       q, k_pages, v_pages, block_tables, kv_lens, nullptr, lut_main, lut_aux,
       out, B, H, KVH, Dh, n_pages, ps, mp, /*C=*/1, n_main, aux_rows,
       aux_cols, method, round_mode, scale, inv_step, inv_q, inv_ex, inv_sum);
-  return int(paged::run<paged::PagedKeys, 1>(
-      p, max_kv_len, plan_kv_heads, dtype, static_cast<cudaStream_t>(stream)));
+  return int(paged::run<paged::PagedKeys>(
+      p, paged::kDecodeRows, max_kv_len, plan_kv_heads, dtype, static_cast<cudaStream_t>(stream)));
 }
 
 // The int8-pool entry: k/v pages int8, k/v scales f32 (n_pages, ps, KVH),
@@ -56,7 +56,25 @@ extern "C" int paged_decode_int8_launch(
       out, B, H, KVH, Dh, n_pages, ps, mp, /*C=*/1, n_main, aux_rows,
       aux_cols, method, round_mode, scale, inv_step, inv_q, inv_ex, inv_sum,
       k_scales, v_scales);
-  return int(paged::run<paged::PagedKeys, 1>(
-      p, max_kv_len, plan_kv_heads, q_dtype,
+  return int(paged::run<paged::PagedKeys>(
+      p, paged::kDecodeRows, max_kv_len, plan_kv_heads, q_dtype,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The launch plan of a call (csrc/launch_plan.h; the host library
+// csrc/launch_plan.cpp exports the same entry): in = dtype, int8, B, H,
+// KVH, C, Dh, n_pages, ps, mp, n_main, aux_rows, aux_cols, max_kv_len,
+// plan_kv_heads, n_sms; out = plan::kOut int64 fields.
+extern "C" int paged_decode_plan(const int* in, int n_in, long long* out,
+                                 int n_out) {
+  return plan::paged_entry(paged::kDecodeRows, in, n_in, out, n_out);
+}
+
+// The instance a plan's call launches (paged::attrs_entry): in = the
+// `paged_decode_plan` ints; out = registers, local (spill) bytes a thread, CTAs
+// a multiprocessor holds at the plan's threads and shared memory.
+extern "C" int paged_decode_attrs(const int* in, int n_in, int* out,
+                                  int n_out) {
+  return paged::attrs_entry<paged::PagedKeys>(paged::kDecodeRows, in, n_in, out,
+                                           n_out);
 }

@@ -43,8 +43,8 @@ extern "C" int paged_prefill_launch(
       q, k_pages, v_pages, block_tables, kv_lens, q_start, lut_main, lut_aux,
       out, B, H, KVH, Dh, n_pages, ps, mp, C, n_main, aux_rows, aux_cols,
       method, round_mode, scale, inv_step, inv_q, inv_ex, inv_sum);
-  return int(paged::run<paged::PagedKeys, 1, 2>(
-      p, max_kv_len, plan_kv_heads, dtype, static_cast<cudaStream_t>(stream)));
+  return int(paged::run<paged::PagedKeys>(
+      p, paged::kPrefillRows, max_kv_len, plan_kv_heads, dtype, static_cast<cudaStream_t>(stream)));
 }
 
 // The int8-pool entry: k/v pages int8, k/v scales f32 (n_pages, ps, KVH),
@@ -64,7 +64,25 @@ extern "C" int paged_prefill_int8_launch(
       out, B, H, KVH, Dh, n_pages, ps, mp, C, n_main, aux_rows, aux_cols,
       method, round_mode, scale, inv_step, inv_q, inv_ex, inv_sum, k_scales,
       v_scales);
-  return int(paged::run<paged::PagedKeys, 1, 2>(
-      p, max_kv_len, plan_kv_heads, q_dtype,
+  return int(paged::run<paged::PagedKeys>(
+      p, paged::kPrefillRows, max_kv_len, plan_kv_heads, q_dtype,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The launch plan of a call (csrc/launch_plan.h; the host library
+// csrc/launch_plan.cpp exports the same entry): in = dtype, int8, B, H,
+// KVH, C, Dh, n_pages, ps, mp, n_main, aux_rows, aux_cols, max_kv_len,
+// plan_kv_heads, n_sms; out = plan::kOut int64 fields.
+extern "C" int paged_prefill_plan(const int* in, int n_in, long long* out,
+                                  int n_out) {
+  return plan::paged_entry(paged::kPrefillRows, in, n_in, out, n_out);
+}
+
+// The instance a plan's call launches (paged::attrs_entry): in = the
+// `paged_prefill_plan` ints; out = registers, local (spill) bytes a thread, CTAs
+// a multiprocessor holds at the plan's threads and shared memory.
+extern "C" int paged_prefill_attrs(const int* in, int n_in, int* out,
+                                   int n_out) {
+  return paged::attrs_entry<paged::PagedKeys>(paged::kPrefillRows, in, n_in, out,
+                                            n_out);
 }

@@ -157,3 +157,31 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
 
 
 flash_attention_cuda.launches = dict.fromkeys(ROUTES, 0)
+
+
+def kernel_spec(geom):
+    """Static declaration for ``repro_torch.analysis.kernel_guard``: the
+    launch :func:`flash_route` picks for ``geom``'s (b, h, lq, dh) calls
+    in f32 and bf16, from the kernel's own plan (``csrc/launch_plan.h``);
+    exact attention accumulates no integer Σ."""
+    from repro_torch.analysis.kernel_guard import (Coverage, KernelSpec,
+                                                   Operand, launch_of)
+    b, h, kvh, dh = geom["b"], geom["h"], geom["kvh"], geom["dh"]
+    lq, lk = geom["lq"], geom["lk"]
+    launches = []
+    for dtype, dname in ((torch.float32, "float32"),
+                         (torch.bfloat16, "bfloat16")):
+        route = flash_route(dtype, dh)
+        plan = build.host_plan("flash_attention",
+                               [ROUTES.index(route), b, h, lq, dh])
+        launches.append(launch_of(
+            f"{dname}/{route}", plan,
+            inputs=(Operand("q", (b, h, lq, dh), dname),
+                    Operand("k", (b, kvh, lk, dh), dname),
+                    Operand("v", (b, kvh, lk, dh), dname)),
+            outputs=(Operand("out", (b, h, lq, dh)),
+                     Operand("m", (b, h, lq)), Operand("l", (b, h, lq))),
+            coverage=Coverage(rows=lq, kvh=h, rpb=plan["rows_per_block"],
+                              flat=True)))
+    return KernelSpec(name="flash_attention", module=__name__, kind="cuda",
+                      launches=tuple(launches))

@@ -271,3 +271,45 @@ def lut_attention_cuda(q: Tensor, k: Tensor, v: Tensor,
 
 lut_attention_cuda.launches = dict.fromkeys(MODES, 0)
 lut_attention_cuda.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def kernel_spec(geom):
+    """Static declaration for ``repro_torch.analysis.kernel_guard``: the
+    launch :func:`dense_route` picks for a ``geom["lq"]``-row call over
+    ``geom["lk"]`` keys (all valid), for f32 and bf16 inputs and each
+    mode (each method's largest tables), from the kernel's own plan
+    (``csrc/launch_plan.h``): a split launch is planned to run in one
+    wave; the rows and tiles routes put a query head on each grid row."""
+    from repro_torch.analysis.kernel_guard import (N_SMS, Coverage,
+                                                   KernelSpec, Operand,
+                                                   launch_of, method_tables)
+    b, h, kvh, dh = geom["b"], geom["h"], geom["kvh"], geom["dh"]
+    lq, lk = geom["lq"], geom["lk"]
+    launches = []
+    for dtype, dname in ((torch.float32, "float32"),
+                         (torch.bfloat16, "bfloat16")):
+        for mode in MODES:
+            method = "lut2d" if mode == "lut2d" else "rexp"
+            route = dense_route(dtype, dh, lq, 255, mode)
+            main, ar, ac = method_tables(method)
+            plan = build.host_plan("lut_attention", [
+                ROUTES.index(route), KERNEL_DTYPES[dtype], b, h, kvh, lq,
+                lk, dh, lk, int(mode == "rexp_fused"), main, ar, ac, N_SMS])
+            if plan is None:
+                raise ValueError(f"lut_attention: the launcher refuses "
+                                 f"{route} at {dict(geom)}")
+            split = route == "split"
+            cov = (Coverage(rows=h // kvh * lq, kvh=kvh,
+                            rpb=plan["rows_per_block"],
+                            units=max(-(-lk // 32), 1)) if split else
+                   Coverage(rows=lq, kvh=h, rpb=plan["rows_per_block"],
+                            flat=True))
+            launches.append(launch_of(
+                f"{dname}/{mode}/{route}", plan,
+                inputs=(Operand("q", (b, h, lq, dh), dname),
+                        Operand("k", (b, kvh, lk, dh), dname),
+                        Operand("v", (b, kvh, lk, dh), dname)),
+                outputs=(Operand("out", (b, h, lq, dh)),), coverage=cov,
+                sigma_acc=True, acc_dtype="float32", one_wave=split))
+    return KernelSpec(name="lut_attention", module=__name__, kind="cuda",
+                      launches=tuple(launches))

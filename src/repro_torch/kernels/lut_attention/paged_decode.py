@@ -220,3 +220,22 @@ def paged_decode_attention(
 
 paged_decode_attention.launches = 0
 paged_decode_attention.int8_launches = 0
+
+
+def kernel_spec(geom):
+    """Static declaration for ``repro_torch.analysis.kernel_guard``: the
+    launches of ``paged_decode_launch`` at ``geom``, from the kernel's
+    own plan (``csrc/launch_plan.h`` through the host library)."""
+    from repro_torch.analysis.kernel_guard import KernelSpec, paged_launches
+    return KernelSpec(name="paged_decode", module=__name__, kind="cuda",
+                      launches=paged_launches("paged_decode", geom, False,
+                                              1))
+
+
+def kernel_spec_int8(geom):
+    """The int8-pool entry ``paged_decode_int8_launch``: int8 pages, their
+    f32 scales beside them, the same plans' arithmetic on 1-byte keys."""
+    from repro_torch.analysis.kernel_guard import KernelSpec, paged_launches
+    return KernelSpec(name="paged_decode_int8", module=__name__,
+                      kind="cuda", launches=paged_launches(
+                          "paged_decode", geom, True, 1))

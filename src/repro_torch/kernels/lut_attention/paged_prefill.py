@@ -114,3 +114,21 @@ def paged_prefill_attention(
 
 paged_prefill_attention.launches = 0
 paged_prefill_attention.int8_launches = 0
+
+
+def kernel_spec(geom):
+    """Static declaration for ``repro_torch.analysis.kernel_guard``: the
+    launches of ``paged_prefill_launch`` for a chunk of ``geom["chunk"]``
+    rows, from the kernel's own plan (``csrc/launch_plan.h``)."""
+    from repro_torch.analysis.kernel_guard import KernelSpec, paged_launches
+    return KernelSpec(name="paged_prefill", module=__name__, kind="cuda",
+                      launches=paged_launches("paged_prefill", geom, False,
+                                              geom["chunk"]))
+
+
+def kernel_spec_int8(geom):
+    """The int8-pool entry ``paged_prefill_int8_launch``."""
+    from repro_torch.analysis.kernel_guard import KernelSpec, paged_launches
+    return KernelSpec(name="paged_prefill_int8", module=__name__,
+                      kind="cuda", launches=paged_launches(
+                          "paged_prefill", geom, True, geom["chunk"]))

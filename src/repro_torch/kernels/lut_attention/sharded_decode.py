@@ -89,3 +89,19 @@ def lut_decode_sharded(q: Tensor, k: Tensor, v: Tensor,
     ja = _bin_index(ssum * inv, policy.index_mode, 0, lut_a.shape[0] - 1)
     alpha = lut_a[ja].float()
     return (u * (alpha * inv * inv)[..., None]).reshape(b, h, lq, d)
+
+
+def kernel_spec(geom):
+    """Static declaration for ``repro_torch.analysis.kernel_guard``: the
+    length-sharded decode's cross-rank partials, which must stay within
+    the (B, H, 1) wire budget (never the cache)."""
+    from repro_torch.analysis.kernel_guard import KernelSpec, Reduction
+    b, h, dh = geom["b"], geom["h"], geom["dh"]
+    reductions = (Reduction("max", (b, h, 1)),      # the global row max
+                  Reduction("sum", (b, h, 1)),      # the integer Σ
+                  Reduction("sum", (b, h, 1, dh)))  # U = Σ local e·v
+    return KernelSpec(
+        name="sharded_decode", module=__name__, kind="shard_map",
+        reductions=reductions, wire_budget=2 * b * h * 1 * (dh + 2) * 4,
+        notes="length-sharded contiguous cache; REXP's α(S)·inv² epilogue "
+              "on the summed U")

@@ -256,3 +256,39 @@ def scatter_chunk_sharded(k_pages: Tensor, v_pages: Tensor, phys: Tensor,
     if k_scales is not None:
         k_scales[lph, offs] = k_sc
         v_scales[lph, offs] = v_sc
+
+
+def kernel_spec(geom):
+    """Static declaration for ``repro_torch.analysis.kernel_guard``: the
+    ``'pages'`` regime's cross-rank partials (checked against the
+    (B, H, Lq) wire budget — never KV-sized) and its page-id maps
+    (``partitioning.gather_page_ids`` / ``scatter_page_ids``), probed at
+    the slab boundaries of the first and last rank."""
+    from repro_torch.analysis.kernel_guard import (ClampProbe, KernelSpec,
+                                                   Reduction)
+    b, h, dh = geom["b"], geom["h"], geom["dh"]
+    c = geom["chunk"]   # the longest Lq (a prefill chunk; decode is 1)
+    n_pages, tp = geom["n_pages"], geom["tp"]
+    slab = n_pages // tp
+
+    def gather_rows(ids, lo, s):
+        return PT.gather_page_ids(torch.as_tensor(ids), lo, s)[1].numpy()
+
+    def scatter_rows(ids, lo, s):
+        return PT.scatter_page_ids(torch.as_tensor(ids), lo, s).numpy()
+
+    reductions = (Reduction("max", (b, h, c, 1)),    # the global row max
+                  Reduction("sum", (b, h, c, 1)),    # the integer Σ
+                  Reduction("sum", (b, h, c, dh)))   # Σ of local σ·V
+    clamps = tuple(
+        ClampProbe(f"{name}@shard{idx}", fn=fn, lo=idx * slab, slab=slab,
+                   n_pages=n_pages, mode=mode)
+        for idx in (0, tp - 1)
+        for name, fn, mode in (("gather_page_ids", gather_rows, "mask"),
+                               ("scatter_page_ids", scatter_rows, "drop")))
+    return KernelSpec(
+        name="sharded_paged", module=__name__, kind="shard_map",
+        reductions=reductions, clamps=clamps,
+        wire_budget=2 * b * h * c * (dh + 2) * 4,
+        notes="'pages' regime: a slab of the pages a rank, (B, H, Lq) "
+              "partials; 'heads' regime gathers only the output")

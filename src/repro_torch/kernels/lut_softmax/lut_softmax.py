@@ -239,3 +239,34 @@ def lut2d_softmax_cuda(x: Tensor, tables: Lut2DTables,
 
 rexp_softmax_cuda.launches = 0
 lut2d_softmax_cuda.launches = 0
+
+
+def kernel_spec(geom):
+    """Static declaration for ``repro_torch.analysis.kernel_guard``: the
+    host's :func:`row_plan` over ``geom``'s b·h·lq rows of lk columns (16-
+    byte aligned pointers, 132 SMs), f32 and bf16, each method's largest
+    tables, with the launcher's own shared-memory floor and limit
+    (``csrc/launch_plan.h``)."""
+    from repro_torch.analysis.kernel_guard import (N_SMS, KernelSpec,
+                                                   Operand, launch_of,
+                                                   method_tables)
+    rows, cols = geom["b"] * geom["h"] * geom["lq"], geom["lk"]
+    limit = min(SMEM_LIMIT, build.plan_constants()["row_smem_limit"])
+    launches = []
+    for esize, dname in ((4, "float32"), (2, "bfloat16")):
+        for method in ("rexp", "lut2d"):
+            main, ar, ac = method_tables(method)
+            rp = row_plan(rows, cols, esize, 0, 0, N_SMS, main, ar * ac)
+            least = build.host_plan("lut_softmax", [
+                ROUTES.index(rp.route), rp.vec, rp.stages, rp.threads,
+                esize, cols, main, ar, ac])
+            launches.append(launch_of(
+                f"{dname}/{method}/{rp.route}",
+                dict(least, grid_x=rp.grid, grid_y=1, grid_z=1,
+                     threads=rp.threads, smem=rp.smem),
+                inputs=(Operand("x", (rows, cols), dname),),
+                outputs=(Operand("out", (rows, cols)),),
+                sigma_acc=True, acc_dtype="float32", smem_limit=limit,
+                smem_floor=least["smem"]))
+    return KernelSpec(name="lut_softmax", module=__name__, kind="cuda",
+                      launches=tuple(launches))

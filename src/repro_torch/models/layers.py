@@ -30,13 +30,15 @@ in the ``'heads'`` regime each rank scatters and attends its own KV
 heads; in the ``'pages'`` regime each rank writes only the pages of its
 slab (``sharded_paged.scatter_chunk_sharded``).  Whether a layer's
 weights are the rank's cut is the scope's answer for the leaf's path
-(``partitioning.Scope.model_mesh``: the compute spec ``Layout.use`` and
-``shard_params`` cut by), never their shapes: q/k/v projections cut by output column give the
-rank's heads and ``wo`` cut by input row ends in an all-reduce of
-``(B, L, d_model)``; where the heads do not split on KV-head
-boundaries (the ``'pages'`` regime) the attention computes whole and
-only the MLP, the embedding and the LM head shard (a memory layout; the
-function is the same).
+(``partitioning.Scope.model_mesh``: the compute spec of the scope's
+``Layout``), never their shapes.  In the ``'heads'`` regime q/k/v
+projections cut by output column give the rank's heads and ``wo`` cut
+by input row ends in an all-reduce of ``(B, L, d_model)``.  In the
+``'pages'`` regime (the heads do not split on KV-head boundaries) a
+projection the rule cuts runs on the rank's columns and the columns are
+gathered (site ``qkv``) before qk-norm and RoPE; the output, whole on
+every rank after the slabs' sum, meets ``wo``'s rows and the f32
+partials are summed (site ``wo``).
 
 Lockstep serving on a mesh (``serve_loop.make_prefill_step`` /
 ``make_decode_step`` with a ``mesh``) holds a rank's cut of each cache,
@@ -251,15 +253,24 @@ class PagedPrefillCache:
 
 def _project_qkv(p: Params, x: Tensor, n_heads: int, n_kv_heads: int,
                  head_dim: int, qk_norm: bool, norm_eps: float,
-                 rope_theta: float | None, positions: Tensor):
+                 rope_theta: float | None, positions: Tensor,
+                 cols: dict | None = None):
+    """q, k, v (B, heads, L, Dh), normed and rotated.  ``cols`` maps a
+    projection (``wq``, ``wk``, ``wv``) to the mesh whose ranks each hold
+    a cut of its output columns (the paged ``'pages'`` regime under cut
+    weights): its rank's columns are gathered (site ``qkv``) before the
+    heads are formed."""
     b, l, _ = x.shape
-    q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
-    if "bq" in p:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+
+    def proj(w: str, bias: str) -> Tensor:
+        y = x @ p[w].to(x.dtype)
+        if bias in p:
+            y = y + p[bias].to(x.dtype)
+        if cols and cols.get(w) is not None:
+            y = PT.all_gather(y, cols[w], 2, site="qkv")
+        return y
+
+    q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
     q = q.reshape(b, l, n_heads, head_dim).transpose(1, 2)
     k = k.reshape(b, l, n_kv_heads, head_dim).transpose(1, 2)
     v = v.reshape(b, l, n_kv_heads, head_dim).transpose(1, 2)
@@ -302,33 +313,40 @@ def _scatter(cache, phys: Tensor, offs: Tensor, k: Tensor, v: Tensor,
 
 def _local_qkv(p: Params, x: Tensor, positions: Tensor, *, n_heads: int,
                n_kv_heads: int, head_dim: int, qk_norm: bool,
-               norm_eps: float, rope_theta: float | None, row_mesh):
+               norm_eps: float, rope_theta: float | None, path: str):
     """q, k, v of a paged step and how the rank's attention output is
-    laid out: ``(q, k, v, mesh, regime, split)``.  k and v hold the KV
-    heads this rank's pool stores; ``split`` (the ``'heads'`` regime
-    under weights cut by heads, ``row_mesh``) means q holds this rank's
-    heads only and ``wo`` is cut by rows, else q holds every head."""
-    mesh = PT.active_mesh()
+    laid out: ``(q, k, v, mesh, regime, out_mesh)``.  k and v hold the KV
+    heads this rank's pool stores.  Under weights cut by the active
+    scope (``Scope.model_mesh`` of the leaves at ``path``): in the
+    ``'heads'`` regime q holds this rank's heads only; in the ``'pages'``
+    regime each cut projection runs on the rank's columns and its output
+    is gathered, so q, k and v hold every head.  ``out_mesh``: the mesh
+    over which ``wo`` is cut by rows (None: whole)."""
+    scope = PT.active_scope()
+    mesh = scope.mesh
     regime = paged_mesh_regime(mesh, n_kv_heads)
     if regime is None:
         mesh = None
-    split = regime == "heads" and row_mesh is not None
+    out_mesh = scope.model_mesh(f"{path}/wo") if regime else None
+    split = regime == "heads" and out_mesh is not None
+    cols = ({w: scope.model_mesh(f"{path}/{w}") for w in ("wq", "wk", "wv")}
+            if regime == "pages" else None)
     tp = PT.mesh_model_tp(mesh)
     h, kvh = ((n_heads // tp, n_kv_heads // tp) if split
               else (n_heads, n_kv_heads))
     q, k, v = _project_qkv(p, x, h, kvh, head_dim, qk_norm, norm_eps,
-                           rope_theta, positions)
+                           rope_theta, positions, cols)
     if regime == "heads" and not split:
         n = n_kv_heads // tp
         k, v = (t[:, mesh.rank * n:(mesh.rank + 1) * n] for t in (k, v))
-    return q, k, v, mesh, regime, split
+    return q, k, v, mesh, regime, out_mesh
 
 
 def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
                          n_heads: int, n_kv_heads: int, head_dim: int,
                          qk_norm: bool, norm_eps: float,
                          rope_theta: float | None, policy: SoftmaxPolicy,
-                         paged_backend: str, row_mesh) -> Tensor:
+                         paged_backend: str, path: str) -> Tensor:
     """One prompt chunk against the paged pool — scatter, then attend.
 
     The chunk's K/V go into the pool pages at positions
@@ -341,10 +359,10 @@ def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
     b, c, _ = x.shape
     positions = cache.lengths[:, None] + torch.arange(
         c, dtype=cache.lengths.dtype, device=x.device)
-    q, k, v, mesh, regime, split = _local_qkv(
+    q, k, v, mesh, regime, out_mesh = _local_qkv(
         p, x, positions, n_heads=n_heads, n_kv_heads=n_kv_heads,
         head_dim=head_dim, qk_norm=qk_norm, norm_eps=norm_eps,
-        rope_theta=rope_theta, row_mesh=row_mesh)
+        rope_theta=rope_theta, path=path)
     ps = cache.page_size
     mp = cache.block_tables.shape[1]
     pos = positions.long()
@@ -362,15 +380,15 @@ def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
         q_start=cache.lengths, kv_lens=cache.lengths + cache.chunk_lens,
         policy=policy, backend=paged_backend, k_scales=cache.k_scales,
         v_scales=cache.v_scales, max_kv_len=cache.max_kv_len, mesh=mesh,
-        n_kv_heads=n_kv_heads, gather=not split)
-    return out, (mesh if split else None)
+        n_kv_heads=n_kv_heads, gather=out_mesh is None or regime != "heads")
+    return out, out_mesh
 
 
 def _paged_decode(p: Params, x: Tensor, cache: PagedAttnCache, *,
                   n_heads: int, n_kv_heads: int, head_dim: int,
                   qk_norm: bool, norm_eps: float, rope_theta: float | None,
                   policy: SoftmaxPolicy, paged_backend: str,
-                  row_mesh) -> Tensor:
+                  path: str) -> Tensor:
     """Single-token decode against the paged pool — no contiguous gather.
 
     Writes the token's K/V at ``lengths`` (per slot, in place), then
@@ -379,10 +397,10 @@ def _paged_decode(p: Params, x: Tensor, cache: PagedAttnCache, *,
     null page; their duplicate writes there are harmless.
     """
     positions = cache.lengths[:, None]                  # (B, 1)
-    q, k, v, mesh, regime, split = _local_qkv(
+    q, k, v, mesh, regime, out_mesh = _local_qkv(
         p, x, positions, n_heads=n_heads, n_kv_heads=n_kv_heads,
         head_dim=head_dim, qk_norm=qk_norm, norm_eps=norm_eps,
-        rope_theta=rope_theta, row_mesh=row_mesh)
+        rope_theta=rope_theta, path=path)
     ps = cache.page_size
     lengths = cache.lengths.long()
     phys = torch.gather(cache.block_tables.long(), 1,
@@ -397,8 +415,9 @@ def _paged_decode(p: Params, x: Tensor, cache: PagedAttnCache, *,
                                      v_scales=cache.v_scales,
                                      max_kv_len=cache.max_kv_len, mesh=mesh,
                                      n_kv_heads=n_kv_heads,
-                                     gather=not split)
-    return out, (mesh if split else None)
+                                     gather=(out_mesh is None
+                                             or regime != "heads"))
+    return out, out_mesh
 
 
 def apply_paged_attention(p: Params, x: Tensor,
@@ -408,16 +427,17 @@ def apply_paged_attention(p: Params, x: Tensor,
                           rope_theta: float | None = 10000.0,
                           policy: SoftmaxPolicy,
                           paged_backend: str = "auto",
-                          row_mesh=None) -> Tensor:
+                          path: str = "") -> Tensor:
     """Self-attention of ``x`` (B, L, D) against a paged cache: a prompt
     chunk (:class:`PagedPrefillCache`) or one decode token
     (:class:`PagedAttnCache`).  Returns (B, L, D); the pool is updated
-    in place.  ``row_mesh``: the weights are the rank's cut by heads."""
+    in place.  ``path``: the attention's place in the parameter tree,
+    by which the active scope says which of its weights are the rank's
+    cut (:func:`_local_qkv`)."""
     b, l, _ = x.shape
     kw = dict(n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
               qk_norm=qk_norm, norm_eps=norm_eps, rope_theta=rope_theta,
-              policy=policy, paged_backend=paged_backend,
-              row_mesh=row_mesh)
+              policy=policy, paged_backend=paged_backend, path=path)
     if isinstance(cache, PagedPrefillCache):
         out, out_mesh = _paged_prefill_chunk(p, x, cache, **kw)
     elif isinstance(cache, PagedAttnCache):
@@ -428,6 +448,8 @@ def apply_paged_attention(p: Params, x: Tensor,
         out, out_mesh = _paged_decode(p, x, cache, **kw)
     else:
         raise TypeError(f"unsupported cache {type(cache).__name__}")
+    if out_mesh is not None and out.shape[1] == n_heads:  # 'pages'
+        return _row_out_projection(p, x, out, b, l, out_mesh)
     return _out_projection(p, x, out, b, l, out_mesh)
 
 
@@ -480,7 +502,7 @@ def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,
             p, x, cache, n_heads=n_heads, n_kv_heads=n_kv_heads,
             head_dim=head_dim, qk_norm=qk_norm, norm_eps=norm_eps,
             rope_theta=rope_theta, policy=policy,
-            paged_backend=paged_backend, row_mesh=row_mesh)
+            paged_backend=paged_backend, path=path)
     if cache is not None and not isinstance(cache, AttnCache):
         raise TypeError(f"unsupported cache {type(cache).__name__}")
     b, l, _ = x.shape
@@ -593,6 +615,23 @@ def cross_attention_kv(p: Params, src: Tensor, *, n_kv_heads: int,
             .contiguous()
 
     return proj("wk", "bk"), proj("wv", "bv")
+
+
+def _row_out_projection(p: Params, x: Tensor, out: Tensor, b: int, l: int,
+                        mesh) -> Tensor:
+    """(B, H, L, Dh) attention output that every rank holds whole (the
+    ``'pages'`` regime) → (B, L, D) through ``wo`` cut by rows: the
+    rank's rows of the output's flattened heads times its rows of
+    ``wo``, in f32, summed over the ranks (site ``wo``) and rounded once
+    (``ssm._row_product``'s form), then ``bo``."""
+    flat = out.to(x.dtype).transpose(1, 2).reshape(b, l, -1)
+    n = p["wo"].shape[0]
+    mine = flat[..., mesh.rank * n:(mesh.rank + 1) * n]
+    y = PT.reduce_from(mine.float() @ p["wo"].float(), mesh,
+                       site="wo").to(x.dtype)
+    if "bo" in p:
+        y = y + p["bo"].to(x.dtype)
+    return y
 
 
 def _out_projection(p: Params, x: Tensor, out: Tensor, b: int, l: int,

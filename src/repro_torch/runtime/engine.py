@@ -41,9 +41,12 @@ meet at the same collectives and never diverge; :meth:`close` sends the
 stop.  Each rank's pools hold its share (its KV heads in the
 ``'heads'`` regime, a slab of the pages in ``'pages'``), the scheduler
 interleaves page allocation across the slabs, and with
-``shard_params`` each rank holds its cut of the weights
-(``partitioning.shard_params``: an MoE's experts by the 3-D rows, its
-``E / tp`` experts or every expert's ``d_expert / tp`` columns).  The logits are the same on every
+``shard_params`` each rank holds its cut of the weights as the JAX
+package's serving spec ``param_pspec(fsdp=False)`` cuts every leaf
+(``partitioning.Layout(..., fsdp=False)``: an MoE's experts by the 3-D
+rows, the attention by its columns and rows, the stacked norm scales;
+what a layer computes whole is gathered just before use, site
+``tp_gather``).  The logits are the same on every
 rank, so the pipelined engine's on-device sampling gives every rank the
 same token, each into its own last-token buffer.
 """
@@ -270,11 +273,12 @@ class ServingEngine:
         self.mesh = mesh
         self.tp = PT.mesh_model_tp(mesh)
         self.regime = paged_mesh_regime(mesh, model.cfg.n_kv_heads)
-        # what each layer computes on: the cut of the serving weights
-        self.compute = None
+        # the serving weights' storage (the reference's serving spec,
+        # param_pspec(fsdp=False)) and what each layer computes on
+        self.layout = None
         if config.shard_params:
-            params = PT.shard_params(params, model.cfg, mesh)
-            self.compute = PT.compute_specs(model.cfg, mesh)
+            self.layout = PT.Layout(model.cfg, mesh, fsdp=False)
+            params = self.layout.cut(params)
         self.params = tree_map(lambda t, _: t.to(self.device), params)
         self.run_cfg = run
         self.cache = cache
@@ -381,7 +385,7 @@ class ServingEngine:
             if self._closed:
                 raise RuntimeError("the engine was closed")
             PT.send_plan(self.mesh, (op, plan))
-        with PT.mesh_scope(self.mesh, compute=self.compute):
+        with PT.mesh_scope(self.mesh, layout=self.layout):
             return getattr(self, "_op_" + op)(**plan)
 
     def follow(self) -> None:
@@ -393,7 +397,7 @@ class ServingEngine:
             op, plan = PT.recv_plan(self.mesh)
             if op == "stop":
                 return
-            with PT.mesh_scope(self.mesh, compute=self.compute):
+            with PT.mesh_scope(self.mesh, layout=self.layout):
                 getattr(self, "_op_" + op)(**plan)
 
     def close(self) -> None:

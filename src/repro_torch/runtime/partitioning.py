@@ -28,15 +28,17 @@ Placement, as in the JAX package:
 * :func:`shard_pspec` is the cut a layer computes on: the rule's
   ``'model'`` slots on the leaves whose layers compute on a cut
   (:data:`TP_LEAVES`; attention only when both head counts divide
-  ``tp`` — the ``'heads'`` regime; Mamba when ``tp`` divides its
-  channels).  The paged engines' :func:`shard_params` cuts the serving
-  weights by it, and the layers ask the active :class:`Scope` whether
-  they compute on a leaf's cut (:meth:`Scope.model_mesh`: the
-  scope's :func:`compute_specs`, a :class:`Layout`'s ``compute``).
-* :class:`Layout` (training, lockstep serving on a mesh, the cells)
-  stores every leaf as :func:`param_pspec` cuts it with ``fsdp=True``,
-  no exception, and gathers just before use every axis the storage
-  cuts and the layer's compute does not (:meth:`Layout.use`).  A Mamba
+  ``tp`` — the ``'heads'`` regime, or, in the paged engines, wherever
+  the rule cuts them; Mamba when ``tp`` divides its channels).  The
+  layers ask the active :class:`Scope` whether they compute on a leaf's
+  cut (:meth:`Scope.model_mesh`: the scope's :class:`Layout`'s
+  ``compute``).
+* :class:`Layout` stores every leaf as :func:`param_pspec` cuts it, no
+  exception — with ``fsdp=True`` in training, lockstep serving on a
+  mesh and the cells, with ``fsdp=False`` (the reference's serving
+  spec) in the paged engines (:func:`shard_params`) — and gathers just
+  before use every axis the storage cuts and the layer's compute does
+  not (:meth:`Layout.use`).  A Mamba
   ``in_proj``'s columns are stored interleaved so that the rule's
   contiguous cut gives each rank its ``x`` and its ``z`` channels
   (:func:`in_proj_order`).
@@ -78,6 +80,8 @@ import pickle
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.kernels.lut_attention.ops import paged_mesh_regime
 
 Tensor = torch.Tensor
 
@@ -317,21 +321,13 @@ def keep_scope(fn):
 # ---------------------------------------------------------------------------
 
 
-def _regime(mesh: Mesh | None, n_kv_heads: int) -> str | None:
-    """``ops.paged_mesh_regime``'s answer, for the placement rules here."""
-    tp = mesh_model_tp(mesh)
-    if tp <= 1:
-        return None
-    return "heads" if n_kv_heads % tp == 0 else "pages"
-
-
 def paged_pool_pspec(mesh: Mesh | None, n_kv_heads: int,
                      scales: bool = False) -> tuple:
     """Spec of one layer's page-major pool ``(n_pages, ps, KVH, Dh)`` —
     for ``scales`` its f32 scale leaf ``(n_pages, ps, KVH)`` — written as
     the JAX package's ``PartitionSpec``: the axis that ``'model'`` (the
     ranks) splits.  ``()`` is replicated."""
-    regime = _regime(mesh, n_kv_heads)
+    regime = paged_mesh_regime(mesh, n_kv_heads)
     if regime is None:
         return ()
     if regime == "heads":
@@ -352,7 +348,7 @@ def local_pool_specs(specs: dict[str, tuple[tuple, str]], mesh: Mesh | None,
     ``slab``), so a scatter needs no data-dependent filtering; nothing
     ever reads the sink.
     """
-    regime = _regime(mesh, n_kv_heads)
+    regime = paged_mesh_regime(mesh, n_kv_heads)
     if regime is None:
         return dict(specs)
     tp = mesh.tp
@@ -602,20 +598,26 @@ def mamba_channels(cfg) -> int:
     return EXPAND * cfg.d_model
 
 
-def shard_pspec(path: str, shape: tuple[int, ...], mesh, cfg) -> tuple:
+def shard_pspec(path: str, shape: tuple[int, ...], mesh, cfg,
+                paged: bool = False) -> tuple:
     """The cut a layer computes leaf ``path`` on, over ``'model'`` only:
     :func:`param_pspec`'s ``'model'`` slots on :data:`TP_LEAVES`, on the
     attention leaves when ``tp > 1`` divides both head counts (the
-    ``'heads'`` regime), and on every Mamba leaf when it divides the
-    channels (``ssm.apply_mamba`` is then channel-parallel) — never on
-    an mLSTM's or sLSTM's, which compute whole (an mLSTM's ``wq`` /
-    ``wk`` / ``wv`` are not attention's) — and none at ``tp = 1``.  A
-    projection bias (whole where the rule sees a vector) is cut with its
-    weight's output columns."""
+    ``'heads'`` regime) — under ``paged`` (the paged engines' layers)
+    wherever the rule cuts them, the ``'pages'`` regime's q/k/v on their
+    columns and ``wo`` on its rows (``layers._local_qkv``) — and on every
+    Mamba leaf when it divides the channels (``ssm.apply_mamba`` is then
+    channel-parallel) — never on an mLSTM's or sLSTM's, which compute
+    whole (an mLSTM's ``wq`` / ``wk`` / ``wv`` are not attention's) —
+    and none at ``tp = 1``.  A projection bias (whole where the rule sees
+    a vector) is cut with its weight's output columns."""
     spec = param_pspec(path, shape, mesh)
     name = path.rsplit("/", 1)[-1]
     mixer = _mixer(path, cfg)
-    if mixer == "attn" and name in ATTENTION_LEAVES:
+    if mixer == "attn" and name in ATTENTION_LEAVES and paged:
+        cut = (divides(mesh, shape[-1]) if name in ("bq", "bk", "bv")
+               else "model" in spec)
+    elif mixer == "attn" and name in ATTENTION_LEAVES:
         cut = divides(mesh, cfg.n_heads) and divides(mesh, cfg.n_kv_heads)
     elif mixer == "mamba":
         cut = divides(mesh, mamba_channels(cfg))
@@ -825,33 +827,13 @@ def _walk(tree, fn, path=""):
 
 def shard_params(params, cfg, mesh: Mesh | None):
     """Rank ``mesh``'s part of a parameter tree (numpy arrays or
-    tensors) under :func:`shard_pspec`: a cut leaf is a copy of the
-    rank's part, every other leaf the input leaf itself.
-
-    A leaf already cut to the rank's shape is kept, so a tree that was
-    sharded on the way in (``convert.params_from_jax(..., mesh=)``)
-    passes unchanged.  The paged engines' serving cut, over ``'model'``
-    only: the MoE's experts by their 3-D rows (a rank's
-    ``E / tp`` experts, or every expert's ``d_expert / tp`` columns), the
-    shared MLP and the dense MLP by the 2-D rows, the attention in the
-    ``'heads'`` regime only; the router, norms and ``bo`` stay whole
-    (the paged engines'; :class:`Layout` stores the rule's cut)."""
+    tensors) as the paged engines store it: ``Layout(cfg, mesh,
+    fsdp=False).cut`` — the JAX package's serving spec
+    ``param_pspec(fsdp=False)`` on every leaf — or the tree itself
+    without a mesh of more than one rank."""
     if mesh is None or mesh.world <= 1:
         return params
-    shapes = full_shapes(cfg)
-
-    def leaf(path: str, x):
-        full = shapes[path]
-        spec = shard_pspec(path, full, mesh, cfg)
-        mine = local_shape(full, spec, mesh)
-        if tuple(x.shape) == mine:
-            return x
-        if tuple(x.shape) != full:
-            raise ValueError(f"{path}: {tuple(x.shape)} is neither the "
-                             f"whole {full} nor this rank's {mine}")
-        return cut_leaf(in_proj_order(path, x, mesh, cfg), spec, mesh)
-
-    return _walk(params, leaf)
+    return Layout(cfg, mesh, fsdp=False).cut(params)
 
 
 def expert_split(mesh: Mesh | None, n_experts: int, d_model: int,
@@ -1070,21 +1052,24 @@ class Layout:
     layers compute on.
 
     ``specs`` is the storage, the JAX package's
-    ``param_pspec(path, shape, mesh, fsdp=True)`` with no exception: a
-    rank holds that cut of every leaf (params, Adam moments, error
-    feedback), a Mamba ``in_proj`` in :func:`in_proj_order`.  ``compute``
-    is the cut the layer works on (:func:`shard_pspec`'s ``'model'``
-    slots).  :meth:`use` gathers, just before the leaf is used, its
-    ``'data'`` cut and every ``'model'`` cut the layer does not compute
-    on (site ``tp_gather``), and cuts a leaf stored whole where the
-    layer computes on a cut (a Whisper attention's 1-D biases)."""
+    ``param_pspec(path, shape, mesh, fsdp)`` with no exception: a rank
+    holds that cut of every leaf (params, Adam moments, error feedback),
+    a Mamba ``in_proj`` in :func:`in_proj_order` — ``fsdp=True`` in
+    training and lockstep serving, ``fsdp=False`` in the paged engines
+    (the reference's serving spec).  ``compute`` is the cut the layer
+    works on (:func:`shard_pspec`'s ``'model'`` slots; with
+    ``fsdp=False`` its paged rule).  :meth:`use` gathers, just before the
+    leaf is used, its ``'data'`` cut and every ``'model'`` cut the layer
+    does not compute on (site ``tp_gather``), and cuts a leaf stored
+    whole where the layer computes on a cut (a Whisper attention's 1-D
+    biases)."""
 
-    def __init__(self, cfg, mesh: Mesh):
+    def __init__(self, cfg, mesh: Mesh, fsdp: bool = True):
         self.cfg, self.mesh = cfg, mesh
         self.shapes = full_shapes(cfg)
-        self.specs = {p: _padded(param_pspec(p, s, mesh, fsdp=True), s)
+        self.specs = {p: _padded(param_pspec(p, s, mesh, fsdp=fsdp), s)
                       for p, s in self.shapes.items()}
-        self.compute = compute_specs(cfg, mesh)
+        self.compute = compute_specs(cfg, mesh, paged=not fsdp)
 
     def axes(self, path: str) -> tuple[str, ...]:
         """The axes (of size > 1) leaf ``path`` is stored cut over."""
@@ -1092,8 +1077,19 @@ class Layout:
                      if a and self.mesh.size(a) > 1)
 
     def cut(self, params):
-        """A rank's part of a whole parameter-shaped tree."""
-        return _walk(params, self.cut_leaf)
+        """A rank's part of a whole parameter-shaped tree; a leaf already
+        of the rank's shape passes as it is (a tree cut on the way in:
+        ``convert.params_from_jax(..., mesh=)``, a checkpoint)."""
+        def leaf(path: str, x):
+            full = self.shapes[path]
+            mine = local_shape(full, self.specs[path], self.mesh)
+            if tuple(x.shape) == mine:
+                return x
+            if tuple(x.shape) != full:
+                raise ValueError(f"{path}: {tuple(x.shape)} is neither the "
+                                 f"whole {full} nor this rank's {mine}")
+            return self.cut_leaf(path, x)
+        return _walk(params, leaf)
 
     def cut_leaf(self, path: str, x, one_period: bool = False):
         """A rank's part of the whole leaf ``path``; ``one_period``: ``x``
@@ -1169,11 +1165,11 @@ def _padded(spec: tuple, shape: tuple) -> tuple:
     return tuple(spec) + (None,) * (len(shape) - len(spec))
 
 
-def compute_specs(cfg, mesh) -> dict[str, tuple]:
+def compute_specs(cfg, mesh, paged: bool = False) -> dict[str, tuple]:
     """:func:`shard_pspec` of every leaf of ``cfg``'s parameter tree,
     by path, a None for every dim it does not name: what each layer
     computes on (:meth:`Scope.model_mesh`)."""
-    return {p: _padded(shard_pspec(p, s, mesh, cfg), s)
+    return {p: _padded(shard_pspec(p, s, mesh, cfg, paged), s)
             for p, s in full_shapes(cfg).items()}
 
 

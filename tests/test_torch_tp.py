@@ -52,7 +52,7 @@ from repro_torch.kernels.lut_attention.ops import paged_mesh_regime
 from repro_torch.launch import serve as SERVE
 from repro_torch.launch.mesh import check_backend, start_ranks
 from repro_torch.models import build_model
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import params_from_jax, tree_flatten
 from repro_torch.runtime import paged_cache as TPC
 from repro_torch.runtime import partitioning as PT
 from repro_torch.runtime.engine import EngineConfig
@@ -325,24 +325,23 @@ def test_param_pspec_matches_jax(arch_name, tp):
 
 @pytest.mark.parametrize("kvh,heads", list(REGIMES))
 def test_shard_params_cuts_and_reassembles(kvh, heads):
-    """Each rank's cut concatenates back to the full leaf; the 'pages'
-    regime keeps the attention weights whole; a cut tree passes again
-    unchanged."""
+    """Each rank's cut (the JAX package's ``param_pspec(fsdp=False)``)
+    concatenates back to the full leaf; the 'pages' regime cuts the
+    attention weights too; a cut tree passes again unchanged."""
     arch = R.arch_of(kvh, heads)
     tree = jax.tree_util.tree_map(
         np.asarray, jax_build(_jax_arch(kvh, heads)).init(
             jax.random.PRNGKey(0)))
     cuts = [PT.shard_params(tree, arch, _mesh(TP, r)) for r in range(TP)]
-    pages = paged_mesh_regime(_mesh(TP), kvh) == "pages"
     full = dict(jax.tree_util.tree_flatten_with_path(tree)[0])
     for path, leaf in full.items():
         name = JPT.path_str(path)
         parts = [dict(jax.tree_util.tree_flatten_with_path(c)[0])[path]
                  for c in cuts]
-        spec = PT.shard_pspec(name, leaf.shape, _mesh(TP), arch)
+        spec = PT.param_pspec(name, leaf.shape, _mesh(TP))
         whole = "model" not in spec
-        if pages and name.rsplit("/", 1)[-1] in PT.ATTENTION_LEAVES:
-            assert whole, name
+        if name.rsplit("/", 1)[-1] in ("wq", "wk", "wv", "wo"):
+            assert not whole, name
         if whole:
             assert all(p is leaf or np.array_equal(p, leaf) for p in parts)
             continue
@@ -353,6 +352,39 @@ def test_shard_params_cuts_and_reassembles(kvh, heads):
         np.testing.assert_array_equal(
             dict(jax.tree_util.tree_flatten_with_path(again)[0])[path],
             parts[1])
+
+
+#: the paged archs, scaled down (their head and expert counts as the
+#: engine cases'), each at tp 2, and the 'pages' regime at tp 4
+SERVING_SPEC_CASES = [("qwen3-32b", 4, 4, 2), ("deepseek-moe-16b", 4, 4, 2),
+                      ("granite-moe-3b-a800m", 2, 4, 2), ("qwen3-32b", 1, 4, 4)]
+
+
+@pytest.mark.parametrize("base,kvh,heads,tp", SERVING_SPEC_CASES)
+def test_shard_params_is_the_reference_serving_spec(base, kvh, heads, tp):
+    """Every leaf a paged engine's rank holds under ``shard_params`` has
+    the shape the JAX package's ``param_pspec(path, shape, mesh,
+    fsdp=False)`` gives it — no leaf excepted (norm scales, ``q_norm``,
+    ``k_norm``, the 'pages' regime's attention included)."""
+    arch = R.arch_of(kvh, heads, base)
+    jarch = JARCHS[base].scaled_down(d_model=64, n_heads=heads,
+                                     n_kv_heads=kvh, vocab=R.VOCAB,
+                                     n_periods=2)
+    shapes = jax.eval_shape(jax_build(jarch).init, jax.random.PRNGKey(0))
+    jmesh = make_abstract_mesh((1, tp), ("data", "model"))
+    want = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+        spec = tuple(JPT.param_pspec(JPT.path_str(path), leaf.shape, jmesh,
+                                     fsdp=False))
+        want[JPT.path_str(path)] = tuple(
+            d // (tp if e == "model" else 1)
+            for d, e in zip(leaf.shape, spec + (None,) * len(leaf.shape)))
+    for rank in range(tp):
+        mesh = _mesh(tp, rank)
+        got = {p: tuple(x.shape) for p, x in tree_flatten(
+            PT.shard_params(PT.meta_params(arch), arch, mesh))}
+        assert got == want, (rank, {p: (got.get(p), w) for p, w in
+                                    want.items() if got.get(p) != w})
 
 
 def test_engine_and_mesh_argument_checks():
@@ -477,8 +509,9 @@ def test_tp_engine_evictions_and_staggered_arrivals(runs):
 
 @pytest.mark.parametrize("name", [n for n in CASES if n.startswith("shard")])
 def test_tp_shard_params(runs, name):
-    """Weights cut over 4 ranks (attention by heads in the 'heads'
-    regimes, replicated in 'pages'; the MLP, embedding and head always):
+    """Weights cut over 4 ranks as the JAX package's serving spec cuts
+    them (attention by heads in the 'heads' regimes, by columns and rows
+    in 'pages'; norm scales; the MLP, embedding and head always):
     first-step logits within 1e-4 of the single-device engine's and the
     greedy tokens equal the JAX single-device engine's."""
     port, single, _, port1 = runs
@@ -570,7 +603,7 @@ def test_tp2_heads_moe_token_identical_to_tp1(moe_runs, name):
 B, D_MODEL, N_LAYERS = 3, 64, 2
 
 
-def _allowed(regime, h, shard, c=1):
+def _allowed(regime, h, shard, c=1, kvh=1):
     """Every (site, kind, shape) a program of ``c`` query rows per slot
     may put on the wire."""
     b, D = (B if c == 1 else 1), D_MODEL // h
@@ -585,8 +618,29 @@ def _allowed(regime, h, shard, c=1):
         ok |= {("wo", "all_reduce_sum", (b, c, D_MODEL)),
                ("w_down", "all_reduce_sum", (b, c, D_MODEL)),
                ("embed", "all_reduce_sum", (b, c, D_MODEL)),
-               ("head", "all_gather", (b, 1, R.VOCAB))}
+               ("head", "all_gather", (b, 1, R.VOCAB)),
+               # norm scales stored cut, gathered before use
+               ("tp_gather", "all_gather", (D_MODEL,)),
+               ("tp_gather", "all_gather", (D,))}
+    if shard and regime == "pages":
+        ok |= {("qkv", "all_gather", (b, c, h * D)),
+               ("qkv", "all_gather", (b, c, kvh * D))}
     return ok
+
+
+def _decode_budget(regime, h, kvh, shard):
+    """A decode step's wire bytes a layer: the (B, H, 1) max and Σ and
+    (B, H, 1, D) partials, and under ``shard_params`` the ``wo`` and
+    ``w_down`` sums of (B, d_model), the gathered norm scales (2 of
+    d_model, ``q_norm`` and ``k_norm`` of D) and, in 'pages', the q, k,
+    v activations gathered from the ranks' columns."""
+    d = D_MODEL // h
+    budget = 2 * B * h * (d + 2) * 4
+    if shard:
+        budget += 2 * B * D_MODEL * 4 + (2 * D_MODEL + 2 * d) * 4
+        if regime == "pages":
+            budget += B * (h + 2 * kvh) * d * 4
+    return budget
 
 
 @pytest.mark.parametrize("name", ["ident-heads-rexp", "ident-heads-gqa-rexp",
@@ -595,24 +649,25 @@ def _allowed(regime, h, shard, c=1):
 def test_tp_decode_moves_only_partials(runs, name):
     """Every decode step on every rank moves only (B, H, 1) max and Σ and
     (B, H, 1, D) outputs ('pages'), or the (B, H, 1, D) output gather
-    ('heads'), plus (B, d_model) activations and the gathered logits
-    under shard_params; per layer within 2·B·H·(D+2)·4 bytes (plus the
-    activations); no KV-sized tensor; 'pages' always all-reduces."""
+    ('heads'), plus, under shard_params, (B, d_model) activations, the
+    gathered norm scales, in 'pages' the gathered q, k, v activations,
+    and the gathered logits; per layer within :func:`_decode_budget`;
+    no KV-sized tensor; 'pages' always all-reduces."""
     port, _, _, _ = runs
     res = port[name]
     case = CASES[name]
-    h, shard = case["heads"], case.get("shard_params", False)
-    d = D_MODEL // h
+    h, kvh = case["heads"], case["kvh"]
+    shard = case.get("shard_params", False)
     for rank, trace in enumerate(res["traces"]):
         decodes = [recs for op, recs in trace if op == "decode"]
         assert decodes, "no decode step"
         for recs in decodes:
             seen = {(site, kind, shape) for site, kind, shape, _, _ in recs}
-            assert seen <= _allowed(res["regime"], h, shard), (rank, seen)
+            assert seen <= _allowed(res["regime"], h, shard, kvh=kvh), (
+                rank, seen)
             per_layer = sum(n for site, _, _, _, n in recs
                             if site not in ("embed", "head")) / N_LAYERS
-            budget = 2 * B * h * (d + 2) * 4 + (2 * B * D_MODEL * 4
-                                                if shard else 0)
+            budget = _decode_budget(res["regime"], h, kvh, shard)
             assert per_layer <= budget, (rank, per_layer, budget)
             if res["regime"] == "pages":
                 assert any(k.startswith("all_reduce") for _, k, _, _, _
@@ -621,7 +676,8 @@ def test_tp_decode_moves_only_partials(runs, name):
             if op == "chunk":
                 c = case["chunk"]
                 seen = {(s, k, sh) for s, k, sh, _, _ in recs}
-                assert seen <= _allowed(res["regime"], h, shard, c), seen
+                assert seen <= _allowed(res["regime"], h, shard, c,
+                                        kvh), seen
 
 
 # ---------------------------------------------------------------------------

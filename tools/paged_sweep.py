@@ -49,31 +49,31 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 ATTN = "paged_attn.cuh"
-PREFILL_ROWS = "paged::run<paged::PagedKeys, 1, 2>"
+#: the launch plans' header (the plans and the row instances)
+PLAN = "launch_plan.h"
+PREFILL_ROWS = "constexpr Rows<1, 2> kPrefillRows{};"
 #: variant → (kernels it changes, [(file, committed text, variant text)])
 VARIANTS = {
     "split for 2 CTAs an SM, prefill too": (
         ("paged_decode", "paged_prefill"),
-        [(ATTN, "const int per_sm = RPT == 1 ? 2 : 1;",
+        [(PLAN, "const int per_sm = rpt == 1 ? 2 : 1;",
           "const int per_sm = 2;")]),
     "split for 1 CTA an SM": (
         ("paged_decode", "paged_prefill"),
-        [(ATTN, "const int per_sm = RPT == 1 ? 2 : 1;",
+        [(PLAN, "const int per_sm = rpt == 1 ? 2 : 1;",
           "const int per_sm = 1;")]),
     "split at most 2": (("paged_decode", "paged_prefill"), [
-        (ATTN, "while (s.n_split < kMaxSplit &&", "while (s.n_split < 2 &&")]),
+        (PLAN, "while (s.n_split < kMaxSplit &&", "while (s.n_split < 2 &&")]),
     "no split": (("paged_decode", "paged_prefill"), [
-        (ATTN, "while (s.n_split < kMaxSplit &&", "while (s.n_split < 1 &&")]),
+        (PLAN, "while (s.n_split < kMaxSplit &&", "while (s.n_split < 1 &&")]),
     "prefill blocks of 32 rows": ("paged_prefill", [
-        ("paged_prefill.cu", PREFILL_ROWS,
-         "paged::run<paged::PagedKeys, 1, 2, 4>")]),
+        (PLAN, PREFILL_ROWS, "constexpr Rows<1, 2, 4> kPrefillRows{};")]),
     "prefill blocks of 8 rows": ("paged_prefill", [
-        ("paged_prefill.cu", PREFILL_ROWS,
-         "paged::run<paged::PagedKeys, 1>")]),
+        (PLAN, PREFILL_ROWS, "constexpr Rows<1> kPrefillRows{};")]),
     "2-stage ring": (("paged_decode", "paged_prefill"), [
-        (ATTN, "kStages = 4;", "kStages = 2;")]),
+        (PLAN, "kStages = 4;", "kStages = 2;")]),
     "3-stage ring": (("paged_decode", "paged_prefill"), [
-        (ATTN, "kStages = 4;", "kStages = 3;")]),
+        (PLAN, "kStages = 4;", "kStages = 3;")]),
     "start-up barrier arrived at the kernel's start": (
         ("paged_decode", "paged_prefill"), [
             (ATTN, "  cluster_arrive_relaxed();\n  __syncthreads();",

@@ -74,8 +74,10 @@ DENSE_BOUNDS = ("__launch_bounds__(tiles::kThreads)\n"
 
 RING = "constexpr int kStages = 2;"
 ATTN = "paged_attn.cuh"
+#: the launch plans' header (the constants and plans the launchers read)
+PLAN = "launch_plan.h"
 MAX_SPLIT = "constexpr int kDenseMaxSplit = 4;"
-SHARE = "(ctas * s.n_split + n_sms - 1) / n_sms;"
+SHARE = "const long long per_sm = (ctas + n_sms - 1) / n_sms;"
 HALVES = "Keys::kDense && NV == 1 && p.Dh <= 64 ? 2 : 1;"
 RANKS = "4 * s.n_split <= tiles &&"
 TARGET = "constexpr size_t kDenseTarget = 64 * 1024;"
@@ -97,16 +99,16 @@ VARIANTS = {
         ("flash_attention.cu", FLASH_BOUNDS,
          FLASH_BOUNDS.replace("DH <= 64 ? 3 : 1", "1"))]),
     "flash: 3-stage ring": ("flash_attention", [
-        ("attn_tiles.cuh", RING, RING.replace("2", "3"))]),
+        (PLAN, RING, RING.replace("2", "3"))]),
     "flash: 4-stage ring": ("flash_attention", [
-        ("attn_tiles.cuh", RING, RING.replace("2", "4"))]),
+        (PLAN, RING, RING.replace("2", "4"))]),
     "dense: 3 blocks an SM": ("lut_attention", [
         ("lut_attention.cu", DENSE_BOUNDS,
          DENSE_BOUNDS.replace("kThreads)", "kThreads, 3)"))]),
     "dense: 3-stage ring": ("lut_attention", [
-        ("attn_tiles.cuh", RING, RING.replace("2", "3"))]),
+        (PLAN, RING, RING.replace("2", "3"))]),
     "dense: 4-stage ring": ("lut_attention", [
-        ("attn_tiles.cuh", RING, RING.replace("2", "4"))]),
+        (PLAN, RING, RING.replace("2", "4"))]),
     # what-ifs that take work out to see what it costs: their results are
     # wrong by design, so read only their times
     "what-if, flash: 1 piece of p": ("flash_attention", [
@@ -117,17 +119,17 @@ VARIANTS = {
          "__fsub_rn(s, m_safe[i >> 1])")]),
     # the dense kernel's split route (paged_attn.cuh's plan_dense)
     "split: clusters of at most 8": ("lut_attention", [
-        (ATTN, MAX_SPLIT, MAX_SPLIT.replace("4", "8"))]),
+        (PLAN, MAX_SPLIT, MAX_SPLIT.replace("4", "8"))]),
     "split: clusters of at most 2": ("lut_attention", [
-        (ATTN, MAX_SPLIT, MAX_SPLIT.replace("4", "2"))]),
+        (PLAN, MAX_SPLIT, MAX_SPLIT.replace("4", "2"))]),
     "split: a spare CTA slot an SM": ("lut_attention", [
-        (ATTN, SHARE, SHARE.replace("n_sms;", "n_sms + 1;"))]),
+        (PLAN, SHARE, SHARE.replace("n_sms;", "n_sms + 1;"))]),
     "split: σ·V on 16 lanes at Dh 64": ("lut_attention", [
         (ATTN, HALVES, HALVES.replace("p.Dh <= 64", "p.Dh < 0"))]),
     "split: ranks of one tile or more": ("lut_attention", [
-        (ATTN, RANKS, RANKS.replace("4 *", "2 *"))]),
+        (PLAN, RANKS, RANKS.replace("4 *", "2 *"))]),
     "split: CTAs of up to 112 KB": ("lut_attention", [
-        (ATTN, TARGET, TARGET.replace("64", "112"))]),
+        (PLAN, TARGET, TARGET.replace("64", "112"))]),
     # the committed build, timed without the L2 flush
     "what-if, split: L2 warm": ("lut_attention", []),
     "what-if, split: no keys (the fixed cost)": ("lut_attention", [
@@ -152,10 +154,10 @@ VARIANTS = {
     "rows: 128 threads a CTA": ("lut_softmax", [],
                                 {"WARP_THREADS": 128, "WARP_BLOCKS": 4}),
     "rows: no prefetch": ("lut_softmax", [
-        (ROWS, PREFETCH, PREFETCH.replace("2", "0"))],
+        (PLAN, PREFETCH, PREFETCH.replace("2", "0"))],
         {"PREFETCH_MAX_ESIZE": 0}),
     "rows: f32 rows prefetched too": ("lut_softmax", [
-        (ROWS, PREFETCH, PREFETCH.replace("2", "4"))],
+        (PLAN, PREFETCH, PREFETCH.replace("2", "4"))],
         {"PREFETCH_MAX_ESIZE": 4}),
     "rows: long rows re-read, not staged": ("lut_softmax", [
         (ROWS, "  const int tid = threadIdx.x, nt = blockDim.x;\n  const "
