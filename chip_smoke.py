@@ -87,8 +87,9 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    ``AsyncServingServer`` over a depth-2 engine (``max_queue=4``,
    ``backpressure="wait"``), consumed with ``async for``: every stream
    must equal its batch result (lines ``[pipelined]`` and ``[server]``);
-5c. tensor-parallel paged serving — the same model and requests (16 new
-   tokens) through ``launch/mesh.start_ranks``: tp = 2 (the 'heads'
+5c. tensor-parallel paged serving — the same widths at 2 layers
+   (``TP_LAYERS``) and the same requests (16 new tokens) through
+   ``launch/mesh.start_ranks``: tp = 2 (the 'heads'
    regime: each rank holds 4 of the 8 KV heads and launches the paged
    CUDA kernels on them) and tp = 3 (the 'pages' regime: 8 % 3 ≠ 0, 128
    pages padded to 129, each rank a slab of 43 plus a sink page, its
@@ -109,15 +110,16 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    bytes a layer within :func:`decode_wire_budget` (2·B·H·(D+2)·4; under
    ``shard_params`` plus 2·B·d_model·4, the norm scales the reference's
    serving spec stores cut, and in 'pages' the gathered q, k, v); under
-   ``shard_params`` every rank's parameter bytes equal to the JAX
-   package's ``param_pspec(fsdp=False)`` shard shapes' and a decode
+   ``shard_params`` every rank's parameter bytes equal to the port's
+   ``param_pspec(fsdp=False)`` shard shapes' (the rule the tests hold
+   to the JAX package's) and a decode
    step's ``tp_gather`` bytes printed; its tok/s are shared-device gloo
    figures, not a tensor-parallel speed (lines ``[tp]``);
 5d. the MoE decoders (lines ``[moe]``) — DeepSeek-MoE-16B (d_model
    2048, 16 / 16 heads of 128, 64 routed experts of 1408 plus 2 shared,
    top-6, vocab 102 400; 16.9B parameters in 28 layers) and
    Granite-MoE-3B (d_model 1536, 24 / 8 heads of 64, 40 experts of 512,
-   top-8, tied embeddings; 32 layers) at full width, depth cut to 4
+   top-8, tied embeddings; 32 layers) at full width, depth cut to 2
    layers (``MOE_LAYERS``), seeded random bf16 weights drawn and cast
    block by block, router f32 and exact, through the paged engines on
    the smoke's 8 requests
@@ -273,10 +275,17 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    expert choices (:func:`pinned_routes`; the flips printed): exact
    first-token logits within 2 % of that drive's, every rank's paged
    launches equal to it, its expert bytes half of the whole, its
-   parameter bytes the reference's serving spec's, a decode step's
+   parameter bytes the port's serving spec's, a decode step's
    bytes a layer within phase 5c's ``shard_params`` bound (the ``moe``
    all-reduce in ``w_down``'s place; the norm scales' ``tp_gather``
-   printed); tok/s a shared-card gloo
+   printed); then Granite-MoE-3B exact at tp 3 with ``shard_params``
+   (``R_SERVE_PAGES``): its 8 KV heads do not divide 3, so the
+   'pages' regime, while ``wq``'s 1536 columns and ``wo``'s 1536 rows
+   do — q computed on the rank's columns and gathered (site ``qkv``),
+   ``wo`` row-parallel with f32 partials — held as the tp 2 drives are
+   (no paged launches on a rank: the 'pages' regime's partials are
+   plain torch, and the tp = 1 drive's launches printed beside them);
+   tok/s a shared-card gloo
    figure; (b) Granite-MoE-3B at full width, 2 layers, f32, trained 3
    steps at lr 1e-4 on a global batch of 4 × 256 on a (data 2, model
    2) mesh (FSDP over 'data', tensor and expert parallelism over
@@ -1540,6 +1549,10 @@ def phase_pipelined(model, params, requests, card, sync_busy):
 # ---------------------------------------------------------------------------
 
 TP_NEW_TOKENS = 16
+#: phase 5c's depth: Qwen3-32B widths at 2 layers, not the engine
+#: phases' 4 — the rank phases take longest on a loaded host (5c took
+#: 138–196 s at 4 layers, this script on an H100 80GB HBM3, 700 W)
+TP_LAYERS = 2
 #: per tp, the drives: (label, policy, kv_dtype, pipeline depth or None
 #: for the sync engine, shard_params).  tp 2 splits Qwen3-32B's 8 KV
 #: heads ('heads'); tp 3 does not divide them ('pages', 128 pages padded
@@ -1588,8 +1601,10 @@ def decode_wire_budget(cfg, regime, shard, b=N_SLOTS) -> int:
 
 def serving_spec_bytes(cfg, mesh, params) -> tuple[int, int]:
     """(bytes a rank holds of ``params``, the bytes of the same leaves at
-    the shapes the JAX package's serving spec ``param_pspec(fsdp=False)``
-    gives a rank of ``mesh``, in the leaves' own types)."""
+    the shapes the port's ``param_pspec(fsdp=False)`` gives a rank of
+    ``mesh``, in the leaves' own types).  The port's rule is held to the
+    JAX package's in ``tests/test_torch_tp.py``; here it shows that the
+    engine stored its weights at that rule's cut."""
     from repro_torch.runtime import partitioning as PT
     shapes = PT.full_shapes(cfg)
     have = want = 0
@@ -1738,17 +1753,18 @@ def tp_rank(mesh, arch, drives, requests):
 
 
 def check_spec_bytes(label, ranks) -> str:
-    """Hold every rank's parameter bytes to the reference's serving-spec
-    shard shapes' (``serving_spec_bytes``); the printed clause, with the
-    norm scales' ``tp_gather`` bytes of a decode step."""
+    """Hold every rank's parameter bytes to the serving-spec shard
+    shapes' (``serving_spec_bytes``); the printed clause, with the norm
+    scales' ``tp_gather`` bytes of a decode step."""
     for rank, mine in enumerate(ranks):
         have, want = mine["spec_bytes"]
         if have != want:
             raise AssertionError(f"{label}: rank {rank} holds {have} B of "
-                                 f"parameters, the reference's serving "
-                                 f"spec {want} B")
+                                 f"parameters, the port's serving spec "
+                                 f"{want} B")
     return (f"parameters a rank {[m['spec_bytes'][0] for m in ranks]} B "
-            f"(the reference's param_pspec(fsdp=False) shapes); tp_gather "
+            f"(the port's param_pspec(fsdp=False) shapes, held to the JAX "
+            f"package's in tests/test_torch_tp.py); tp_gather "
             f"{max(m['tp_gather'] for m in ranks)} B a decode step; ")
 
 
@@ -1842,12 +1858,18 @@ def phase_tp(model, params, requests, card):
     KV heads) and tp 3 ('pages': each rank holds a slab of the pages and
     reduces plain-torch partials) — as separate processes sharing this
     card over gloo, against the tp = 1 sync engine of this call on the
-    same requests (16 new tokens).  The card is one device, so the
-    figures are a check of the path, not of tensor-parallel speed.
-    Frees ``params`` (the ranks build their own) after the reference
-    drives."""
+    same requests (16 new tokens), all at ``TP_LAYERS`` layers.  The
+    card is one device, so the figures are a check of the path, not of
+    tensor-parallel speed.  Frees ``params`` (the engine phases'
+    weights; the ranks build their own)."""
     from repro_torch.launch.mesh import start_ranks
     reqs = [(p, TP_NEW_TOKENS) for p, _ in requests]
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(model.cfg.with_layers(TP_LAYERS))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = cast_params(model.init(gen, "cuda"), torch.bfloat16)
     refs = {key: tp_reference(model, params, reqs, *key)
             for key in sorted({(d[1], d[2]) for drives in TP_DRIVES.values()
                                for d in drives})}
@@ -1858,7 +1880,7 @@ def phase_tp(model, params, requests, card):
     print("[tp] set_sync_debug_mode('error') guards the tp = 1 pipelined "
           "drives only: gloo stages each collective of a CUDA tensor "
           "through the host, a synchronising copy by design")
-    params.clear()
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     rows = []
@@ -1882,9 +1904,10 @@ def phase_tp(model, params, requests, card):
 #: depth of the MoE drives, at full width: the port's Python launches
 #: take ~3.5 ms a layer and step, so a full-depth DeepSeek drive (28
 #: layers) took 22 s, and at 8 layers the phase still took 145 s (this
-#: script on an H100 80GB HBM3, 700 W); 6 layers kept it near 110 s, and
-#: 4 make room for phase 12 within the run's time limit
-MOE_LAYERS = 4
+#: script on an H100 80GB HBM3, 700 W); 6 layers kept it near 110 s, 4
+#: made room for phase 12 (86–107 s), and 2 make room for phase 11a's
+#: 'pages' drive (40–52 s) within the run's time limit
+MOE_LAYERS = 2
 
 
 def setup_moe(name):
@@ -3837,6 +3860,11 @@ def phase_train(card):
 R_SERVE_LAYERS = 2
 R_NEW_TOKENS = 16
 R_POLICIES = (MAIN_POLICY, "exact")
+#: the 'pages' drives of phase 11a, model → (tp, policies): Granite-MoE-3B
+#: at tp 3, where its 8 KV heads do not divide 3 and wq's columns and
+#: wo's rows (1536) do, so shard_params cuts them (the paged layers'
+#: row-parallel wo); its experts (40 of 512) stay whole
+R_SERVE_PAGES = {"granite-moe-3b-a800m": (3, ("exact",))}
 #: the sharded train step: Granite-MoE-3B at full width, 2 layers, f32,
 #: a (data 2, model 2) mesh, global batch 4 × 256, lr 1e-4, 3 steps, then
 #: a save, a restore on one rank and 2 more steps
@@ -3895,12 +3923,13 @@ def ep_reference(model, params, requests, policy, device, routes):
                 wall=time.perf_counter() - t0, n_tokens=eng.stats.tokens)
 
 
-def ep_rank(mesh, arch, requests, routes):
+def ep_rank(mesh, arch, requests, routes, policies=R_POLICIES):
     """One rank of phase 11a: the seeded bf16 weights (drawn one rank at
-    a time), cut by ``shard_params`` (this rank's half of the experts,
-    its columns of the shared MLP and its heads), then a sync drive a
-    policy replaying the tp = 1 drive's expert choices; rank 0 serves,
-    the other follows.  Returns (rank 0) per policy its tokens,
+    a time), cut by ``shard_params`` (at tp 2 this rank's half of the
+    experts, its columns of the shared MLP and its heads), then a sync
+    drive a policy of ``policies`` replaying the tp = 1 drive's expert
+    choices; rank 0 serves, the others follow.  Returns (rank 0) per
+    policy its tokens,
     first-token logits, and every rank's paged launches, decode bytes a
     layer, collective sites, expert bytes, flipped routings and wall
     seconds."""
@@ -3916,7 +3945,7 @@ def ep_rank(mesh, arch, requests, routes):
                 torch.cuda.empty_cache()
         torch.distributed.barrier(group=mesh.group)
     out = {}
-    for policy in R_POLICIES:
+    for policy in policies:
         run = RunConfig(dtype="bfloat16", softmax_policy=POLICIES[policy],
                         paged_backend="auto")
         cfg = dataclasses.replace(engine_config(), mesh=mesh,
@@ -3983,6 +4012,58 @@ def ep_rank(mesh, arch, requests, routes):
     return out if mesh.rank == 0 else None
 
 
+def check_ep_drive(name, tp, policy, ref, g, whole_experts, arch, card):
+    """Phase 11a's checks of one drive at ``tp`` against the tp = 1 sync
+    drive; returns the row of its key numbers."""
+    regime = "heads" if tp == 2 else "pages"
+    label = f"{name} tp {tp} {policy} shard_params ({g['regime']!r})"
+    if g["regime"] != regime:
+        raise AssertionError(f"{label}: not the {regime!r} regime")
+    worst = max(float(np.abs(row - ref["firsts"][rid]).max()
+                      / np.abs(ref["firsts"][rid]).max())
+                for rid, row in g["firsts"].items())
+    if policy == "exact" and not worst <= 0.02:
+        raise AssertionError(f"{label}: first-token logits differ by "
+                             f"{worst:.3g} > 0.02 of the largest")
+    want = {k: ref["launches"][k] for k in ("paged_decode",
+                                            "paged_prefill")}
+    expect = (ref["launches"] if regime == "heads"
+              else dict.fromkeys(ref["launches"], 0))
+    for rank, mine in enumerate(g["ranks"]):
+        if mine["launches"] != expect:
+            raise AssertionError(f"{label}: rank {rank} launched "
+                                 f"{mine['launches']}, want {expect}")
+        if tp == 2 and mine["experts"] * 2 != whole_experts:
+            raise AssertionError(f"{label}: rank {rank} holds "
+                                 f"{mine['experts']} B of experts, "
+                                 f"not half of {whole_experts}")
+    budget = decode_wire_budget(arch, regime, True)
+    wire = max(m["decode_bytes"] for m in g["ranks"])
+    if not wire <= budget:
+        raise AssertionError(f"{label}: a decode step moved "
+                             f"{wire:.0f} B a layer > {budget} B")
+    spec = check_spec_bytes(label, g["ranks"])
+    share, first = tp_agreement(ref, g)
+    parting = ("no parting" if first is None else
+               f"first parting: request {first[0]} decision "
+               f"{first[1]}, tp = 1 top-2 margin {first[2]:.4g}")
+    flips = [m["flips"] for m in g["ranks"]]
+    wall = max(m["wall"] for m in g["ranks"])
+    print(f"[ranks] {label}: first-token logits max|Δ|/max|logit| "
+          f"{worst:.4g} ({'held within 0.02' if policy == 'exact' else 'printed'}); "
+          f"greedy tokens equal to tp = 1 {share:.1%} ({parting}); "
+          f"flipped routings replayed (rank: flipped of token "
+          f"routings) {flips}; paged launches a rank "
+          f"{[{k: m['launches'][k] for k in want} for m in g['ranks']]}"
+          f" (tp = 1: {want}); experts a rank "
+          f"{[m['experts'] for m in g['ranks']]} B of "
+          f"{whole_experts}; decode wire {wire:.0f} B a layer "
+          f"(budget {budget}); {spec}{g['n_tokens'] / wall:.1f} tok/s — a "
+          f"shared-card gloo figure, not a speed — {card}")
+    return dict(logits=worst, wire=wire, budget=budget, agree=share,
+                flips=flips)
+
+
 def phase_ranks_serving(card, device="cuda", archs=None,
                         layers=R_SERVE_LAYERS):
     """Phase 11a: DeepSeek-MoE-16B and Granite-MoE-3B at full width,
@@ -3990,7 +4071,9 @@ def phase_ranks_serving(card, device="cuda", archs=None,
     each rank holds half the experts (32 of 64, 20 of 40), DeepSeek's
     shared MLP and both models' attention cut, on bf16 pools, the
     smoke's 8 requests with 16 new tokens, REXP and exact, each rank
-    replaying the tp = 1 drive's expert choices."""
+    replaying the tp = 1 drive's expert choices; then the
+    :data:`R_SERVE_PAGES` drives ('pages', Granite at tp 3) against the
+    same tp = 1 drives."""
     from repro_torch.launch.mesh import start_ranks
     out = {}
     for name, arch in (archs or {n: ARCHS[n] for n in MOE_SHAPES}).items():
@@ -4009,58 +4092,25 @@ def phase_ranks_serving(card, device="cuda", archs=None,
         gc.collect()
         if device == "cuda":
             torch.cuda.empty_cache()
-        got = start_ranks(ep_rank, 2, backend="gloo", device=device,
-                          args=(arch, reqs, routes), threads=0).join()
-        for policy in R_POLICIES:
-            ref, g = refs[policy], got[policy]
-            label = f"{name} tp 2 {policy} shard_params ({g['regime']!r})"
-            if g["regime"] != "heads":
-                raise AssertionError(f"{label}: not the 'heads' regime")
-            worst = max(float(np.abs(row - ref["firsts"][rid]).max()
-                              / np.abs(ref["firsts"][rid]).max())
-                        for rid, row in g["firsts"].items())
-            if policy == "exact" and not worst <= 0.02:
-                raise AssertionError(f"{label}: first-token logits differ by "
-                                     f"{worst:.3g} > 0.02 of the largest")
-            want = {k: ref["launches"][k] for k in ("paged_decode",
-                                                    "paged_prefill")}
-            for rank, mine in enumerate(g["ranks"]):
-                if mine["launches"] != ref["launches"]:
-                    raise AssertionError(f"{label}: rank {rank} launched "
-                                         f"{mine['launches']}, tp = 1 "
-                                         f"{ref['launches']}")
-                if mine["experts"] * 2 != whole_experts:
-                    raise AssertionError(f"{label}: rank {rank} holds "
-                                         f"{mine['experts']} B of experts, "
-                                         f"not half of {whole_experts}")
-            budget = decode_wire_budget(arch, g["regime"], True)
-            wire = max(m["decode_bytes"] for m in g["ranks"])
-            if not wire <= budget:
-                raise AssertionError(f"{label}: a decode step moved "
-                                     f"{wire:.0f} B a layer > {budget} B")
-            spec = check_spec_bytes(label, g["ranks"])
-            share, first = tp_agreement(ref, g)
-            parting = ("no parting" if first is None else
-                       f"first parting: request {first[0]} decision "
-                       f"{first[1]}, tp = 1 top-2 margin {first[2]:.4g}")
-            flips = [m["flips"] for m in g["ranks"]]
-            wall = max(m["wall"] for m in g["ranks"])
-            print(f"[ranks] {label}: first-token logits max|Δ|/max|logit| "
-                  f"{worst:.4g} ({'held within 0.02' if policy == 'exact' else 'printed'}); "
-                  f"greedy tokens equal to tp = 1 {share:.1%} ({parting}); "
-                  f"flipped routings replayed (rank: flipped of token "
-                  f"routings) {flips}; paged launches a rank "
-                  f"{[{k: m['launches'][k] for k in want} for m in g['ranks']]}"
-                  f" (tp = 1: {want}); experts a rank "
-                  f"{[m['experts'] for m in g['ranks']]} B of "
-                  f"{whole_experts}; decode wire {wire:.0f} B a layer "
-                  f"(budget {budget}); {spec}{g['n_tokens'] / wall:.1f} tok/s — a "
-                  f"shared-card gloo figure, not a speed — {card}")
-            out[name, policy] = dict(logits=worst, wire=wire, budget=budget,
-                                     agree=share, flips=flips)
-        for site in sorted({s for m in got[R_POLICIES[-1]]["ranks"]
-                            for s in m["sites"]}):
-            print(f"[ranks]   {name} decode collective on the wire: {site}")
+        drives = [(2, R_POLICIES)] + ([R_SERVE_PAGES[name]]
+                                      if name in R_SERVE_PAGES else [])
+        for tp, policies in drives:
+            t_tp = time.perf_counter()
+            got = start_ranks(ep_rank, tp, backend="gloo", device=device,
+                              args=(arch, reqs, routes, policies),
+                              threads=0).join()
+            print(f"[ranks] {name} tp {tp}: {tp} ranks on one card over "
+                  f"gloo, {len(policies)} drives in "
+                  f"{time.perf_counter() - t_tp:.1f}s (start-up and "
+                  f"weights included)")
+            for policy in policies:
+                out[name, tp, policy] = check_ep_drive(
+                    name, tp, policy, refs[policy], got[policy],
+                    whole_experts, arch, card)
+            for site in sorted({s for m in got[policies[-1]]["ranks"]
+                                for s in m["sites"]}):
+                print(f"[ranks]   {name} tp {tp} decode collective on the "
+                      f"wire: {site}")
         print(f"[ranks] {name}: phase 11a {time.perf_counter() - t0:.1f}s "
               f"(inits, tp = 1 drives, rank start-up included) — {card}")
     return out

@@ -16,8 +16,13 @@ Modes:
                        whenever the kernel guard ran.
 * ``--diff PATH``      ratchet against a committed contracts report.
 * ``--diff-kernels PATH``  ratchet against a committed kernels report.
-* ``--device cpu|cuda``  where the single-device contracts run (the card
-                       launches the kernels; default cpu).
+* ``--device cuda|cpu``  where the single-device contracts run: the card
+                       (default; the paged kernels launch), or, asked
+                       for, the CPU (their plain versions).  Without a
+                       card ``--check-all``, ``--single-only`` and
+                       ``--tp-only`` refuse unless ``--device cpu`` is
+                       given.  The TP half runs on 4 gloo ranks on the
+                       CPU either way (``contracts.tp_contracts``).
 
 Exit codes: 0 all contracts hold (and the ratchets pass), 1 contract
 violations, 2 ratchet regression or harness failure.
@@ -82,8 +87,9 @@ def main(argv=None) -> int:
     ap.add_argument("--diff-kernels", metavar="PATH",
                     help="ratchet the fresh kernel-guard report against a "
                          "committed ANALYSIS_kernels_torch.json")
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"),
-                    help="device of the single-device contracts")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="device of the single-device contracts: cuda "
+                         "(default; refuses without a card) or cpu")
     args = ap.parse_args(argv)
     if not (args.check_all or args.check_kernels):
         ap.error("nothing to do: pass --check-all and/or --check-kernels")
@@ -91,6 +97,13 @@ def main(argv=None) -> int:
         ap.error("--single-only and --tp-only are mutually exclusive")
     if args.check_kernels and not args.check_all and args.tp_only:
         ap.error("--check-kernels has no TP half; drop --tp-only")
+
+    if args.check_all:
+        from repro_torch.models.device import resolve_device
+        try:
+            resolve_device(args.device)
+        except RuntimeError as err:
+            ap.error(f"{err} (--device cpu)")
 
     from repro_torch.analysis import contracts, kernel_guard
     try:

@@ -291,12 +291,15 @@ def check_run(spec: ContractSpec, run: StepRun, n_layers: int = PERIODS,
 
 
 def build_engine(*, pipelined: bool, impl: str, mesh=None, kvh=None,
-                 kv_dtype: str = "f32", device="cpu"):
+                 kv_dtype: str = "f32", device="cuda"):
     """(arch, engine): the test suite's small Qwen3 scale-down (d_model
-    64, 4 heads, vocab 128, 2 periods) on a 30 × 8 × 8 cache, 3 slots."""
+    64, 4 heads, vocab 128, 2 periods) on a 30 × 8 × 8 cache, 3 slots,
+    on ``mesh``'s device or ``device`` (the card unless the caller asks
+    for the CPU)."""
     from repro_torch.configs import ARCHS, RunConfig
     from repro_torch.core.policies import SoftmaxPolicy
     from repro_torch.models import build_model
+    from repro_torch.models.device import resolve_device
     from repro_torch.runtime.engine import (EngineConfig, PipelinedEngine,
                                             ServingEngine)
     from repro_torch.runtime.paged_cache import PagedCacheConfig
@@ -304,7 +307,7 @@ def build_engine(*, pipelined: bool, impl: str, mesh=None, kvh=None,
         d_model=D_MODEL, n_heads=HEADS, vocab=VOCAB, n_periods=PERIODS,
         **({} if kvh is None else {"n_kv_heads": kvh}))
     model = build_model(arch)
-    dev = mesh.device if mesh is not None else torch.device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = model.init(gen, dev)
     pol = (SoftmaxPolicy(impl=impl, precision="uint8")
@@ -457,9 +460,10 @@ def single_device_specs(donated: dict) -> list[ContractSpec]:
     return out
 
 
-def single_device_contracts(device="cpu") -> list[ContractResult]:
-    """The contracts of one device, on ``device`` (the CPU runs the paged
-    kernels' plain versions; the card launches the kernels)."""
+def single_device_contracts(device="cuda") -> list[ContractResult]:
+    """The contracts of one device, on ``device``: the card, where the
+    paged kernels launch, unless the caller asks for the CPU (their
+    plain versions)."""
     engines = {
         "sync": build_engine(pipelined=False, impl="rexp",
                              device=device)[1],
@@ -543,7 +547,10 @@ def tp_rank(mesh) -> list[dict] | None:
 
 def tp_contracts(store_dir: str | None = None) -> list[dict]:
     """The TP half on 4 spawned gloo ranks on the CPU (as the reference
-    self-spawns its 4-device subprocess); rank 0's results as dicts."""
+    self-spawns its 4-device CPU subprocess); rank 0's results as dicts.
+    It stays on the CPU beside a card: gloo stages every collective of a
+    CUDA tensor through the host, a synchronising copy by design, so the
+    no-host-sync contract could not hold there."""
     from repro_torch.launch.mesh import start_ranks
     return start_ranks(tp_rank, 4, backend="gloo", device="cpu",
                        store_dir=store_dir).join()

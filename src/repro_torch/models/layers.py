@@ -60,8 +60,9 @@ same values.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any
+from typing import Any, Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -311,17 +312,35 @@ def _scatter(cache, phys: Tensor, offs: Tensor, k: Tensor, v: Tensor,
         cache.v_scales[phys, offs] = scales[1]
 
 
+class _PagedStep(NamedTuple):
+    """What :func:`_local_qkv` decides of a paged step: q, k, v; the mesh
+    the attention runs over (None: one device); the mesh whose ranks
+    each store a slab of the pool's pages (the ``'pages'`` regime);
+    whether the attention returns every head (else this rank's); and
+    the output projection, ``project(p, x, out, b, l)``."""
+
+    q: Tensor
+    k: Tensor
+    v: Tensor
+    mesh: object
+    slab_mesh: object
+    gather: bool
+    project: Callable
+
+
 def _local_qkv(p: Params, x: Tensor, positions: Tensor, *, n_heads: int,
                n_kv_heads: int, head_dim: int, qk_norm: bool,
-               norm_eps: float, rope_theta: float | None, path: str):
+               norm_eps: float, rope_theta: float | None,
+               path: str) -> _PagedStep:
     """q, k, v of a paged step and how the rank's attention output is
-    laid out: ``(q, k, v, mesh, regime, out_mesh)``.  k and v hold the KV
-    heads this rank's pool stores.  Under weights cut by the active
-    scope (``Scope.model_mesh`` of the leaves at ``path``): in the
-    ``'heads'`` regime q holds this rank's heads only; in the ``'pages'``
-    regime each cut projection runs on the rank's columns and its output
-    is gathered, so q, k and v hold every head.  ``out_mesh``: the mesh
-    over which ``wo`` is cut by rows (None: whole)."""
+    laid out and projected.  k and v hold the KV heads this rank's pool
+    stores.  Under weights cut by the active scope (``Scope.model_mesh``
+    of the leaves at ``path``): in the ``'heads'`` regime q holds this
+    rank's heads only, the attention returns them and ``wo``'s rows
+    take them; in the ``'pages'`` regime each cut projection runs on the
+    rank's columns and its output is gathered, so q, k and v hold every
+    head, the attention returns every head on every rank, and ``wo``,
+    where cut, runs on its rows (:func:`_row_out_projection`)."""
     scope = PT.active_scope()
     mesh = scope.mesh
     regime = paged_mesh_regime(mesh, n_kv_heads)
@@ -339,7 +358,12 @@ def _local_qkv(p: Params, x: Tensor, positions: Tensor, *, n_heads: int,
     if regime == "heads" and not split:
         n = n_kv_heads // tp
         k, v = (t[:, mesh.rank * n:(mesh.rank + 1) * n] for t in (k, v))
-    return q, k, v, mesh, regime, out_mesh
+    if regime == "pages" and out_mesh is not None:
+        project = functools.partial(_row_out_projection, mesh=out_mesh)
+    else:
+        project = functools.partial(_out_projection, row_mesh=out_mesh)
+    return _PagedStep(q, k, v, mesh, mesh if regime == "pages" else None,
+                      not split, project)
 
 
 def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
@@ -347,7 +371,8 @@ def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
                          qk_norm: bool, norm_eps: float,
                          rope_theta: float | None, policy: SoftmaxPolicy,
                          paged_backend: str, path: str) -> Tensor:
-    """One prompt chunk against the paged pool — scatter, then attend.
+    """One prompt chunk against the paged pool — scatter, attend, then
+    project (B, C, D).
 
     The chunk's K/V go into the pool pages at positions
     ``[lengths, lengths + chunk_lens)`` through the block table (in
@@ -359,10 +384,9 @@ def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
     b, c, _ = x.shape
     positions = cache.lengths[:, None] + torch.arange(
         c, dtype=cache.lengths.dtype, device=x.device)
-    q, k, v, mesh, regime, out_mesh = _local_qkv(
-        p, x, positions, n_heads=n_heads, n_kv_heads=n_kv_heads,
-        head_dim=head_dim, qk_norm=qk_norm, norm_eps=norm_eps,
-        rope_theta=rope_theta, path=path)
+    st = _local_qkv(p, x, positions, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                    head_dim=head_dim, qk_norm=qk_norm, norm_eps=norm_eps,
+                    rope_theta=rope_theta, path=path)
     ps = cache.page_size
     mp = cache.block_tables.shape[1]
     pos = positions.long()
@@ -373,15 +397,15 @@ def _paged_prefill_chunk(p: Params, x: Tensor, cache: PagedPrefillCache, *,
     # padding rows (and anything past the block table) land on the null
     # page, which is garbage by definition — the write needs no branch
     phys = torch.where(valid, phys, torch.zeros_like(phys))
-    _scatter(cache, phys, pos % ps, k.transpose(1, 2), v.transpose(1, 2),
-             slab_mesh=mesh if regime == "pages" else None)
+    _scatter(cache, phys, pos % ps, st.k.transpose(1, 2),
+             st.v.transpose(1, 2), slab_mesh=st.slab_mesh)
     out = lut_attention_paged_prefill(
-        q, cache.k_pages, cache.v_pages, cache.block_tables,
+        st.q, cache.k_pages, cache.v_pages, cache.block_tables,
         q_start=cache.lengths, kv_lens=cache.lengths + cache.chunk_lens,
         policy=policy, backend=paged_backend, k_scales=cache.k_scales,
-        v_scales=cache.v_scales, max_kv_len=cache.max_kv_len, mesh=mesh,
-        n_kv_heads=n_kv_heads, gather=out_mesh is None or regime != "heads")
-    return out, out_mesh
+        v_scales=cache.v_scales, max_kv_len=cache.max_kv_len, mesh=st.mesh,
+        n_kv_heads=n_kv_heads, gather=st.gather)
+    return st.project(p, x, out, b, c)
 
 
 def _paged_decode(p: Params, x: Tensor, cache: PagedAttnCache, *,
@@ -389,7 +413,8 @@ def _paged_decode(p: Params, x: Tensor, cache: PagedAttnCache, *,
                   qk_norm: bool, norm_eps: float, rope_theta: float | None,
                   policy: SoftmaxPolicy, paged_backend: str,
                   path: str) -> Tensor:
-    """Single-token decode against the paged pool — no contiguous gather.
+    """Single-token decode against the paged pool — no contiguous gather;
+    returns (B, 1, D).
 
     Writes the token's K/V at ``lengths`` (per slot, in place), then
     attends straight off the pool through the per-slot block tables via
@@ -397,27 +422,25 @@ def _paged_decode(p: Params, x: Tensor, cache: PagedAttnCache, *,
     null page; their duplicate writes there are harmless.
     """
     positions = cache.lengths[:, None]                  # (B, 1)
-    q, k, v, mesh, regime, out_mesh = _local_qkv(
-        p, x, positions, n_heads=n_heads, n_kv_heads=n_kv_heads,
-        head_dim=head_dim, qk_norm=qk_norm, norm_eps=norm_eps,
-        rope_theta=rope_theta, path=path)
+    st = _local_qkv(p, x, positions, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                    head_dim=head_dim, qk_norm=qk_norm, norm_eps=norm_eps,
+                    rope_theta=rope_theta, path=path)
     ps = cache.page_size
     lengths = cache.lengths.long()
     phys = torch.gather(cache.block_tables.long(), 1,
                         (lengths // ps)[:, None])[:, 0]  # (B,)
-    _scatter(cache, phys, lengths % ps, k[:, :, 0], v[:, :, 0],
-             slab_mesh=mesh if regime == "pages" else None)
-    out = lut_attention_paged_decode(q, cache.k_pages, cache.v_pages,
+    _scatter(cache, phys, lengths % ps, st.k[:, :, 0], st.v[:, :, 0],
+             slab_mesh=st.slab_mesh)
+    out = lut_attention_paged_decode(st.q, cache.k_pages, cache.v_pages,
                                      cache.block_tables,
                                      kv_lens=cache.lengths + 1,
                                      policy=policy, backend=paged_backend,
                                      k_scales=cache.k_scales,
                                      v_scales=cache.v_scales,
-                                     max_kv_len=cache.max_kv_len, mesh=mesh,
-                                     n_kv_heads=n_kv_heads,
-                                     gather=(out_mesh is None
-                                             or regime != "heads"))
-    return out, out_mesh
+                                     max_kv_len=cache.max_kv_len,
+                                     mesh=st.mesh, n_kv_heads=n_kv_heads,
+                                     gather=st.gather)
+    return st.project(p, x, out, x.shape[0], 1)
 
 
 def apply_paged_attention(p: Params, x: Tensor,
@@ -434,23 +457,18 @@ def apply_paged_attention(p: Params, x: Tensor,
     in place.  ``path``: the attention's place in the parameter tree,
     by which the active scope says which of its weights are the rank's
     cut (:func:`_local_qkv`)."""
-    b, l, _ = x.shape
     kw = dict(n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
               qk_norm=qk_norm, norm_eps=norm_eps, rope_theta=rope_theta,
               policy=policy, paged_backend=paged_backend, path=path)
     if isinstance(cache, PagedPrefillCache):
-        out, out_mesh = _paged_prefill_chunk(p, x, cache, **kw)
-    elif isinstance(cache, PagedAttnCache):
-        if l != 1:
+        return _paged_prefill_chunk(p, x, cache, **kw)
+    if isinstance(cache, PagedAttnCache):
+        if x.shape[1] != 1:
             raise ValueError("paged KV cache decodes one token at a time; "
                              "prompts go through chunked paged prefill "
                              "(PagedPrefillCache)")
-        out, out_mesh = _paged_decode(p, x, cache, **kw)
-    else:
-        raise TypeError(f"unsupported cache {type(cache).__name__}")
-    if out_mesh is not None and out.shape[1] == n_heads:  # 'pages'
-        return _row_out_projection(p, x, out, b, l, out_mesh)
-    return _out_projection(p, x, out, b, l, out_mesh)
+        return _paged_decode(p, x, cache, **kw)
+    raise TypeError(f"unsupported cache {type(cache).__name__}")
 
 
 def apply_attention(p: Params, x: Tensor, *, n_heads: int, n_kv_heads: int,

@@ -277,7 +277,8 @@ class ServingEngine:
         # param_pspec(fsdp=False)) and what each layer computes on
         self.layout = None
         if config.shard_params:
-            self.layout = PT.Layout(model.cfg, mesh, fsdp=False)
+            self.layout = PT.Layout(model.cfg, mesh, fsdp=False,
+                                    paged_layers=True)
             params = self.layout.cut(params)
         self.params = tree_map(lambda t, _: t.to(self.device), params)
         self.run_cfg = run

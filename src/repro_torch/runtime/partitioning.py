@@ -599,13 +599,14 @@ def mamba_channels(cfg) -> int:
 
 
 def shard_pspec(path: str, shape: tuple[int, ...], mesh, cfg,
-                paged: bool = False) -> tuple:
+                paged_layers: bool = False) -> tuple:
     """The cut a layer computes leaf ``path`` on, over ``'model'`` only:
     :func:`param_pspec`'s ``'model'`` slots on :data:`TP_LEAVES`, on the
     attention leaves when ``tp > 1`` divides both head counts (the
-    ``'heads'`` regime) — under ``paged`` (the paged engines' layers)
-    wherever the rule cuts them, the ``'pages'`` regime's q/k/v on their
-    columns and ``wo`` on its rows (``layers._local_qkv``) — and on every
+    ``'heads'`` regime) — for ``paged_layers`` (the paged engines'
+    attention, ``layers.apply_paged_attention``) wherever the rule cuts
+    them, the ``'pages'`` regime's q/k/v on their columns and ``wo`` on
+    its rows (``layers._local_qkv``) — and on every
     Mamba leaf when it divides the channels (``ssm.apply_mamba`` is then
     channel-parallel) — never on an mLSTM's or sLSTM's, which compute
     whole (an mLSTM's ``wq`` / ``wk`` / ``wv`` are not attention's) —
@@ -614,7 +615,7 @@ def shard_pspec(path: str, shape: tuple[int, ...], mesh, cfg,
     spec = param_pspec(path, shape, mesh)
     name = path.rsplit("/", 1)[-1]
     mixer = _mixer(path, cfg)
-    if mixer == "attn" and name in ATTENTION_LEAVES and paged:
+    if mixer == "attn" and name in ATTENTION_LEAVES and paged_layers:
         cut = (divides(mesh, shape[-1]) if name in ("bq", "bk", "bv")
                else "model" in spec)
     elif mixer == "attn" and name in ATTENTION_LEAVES:
@@ -1057,19 +1058,21 @@ class Layout:
     a Mamba ``in_proj`` in :func:`in_proj_order` — ``fsdp=True`` in
     training and lockstep serving, ``fsdp=False`` in the paged engines
     (the reference's serving spec).  ``compute`` is the cut the layer
-    works on (:func:`shard_pspec`'s ``'model'`` slots; with
-    ``fsdp=False`` its paged rule).  :meth:`use` gathers, just before the
+    works on (:func:`shard_pspec`'s ``'model'`` slots; its rule for the
+    paged engines' attention with ``paged_layers``).  :meth:`use`
+    gathers, just before the
     leaf is used, its ``'data'`` cut and every ``'model'`` cut the layer
     does not compute on (site ``tp_gather``), and cuts a leaf stored
     whole where the layer computes on a cut (a Whisper attention's 1-D
     biases)."""
 
-    def __init__(self, cfg, mesh: Mesh, fsdp: bool = True):
+    def __init__(self, cfg, mesh: Mesh, fsdp: bool = True,
+                 paged_layers: bool = False):
         self.cfg, self.mesh = cfg, mesh
         self.shapes = full_shapes(cfg)
         self.specs = {p: _padded(param_pspec(p, s, mesh, fsdp=fsdp), s)
                       for p, s in self.shapes.items()}
-        self.compute = compute_specs(cfg, mesh, paged=not fsdp)
+        self.compute = compute_specs(cfg, mesh, paged_layers)
 
     def axes(self, path: str) -> tuple[str, ...]:
         """The axes (of size > 1) leaf ``path`` is stored cut over."""
@@ -1165,11 +1168,12 @@ def _padded(spec: tuple, shape: tuple) -> tuple:
     return tuple(spec) + (None,) * (len(shape) - len(spec))
 
 
-def compute_specs(cfg, mesh, paged: bool = False) -> dict[str, tuple]:
+def compute_specs(cfg, mesh, paged_layers: bool = False
+                  ) -> dict[str, tuple]:
     """:func:`shard_pspec` of every leaf of ``cfg``'s parameter tree,
     by path, a None for every dim it does not name: what each layer
     computes on (:meth:`Scope.model_mesh`)."""
-    return {p: _padded(shard_pspec(p, s, mesh, cfg, paged), s)
+    return {p: _padded(shard_pspec(p, s, mesh, cfg, paged_layers), s)
             for p, s in full_shapes(cfg).items()}
 
 

@@ -31,7 +31,7 @@ PORT_ONLY = {"kernel/flash_attention", "kernel/lut_softmax"}
 
 @pytest.fixture(scope="module")
 def fresh(tmp_path_factory):
-    results = C.single_device_contracts() + C.kernel_contracts()
+    results = C.single_device_contracts("cpu") + C.kernel_contracts()
     tp = C.tp_contracts(str(tmp_path_factory.mktemp("contracts_tp")))
     return C.build_report([r.to_dict() for r in results] + tp)
 
@@ -136,7 +136,8 @@ def test_mutant_step_flips_its_contract(monkeypatch, name):
     mutant, with the violation it names."""
     cname, pipelined, mutate, words = MUTANTS[name]
     _, eng = C.build_engine(pipelined=pipelined,
-                            impl="lut2d" if pipelined else "rexp")
+                            impl="lut2d" if pipelined else "rexp",
+                            device="cpu")
     spec = _spec(cname, eng)
     assert C.check_run(spec, C.run_step(eng, spec.step)).status == "ok"
     mutate(eng, monkeypatch)

@@ -11,10 +11,12 @@ broken copies of the header to see each verdict flip.  Held here:
 * the port's page-id maps give the reference's rows on the same probes;
 * ``plan_dense`` at Jamba × ``long_500k`` (B 1, 8 KV heads, 524 288
   keys, 132 SMs) takes clusters of 4: 32 CTAs;
-* a widened cache target, a coverage gap and an unclamped page id each
-  flip a kernel to violation, and a failed host build raises;
+* a widened cache target, a coverage gap, an unclamped page id and a
+  dense plan that counts a multiprocessor's shared memory twice (its
+  grid then runs in two waves) each flip a kernel to violation, and a
+  failed host build raises;
 * the committed ``ANALYSIS_kernels_torch.json`` equals a fresh run and
-  the ratchet holds it.
+  the ratchet holds it, known two-wave grids included.
 """
 
 import json
@@ -107,6 +109,10 @@ MUTANTS = {
     "unclamped page id": (
         "return id < 0 ? 0 : id > n_pages - 1 ? n_pages - 1 : id;",
         "return id;", "paged_decode_int8", "outside [0, 30)", "test"),
+    "wave share of twice the shared memory": (
+        "return kSmPool / size_t(per_sm) - kCtaReserve;",
+        "return 2 * kSmPool / size_t(per_sm) - kCtaReserve;",
+        "lut_attention", "two waves", "smoke-qwen3-decode_32k"),
 }
 
 
@@ -142,8 +148,8 @@ def test_a_failed_host_build_raises(tmp_path, monkeypatch):
 
 def test_committed_report_equals_a_fresh_run_and_ratchets(fresh):
     """``ANALYSIS_kernels_torch.json`` is what the guard computes now; the
-    ratchet passes it and catches a shrunk bound, grown shared memory and
-    a vanished kernel."""
+    ratchet passes it and catches a shrunk bound, grown shared memory, a
+    vanished kernel and a known two-wave grid that takes more."""
     committed = KG.load_report(os.path.join(REPO, KG.REPORT_NAME))
     assert json.loads(json.dumps(fresh, sort_keys=True)) == committed
     assert KG.ratchet_violations(committed, fresh) == []
@@ -151,5 +157,7 @@ def test_committed_report_equals_a_fresh_run_and_ratchets(fresh):
     worse["policies"]["rexp/uint8"]["max_lk"] -= 1
     worse["kernels"]["paged_decode"]["smem_bytes"] += 16
     del worse["kernels"]["lut_softmax"]
+    known = worse["kernels"]["lut_attention"]["known_violations"]
+    known[0] = known[0].replace(" B a CTA", "0 B a CTA")
     got = KG.ratchet_violations(committed, worse)
-    assert len(got) == 3, got
+    assert len(got) == 4, got
