@@ -171,23 +171,29 @@ Phases, each printing its own lines; any failure raises (exit code ≠ 0):
    each call through the route the dispatcher picks (``dense_route``:
    the split route — the paged kernels' cluster design over contiguous
    keys — below ``MIN_TILE_ROWS`` rows, the tensor-core tile engine for
-   longer bf16 calls, the row engine for the longer calls the tile
-   engine does not take) and, where that is the tile or split route,
-   through the row engine too: exact-logit inputs within 2e-6 of an f64
-   referee, random ones within one LUT step, with the share of rows
-   beyond 1e-4; every route timed at 1–128 query rows against 1500 keys
-   (the route threshold); the few-row calls (Whisper's decode steps,
-   Qwen3-32B's lockstep decode) timed on the split and row routes beside
+   longer bf16 calls, the CUDA-core tile engine (``simt``) for the
+   longer calls the tile engine does not take) and, where that is the
+   tile or split route, through the simt route too: exact-logit inputs
+   within 2e-6 of an f64 referee, random ones within one LUT step, with
+   the share of rows beyond 1e-4; every route timed at 1–128 query rows
+   against 1500 keys (the route threshold); the few-row calls (Whisper's
+   decode steps, Qwen3-32B's lockstep decode) timed on the split and
+   simt routes beside
    their plain version, exact SDPA on the same inputs and their bound;
    at Qwen3-32B's lockstep decode the host µs a call of the wrapper
    (a direct launch), of the bare launch and of the launch through the
    custom operator that fake tensors take (``[host]`` lines);
-   then the encoder call at B=4 timed on the tile and row routes (L2
+   then the encoder call at B=4 timed on the tile and simt routes (L2
    flushed, median of 20) beside its plain version and exact SDPA, with
    its bound (the busiest of the tensor
    cores for both bf16 products at 989 TFLOP/s, the CUDA cores for the
    per-element LUT work at 67 TFLOP/s, and the bytes at 3.35 TB/s) and
-   the bound as first stated (f32 q·kᵀ on the CUDA cores);
+   the bound as first stated (f32 q·kᵀ on the CUDA cores); the f32
+   encoder call and Jamba's f32 prompt call on the simt route in every
+   mode (``[simt]`` lines: one LUT step, beside exact SDPA in f32, TF32
+   off); the eval step's call (B 4, GQA 8, 511 × 511, causal) with int16
+   tables on the tile route (``[int16]``: within 2e-6 of the f64
+   referee on exact-logit inputs, timed beside uint8 tables);
 7. Whisper-small at full depth and width (12 + 12 layers), seeded
    random bf16 weights with non-zero biases, REXP uint8,
    ``attention_backend="auto"``: 4 clips of 1500 seeded random frames,
@@ -358,7 +364,8 @@ The whole run's seconds follow the phases.  The line before the last
 is the card's name and power limit, the one before it a JSON summary of
 the eight kernels (the two with several routes add the routes' times
 and launches; the dense one also its few-row calls' times on the split
-and row routes; the row kernels their eight cases under ``cases``, each
+and simt routes, its f32 simt calls under ``simt`` and its int16 eval
+call under ``int16``; the row kernels their eight cases under ``cases``, each
 with its bound, route and ``torch.softmax`` time; the two f32/bf16
 paged kernels their rows at the MoE widths under ``shapes``, with the
 launches of that model's REXP bf16 drive, and the dense one its rows at
@@ -2244,7 +2251,7 @@ def jamba_dense_rows(cfg, qmax, card):
                              ("decode", 1, lk - 1)):
         q, k, v = dense_problem(rng, J_BATCH, h, kvh, lq, lk, dh,
                                 torch.bfloat16, False)
-        route = dense_route(q.dtype, dh, lq, qmax, "rexp")
+        route = dense_route(q.dtype, dh, lq, "rexp")
         ref = dense_call(lut_attention_plain, "rexp", q, k, v, True, kv_len)
         out = dense_call(lut_attention_cuda, "rexp", q, k, v, True, kv_len,
                          route=route)
@@ -2296,8 +2303,7 @@ def phase_ssm(card):
     n_attn = cfg.n_periods * sum(s.mixer == "attn" for s in cfg.period)
     expect_routes = dict.fromkeys(ROUTES, 0)
     for n, rows in ((n_attn, J_PROMPT), (n_attn * (J_NEW - 1), 1)):
-        expect_routes[dense_route(torch.bfloat16, dh, rows, qmax,
-                                  "rexp")] += n
+        expect_routes[dense_route(torch.bfloat16, dh, rows, "rexp")] += n
 
     def drive(policy, backend="auto", around=None):
         return lockstep_drive(model, params, prompt,
@@ -2405,6 +2411,14 @@ DENSE_CASES = [
     ("qwen3 lockstep decode", 4, 64, 8, 1, 332, 128, True, 301),
 ]
 W_BATCH, W_NEW = 4, 32
+#: (name, B, H, KVH, Lq, Lk, Dh, causal, kv_len) — the f32 calls of the
+#: simt route that phase 6 times: Whisper's encoder call and
+#: Jamba-v0.1-52B's prompt call in f32 (phase 11d: 64 rows over the first
+#: 64 keys of a 96-position cache)
+SIMT_CASES = [
+    ("encoder", W_BATCH, W_H, W_H, W_LENC, W_LENC, W_DH, False, None),
+    ("jamba prompt", 4, 32, 8, 64, 96, 128, True, 64),
+]
 
 
 def dense_problem(rng, b, h, kvh, lq, lk, dh, dtype, exact_logits):
@@ -2421,8 +2435,12 @@ def dense_problem(rng, b, h, kvh, lq, lk, dh, dtype, exact_logits):
     return [torch.as_tensor(x, device="cuda").to(dtype) for x in (q, k, v)]
 
 
-def dense_call(fn, mode, q, k, v, causal, kv_len, **kw):
+def dense_call(fn, mode, q, k, v, causal, kv_len, precision=None, **kw):
+    """One call of ``fn`` in ``mode`` with its uint8 policy, or with the
+    same policy at ``precision``."""
     pol, fused = DENSE_MODES[mode]
+    if precision is not None:
+        pol = dataclasses.replace(pol, precision=precision)
     return fn(q, k, v, ops._tables_for(pol), method=pol.impl, causal=causal,
               index_mode=pol.index_mode, fused_requant=fused, kv_len=kv_len,
               **kw)
@@ -2430,12 +2448,10 @@ def dense_call(fn, mode, q, k, v, causal, kv_len, **kw):
 
 def routes_of(mode, q):
     """The route the dispatcher picks for this call and, when it picks
-    the tile engine or the split route, the row engine forced on the same
-    inputs."""
-    pol, _ = DENSE_MODES[mode]
-    picked = dense_route(q.dtype, q.shape[-1], q.shape[2],
-                         get_precision(pol.precision).qmax, mode)
-    return [picked] + (["rows"] if picked != "rows" else [])
+    the tile engine or the split route, the CUDA-core tile engine forced
+    on the same inputs."""
+    picked = dense_route(q.dtype, q.shape[-1], q.shape[2], mode)
+    return [picked] + (["simt"] if picked != "simt" else [])
 
 
 def dense_pairs(lq, lk, causal, kv_len):
@@ -2464,12 +2480,14 @@ def dense_sdpa_ms(q, k, v, causal, kv_len):
         q, k, v, attn_mask=mask))
 
 
-def dense_f64(mode, q, k, v, causal, kv_len):
+def dense_f64(mode, q, k, v, causal, kv_len, precision=None):
     """The plain version's own f32 logits and integer LUT pipeline, with
     the final σ·V (REXP fused: Σ e·v, then the f32 α factor) carried in
     f64: the referee that tells the kernel's f32 σ·V roundoff from the
     plain version's."""
     pol, fused = DENSE_MODES[mode]
+    if precision is not None:
+        pol = dataclasses.replace(pol, precision=precision)
     tables = ops._tables_for(pol)
     s = REF._logits(q, k, q.shape[-1] ** -0.5, causal, kv_len)
     vx = v.double().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
@@ -2564,11 +2582,14 @@ def phase_dense_kernel():
     path's shapes, every mode, f32 and bf16, exact-logit (2e-6) and
     random (one LUT step) inputs, through the route the dispatcher picks
     and, where it picks the tile engine or the split route, through the
-    row engine too; the route threshold (every route timed at 1–128
-    query rows); the few-row calls timed on the split and row routes
-    beside their plain version, exact SDPA and their bound; then the
-    encoder call at B = 4 timed on the tile and row routes beside its
-    plain version and exact SDPA."""
+    simt route too; the route threshold (every route timed at 1–128
+    query rows); the few-row calls timed on the split and simt routes
+    beside their plain version, exact SDPA and their bound; the encoder
+    call at B = 4 timed on the tile and simt routes beside its plain
+    version and exact SDPA; the f32 calls of the simt route
+    (:data:`SIMT_CASES`) held and timed beside exact SDPA in f32; and the
+    eval step's call with int16 tables on the tile route, held and timed
+    beside uint8 on the same inputs."""
     rng = np.random.default_rng(6)
     worst_exact = 0.0
     failures = []
@@ -2633,13 +2654,13 @@ def phase_dense_kernel():
               f"Lq={lq} Lk={W_LENC}: " + ", ".join(
                   f"{r} {t[r]:.4f} ms" for r in ROUTES)
               + f"; dispatcher picks "
-              f"{dense_route(q.dtype, W_DH, lq, qmax, 'rexp_fused')} "
+              f"{dense_route(q.dtype, W_DH, lq, 'rexp_fused')} "
               f"(MIN_TILE_ROWS {MIN_TILE_ROWS})")
 
     # The few-row calls of the main path, bf16, in the mode the model
     # path gives them (fused without a cache's kv_len, faithful with one):
-    # the row route (the parent's route for them, its code unchanged) and
-    # the split route, beside the plain version, exact SDPA on the same
+    # the simt route and the split route, beside the plain version,
+    # exact SDPA on the same
     # inputs (a yardstick, not the same function) and the bound over the
     # visible pairs and the valid keys.
     few_rows = {}
@@ -2655,7 +2676,7 @@ def phase_dense_kernel():
                                  pairs)
         row = {route: device_ms(lambda: dense_call(
             lut_attention_cuda, mode, q, k, v, causal, kv_len, route=route))
-            for route in ("rows", "split")}
+            for route in ("simt", "split")}
         row.update(plain_ms=device_ms(lambda: dense_call(
             lut_attention_plain, mode, q, k, v, causal, kv_len)),
             sdpa_ms=dense_sdpa_ms(q, k, v, causal, kv_len), bound_ms=b_ms,
@@ -2663,14 +2684,14 @@ def phase_dense_kernel():
         few_rows[name] = row
         print(f"[time] lut_attention {mode} bf16 {name} B={b} H={h}/{kvh} "
               f"Lq={lq} Lk={lk} kv_len={kv_len} Dh={dh}: split "
-              f"{row['split']:.4f} ms, rows {row['rows']:.4f} ms, plain "
+              f"{row['split']:.4f} ms, simt {row['simt']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, exact SDPA {row['sdpa_ms']:.4f} "
               f"ms, bound {b_ms:.4f} ms ({b_by}), "
               f"{b_ms / row['split']:.1%} of bound on split")
         if name == "qwen3 lockstep decode":
             row["host_us"] = dense_host_us(q, k, v, kv_len)
 
-    # The encoder call on the tile and row routes (the split route serves
+    # The encoder call on the tile and simt routes (the split route serves
     # few-row calls only).
     b, h, lq, lk, dh = W_BATCH, W_H, W_LENC, W_LENC, W_DH
     q, k, v = dense_problem(rng, b, h, h, lq, lk, dh, torch.bfloat16, False)
@@ -2685,7 +2706,7 @@ def phase_dense_kernel():
         plain_ms = device_ms(lambda: dense_call(lut_attention_plain, mode, q,
                                                 k, v, False, None))
         by_route = {}
-        for route in ("rows", "tiles"):
+        for route in ("simt", "tiles"):
             share = float(((dense_call(lut_attention_cuda, mode, q, k, v,
                                        False, None, route=route) - ref)
                            .abs().amax(dim=-1) > 1e-4).float().mean())
@@ -2699,17 +2720,102 @@ def phase_dense_kernel():
                   f"{b_ms / ms:.1%} of bound; rows beyond 1e-4 of the plain "
                   f"version {share:.4%}")
         del ref
-        picked = dense_route(q.dtype, dh, lq, qmax, mode)
+        picked = dense_route(q.dtype, dh, lq, mode)
         rows[mode] = dict(ms=by_route[picked], plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=None,
                           route_ms=by_route)
-        if not by_route["tiles"] < by_route["rows"]:
+        if not by_route["tiles"] < by_route["simt"]:
             print(f"[time] lut_attention {mode}: the tile route is not "
-                  f"faster than the row route at the encoder shape")
+                  f"faster than the simt route at the encoder shape")
     print(f"[time] exact SDPA bf16 at the same shape (the library yardstick; "
           f"REXP has no library call): {sdpa:.4f} ms")
+    del q, k, v
+    simt = {name: dense_simt_f32(rng, case)
+            for name, *case in SIMT_CASES}
     return dict(max_abs_err=worst_exact, **rows["rexp_fused"],
-                few_rows=few_rows)
+                few_rows=few_rows, simt=simt, int16=dense_int16_eval(rng))
+
+
+def dense_simt_f32(rng, case):
+    """An f32 call of the simt route in every mode, on normal rows: held
+    within one LUT step of the plain version, timed beside it, exact SDPA
+    in f32 (TF32 off, the library yardstick) and the bound."""
+    b, h, kvh, lq, lk, dh, causal, kv_len = case
+    q, k, v = dense_problem(rng, b, h, kvh, lq, lk, dh, torch.float32, False)
+    pairs = dense_pairs(lq, lk, causal, kv_len)
+    live = lk if kv_len is None else kv_len
+    b_ms, b_by = dense_bound(b, h, kvh, lq, live, dh, torch.float32, pairs)
+    sdpa = dense_sdpa_ms(q, k, v, causal, kv_len)
+    limit = 2.0 / get_precision("uint8").qmax * float(v.abs().max())
+    out = {}
+    for mode in MODES:
+        assert dense_route(q.dtype, dh, lq, mode) == "simt"
+        ref = dense_call(lut_attention_plain, mode, q, k, v, causal, kv_len)
+        err = float((dense_call(lut_attention_cuda, mode, q, k, v, causal,
+                                kv_len) - ref).abs().max())
+        ms = device_ms(lambda: dense_call(lut_attention_cuda, mode, q, k, v,
+                                          causal, kv_len))
+        plain_ms = device_ms(lambda: dense_call(
+            lut_attention_plain, mode, q, k, v, causal, kv_len), iters=5)
+        print(f"[simt] lut_attention {mode} f32 B={b} H={h}/{kvh} Lq={lq} "
+              f"Lk={lk} kv_len={kv_len} Dh={dh} causal={causal}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, exact SDPA f32 "
+              f"{sdpa:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / ms:.1%} of bound; max|err| {err:.3g} (limit "
+              f"{limit:.3g})")
+        if not err <= limit:
+            raise AssertionError(f"simt {mode} f32 {case}: {err} > {limit}")
+        out[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=sdpa, max_abs_err=err)
+        del ref
+    return out
+
+
+def dense_int16_eval(rng):
+    """The eval step's call (B 4, GQA 8: 64 heads over 8 KV heads of 128,
+    511 rows over 511 keys, kv_len 511, causal) in bf16 with int16 tables
+    on the tile route, faithful REXP and 2D-LUT, on exact-logit inputs
+    (the same logits, so the same bins, on both sides): held within
+    2e-6 of the plain version's pipeline with σ·V in f64, timed beside
+    the same call with uint8 tables, the plain version, exact SDPA and
+    the bound."""
+    b, h, kvh, lq, dh = T_BATCH, H, KVH, T_SEQ, DH
+    q, k, v = dense_problem(rng, b, h, kvh, lq, lq, dh, torch.bfloat16,
+                            True)
+    b_ms, b_by = dense_bound(b, h, kvh, lq, lq, dh, torch.bfloat16,
+                             dense_pairs(lq, lq, True, lq))
+    sdpa = dense_sdpa_ms(q, k, v, True, lq)
+    out = {}
+    for mode in ("rexp", "lut2d"):
+        assert dense_route(q.dtype, dh, lq, mode) == "tiles"
+        got = dense_call(lut_attention_cuda, mode, q, k, v, True, lq,
+                         precision="int16")
+        f64 = dense_f64(mode, q, k, v, True, lq, precision="int16")
+        err = float((got.double() - f64).abs().max())
+        p_err = float((dense_call(lut_attention_plain, mode, q, k, v, True,
+                                  lq, precision="int16").double()
+                       - f64).abs().max())
+        del got, f64
+        ms = {prec: device_ms(lambda: dense_call(
+            lut_attention_cuda, mode, q, k, v, True, lq, precision=prec))
+            for prec in ("int16", "uint8")}
+        plain_ms = device_ms(lambda: dense_call(
+            lut_attention_plain, mode, q, k, v, True, lq, precision="int16"),
+            iters=5)
+        print(f"[int16] lut_attention {mode} bf16 int16 tiles B={b} "
+              f"H={h}/{kvh} Lq=Lk={lq} kv_len={lq} Dh={dh} causal: kernel "
+              f"{ms['int16']:.4f} ms (uint8 tables {ms['uint8']:.4f} ms, "
+              f"{ms['int16'] / ms['uint8']:.2f}×), plain {plain_ms:.4f} ms, "
+              f"exact SDPA {sdpa:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"kernel – f64 {err:.3g} (limit {EXACT_TOL}), plain – f64 "
+              f"{p_err:.3g}")
+        if not err <= EXACT_TOL:
+            raise AssertionError(f"int16 tiles {mode}: kernel – f64 {err} > "
+                                 f"{EXACT_TOL}")
+        out[mode] = dict(ms=ms["int16"], uint8_ms=ms["uint8"],
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=sdpa, max_abs_err=err)
+    return out
 
 
 def setup_whisper():
@@ -2816,8 +2922,9 @@ def whisper_step_times(model, params, frames, prompt, run):
 
 
 #: the dense kernel's bodies as the profiler names them (the tile
-#: route's, the row route's and the split route's)
-DENSE_KERNEL_NAMES = ("lut_attention_tiles_kernel", "lut_attention_kernel",
+#: route's, the simt route's and the split route's)
+DENSE_KERNEL_NAMES = ("lut_attention_tiles_kernel",
+                      "lut_attention_simt_kernel",
                       "lut_attention_split_kernel")
 
 
@@ -2916,8 +3023,7 @@ def phase_whisper():
     for n, rows in ((cfg.encoder_layers, cfg.encoder_seq),
                     (2 * cfg.n_layers, prompt.shape[1]),
                     (2 * cfg.n_layers * (n_steps - 1), 1)):
-        expect_routes[dense_route(torch.bfloat16, dh, rows, qmax,
-                                  "rexp")] += n
+        expect_routes[dense_route(torch.bfloat16, dh, rows, "rexp")] += n
     total = sum(launches.values())
     print(f"[whisper] rexp-uint8 attention_backend=auto: {toks} tokens in "
           f"{wall:.3f}s ({toks / wall:.1f} tok/s); dense kernel launches "
@@ -3337,12 +3443,15 @@ def phase_flash():
                       f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
                       f"{sdpa:.4f} ms, bound {b_ms:.4f} ms ({b_by}; first "
                       f"stated {old_ms:.4f} ms), {b_ms / ms:.1%} of bound")
+            if name == "whisper encoder" and dt == torch.float32:
+                f32 = dict(ms=by_route[picked], plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=sdpa)
             if name == "whisper encoder" and dt == torch.bfloat16:
                 rows["flash_attention"] = dict(
                     max_abs_err=worst, ms=by_route[picked],
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=sdpa, route_ms=by_route,
-                    route_launches=launches)
+                    route_launches=launches, f32_simt=f32)
     return rows, {"flash_attention": sum(launches.values())}
 
 
@@ -3701,10 +3810,9 @@ def eval_policies(model, params, batch, card):
     (:func:`eval_shadow` holds such rows to the plain version's
     roundoff neighbours)."""
     n_attn = model.cfg.n_layers
-    qmax = get_precision("uint8").qmax
     expect = dict.fromkeys(ROUTES, 0)
     expect[dense_route(torch.bfloat16, model.cfg.resolved_head_dim, T_SEQ,
-                       qmax, "rexp")] = n_attn
+                       "rexp")] = n_attn
     got = {}
     for pol in T_EVAL_POLICIES:
         for backend in ("auto", "naive"):
@@ -3799,7 +3907,7 @@ def eval_shape_row(card):
     qmax = get_precision("uint8").qmax
     q, k, v = dense_problem(np.random.default_rng(13), T_BATCH, h, kvh,
                             T_SEQ, T_SEQ, dh, torch.bfloat16, False)
-    route = dense_route(q.dtype, dh, T_SEQ, qmax, "rexp")
+    route = dense_route(q.dtype, dh, T_SEQ, "rexp")
     ref = dense_call(lut_attention_plain, "rexp", q, k, v, True, T_SEQ)
     out = dense_call(lut_attention_cuda, "rexp", q, k, v, True, T_SEQ,
                      route=route)
@@ -4666,7 +4774,7 @@ def real_cell(cell, tr, card):
     b, h, lq, dh = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     kv_len = kw.get("kv_len")
-    route = dense_route(q.dtype, dh, lq, qmax, "rexp")
+    route = dense_route(q.dtype, dh, lq, "rexp")
     print(f"[cells] {arch} dense call q {tuple(q.shape)} k "
           f"{tuple(k.shape)} kv_len {kv_len} {route}: max|err| {err:.3g} "
           f"(one LUT step {limit:.3g}), max|ref| {top:.3g}, all-zero rows "

@@ -47,27 +47,25 @@
 //     not exp2f) and the final IEEE division by max(l, 1e-30) as
 //     before.  The returned m is the winning key's logit recomputed in
 //     IEEE f32 in this kernel's head-dim order (ieee_logit, below).
-//   * "simt" — f32 inputs and D > 128: the CUDA-core kernel below.  One
-//     block of 256 threads per (b, h, tile of kBQ = 64 query rows) holds
-//     its queries in shared memory as f32 and walks the keys in tiles of
-//     BK (64 for D ≤ 64, 32 above), only as far as the causal mask lets
-//     the tile's last row see.  Per key tile: K and V rows into shared
-//     memory; each thread takes a 4 × BK/16 block of the logits (a
-//     register tile, conflict-free through padded rows); four threads
-//     per row update m, l and p = exp(s − m) with expf; each thread
-//     rescales and accumulates a 4 × D/16 block of the output.  IEEE f32
-//     throughout: fmaf products, expf, and the division by max(l, 1e-30).
+//   * "simt" — f32 inputs, and every D the tiles do not take (above
+//     128, or off the 16-byte grid; up to 256): the CUDA-core tile engine
+//     of csrc/simt_tiles.cuh (a block of 256 threads owns 96 query rows
+//     at D ≤ 64, 128 up to 128, 64 above), which the dense kernel's simt
+//     route shares.  Per key
+//     tile, only as far as the causal mask lets the block's last row
+//     see: S as a register micro-tile (fmaf from 0 in head-dim order,
+//     × scale), the tile's row max by shuffles over a row's sixteen
+//     threads, corr = expf(m − m_new), p = expf(s − m_new) into the
+//     engine's weight tile, l and the output rescaled by corr and p·V
+//     added in key order.  IEEE f32 throughout: fmaf products, expf, and
+//     the division by max(l, 1e-30); m is the running max itself.
 #include <climits>
 
 #include "attn_tiles.cuh"
 #include "lut_pipeline.cuh"
+#include "simt_tiles.cuh"
 
 namespace {
-
-// kThreads, kBQ and the simt route's Tiles<DMAX>: launch_plan.h.
-using flash::kBQ;
-using flash::kThreads;
-using flash::Tiles;
 
 // The valid keys of one sequence: n = clamp(kv_len, 0, Lk) of them, and
 // the causal offset off = kv_len − Lq that right-aligns the queries to
@@ -80,175 +78,124 @@ __device__ __forceinline__ Valid valid_keys(int kv_len, int Lk, int Lq) {
   return {min(kv_len, Lk), kv_len - Lq};
 }
 
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, float* __restrict__ out,
-                           float* __restrict__ m_out,
-                           float* __restrict__ l_out, int H, int KVH, int Lq,
-                           int Lk, int D, int causal, float scale,
-                           int kv_len, const int* __restrict__ kv_lens) {
-  using Tl = Tiles<DMAX>;
-  constexpr int BK = Tl::BK, QS = Tl::QS, SS = Tl::SS;
-  constexpr int RPT = kBQ / 16;   // query rows of a thread
-  constexpr int CPT = BK / 16;    // keys of a thread in the logits tile
-  constexpr int DPT = DMAX / 16;  // head dims of a thread in the output
-  constexpr int KPR = BK / 4;     // keys of a thread in the row pass
-  extern __shared__ float smem[];
-  float* q_s = smem;                  // kBQ × QS
-  float* k_s = q_s + kBQ * QS;        // BK × QS
-  float* v_s = k_s + BK * QS;         // BK × DMAX
-  float* p_s = v_s + BK * DMAX;       // kBQ × SS: logits, then p
-  float* m_s = p_s + kBQ * SS;        // kBQ running max
-  float* l_s = m_s + kBQ;             // kBQ running sum
-  float* c_s = l_s + kBQ;             // kBQ this tile's rescale
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kBQ;
+// The simt route: the CUDA-core tile engine (csrc/simt_tiles.cuh), BM
+// query rows a block, the recurrence on the engine's micro-tiles: a
+// thread keeps m, its partial l and its output rows in registers; each
+// tile's row max by shuffles over the row's sixteen threads, the output
+// rescaled by corr, p into the weight tile, then acc + p·V.  `async`: f32
+// rows on the 16-byte grid (D a multiple of 4; the wrapper aligns the
+// tensors) go by cp.async.
+template <typename T, int DH>
+__global__ void __launch_bounds__(simt::kThreads, 1)
+    flash_attention_simt_kernel(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                const T* __restrict__ v,
+                                float* __restrict__ out,
+                                float* __restrict__ m_out,
+                                float* __restrict__ l_out, int H, int KVH,
+                                int Lq, int Lk, int D, int causal,
+                                float scale, int kv_len,
+                                const int* __restrict__ kv_lens) {
+  using G = simt::Geo<DH>;
+  extern __shared__ float4 smem_s[];
+  const simt::Smem<DH> sm(smem_s);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * G::BM;
   const int kvh = h / (H / KVH);
   const Valid val = valid_keys(kv_lens ? kv_lens[b] : kv_len, Lk, Lq);
-  const int off = val.off;
   const size_t qrow0 = (size_t(b) * H + h) * Lq;
   const size_t krow0 = (size_t(b) * KVH + kvh) * Lk;
+  const bool async = std::is_same<T, float>::value && D % 4 == 0;
+  // keys past the block's last row's causal limit are never read
+  const int last = min(row0 + G::BM, Lq) - 1;
+  const int jend = causal ? min(val.n, max(0, last + val.off + 1)) : val.n;
 
-  for (int i = tid; i < kBQ * DMAX; i += kThreads) {
-    const int r = i / DMAX, d = i % DMAX;
-    q_s[r * QS + d] = row0 + r < Lq && d < D
-                          ? lutk::to_f32(q[(qrow0 + row0 + r) * D + d])
-                          : 0.f;
-  }
-  if (tid < kBQ) {
-    m_s[tid] = -CUDART_INF_F;
-    l_s[tid] = 0.f;
-  }
-  float acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd) acc[i][dd] = 0.f;
-
-  // Keys past the tile's last row's causal limit are never read.
-  const int last = min(row0 + kBQ, Lq) - 1;
-  const int jend = causal ? min(val.n, max(0, last + off + 1)) : val.n;
-
-  for (int k0 = 0; k0 < jend; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * DMAX; i += kThreads) {
-      const int r = i / DMAX, d = i % DMAX, j = k0 + r;
-      const bool in = j < jend && d < D;
-      k_s[r * QS + d] = in ? lutk::to_f32(k[(krow0 + j) * D + d]) : 0.f;
-      v_s[r * DMAX + d] = in ? lutk::to_f32(v[(krow0 + j) * D + d]) : 0.f;
-    }
-    __syncthreads();
-
-    // Logits of rows ty + 16 i against keys tx + 16 c, masked to −inf.
-    float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) s[i][c] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = q_s[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) kv[c] = k_s[(tx + 16 * c) * QS + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int r = ty + 16 * i, j = k0 + tx + 16 * c;
-        const bool vis = j < val.n && (!causal || j <= row0 + r + off);
-        p_s[r * SS + tx + 16 * c] = vis ? s[i][c] * scale : -CUDART_INF_F;
-      }
-    __syncthreads();
-
-    // The online recurrence, four threads (one warp's lanes) per row.
-    {
-      const int r = tid >> 2, part = tid & 3;
-      float* row = p_s + r * SS + part * KPR;
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int c = 0; c < KPR; ++c) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float m_safe = isfinite(m_new) ? m_new : 0.f;
-      float ls = 0.f;
-#pragma unroll
-      for (int c = 0; c < KPR; ++c) {
-        const float p = isfinite(row[c]) ? expf(row[c] - m_safe) : 0.f;
-        row[c] = p;
-        ls += p;
-      }
-      ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-      ls += __shfl_xor_sync(0xffffffffu, ls, 2);  // every lane read m_prev
-      if (part == 0) {
-        const float corr = isfinite(m_prev) ? expf(m_prev - m_safe) : 0.f;
-        l_s[r] = l_s[r] * corr + ls;
-        m_s[r] = m_new;
-        c_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc · corr + p · V for rows ty + 16 i, dims tx + 16 dd.
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float corr = c_s[ty + 16 * i];
-#pragma unroll
-      for (int dd = 0; dd < DPT; ++dd) acc[i][dd] *= corr;
-    }
-    for (int c = 0; c < BK; ++c) {
-      float pv[RPT], vv[DPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = p_s[(ty + 16 * i) * SS + c];
-#pragma unroll
-      for (int dd = 0; dd < DPT; ++dd) vv[dd] = v_s[c * DMAX + tx + 16 * dd];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int dd = 0; dd < DPT; ++dd)
-          acc[i][dd] = fmaf(pv[i], vv[dd], acc[i][dd]);
-    }
-  }
+  simt::load_rows<T, DH, G::BM, false, G::QS>(sm.q, q + qrow0 * D, row0,
+                                              Lq, D, async);
+  tiles::cp_async_commit();
+  tiles::cp_async_wait<0>();
   __syncthreads();
 
+  float m[G::TM], l[G::TM], acc[G::TM][G::DT];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty + 16 * i;
-    if (row0 + r >= Lq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
+  for (int i = 0; i < G::TM; ++i) {
+    m[i] = -CUDART_INF_F;
+    l[i] = 0.f;
 #pragma unroll
-    for (int dd = 0; dd < DPT; ++dd) {
-      const int d = tx + 16 * dd;
-      if (d < D) out[(qrow0 + row0 + r) * D + d] = __fdiv_rn(acc[i][dd], l);
-    }
+    for (int d = 0; d < G::DT; ++d) acc[i][d] = 0.f;
   }
-  if (tid < kBQ && row0 + tid < Lq) {
-    m_out[qrow0 + row0 + tid] = m_s[tid];
-    l_out[qrow0 + row0 + tid] = l_s[tid];
+  simt::sweep<T, DH, true>(
+      k + krow0 * D, v + krow0 * D, jend, D, async, sm,
+      [&](int k0, const float* k_s) {
+        float S[G::TM][G::TN];
+        simt::qk<DH>(S, sm.q, k_s, ty, tx, (D + 3) / 4);
+#pragma unroll
+        for (int i = 0; i < G::TM; ++i) {
+          // key j is visible to row r iff j < lim
+          const int r = row0 + G::row(ty, i);
+          const int lim =
+              r < Lq ? (causal ? min(val.n, max(0, r + val.off + 1)) : val.n)
+                     : 0;
+          float mt = -CUDART_INF_F;
+#pragma unroll
+          for (int jj = 0; jj < G::TN; ++jj) {
+            S[i][jj] = k0 + tx + 16 * jj < lim ? __fmul_rn(S[i][jj], scale)
+                                               : -CUDART_INF_F;
+            mt = fmaxf(mt, S[i][jj]);
+          }
+          const float m_new = fmaxf(m[i], simt::row_max(mt));
+          const float m_safe = isfinite(m_new) ? m_new : 0.f;
+          const float corr =
+              isfinite(m[i]) ? expf(__fsub_rn(m[i], m_safe)) : 0.f;
+          m[i] = m_new;
+#pragma unroll
+          for (int d = 0; d < G::DT; ++d) acc[i][d] *= corr;
+          float ls = 0.f;
+#pragma unroll
+          for (int jj = 0; jj < G::TN; ++jj) {
+            S[i][jj] = isfinite(S[i][jj]) ? expf(__fsub_rn(S[i][jj], m_safe))
+                                          : 0.f;
+            ls += S[i][jj];
+          }
+          l[i] = fmaf(l[i], corr, ls);
+        }
+        simt::put_w<DH>(sm.p, S, ty, tx);
+      },
+      [&](int, const float* v_s) { simt::pv<DH>(acc, sm.p, v_s, ty, tx); });
+
+  float denom[G::TM];
+#pragma unroll
+  for (int i = 0; i < G::TM; ++i) {
+    l[i] = simt::row_sum(l[i]);
+    denom[i] = fmaxf(l[i], 1e-30f);
+  }
+  simt::store<DH>(out + qrow0 * D, acc, row0, Lq, D, ty, tx,
+                  [&](float a, int i) { return __fdiv_rn(a, denom[i]); });
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < G::TM; ++i) {
+      const int r = row0 + G::row(ty, i);
+      if (r < Lq) {
+        m_out[qrow0 + r] = m[i];
+        l_out[qrow0 + r] = l[i];
+      }
+    }
   }
 }
 
-template <typename T, int DMAX>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* m, void* l, int B, int H, int KVH, int Lq, int Lk,
-                   int D, int causal, float scale, int kv_len,
-                   const int* kv_lens, cudaStream_t stream) {
-  const size_t smem = 4 * Tiles<DMAX>::floats;
+template <typename T, int DH>
+cudaError_t launch_simt(const void* q, const void* k, const void* v,
+                        void* out, void* m, void* l, int B, int H, int KVH,
+                        int Lq, int Lk, int D, int causal, float scale,
+                        int kv_len, const int* kv_lens, cudaStream_t stream) {
+  constexpr size_t smem = simt::smem_bytes(DH);
+  constexpr int bm = simt::block_rows(DH);
   static int reserved = 0;
-  auto kernel = flash_attention_kernel<T, DMAX>;
+  auto kernel = flash_attention_simt_kernel<T, DH>;
   cudaError_t err = lutk::reserve_smem(kernel, smem, reserved);
   if (err != cudaSuccess) return err;
-  dim3 grid((Lq + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  dim3 grid((Lq + bm - 1) / bm, H, B);
+  kernel<<<grid, simt::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<float*>(out),
       static_cast<float*>(m), static_cast<float*>(l), H, KVH, Lq, Lk, D,
@@ -477,19 +424,21 @@ cudaError_t dispatch_tiles(const void* q, const void* k, const void* v,
 }
 
 template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v,
-                       void* out, void* m, void* l, int B, int H, int KVH,
-                       int Lq, int Lk, int D, int causal, float scale,
-                       int kv_len, const int* kv_lens, cudaStream_t s) {
-  const int dmax = flash::dmax(D);
-  if (dmax == 64)
-    return launch<T, 64>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D, causal,
-                         scale, kv_len, kv_lens, s);
-  if (dmax == 128)
-    return launch<T, 128>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D, causal,
-                          scale, kv_len, kv_lens, s);
-  return launch<T, 256>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D, causal,
-                        scale, kv_len, kv_lens, s);
+cudaError_t dispatch_simt(const void* q, const void* k, const void* v,
+                          void* out, void* m, void* l, int B, int H, int KVH,
+                          int Lq, int Lk, int D, int causal, float scale,
+                          int kv_len, const int* kv_lens, cudaStream_t s) {
+  switch (simt::tile_dh(D)) {
+    case 64:
+      return launch_simt<T, 64>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D,
+                                causal, scale, kv_len, kv_lens, s);
+    case 128:
+      return launch_simt<T, 128>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D,
+                                 causal, scale, kv_len, kv_lens, s);
+    default:
+      return launch_simt<T, 256>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D,
+                                 causal, scale, kv_len, kv_lens, s);
+  }
 }
 
 }  // namespace
@@ -524,15 +473,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                             kv_lens, s));
   switch (dtype) {
     case 0:
-      return int(dispatch_d<float>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D,
-                                   causal, scale, kv_len, kv_lens, s));
+      return int(dispatch_simt<float>(q, k, v, out, m, l, B, H, KVH, Lq, Lk,
+                                      D, causal, scale, kv_len, kv_lens, s));
     case 1:
-      return int(dispatch_d<__nv_bfloat16>(q, k, v, out, m, l, B, H, KVH, Lq,
-                                           Lk, D, causal, scale, kv_len,
-                                           kv_lens, s));
+      return int(dispatch_simt<__nv_bfloat16>(q, k, v, out, m, l, B, H, KVH,
+                                              Lq, Lk, D, causal, scale,
+                                              kv_len, kv_lens, s));
     case 2:
-      return int(dispatch_d<__half>(q, k, v, out, m, l, B, H, KVH, Lq, Lk, D,
-                                    causal, scale, kv_len, kv_lens, s));
+      return int(dispatch_simt<__half>(q, k, v, out, m, l, B, H, KVH, Lq, Lk,
+                                       D, causal, scale, kv_len, kv_lens, s));
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -29,27 +29,6 @@ namespace lutk {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-// Shared memory a block may take with the logits cache; above it every
-// pass recomputes q·k from the pages instead, as the TPU kernel does.
-constexpr size_t kCacheSmemBudget = 96 * 1024;
-// Query rows of a block of the dense kernel's rows route (csrc/
-// lut_attention.cu) for chunks of more than one row; one row takes 1.
-constexpr int kDenseRows = 8;
-inline int dense_rows(int C) { return C == 1 ? 1 : kDenseRows; }
-
-// Shared memory of one block serving R query rows of lut_rows: per-warp
-// row offsets and weight tiles of 32 keys, q rows, per-warp partials, m
-// and Σ, per-warp output partials, the tables, and (when `cached`) the
-// R × (mp·ps) logits/numerators cache.
-template <typename P>
-inline size_t smem_bytes(const P& p, int R, bool cached) {
-  size_t floats = size_t(kWarps) * R * 32 + size_t(R) * p.Dh +
-                  size_t(kWarps) * R + 2 * size_t(R) +
-                  size_t(kWarps) * R * p.Dh;
-  if (cached) floats += size_t(R) * p.mp * p.ps;
-  return 8 * size_t(kWarps) * 32 +
-         4 * (floats + size_t(p.n_main) + size_t(p.aux_rows) * p.aux_cols);
-}
 
 }  // namespace lutk
 
@@ -89,34 +68,63 @@ inline size_t lut_smem(const P& p) {
 
 }  // namespace tiles
 
-namespace flash {
+namespace simt {
 
-// The CUDA-core (simt) route of csrc/flash_attention.cu.
+// The CUDA-core tile engine of csrc/simt_tiles.cuh (the dense kernel's and
+// flash's "simt" routes): kGroups row groups of 16 threads, thread
+// (ty, tx) owning rows ty + kGroups·i of the block's and, of every key
+// tile, keys tx + 16·jj; the K and V tiles stream through one
+// kSlots-slot ring.
 constexpr int kThreads = 256;
-constexpr int kBQ = 64;
+constexpr int kGroups = kThreads / 16;  // row groups (half-warps)
+constexpr int kSlots = 2;  // of the ring
 
-template <int DMAX>
-struct Tiles {
-  static constexpr int BK = DMAX <= 64 ? 64 : 32;
-  static constexpr int QS = DMAX + 1;  // padded row strides: no bank
-  static constexpr int SS = BK + 1;    // conflicts on the column reads
-  static constexpr size_t floats =
-      size_t(kBQ) * QS + size_t(BK) * QS + size_t(BK) * DMAX +
-      size_t(kBQ) * SS + 3 * kBQ;
-};
-
-// The instance a head dim takes: DMAX 64, 128 or 256.
-inline int dmax(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
-
-inline size_t simt_smem(int d) {
-  switch (dmax(d)) {
-    case 64: return 4 * Tiles<64>::floats;
-    case 128: return 4 * Tiles<128>::floats;
-    default: return 4 * Tiles<256>::floats;
-  }
+// The head-dim instance a head dim takes (64, 128 or 256 f32 a row).
+LP_HD constexpr int tile_dh(int dh) {
+  return dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+}
+// Query rows of a block and keys of a tile: as many as the Q tile, the
+// ring and the weight tile leave room for in 227 KB — 128 × 64 at DH 128
+// (a thread's logits an 8 × 4 micro-tile), 64 × 64 at 256; at DH 64, 128
+// keys (8 a thread) and 96 rows (6 a thread): the Whisper encoder's 1500
+// rows then make 768 blocks, 5.8 waves on 132 multiprocessors, where 128
+// rows made 576, 4.4 waves with the last a third full (on an H100, 6 %
+// off flash's time and 9 % off the faithful LUT forms' at that shape:
+// tools/tile_variants.py simt).
+LP_HD constexpr int block_rows(int DH) {
+  return DH <= 64 ? 96 : DH <= 128 ? 128 : 64;
+}
+LP_HD constexpr int key_tile(int DH) { return DH <= 64 ? 128 : 64; }
+// Floats of a row of the Q tile: 16 bytes of padding put the two rows a
+// warp reads at once (its two row groups' rows r and r + 1) in different
+// bank groups.
+LP_HD constexpr int q_stride(int DH) { return DH + 4; }
+// Floats of a row group's slots in the key-major weight tile (its rows,
+// rounded up to whole float4s), and of one key's row of it (the block's
+// row groups across): 16 bytes of padding put eight consecutive keys'
+// rows in eight different bank groups.
+LP_HD constexpr int slot_width(int DH) {
+  return (block_rows(DH) / kGroups + 3) / 4 * 4;
+}
+LP_HD constexpr int p_stride(int DH) {
+  return kGroups * slot_width(DH) + 4;
 }
 
-}  // namespace flash
+// Shared memory of a block: the f32 Q tile, the ring and the weight tile
+// (the LUT kernel adds its tables after it).
+LP_HD constexpr size_t smem_bytes(int DH) {
+  return 4 * (size_t(block_rows(DH)) * q_stride(DH) +
+              size_t(kSlots) * key_tile(DH) * DH +
+              size_t(key_tile(DH)) * p_stride(DH));
+}
+
+template <typename P>
+inline size_t lut_smem(const P& p) {
+  return smem_bytes(tile_dh(p.Dh)) +
+         4 * (size_t(p.n_main) + size_t(p.aux_rows) * p.aux_cols);
+}
+
+}  // namespace simt
 
 namespace rowsm {
 
@@ -483,7 +491,7 @@ inline int paged_entry(paged::Rows<RPTs...> rows, const int* in, int n_in,
   return split_plan(s, false, rows, kb, in[13], in[14], in[15], out);
 }
 
-// Dense LUT attention: route (0 rows, 1 tiles, 2 split), dtype, B, H,
+// Dense LUT attention: route (0 simt, 1 tiles, 2 split), dtype, B, H,
 // KVH, Lq, Lk, Dh, kv_len, fused, n_main, aux_rows, aux_cols, n_sms.  The
 // split route is the paged body over contiguous keys (lut_attention_
 // launch: n_pages B·KVH, ps Lk, mp 1, C Lq), planned for kv_len keys (an
@@ -506,11 +514,9 @@ inline int dense_entry(const int* in, int n_in, long long* out, int n_out) {
     return 0;
   }
   if (route != 0) return 1;
-  const int R = lutk::dense_rows(s.C);
-  const bool cached = lutk::smem_bytes(s, R, true) <= lutk::kCacheSmemBudget;
-  put(out, 1, R, cached ? s.mp * s.ps : 0, 1, 0,
-      lutk::smem_bytes(s, R, cached), (s.C + R - 1) / R, s.H, s.B, 1,
-      lutk::kThreads, 0);
+  const int bm = simt::block_rows(simt::tile_dh(s.Dh));
+  put(out, 1, bm, 0, 1, simt::kSlots, simt::lut_smem(s),
+      (s.C + bm - 1) / bm, s.H, s.B, 1, simt::kThreads, 0);
   return 0;
 }
 
@@ -527,8 +533,9 @@ inline int flash_entry(const int* in, int n_in, long long* out, int n_out) {
     return 0;
   }
   if (route != 0) return 1;
-  put(out, 1, flash::kBQ, 0, 1, 0, flash::simt_smem(D),
-      (Lq + flash::kBQ - 1) / flash::kBQ, H, B, 1, flash::kThreads, 0);
+  const int dh = simt::tile_dh(D), bm = simt::block_rows(dh);
+  put(out, 1, bm, 0, 1, simt::kSlots, simt::smem_bytes(dh),
+      (Lq + bm - 1) / bm, H, B, 1, simt::kThreads, 0);
   return 0;
 }
 
@@ -559,7 +566,6 @@ constexpr long long kConstants[] = {
     static_cast<long long>(paged::kDenseTarget),
     static_cast<long long>(rowsm::kSmemLimit),
     static_cast<long long>(rowsm::kCtaHead),
-    static_cast<long long>(lutk::kCacheSmemBudget),
 };
 
 }  // namespace plan

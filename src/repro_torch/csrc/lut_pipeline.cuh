@@ -1,26 +1,15 @@
 // Shared LUT-softmax pipeline of the LUT-attention kernels (sm_90a);
-// the row-wise LUT softmax (csrc/lut_softmax.cu) and the paged kernels
-// (csrc/paged_attn.cuh) reuse its per-element helpers, loads and
-// reductions.
+// the row-wise LUT softmax (csrc/lut_softmax.cu), the paged kernels and
+// the dense split route (csrc/paged_attn.cuh), and the dense tile and
+// simt routes (csrc/lut_attention.cu) reuse its per-element helpers,
+// loads and reductions.
 //
 // The counterpart of the JAX package's in-kernel helpers in
 // src/repro/kernels/common.py (policy_e_terms, rexp_sigma,
-// lut2d_sigma_int, kernel_lookup) plus the three-pass row engine of the
-// dense kernel's row route, which lut_attention.py spreads over several
-// pallas_calls.  On the TPU the passes are separate calls because an
-// accumulator only lives across a sequential grid axis; here one thread
-// block runs all passes for its rows:
-//
-//   pass 1  s = q·k · scale for every visible key      → row max m
-//   pass 2  e = numerator(s, m)                        → integer Σ
-//   pass 3  w = weight(e, Σ), out += w · v
-//
-// or, for REXP's fused α form (lut_attention.py's _fused_sum_av_kernel,
-// kFused), pass 1 and then one pass that accumulates Σ and U = Σ e·v
-// together, with U · α(Σ)/qmax² as the epilogue.
-//
-// Where a key row lives is a policy (Rows): DenseRows reads it from a
-// contiguous (B, KVH, Lk, Dh) tensor.
+// lut2d_sigma_int, kernel_lookup): the numerator of a logit given its
+// row max, the weight table's column for a row's Σ, the integer weight
+// of a numerator, REXP's fused α factor, and where a contiguous key row
+// lives (DenseRows).
 //
 // Bit-exactness with core/lut_softmax.py (the reference semantics):
 //   * every rounding step of the bin path is an explicit _rn intrinsic
@@ -59,10 +48,7 @@ namespace lutk {
 
 enum Method { kExact = 0, kRexp = 1, kLut2d = 2 };
 
-// kWarps, kThreads, kCacheSmemBudget and smem_bytes (the rows route's
-// shared memory): launch_plan.h.
-// V rows each warp keeps in flight in pass 3.
-constexpr int kUnroll = 8;
+// kWarps and kThreads (the split-key body's block): launch_plan.h.
 
 // The fields the per-element LUT pipeline reads (clamp_bin, e_term,
 // weight): the table sizes, the method, the bin mode and the f32
@@ -245,57 +231,6 @@ struct DenseRows {
   }
 };
 
-// dot[r] = q_r · k for the R query rows in shared memory against one key
-// row read by this lane alone: up to 8 chunks are loaded before the
-// first is used (Dh ≤ 32·DPL, a multiple of 8).
-template <typename T, int DPL, int R>
-__device__ __forceinline__ void dot_rows(const T* krow, const float* q_s,
-                                         int Dh, float (&dot)[R]) {
-  constexpr int kChunks = DPL * 4;
-  constexpr int kBatch = kChunks < 8 ? kChunks : 8;
-#pragma unroll
-  for (int r = 0; r < R; ++r) dot[r] = 0.f;
-#pragma unroll
-  for (int c0 = 0; c0 < kChunks; c0 += kBatch) {
-    Chunk<T> ch[kBatch];
-#pragma unroll
-    for (int c = 0; c < kBatch; ++c)
-      if ((c0 + c) * 8 < Dh) ch[c].load(krow + (c0 + c) * 8);
-#pragma unroll
-    for (int c = 0; c < kBatch; ++c) {
-      const int d = (c0 + c) * 8;
-      if (d >= Dh) break;
-      float k[8];
-      ch[c].get(k);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        Chunk<float> qc;
-        qc.load(q_s + r * Dh + d);
-        float q[8];
-        qc.get(q);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) dot[r] = fmaf(q[e], k[e], dot[r]);
-      }
-    }
-  }
-}
-
-// Masked logits s_r = (q_r·k_j) · scale of this lane's key j; rows that
-// do not see j (and lanes past the walk) get −inf.
-template <typename Rows, typename T, int DPL, int R>
-__device__ __forceinline__ void lane_logits(const Params& p, const T* k,
-                                            const float* q_s, int b, int kvh,
-                                            int j, bool live,
-                                            const int (&lim)[R],
-                                            float (&s)[R]) {
-  float dot[R];
-  if (live) dot_rows<T, DPL, R>(k + Rows::index(p, b, kvh, j) * p.Dh, q_s,
-                                p.Dh, dot);
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    s[r] = live && j < lim[r] ? __fmul_rn(dot[r], p.scale) : -CUDART_INF_F;
-}
-
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -309,227 +244,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The passes for R query rows of (sequence b, query head h), rows
-// row0 .. row0+R-1; queries of type TQ, key/value elements of type TK,
-// rows found through Rows.  Row c sees key j iff j < kv_len and
-// j <= q0 + c.  Only keys below the largest such limit are walked:
-// pages past kv_len (null pages, a partial page's tail) or a cache's
-// unwritten tail add an exact 0 in the reference and are never read
-// here.
-//
-// The keys go in tiles of 32, one tile per warp at a time.  For q·k a
-// lane owns one key of the tile and reads its whole row itself (16-byte
-// loads, no cross-lane reduction); for σ·V the lanes split the head
-// dimension and walk the tile's keys, kUnroll value rows in flight,
-// reading the weights and row offsets the key lanes left in shared
-// memory.
-//
-// kFused (REXP only): no Σ pass; the last pass weights each key by its
-// integer numerator e, sums Σ beside U = Σ e·v, and the epilogue scales
-// U by α(Σ)·(1/qmax)·(1/qmax), α looked up at rnd(Σ · 1/qmax).
-template <typename TQ, typename TK, int DPL, int R, typename Rows,
-          bool kFused = false>
-__device__ void lut_rows(const Params& p, int b, int h, int row0, int q0,
-                         bool cached) {
-  extern __shared__ float4 smem4[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kvh = h / (p.H / p.KVH);
-  const int L = p.mp * p.ps;
-  const int kv_len = Rows::valid(p, b);
-  const TK* kp = static_cast<const TK*>(p.k_pages);
-  const TK* vp = static_cast<const TK*>(p.v_pages);
-
-  size_t* rowp_s = reinterpret_cast<size_t*>(smem4);  // kWarps × 32
-  float* w_s = reinterpret_cast<float*>(rowp_s + kWarps * 32);  // kWarps×R×32
-  float* q_s = w_s + kWarps * R * 32;      // R × Dh
-  float* red_s = q_s + R * p.Dh;           // kWarps × R
-  float* m_s = red_s + kWarps * R;         // R
-  float* S_s = m_s + R;                    // R
-  float* acc_s = S_s + R;                  // kWarps × R × Dh
-  int* main_s = reinterpret_cast<int*>(acc_s + kWarps * R * p.Dh);
-  int* aux_s = main_s + p.n_main;
-  float* cache_s = reinterpret_cast<float*>(aux_s + p.aux_rows * p.aux_cols);
-
-  const TQ* q = static_cast<const TQ*>(p.q);
-  for (int i = tid; i < R * p.Dh; i += kThreads) {
-    int r = i / p.Dh, c = row0 + r;
-    q_s[i] = c < p.C
-                 ? to_f32(q[((size_t(b) * p.H + h) * p.C + c) * p.Dh + i % p.Dh])
-                 : 0.f;
-  }
-  for (int i = tid; i < p.n_main; i += kThreads) main_s[i] = p.lut_main[i];
-  for (int i = tid; i < p.aux_rows * p.aux_cols; i += kThreads)
-    aux_s[i] = p.lut_aux[i];
-
-  int lim[R];
-  int jmax = 0;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    int c = row0 + r;
-    lim[r] = c < p.C ? max(min(kv_len, q0 + c + 1), 0) : 0;
-    jmax = max(jmax, lim[r]);
-  }
-  __syncthreads();
-
-  // Pass 1: logits and the row max.
-  float part[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) part[r] = -CUDART_INF_F;
-  for (int t0 = warp * 32; t0 < jmax; t0 += kWarps * 32) {
-    const int j = t0 + lane;
-    const bool live = j < jmax;
-    float s[R];
-    lane_logits<Rows, TK, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (cached && live) cache_s[r * L + j] = s[r];
-      part[r] = fmaxf(part[r], s[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float m = warp_max(part[r]);
-    if (lane == 0) red_s[warp * R + r] = m;
-  }
-  __syncthreads();
-  if (tid < R) {
-    float m = -CUDART_INF_F;
-    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, red_s[w * R + tid]);
-    m_s[tid] = isfinite(m) ? m : 0.f;
-  }
-  __syncthreads();
-
-  // Pass 2: numerators and their (integer, for the LUT policies) Σ.
-  if (!kFused) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) part[r] = 0.f;
-    for (int t0 = warp * 32; t0 < jmax; t0 += kWarps * 32) {
-      const int j = t0 + lane;
-      const bool live = j < jmax;
-      float s[R];
-      if (cached) {
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          s[r] = live ? cache_s[r * L + j] : -CUDART_INF_F;
-      } else {
-        lane_logits<Rows, TK, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float e = e_term(s[r], m_s[r], main_s, p);
-        if (cached && live) cache_s[r * L + j] = e;
-        part[r] += e;
-      }
-    }
-    __syncthreads();  // red_s is reused below
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float S = warp_sum(part[r]);
-      if (lane == 0) red_s[warp * R + r] = S;
-    }
-    __syncthreads();
-    if (tid < R) {
-      float S = 0.f;
-      for (int w = 0; w < kWarps; ++w) S += red_s[w * R + tid];
-      S_s[tid] = S;
-    }
-    __syncthreads();
-  }
-
-  // Pass 3: per-element weights times V (kFused: numerators times V,
-  // and their Σ).
-#pragma unroll
-  for (int r = 0; r < R; ++r) part[r] = 0.f;
-  float acc[R][DPL];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-  float* w_tile = w_s + warp * R * 32;
-  size_t* rowp = rowp_s + warp * 32;
-  for (int t0 = warp * 32; t0 < jmax; t0 += kWarps * 32) {
-    const int j = t0 + lane;
-    const bool live = j < jmax;
-    float e[R];
-    if (cached && !kFused) {  // the cache holds numerators
-#pragma unroll
-      for (int r = 0; r < R; ++r) e[r] = live ? cache_s[r * L + j] : 0.f;
-    } else {                  // the cache (if any) holds logits
-      float s[R];
-      if (cached) {
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          s[r] = live ? cache_s[r * L + j] : -CUDART_INF_F;
-      } else {
-        lane_logits<Rows, TK, DPL, R>(p, kp, q_s, b, kvh, j, live, lim, s);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) e[r] = e_term(s[r], m_s[r], main_s, p);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (kFused) part[r] += e[r];
-      w_tile[r * 32 + lane] = kFused ? e[r] : weight(e[r], S_s[r], aux_s, p);
-    }
-    rowp[lane] = (live ? Rows::index(p, b, kvh, j) : 0) * p.Dh;
-    __syncwarp();
-    const int n = min(32, jmax - t0);
-    for (int u0 = 0; u0 < n; u0 += kUnroll) {
-      float v[kUnroll][DPL];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int t = min(u0 + u, n - 1);
-        const TK* row = vp + rowp[t];
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          int d = i * 32 + lane;
-          v[u][i] = u0 + u < n && d < p.Dh ? to_f32(row[d]) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (u0 + u >= n) break;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          float w = w_tile[r * 32 + u0 + u];
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(w, v[u][i], acc[r][i]);
-        }
-      }
-    }
-    __syncwarp();  // the next tile rewrites w_tile and rowp
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      int d = i * 32 + lane;
-      if (d < p.Dh) acc_s[(warp * R + r) * p.Dh + d] = acc[r][i];
-    }
-  if (kFused) {  // Σ of the numerators → the epilogue's α·(1/qmax)²
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float S = warp_sum(part[r]);
-      if (lane == 0) red_s[warp * R + r] = S;
-    }
-    __syncthreads();
-    if (tid < R) {
-      float S = 0.f;
-      for (int w = 0; w < kWarps; ++w) S += red_s[w * R + tid];
-      S_s[tid] = alpha_factor(S, aux_s, p);
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < R * p.Dh; i += kThreads) {
-    int r = i / p.Dh, c = row0 + r;
-    if (c >= p.C) continue;
-    float o = 0.f;
-    for (int w = 0; w < kWarps; ++w) o += acc_s[(w * R + r) * p.Dh + i % p.Dh];
-    if (kFused) o = __fmul_rn(o, S_s[r]);
-    p.out[((size_t(b) * p.H + h) * p.C + c) * p.Dh + i % p.Dh] = o;
-  }
-}
-
 // Raise a kernel's dynamic shared-memory limit only when a launch needs
 // more than it was last given (`reserved`, one per kernel instance): the
 // attribute call costs host time on every launch otherwise.
@@ -540,28 +254,6 @@ inline cudaError_t reserve_smem(Kernel kernel, size_t bytes, int& reserved) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err == cudaSuccess) reserved = int(bytes);
   return err;
-}
-
-// Instantiate `Launch<TQ, TK, DPL>` for the head dims the port serves
-// (Dh ≤ 256, in steps of 32 lanes).
-template <template <typename, typename, int> class Launch, typename TQ,
-          typename TK>
-inline cudaError_t dispatch_dh(const Params& p, cudaStream_t stream) {
-  int dpl = (p.Dh + 31) / 32;
-  if (dpl <= 1) return Launch<TQ, TK, 1>::run(p, stream);
-  if (dpl <= 2) return Launch<TQ, TK, 2>::run(p, stream);
-  if (dpl <= 4) return Launch<TQ, TK, 4>::run(p, stream);
-  if (dpl <= 8) return Launch<TQ, TK, 8>::run(p, stream);
-  return cudaErrorInvalidValue;
-}
-
-// Inputs of one float type; dtype 0 = f32, 1 = bf16.
-template <template <typename, typename, int> class Launch>
-inline cudaError_t dispatch(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == 0) return dispatch_dh<Launch, float, float>(p, stream);
-  if (dtype == 1)
-    return dispatch_dh<Launch, __nv_bfloat16, __nv_bfloat16>(p, stream);
-  return cudaErrorInvalidValue;
 }
 
 // The host C interface the kernels share: everything the Python

@@ -111,7 +111,7 @@ PLAN_FIELDS = ("n_split", "rows_per_block", "cache_keys", "warp_split",
 #: ``launch_plan_constants``'s fields, in ``plan::kConstants``'s order
 PLAN_CONSTANTS = ("smem_limit", "sm_pool", "cta_reserve", "max_split",
                   "dense_max_split", "cache_target", "dense_target",
-                  "row_smem_limit", "row_cta_head", "cache_smem_budget")
+                  "row_smem_limit", "row_cta_head")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -12,14 +12,15 @@ JAX package's ``naive`` backend does (its ``pallas`` backend takes
 none).
 
 * :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu`` on
-  CUDA tensors (one block per (sequence, head, 64 query rows), the keys
-  in tiles with the online recurrence; the kernel picks its own tiling,
-  so there is no ``block_q`` / ``block_k``) or raises; on CPU tensors it
-  runs the plain version — only because the tensors lie on the CPU.
-  :func:`flash_route` names its route before the launch: ``"tiles"``
-  (tensor cores, p·V as three 16-bit pieces of p) for bf16 and f16 with
-  D ≤ 128, a multiple of 8; ``"simt"`` (IEEE f32 on the CUDA cores) for
-  f32 and the other head dims.
+  CUDA tensors (one block per (sequence, head, block of query rows), the
+  keys in tiles with the online recurrence; the kernel picks its own
+  tiling, so there is no ``block_q`` / ``block_k``) or raises; on CPU
+  tensors it runs the plain version — only because the tensors lie on
+  the CPU.  :func:`flash_route` names its route before the launch:
+  ``"tiles"`` (tensor cores, p·V as three 16-bit pieces of p) for bf16
+  and f16 with D ≤ 128, a multiple of 8; ``"simt"`` (the CUDA-core tile
+  engine the dense kernel's simt route shares: IEEE f32 register
+  micro-tiles) for f32 and the other head dims.
 * :func:`flash_attention_plain` is the plain PyTorch version
   (``ref.flash_attention_stats``): materialized logits, one softmax.
 
@@ -134,8 +135,8 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                                      kv_len=kv_len)
     check_kernel_inputs(q, k, v)
     q, k, v = (t.contiguous() for t in (q, k, v))
-    # the tile route copies 16 bytes at a time: a view whose storage
-    # starts off a 16-byte boundary is copied to one that does not
+    # both routes copy 16 bytes at a time: a view whose storage starts
+    # off a 16-byte boundary is copied to one that does not
     q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]

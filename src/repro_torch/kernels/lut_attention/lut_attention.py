@@ -13,14 +13,14 @@ k, v (B, KVH, Lk, D) with the REXP or 2D-LUT softmax; the output is f32.
   query rows, the keys split across the cluster's CTAs and their warps)
   for calls of fewer than :data:`MIN_TILE_ROWS` query rows — decode steps
   and short prefill chunks — in any type; ``"tiles"`` (the tensor-core
-  tile engine, 64 query rows a block) for longer bf16 calls with Dh ≤ 128
-  and qmax ≤ 255; ``"rows"`` (the row engine, a block per few query
-  rows) for the longer calls the tile engine does not take (f32, Dh >
-  128, int16 tables).  A runtime ``kv_len`` (the
-  valid length of a pre-allocated cache; the JAX kernel's static
-  ``lk_valid``) masks the tail, and causal queries are right-aligned to
-  it.  On CPU tensors it runs the plain version — only because the
-  tensors lie on the CPU.
+  tile engine, 64 query rows a block) for longer bf16 calls with Dh ≤ 128,
+  at any precision (int16 numerators go in two pieces); ``"simt"`` (the
+  CUDA-core tile engine, IEEE f32 products, 64–128 query rows a block) for
+  the longer calls the tile engine does not take (f32, Dh > 128).  A
+  runtime ``kv_len`` (the valid length of a pre-allocated cache; the JAX
+  kernel's static ``lk_valid``) masks the tail, and causal queries are
+  right-aligned to it.  On CPU tensors it runs the plain version — only
+  because the tensors lie on the CPU.
 * :func:`lut_attention_plain` is the plain PyTorch version of the same
   function (``ref.lut_attention_ref``): the same integer LUT pipeline,
   the f32 q·k and σ·V sums in another order.
@@ -57,7 +57,7 @@ Tensor = torch.Tensor
 
 MODES = ("rexp_fused", "rexp", "lut2d")
 #: the kernel's routes, in the order of its C entry point's ``route``
-ROUTES = ("rows", "tiles", "split")
+ROUTES = ("simt", "tiles", "split")
 #: the fewest query rows a call needs to take the tile route; fewer take
 #: the split route.  A tile block owns 64 rows and takes the same time to
 #: walk 1500 keys however few of them are real; the split route's time
@@ -69,11 +69,9 @@ ROUTES = ("rows", "tiles", "split")
 #: took 0.070: 9 is the first row count at which the tile route wins.
 MIN_TILE_ROWS = 9
 #: what the tile engine takes: bf16 (f32 q·k feeds the bins, so f32 stays
-#: on the CUDA cores), head dims up to 128, and numerators that bf16 holds
-#: exactly (qmax ≤ 255: uint8, uint4, uint2; not int16)
+#: on the CUDA cores) and head dims up to 128, at any precision
 TILE_DTYPES = (torch.bfloat16,)
 TILE_MAX_DH = 128
-TILE_MAX_QMAX = 255
 
 
 def mode_of(method: str, fused_requant: bool) -> str:
@@ -85,25 +83,23 @@ def mode_of(method: str, fused_requant: bool) -> str:
     return "rexp_fused" if method == "rexp" and fused_requant else method
 
 
-def tiles_take(dtype: torch.dtype, dh: int, qmax: int) -> bool:
-    """Whether the tile engine takes inputs of this type, head dim and
-    precision (any number of rows)."""
-    return (dtype in TILE_DTYPES and dh <= TILE_MAX_DH and dh % 8 == 0
-            and qmax <= TILE_MAX_QMAX)
+def tiles_take(dtype: torch.dtype, dh: int) -> bool:
+    """Whether the tile engine takes inputs of this type and head dim (any
+    number of rows, any precision)."""
+    return dtype in TILE_DTYPES and dh <= TILE_MAX_DH and dh % 8 == 0
 
 
-def dense_route(dtype: torch.dtype, dh: int, lq: int, qmax: int,
-                mode: str) -> str:
+def dense_route(dtype: torch.dtype, dh: int, lq: int, mode: str) -> str:
     """The route a dense call takes: ``"split"`` below
     :data:`MIN_TILE_ROWS` query rows; else ``"tiles"`` when the tile
-    engine takes its type, head dim and precision, ``"rows"`` when it
-    does not.  Every mode takes every route."""
+    engine takes its type and head dim, ``"simt"`` when it does not.
+    Every mode and every precision takes every route."""
     if mode not in MODES:
         raise ValueError(f"unknown dense mode {mode!r}: expected one of "
                          f"{MODES}")
     if lq < MIN_TILE_ROWS:
         return "split"
-    return "tiles" if tiles_take(dtype, dh, qmax) else "rows"
+    return "tiles" if tiles_take(dtype, dh) else "simt"
 
 
 def lut_attention_plain(q: Tensor, k: Tensor, v: Tensor,
@@ -220,7 +216,7 @@ def lut_attention_cuda(q: Tensor, k: Tensor, v: Tensor,
     REXP's α form (ignored for 2D-LUT, as in the JAX package).  A forced
     ``route`` (tests and ``chip_smoke.py`` time every route on the same
     inputs; no model path passes one) that the inputs do not suit raises:
-    ``"rows"`` and ``"split"`` take every input the kernel takes,
+    ``"simt"`` and ``"split"`` take every input the kernel takes,
     ``"tiles"`` only those :func:`tiles_take` names, at any row count.
     The kernel has no backward: under autograd, inputs that require
     grad raise (on any device) rather than give an output that silently
@@ -234,18 +230,16 @@ def lut_attention_cuda(q: Tensor, k: Tensor, v: Tensor,
             "train through the exact softmax (train_logits) and run the "
             "LUT policies under torch.no_grad()")
     mode = mode_of(method, fused_requant)
-    qmax = tables.precision.qmax
     b, h, lq, dh = q.shape
     if route is None:
-        route = dense_route(q.dtype, dh, lq, qmax, mode)
+        route = dense_route(q.dtype, dh, lq, mode)
     elif route not in ROUTES:
         raise ValueError(f"unknown dense route {route!r}: expected one of "
                          f"{ROUTES}")
-    elif route == "tiles" and not tiles_take(q.dtype, dh, qmax):
+    elif route == "tiles" and not tiles_take(q.dtype, dh):
         raise ValueError(f"the tile route takes bfloat16 with Dh ≤ "
-                         f"{TILE_MAX_DH} (a multiple of 8) and qmax ≤ "
-                         f"{TILE_MAX_QMAX}; got {q.dtype}, Dh={dh}, "
-                         f"qmax={qmax}")
+                         f"{TILE_MAX_DH} (a multiple of 8); got {q.dtype}, "
+                         f"Dh={dh}")
     fake = shapes_only(q)
     if not q.is_cuda and not fake:
         return _ref.lut_attention_ref(q, k, v, method=method, tables=tables,
@@ -277,9 +271,10 @@ def kernel_spec(geom):
     """Static declaration for ``repro_torch.analysis.kernel_guard``: the
     launch :func:`dense_route` picks for a ``geom["lq"]``-row call over
     ``geom["lk"]`` keys (all valid), for f32 and bf16 inputs and each
-    mode (each method's largest tables), from the kernel's own plan
-    (``csrc/launch_plan.h``): a split launch is planned to run in one
-    wave; the rows and tiles routes put a query head on each grid row."""
+    mode (each method's largest tables: int16's, which the tile route
+    takes too), from the kernel's own plan (``csrc/launch_plan.h``): a
+    split launch is planned to run in one wave; the simt and tiles routes
+    put a query head on each grid row."""
     from repro_torch.analysis.kernel_guard import (N_SMS, Coverage,
                                                    KernelSpec, Operand,
                                                    launch_of, method_tables)
@@ -290,7 +285,7 @@ def kernel_spec(geom):
                          (torch.bfloat16, "bfloat16")):
         for mode in MODES:
             method = "lut2d" if mode == "lut2d" else "rexp"
-            route = dense_route(dtype, dh, lq, 255, mode)
+            route = dense_route(dtype, dh, lq, mode)
             main, ar, ac = method_tables(method)
             plan = build.host_plan("lut_attention", [
                 ROUTES.index(route), KERNEL_DTYPES[dtype], b, h, kvh, lq,

@@ -661,22 +661,20 @@ def _dense_call(fn, q, k, v, pol, causal, kv_len, fused, **kw):
               **kw)
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.float32, "rows"),
-                                         (torch.bfloat16, "rows"),
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "simt"),
+                                         (torch.bfloat16, "simt"),
                                          (torch.bfloat16, "tiles"),
                                          (torch.float32, "split"),
                                          (torch.bfloat16, "split")])
 @pytest.mark.parametrize("case", DENSE_CASES, ids=str)
 def test_dense_kernel_matches_plain(cuda, dtype, route, case):
-    """Every mode (REXP fused and faithful, 2D-LUT) at every precision the
-    route takes (the tile route: qmax ≤ 255) and both bin modes, one
-    launch counted per call in its mode and its route."""
+    """Every mode (REXP fused and faithful, 2D-LUT) at every precision
+    (int16's numerators go through the tile route in two pieces) and both
+    bin modes, one launch counted per call in its mode and its route."""
     b, h, kvh, lq, lk, dh, causal, kv_len = case
     q, k, v = _dense_problem(lq * 7 + lk, b=b, h=h, kvh=kvh, lq=lq, lk=lk,
                              dh=dh, dtype=dtype)
     for pol in DENSE_POLICIES:
-        if route == "tiles" and pol.precision == "int16":
-            continue
         for fused in ((False, True) if pol.impl == "rexp" else (False,)):
             mode = mode_of(pol.impl, fused)
             before = (lut_attention_cuda.launches[mode],
@@ -902,7 +900,7 @@ def test_dense_kernel_at_jambas_attention_shape(cuda, impl):
         q, k, v = _dense_problem(lq + kv_len, b=4, h=32, kvh=8, lq=lq,
                                  lk=96, dh=128, dtype=torch.bfloat16,
                                  exact=False)
-        assert dense_route(q.dtype, 128, lq, qmax, impl) == route
+        assert dense_route(q.dtype, 128, lq, impl) == route
         before = lut_attention_cuda.route_launches[route]
         out = ops.lut_attention(q, k, v, pol, causal=True, kv_len=kv_len,
                                 backend="cuda")
@@ -916,20 +914,20 @@ def test_dense_kernel_at_jambas_attention_shape(cuda, impl):
 
 @pytest.mark.parametrize("impl", ["rexp", "lut2d"])
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tiles"),
-                                         (torch.float32, "rows")])
+                                         (torch.float32, "simt")])
 def test_dense_kernel_at_qwen3_eval_shape(cuda, impl, dtype, route):
     """The eval step's call at Qwen3-32B width (``make_eval_step``: the
     prefill of a 512-token sequence's 511 inputs into a cache of 511
     positions): B 4, GQA 8 (64 heads over 8 KV heads of 128), 511 rows
     over 511 keys at kv_len 511, causal, on normal rows — bf16 on the
-    tile route and f32 on the row route, each as the dispatcher picks
+    tile route and f32 on the simt route, each as the dispatcher picks
     it: within one LUT step of the plain version, one launch on its
     route."""
     pol = SoftmaxPolicy(impl=impl, precision="uint8")
     qmax = get_precision("uint8").qmax
     q, k, v = _dense_problem(511, b=4, h=64, kvh=8, lq=511, lk=511, dh=128,
                              dtype=dtype, exact=False)
-    assert dense_route(dtype, 128, 511, qmax, impl) == route
+    assert dense_route(dtype, 128, 511, impl) == route
     before = lut_attention_cuda.route_launches[route]
     out = ops.lut_attention(q, k, v, pol, causal=True, kv_len=511,
                             backend="cuda")

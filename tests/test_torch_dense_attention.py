@@ -190,10 +190,11 @@ ROUTE_CASES = [
     ("gqa prefill", torch.bfloat16, 128, 256, "uint8", "tiles"),
     ("qwen3 lockstep prefill", torch.bfloat16, 128, 300, "uint4", "tiles"),
     ("uint2", torch.bfloat16, 64, 1500, "uint2", "tiles"),
-    ("f32", torch.float32, 64, 1500, "uint8", "rows"),
-    ("int16", torch.bfloat16, 64, 1500, "int16", "rows"),
-    ("Dh 256", torch.bfloat16, 256, 1500, "uint8", "rows"),
-    ("Dh 36", torch.bfloat16, 36, 1500, "uint8", "rows"),
+    ("f32", torch.float32, 64, 1500, "uint8", "simt"),
+    ("int16", torch.bfloat16, 64, 1500, "int16", "tiles"),
+    ("Dh 256", torch.bfloat16, 256, 1500, "uint8", "simt"),
+    ("Dh 36", torch.bfloat16, 36, 1500, "uint8", "simt"),
+    ("int16 Dh 256", torch.bfloat16, 256, 511, "int16", "simt"),
     ("decode step", torch.bfloat16, 64, 1, "uint8", "split"),
     ("cross prefill", torch.bfloat16, 64, 5, "uint8", "split"),
     ("f32 decode step", torch.float32, 64, 1, "uint8", "split"),
@@ -206,26 +207,26 @@ ROUTE_CASES = [
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("case", ROUTE_CASES, ids=lambda c: c[0])
 def test_dense_route(case, mode):
-    """bf16 calls with Dh ≤ 128, qmax ≤ 255 and at least MIN_TILE_ROWS
-    rows take the tile engine in every mode; f32, int16, Dh 256 and head
-    dims off the 16-byte grid take the row engine at as many rows; calls
-    of fewer rows take the split route, whatever their type."""
-    _, dtype, dh, lq, prec, want = case
-    qmax = get_precision(prec).qmax
-    assert dense_route(dtype, dh, lq, qmax, mode) == want
-    assert dense_route(dtype, dh, MIN_TILE_ROWS - 1, qmax, mode) == "split"
-    assert dense_route(dtype, dh, MIN_TILE_ROWS, qmax, mode) != "split"
+    """bf16 calls with Dh ≤ 128 and at least MIN_TILE_ROWS rows take the
+    tile engine in every mode and at every precision (int16 too); f32,
+    Dh 256 and head dims off the 16-byte grid take the CUDA-core tile
+    engine at as many rows; calls of fewer rows take the split route,
+    whatever their type."""
+    _, dtype, dh, lq, _, want = case
+    assert dense_route(dtype, dh, lq, mode) == want
+    assert dense_route(dtype, dh, MIN_TILE_ROWS - 1, mode) == "split"
+    assert dense_route(dtype, dh, MIN_TILE_ROWS, mode) != "split"
 
 
 @pytest.mark.parametrize("case", [c for c in ROUTE_CASES
-                                  if c[0] in ("f32", "int16", "Dh 256",
-                                              "Dh 36")],
+                                  if c[0] in ("f32", "int16 Dh 256",
+                                              "Dh 256", "Dh 36")],
                          ids=lambda c: c[0])
 def test_forced_tile_route_the_engine_does_not_take_raises(case):
     """A forced ``route="tiles"`` on inputs the tile engine does not take
-    (f32, int16, a head dim it has no tile for) raises before any launch
-    or plain run, on any device; so does a route the kernel does not
-    have."""
+    (f32, a head dim it has no tile for, at any precision) raises before
+    any launch or plain run, on any device; so does a route the kernel
+    does not have."""
     _, dtype, dh, _, prec, _ = case
     rng = np.random.default_rng(16)
     q, k = (torch.from_numpy(rng.normal(size=(1, 2, n, dh))).to(dtype)
@@ -236,7 +237,7 @@ def test_forced_tile_route_the_engine_does_not_take_raises(case):
     with pytest.raises(ValueError, match="tile route"):
         lut_attention_cuda(q, k, k, tables, route="tiles")
     with pytest.raises(ValueError, match="unknown dense route"):
-        lut_attention_cuda(q, k, k, tables, route="simt")
+        lut_attention_cuda(q, k, k, tables, route="rows")
     assert (lut_attention_cuda.launches,
             lut_attention_cuda.route_launches) == before
     assert set(lut_attention_cuda.route_launches) == set(ROUTES)

@@ -11,10 +11,12 @@ broken copies of the header to see each verdict flip.  Held here:
 * the port's page-id maps give the reference's rows on the same probes;
 * ``plan_dense`` at Jamba × ``long_500k`` (B 1, 8 KV heads, 524 288
   keys, 132 SMs) takes clusters of 4: 32 CTAs;
-* a widened cache target, a coverage gap, an unclamped page id and a
+* the simt route's blocks cover every query row once, within 227 KB;
+* a widened cache target, a coverage gap, an unclamped page id, a
   dense plan that counts a multiprocessor's shared memory twice (its
-  grid then runs in two waves) each flip a kernel to violation, and a
-  failed host build raises;
+  grid then runs in two waves) and simt blocks too large for a CTA's
+  shared memory each flip a kernel to violation, and a failed host
+  build raises;
 * the committed ``ANALYSIS_kernels_torch.json`` equals a fresh run and
   the ratchet holds it, known two-wave grids included.
 """
@@ -85,6 +87,31 @@ def test_plan_dense_at_jamba_long_500k_takes_32_ctas():
     assert plan["grid_x"] * plan["grid_y"] * plan["grid_z"] == 32
 
 
+@pytest.mark.parametrize("dh", [36, 64, 128, 256])
+@pytest.mark.parametrize("kernel", ["lut_attention", "flash_attention"])
+def test_simt_plans_cover_their_rows_once(kernel, dh):
+    """The simt route's plan (the CUDA-core tile engine's block rows,
+    ring and shared memory, from the host library): at 1 to 1500 query
+    rows every row lies in exactly one block, a query head on each grid
+    row, 256 threads, 96 rows a block at Dh 64, 128 at 128 and 64 above,
+    within 227 KB a CTA."""
+    b, h = 4, 12
+    for lq in (1, 63, 64, 127, 128, 129, 511, 1500):
+        ins = ([0, 0, b, h, h, lq, 1500, dh, 1500, 0, 101, 11, 60, KG.N_SMS]
+               if kernel == "lut_attention" else [0, b, h, lq, dh])
+        plan = build.host_plan(kernel, ins)
+        rpb = plan["rows_per_block"]
+        assert rpb == (96 if dh <= 64 else 128 if dh <= 128 else 64)
+        seen = np.zeros(lq, np.int64)
+        for x in range(plan["grid_x"]):
+            assert x * rpb < lq
+            seen[x * rpb:(x + 1) * rpb] += 1
+        assert (seen == 1).all()
+        assert (plan["grid_y"], plan["grid_z"], plan["threads"],
+                plan["cluster"]) == (h, b, 256, 1)
+        assert 0 < plan["smem"] <= KG.SMEM_LIMIT
+
+
 def _mutant(tmp_path, old, new):
     """A host library built from a copy of ``csrc/`` with ``old`` replaced
     by ``new`` in the plans' header."""
@@ -113,6 +140,10 @@ MUTANTS = {
         "return kSmPool / size_t(per_sm) - kCtaReserve;",
         "return 2 * kSmPool / size_t(per_sm) - kCtaReserve;",
         "lut_attention", "two waves", "smoke-qwen3-decode_32k"),
+    "simt blocks of 256 rows at Dh 128": (
+        "return DH <= 64 ? 96 : DH <= 128 ? 128 : 64;",
+        "return DH <= 64 ? 96 : DH <= 128 ? 256 : 64;", "flash_attention",
+        "exceeds a CTA's", "smoke-jamba"),
 }
 
 

@@ -14,7 +14,7 @@ results to the plain versions:
   rows see a few far-apart logits (out within 2e-5 is the limit there);
   times at the Whisper encoder's and Qwen3-32B's causal prefill shapes;
 * dense LUT attention (bf16, every mode) at the Whisper encoder's shape
-  (B=4, H=12, L=1500, Dh=64) — times, and the tile route against the row
+  (B=4, H=12, L=1500, Dh=64) — times, and the tile route against the simt
   route;
 * the dense kernel's split route (variants named "split") at the
   few-row shapes of ``chip_smoke.DENSE_CASES`` and 4- and 8-row cross calls —
@@ -27,22 +27,37 @@ results to the plain versions:
   kernel against this tree's in the order parent, change, change,
   parent on the same tensors, each output ``torch.equal`` to the
   other's, beside ``torch.softmax`` and the bound; then each variant's
-  time and whether it is still ``torch.equal`` to the committed build.
+  time and whether it is still ``torch.equal`` to the committed build;
+* the CUDA-core routes (word "simt", no variants): the parent commit's
+  dense route 0 and flash route 0 (the dense row engine and flash's
+  first simt kernel before the CUDA-core tile engine took both) against
+  this tree's simt routes, and the parent's route 0 with int16 tables
+  against this tree's tile route, in the order parent, change, change,
+  parent on the same tensors (``SIMT_CALLS``: the Whisper encoder in f32
+  in every dense mode and in flash, the eval step's call in bf16 with
+  int16 tables, Jamba's prompt call in f32, flash f32 at
+  ``chip_smoke.FLASH_CASES``), with the largest difference between the
+  two outputs, exact SDPA on the same inputs (f32: TF32 off) and the
+  bound; then the simt variants (``"simt: …"``: ring slots, unrolling;
+  what-ifs that take the exp, a product, the copies or the LUT work out)
+  at the Whisper encoder in f32, flash and fused / faithful REXP.
 
 With WORD, only the variants whose name holds it are built and run, and
 only the sections they belong to.  A variant whose text is not found in
 the source fails the run: the variants name the committed choices they
 replace.  Times are medians of 20 L2-cold calls (``chip_smoke.device_ms``).
 
-The parent's row kernel is built from ``build/parent_rows/`` (its
-``lut_softmax.cu`` and ``lut_pipeline.cuh``), which ``--fetch-parent
-[REV]`` fills from ``git show REV:src/repro_torch/csrc/...`` (REV
-defaults to ``HEAD~1``, the parent of a committed change; ``HEAD`` for
-a change not yet committed).  It needs git and no card, so run it before
-copying the tree to a machine without ``.git``:
+The parent's kernels are built from ``build/parent_rows/`` (the parent
+commit's whole ``src/repro_torch/csrc``), which ``--fetch-parent [REV]``
+fills with ``git show REV:...`` (REV defaults to ``HEAD~1``, the parent
+of a committed change; ``HEAD`` for a change not yet committed), and
+called through this tree's wrappers (their C entry points take the same
+arguments).  It needs git and no card, so run it before copying the tree
+to a machine without ``.git``:
 
     python3 tools/tile_variants.py --fetch-parent HEAD
     PYTHONPATH=src python3 tools/tile_variants.py rows
+    PYTHONPATH=src python3 tools/tile_variants.py simt
 """
 
 from __future__ import annotations
@@ -63,8 +78,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from repro_torch.core.policies import SoftmaxPolicy  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.common import (FLOAT_DTYPES,  # noqa: E402
-                                        kernel_tables)
+from repro_torch.kernels.common import kernel_tables  # noqa: E402
 from repro_torch.kernels.lut_softmax import lut_softmax as LSM  # noqa: E402
 
 FLASH_BOUNDS = ("__launch_bounds__(tiles::kThreads, DH <= 64 ? 3 : 1)\n"
@@ -83,9 +97,13 @@ RANKS = "4 * s.n_split <= tiles &&"
 TARGET = "constexpr size_t kDenseTarget = 64 * 1024;"
 ROWS = "lut_softmax.cu"
 PREFETCH = "constexpr int kPrefetchMaxBytes = 2;"
-#: where the parent's row kernel sources go (``--fetch-parent``)
+SIMT = "simt_tiles.cuh"
+SIMT_BOUNDS = "__launch_bounds__(simt::kThreads, 1)"
+BOTH = ("lut_attention", "flash_attention")
+QK_LOOP = "#pragma unroll 2\n  for (int c = 0; c < nc; ++c) {"
+PV_LOOP = "#pragma unroll 8\n  for (int j = 0; j < kKeys; ++j) {"
+#: where the parent's kernel sources go (``--fetch-parent``)
 PARENT_ROWS = Path(__file__).resolve().parents[1] / "build" / "parent_rows"
-PARENT_FILES = ("lut_softmax.cu", "lut_pipeline.cuh")
 
 
 #: variant → (kernel, [(source file, committed text, variant text), ...]
@@ -145,6 +163,60 @@ VARIANTS = {
          "for (int k0 = 0; k0 < 0; k0 += A * halves) {")]),
     "what-if, split: no copies": ("lut_attention", [
         (ATTN, "if (item >= n_items) return;", "return;")]),
+    # the CUDA-core tile engine (csrc/simt_tiles.cuh, both simt routes)
+    "simt: 128 rows a block at Dh 64": (BOTH, [
+        (PLAN, "return DH <= 64 ? 96 : DH <= 128 ? 128 : 64;",
+         "return DH <= 128 ? 128 : 64;")]),
+    "simt: 2 blocks an SM at Dh 64, 96 rows × 64 keys": (BOTH, [
+        (PLAN, "return DH <= 64 ? 128 : 64; }", "return 64; }"),
+        ("lut_attention.cu", SIMT_BOUNDS, SIMT_BOUNDS.replace(
+            "1)", "DH <= 64 ? 2 : 1)")),
+        ("flash_attention.cu", SIMT_BOUNDS, SIMT_BOUNDS.replace(
+            "1)", "DH <= 64 ? 2 : 1)"))]),
+    "simt: 2 blocks an SM at Dh 64, 64 rows × 96 keys": (BOTH, [
+        (PLAN, "return DH <= 64 ? 96 : DH <= 128 ? 128 : 64;",
+         "return DH <= 128 ? (DH <= 64 ? 64 : 128) : 64;"),
+        (PLAN, "return DH <= 64 ? 128 : 64; }",
+         "return DH <= 64 ? 96 : 64; }"),
+        ("lut_attention.cu", SIMT_BOUNDS, SIMT_BOUNDS.replace(
+            "1)", "DH <= 64 ? 2 : 1)")),
+        ("flash_attention.cu", SIMT_BOUNDS, SIMT_BOUNDS.replace(
+            "1)", "DH <= 64 ? 2 : 1)"))]),
+    "simt: 384 threads, 96 rows a block at Dh 64": (BOTH, [
+        (PLAN, "constexpr int kThreads = 256;",
+         "constexpr int kThreads = 384;"),
+        (PLAN, "return DH <= 64 ? 96 : DH <= 128 ? 128 : 64;",
+         "return DH <= 64 ? 96 : DH <= 128 ? 144 : 48;")]),
+    "simt: 384 threads, 144 rows a block at Dh 64": (BOTH, [
+        (PLAN, "constexpr int kThreads = 256;",
+         "constexpr int kThreads = 384;"),
+        (PLAN, "return DH <= 64 ? 96 : DH <= 128 ? 128 : 64;",
+         "return DH <= 64 ? 144 : DH <= 128 ? 144 : 48;")]),
+    "simt: a ring of 3 slots": (BOTH, [
+        (PLAN, "constexpr int kSlots = 2;", "constexpr int kSlots = 3;")]),
+    "simt: q·k unrolled by 4": (BOTH, [
+        (SIMT, QK_LOOP, QK_LOOP.replace("unroll 2", "unroll 4"))]),
+    "simt: q·k not unrolled": ("flash_attention", [
+        (SIMT, QK_LOOP, QK_LOOP.replace("unroll 2", "unroll 1"))]),
+    "simt: p·V unrolled by 4": ("flash_attention", [
+        (SIMT, PV_LOOP, PV_LOOP.replace("unroll 8", "unroll 4"))]),
+    "what-if, simt: no exp": ("flash_attention", [
+        ("flash_attention.cu", "expf(__fsub_rn(S[i][jj], m_safe))",
+         "__fsub_rn(S[i][jj], m_safe)")]),
+    "what-if, simt: no q·k": ("flash_attention", [
+        (SIMT, QK_LOOP, QK_LOOP.replace("c < nc", "c < 0"))]),
+    "what-if, simt: no p·V": ("flash_attention", [
+        (SIMT, PV_LOOP, PV_LOOP.replace("j < kKeys", "j < 0"))]),
+    "what-if, simt: no copies": ("flash_attention", [
+        (SIMT, "    if (u < items) {", "    if (u < 0) {")]),
+    "what-if, simt: no σ lookup": ("lut_attention", [
+        ("lut_pipeline.cuh", "  const bool rexp = p.method == kRexp;",
+         "  return e;\n  const bool rexp = p.method == kRexp;")]),
+    "what-if, simt: no LUT work": ("lut_attention", [
+        ("lut_pipeline.cuh", "  const float e = float(lut_main[",
+         "  return fminf(d, 1.f);\n  const float e = float(lut_main["),
+        ("lut_pipeline.cuh", "  const bool rexp = p.method == kRexp;",
+         "  return e;\n  const bool rexp = p.method == kRexp;")]),
     # the row softmax (csrc/lut_softmax.cu); a third entry patches
     # kernels/lut_softmax/lut_softmax.py's plan constants for the variant
     "rows: 1 warp-route block an SM": ("lut_softmax", [],
@@ -223,6 +295,8 @@ def build_variants(out_dir: Path, variants) -> dict[str, dict]:
 def section(name: str) -> str:
     """The section of ``main`` that times variant ``name``."""
     kernel = VARIANTS[name][0]
+    if "simt" in name:
+        return "simt"
     if kernel == "lut_softmax":
         return "rows"
     if kernel == "flash_attention":
@@ -231,58 +305,62 @@ def section(name: str) -> str:
 
 
 def fetch_parent(rev: str) -> None:
-    """Write the parent commit's row kernel sources into
-    :data:`PARENT_ROWS` (``git show REV:...``; needs the git checkout)."""
+    """Write the parent commit's kernel sources into :data:`PARENT_ROWS`
+    (``git show REV:...``; needs the git checkout)."""
     PARENT_ROWS.mkdir(parents=True, exist_ok=True)
-    for name in PARENT_FILES:
+    csrc = "src/repro_torch/csrc"
+    names = subprocess.run(
+        ["git", "ls-tree", "--name-only", f"{rev}:{csrc}"], cwd=cs.ROOT,
+        check=True, capture_output=True, text=True).stdout.split()
+    for name in names:
         src = subprocess.run(
-            ["git", "show", f"{rev}:src/repro_torch/csrc/{name}"],
-            cwd=cs.ROOT, check=True, capture_output=True, text=True).stdout
+            ["git", "show", f"{rev}:{csrc}/{name}"], cwd=cs.ROOT, check=True,
+            capture_output=True, text=True).stdout
         (PARENT_ROWS / name).write_text(src)
-    print(f"[variants] {rev}'s row kernel sources in {PARENT_ROWS}")
+    print(f"[variants] {rev}'s kernel sources in {PARENT_ROWS}")
 
 
-def parent_rows_library() -> ctypes.CDLL:
-    """The parent's row kernel, built from :data:`PARENT_ROWS` with the
-    tree's nvcc flags; its entry points take no launch plan."""
-    missing = [n for n in PARENT_FILES if not (PARENT_ROWS / n).exists()]
-    if missing:
-        raise SystemExit(f"{missing} not in {PARENT_ROWS}: run "
+def parent_libraries(kernels) -> dict[str, ctypes.CDLL]:
+    """The parent's ``kernels``, built from :data:`PARENT_ROWS` with the
+    tree's nvcc flags, all at once, with this tree's entry points'
+    argument types."""
+    if not (PARENT_ROWS / "launch_plan.h").exists():
+        raise SystemExit(f"no parent sources in {PARENT_ROWS}: run "
                          f"tools/tile_variants.py --fetch-parent first")
-    lib_path = PARENT_ROWS / "liblut_softmax.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path),
-                    str(PARENT_ROWS / "lut_softmax.cu")], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
-    for method in ("rexp", "lut2d"):
-        fn = getattr(lib, f"lut_softmax_{method}_launch")
-        fn.argtypes = build.KERNELS["lut_softmax"][fn.__name__][:15] + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+    procs = {k: subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-o",
+         str(PARENT_ROWS / f"lib{k}.so"), str(PARENT_ROWS / f"{k}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k in kernels}
+    libs = {}
+    for kernel, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"parent {kernel}: nvcc failed\n{log}")
+        lib = ctypes.CDLL(str(PARENT_ROWS / f"lib{kernel}.so"))
+        for fn, argtypes in build.KERNELS[kernel].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[kernel] = lib
+    return libs
 
 
-def parent_rows_call(lib, method, x, tables):
-    """The parent's wrapper call (one block a row, no plan) on ``x``."""
-    main_t, aux, ints, floats = kernel_tables(method, tables, "round",
-                                              x.device)
-    n_main, aux_rows, aux_cols, _, round_mode = ints
-    cols = x.shape[-1]
-    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    err = getattr(lib, f"lut_softmax_{method}_launch")(
-        x.data_ptr(), main_t.data_ptr(), aux.data_ptr(), out.data_ptr(),
-        FLOAT_DTYPES[x.dtype], x.numel() // cols, cols, n_main, aux_rows,
-        aux_cols, round_mode, *floats,
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"parent row kernel: CUDA error {err}")
-    return out
+def p_c_c_p(kernel, lib, fn):
+    """``fn``'s time with the parent's ``kernel`` library loaded, then
+    with this tree's twice, then the parent's again (ms)."""
+    mine = build._loaded[kernel]
+    order = []
+    for who in ("parent", "change", "change", "parent"):
+        build._loaded[kernel] = lib if who == "parent" else mine
+        order.append(cs.device_ms(fn))
+    build._loaded[kernel] = mine
+    return order
 
 
 def rows_section(names, use):
     """The parent's row kernel against this tree's (P C C P) at the
     smoke's full-width row shapes, then the row variants."""
-    lib = parent_rows_library()
+    lib = parent_libraries(("lut_softmax",))["lut_softmax"]
     shapes = {**cs.ROW_SHAPES, "long rows": ((4096, 16384), False)}
     inputs = {(name, dt): cs.row_logits(shape, causal, dt, seed=8)
               for name, (shape, causal) in shapes.items()
@@ -290,6 +368,7 @@ def rows_section(names, use):
     pols = {impl: SoftmaxPolicy(impl=impl, precision="uint8")
             for impl in cs.ROW_KERNELS}
     use("committed")
+    mine = build._loaded["lut_softmax"]
     for (name, dt), x in inputs.items():
         b_ms, b_by = cs.row_bound(x.numel(), dt)
         lib_ms = cs.device_ms(lambda: torch.softmax(x, dim=-1))
@@ -299,13 +378,12 @@ def rows_section(names, use):
             plan = LSM.plan_for(x, torch.empty(1, device="cuda"),
                                 *kernel_tables(impl, tables, "round",
                                                x.device)[:2])
-            same = torch.equal(kernel(x, tables),
-                               parent_rows_call(lib, impl, x, tables))
-            order = []
-            for who in ("parent", "change", "change", "parent"):
-                fn = ((lambda: parent_rows_call(lib, impl, x, tables))
-                      if who == "parent" else (lambda: kernel(x, tables)))
-                order.append(cs.device_ms(fn))
+            build._loaded["lut_softmax"] = lib
+            theirs = kernel(x, tables)
+            build._loaded["lut_softmax"] = mine
+            same = torch.equal(kernel(x, tables), theirs)
+            order = p_c_c_p("lut_softmax", lib,
+                            lambda: kernel(x, tables))
             print(f"[variants] rows {impl} {name} {str(dt)[6:]}: parent "
                   f"{order[0]:.4f} / {order[3]:.4f} ms, change "
                   f"{order[1]:.4f} / {order[2]:.4f} ms (route {plan.route},"
@@ -412,10 +490,117 @@ def dense_section(names, use, rng):
                 return cs.dense_call(cs.lut_attention_cuda, mode, q, k, v,
                                      False, None, route=route)
             ms = cs.device_ms(lambda: call("tiles"))
-            err = float((call("tiles") - call("rows")).abs().max())
-            line.append(f"{mode} {ms:.4f} ms (tiles – rows {err:.3g})")
+            err = float((call("tiles") - call("simt")).abs().max())
+            line.append(f"{mode} {ms:.4f} ms (tiles – simt {err:.3g})")
         print(f"[variants] dense tiles at the Whisper encoder, {name}: "
               + ", ".join(line))
+
+#: (name, B, H, KVH, Lq, Lk, Dh, causal, kv_len, dtype, precision) — the
+#: dense calls of the simt section: the parent's route 0 (its row engine)
+#: against the route this tree's dispatcher picks
+SIMT_CALLS = [
+    ("encoder f32", cs.W_BATCH, cs.W_H, cs.W_H, cs.W_LENC, cs.W_LENC,
+     cs.W_DH, False, None, torch.float32, "uint8"),
+    ("eval int16", cs.T_BATCH, cs.H, cs.KVH, cs.T_SEQ, cs.T_SEQ, cs.DH,
+     True, cs.T_SEQ, torch.bfloat16, "int16"),
+    ("jamba prompt f32", 4, 32, 8, 64, 96, 128, True, 64, torch.float32,
+     "uint8"),
+]
+
+
+def simt_section(names, use, rng):
+    """The parent's dense route 0 and flash route 0 against this tree's
+    routes, P C C P on the same tensors (``SIMT_CALLS``; flash f32 at the
+    Whisper encoder and ``chip_smoke.FLASH_CASES``); then the simt
+    variants at the Whisper encoder in f32."""
+    use("committed")
+    libs = parent_libraries(("lut_attention", "flash_attention"))
+    for name, b, h, kvh, lq, lk, dh, causal, kv_len, dt, prec in SIMT_CALLS:
+        q, k, v = cs.dense_problem(rng, b, h, kvh, lq, lk, dh, dt, False)
+        pairs = cs.dense_pairs(lq, lk, causal, kv_len)
+        live = lk if kv_len is None else kv_len
+        b_ms, b_by = cs.dense_bound(b, h, kvh, lq, live, dh, dt, pairs)
+        sdpa = cs.dense_sdpa_ms(q, k, v, causal, kv_len)
+        modes = cs.MODES if prec == "uint8" else ("rexp", "lut2d")
+        for mode in modes:
+            route = cs.dense_route(dt, dh, lq, mode)
+
+            def call(r):
+                return cs.dense_call(cs.lut_attention_cuda, mode, q, k, v,
+                                     causal, kv_len, precision=prec,
+                                     route=r)
+            # the parent's route 0 is its row engine
+            mine = build._loaded["lut_attention"]
+            build._loaded["lut_attention"] = libs["lut_attention"]
+            theirs = call("simt")
+            build._loaded["lut_attention"] = mine
+            diff = float((call(route) - theirs).abs().max())
+            del theirs
+            order = p_c_c_p("lut_attention", libs["lut_attention"],
+                            lambda: call(route if build._loaded[
+                                "lut_attention"] is mine else "simt"))
+            print(f"[variants] simt dense {name} {mode} {prec} "
+                  f"B={b} H={h}/{kvh} Lq={lq} Lk={lk} kv_len={kv_len} "
+                  f"Dh={dh}: parent rows {order[0]:.4f} / {order[3]:.4f} "
+                  f"ms, change {route} {order[1]:.4f} / {order[2]:.4f} ms "
+                  f"({min(order[0], order[3]) / min(order[1:3]):.2f}× the "
+                  f"parent); exact SDPA {sdpa:.4f} ms; bound {b_ms:.4f} ms "
+                  f"({b_by}), change at {b_ms / min(order[1:3]):.1%} of it;"
+                  f" max|change – parent| {diff:.3g}")
+        del q, k, v
+    for name, b, h, kvh, lq, lk, dh, causal in cs.FLASH_CASES:
+        q, k, v = (torch.as_tensor(rng.standard_normal(s, dtype=np.float32),
+                                   device="cuda")
+                   for s in ((b, h, lq, dh), (b, kvh, lk, dh),
+                             (b, kvh, lk, dh)))
+        pairs = cs.causal_pairs(lq, lk, causal)
+        b_ms, b_by = cs.flash_bound(b, h, kvh, lq, lk, dh, torch.float32,
+                                    pairs)
+        kx, vx = (t.repeat_interleave(h // kvh, dim=1) for t in (k, v))
+        sdpa = cs.device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kx, vx, is_causal=causal))
+        del kx, vx
+
+        def call():
+            return cs.flash_attention_cuda(q, k, v, causal=causal)
+        mine = build._loaded["flash_attention"]
+        build._loaded["flash_attention"] = libs["flash_attention"]
+        theirs = call()
+        build._loaded["flash_attention"] = mine
+        diff = max(float((a - t).abs().max())
+                   for a, t in zip(call(), theirs))
+        del theirs
+        order = p_c_c_p("flash_attention", libs["flash_attention"], call)
+        print(f"[variants] simt flash {name} f32 B={b} H={h}/{kvh} Lq={lq} "
+              f"Lk={lk} Dh={dh} causal={causal}: parent {order[0]:.4f} / "
+              f"{order[3]:.4f} ms, change {order[1]:.4f} / {order[2]:.4f} "
+              f"ms ({min(order[0], order[3]) / min(order[1:3]):.2f}× the "
+              f"parent); SDPA f32 {sdpa:.4f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}), change at {b_ms / min(order[1:3]):.1%} of it; "
+              f"max|change – parent| (out, m, l) {diff:.3g}")
+        del q, k, v
+    b, h, lq, dh = cs.W_BATCH, cs.W_H, cs.W_LENC, cs.W_DH
+    q, k, v = cs.dense_problem(rng, b, h, h, lq, lq, dh, torch.float32, False)
+    calls = {"flash": lambda: cs.flash_attention_cuda(q, k, v)[0],
+             **{mode: (lambda mode=mode: cs.dense_call(
+                 cs.lut_attention_cuda, mode, q, k, v, False, None))
+                for mode in ("rexp_fused", "rexp")}}
+    refs = {c: fn() for c, fn in calls.items()}
+    for name in ["committed"] + [n for n in names if section(n) == "simt"]:
+        use(name)
+        kernels = VARIANTS.get(name, (BOTH,))[0]
+        line = []
+        for c, fn in calls.items():
+            if ("flash" if c == "flash" else "lut") not in str(kernels):
+                continue
+            ms = cs.device_ms(fn)
+            err = float((fn() - refs[c]).abs().max())
+            line.append(f"{c} {ms:.4f} ms (– committed {err:.3g})")
+        print(f"[variants] simt f32 at the Whisper encoder, {name}: "
+              + ", ".join(line))
+    use("committed")
+
 
 def main(word: str = "", rev: str = "HEAD~1") -> int:
     if word == "--fetch-parent":
@@ -445,8 +630,10 @@ def main(word: str = "", rev: str = "HEAD~1") -> int:
             setattr(LSM, key, value)
 
     sections = ({section(n) for n in names} if word
-                else {"flash", "split", "dense", "rows"})
+                else {"flash", "split", "dense", "rows", "simt"})
     rng = np.random.default_rng(0)
+    if "simt" in sections:
+        simt_section(names, use, rng)
     if "flash" in sections:
         flash_section(names, use, rng)
     if "split" in sections:
